@@ -1,0 +1,65 @@
+"""The ``fit`` subcommand: single-epoch Schechter fit (port of
+``cmd_fit`` / ``_run_fit_family`` from ``lumfuncmcmc_tpu/cli/fit.py``).
+
+Flags whose features are not ported yet raise ``NotImplementedError``
+naming the flag, before any work starts.
+"""
+
+from __future__ import annotations
+
+import os
+
+from lumfuncmcmc_tpu_torch.cli.common import (
+    _align_fields, _apply_precision, _build_cfg, _load_inputs)
+from lumfuncmcmc_tpu_torch.cli.outputs import _resume_if_done, _write_outputs
+
+# CLI-only flags (no LFConfig field) -> the value that means "not
+# requested"; unported config fields (sampler, init_map, exact_bounds,
+# meshes, checkpoint_every) are refused by the model itself
+_NOT_PORTED_FLAGS = {
+    "map": False, "ic": False, "ppc": False, "evidence": None,
+    "evidence_swap": 0, "evidence_tune": 0, "min_ess": None,
+    "ensembles": None, "nchains": None, "nuts_pooled": False,
+    "profile": None, "distributed": None,
+}
+
+
+def _reject_unported(args):
+    for flag, off in _NOT_PORTED_FLAGS.items():
+        if getattr(args, flag, off) != off:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet "
+                "(run it with the JAX package, lumfuncmcmc_tpu)")
+
+
+def _run_fit_family(args, model_cls, outdir):
+    """Build config + model, the resume-and-replot early exit, the
+    sampler, then the artifact writers."""
+    _reject_unported(args)
+    args.output_filename = args.output_filename or "test.dat"
+    cfg = _build_cfg(args)
+    device, dtype = _apply_precision(cfg)
+    os.makedirs(outdir, exist_ok=True)
+    inputs = _load_inputs(args, cfg)
+    cfg = _align_fields(cfg, inputs["field_names"])
+    print("Read Input File")
+    model = model_cls(cfg, z=inputs["z"], flux=inputs["flux"],
+                      flux_e=inputs["flux_e"], lum=inputs["lum"],
+                      lum_e=inputs["lum_e"],
+                      field_id=inputs["field_id"],
+                      field_names=inputs["field_names"],
+                      device=device, dtype=dtype)
+    print(f"Initialized {model_cls.__name__}")
+    if _resume_if_done(model, cfg, args, outdir):
+        return 0
+    names = model.get_param_names()
+    print("Labels:", names)
+    model.fit_model()
+    print("Finished fitting model and about to create outputs")
+    _write_outputs(model, cfg, args, outdir, names)
+    return 0
+
+
+def cmd_fit(args):
+    from lumfuncmcmc_tpu_torch.models.model import LumFuncModel
+    return _run_fit_family(args, LumFuncModel, "LFMCMCOut")

@@ -1,0 +1,54 @@
+"""CLI entry point of the port: ``python -m lumfuncmcmc_tpu_torch fit``.
+
+Only ``fit`` (the single-epoch Schechter fit) is ported; it takes the
+JAX CLI's flag set, so the same command line works with either package.
+The JAX package's other subcommands are listed and answer "not ported
+yet".
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from lumfuncmcmc_tpu_torch.cli.common import _add_common_flags
+from lumfuncmcmc_tpu_torch.cli.fit import cmd_fit
+from lumfuncmcmc_tpu_torch.utils.logging import setup_logging
+
+_NOT_PORTED_COMMANDS = ("fitz", "fith", "vmax", "compare-ic", "stack-ic")
+
+
+def _not_ported(args):
+    raise SystemExit(f"'{args.command}' is not ported yet (run it with the "
+                     "JAX package, lumfuncmcmc_tpu)")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="lumfuncmcmc_tpu_torch",
+        description="luminosity-function inference, PyTorch/CUDA port")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_fit = sub.add_parser("fit", help="single-epoch Schechter MCMC fit")
+    _add_common_flags(p_fit)
+    p_fit.add_argument("-fc", "--fix_comp", action="store_true",
+                       default=None)
+    p_fit.add_argument("-sr", "--same_rand", action="store_true")
+    p_fit.set_defaults(func=cmd_fit)
+    for name in _NOT_PORTED_COMMANDS:
+        sub.add_parser(name, help="not ported yet",
+                       add_help=False).set_defaults(func=_not_ported)
+
+    args, rest = parser.parse_known_args(argv)
+    if args.func is _not_ported:
+        _not_ported(args)
+    if rest:
+        parser.error("unrecognized arguments: " + " ".join(rest))
+    if getattr(args, "same_rand", False):
+        args.diff_rand = False
+    setup_logging()
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

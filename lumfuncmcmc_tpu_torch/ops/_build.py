@@ -1,0 +1,92 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+The sources are compiled with ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds). The library goes to ``lumfuncmcmc_tpu_torch/_build/``
+under a name keyed on a hash of the sources and flags, at first use;
+the repository's sources are all a build needs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""          # nvcc's output (ptxas register/spill report)
+build_seconds = 0.0     # 0.0 when the library was already built
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from CUDA_HOME, /usr/local/cuda or the PATH."""
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA "
+                           "kernels are built from source at first use")
+    return nvcc
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has no library yet;
+    returns the library path."""
+    global build_log, build_seconds
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + fh.read())
+    so_path = os.path.join(BUILD_DIR, f"liblnlike_{h.hexdigest()[:16]}.so")
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.tmp{os.getpid()}"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[p for p in _sources() if p.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every
+    entry point's argument types declared."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(build())
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.free_lnlike_launch.argtypes = (
+            [p, i, i, i] + [p] * 11 + [p, i, i, p, p, p])
+        lib.free_lnlike_launch.restype = i
+        lib.fixed_lnlike_launch.argtypes = (
+            [p, i, i] + [p] * 3 + [p, i, p, p, p])
+        lib.fixed_lnlike_launch.restype = i
+        _lib = lib
+        return _lib

@@ -1,0 +1,158 @@
+"""Host-side matplotlib plots for the ``fit`` path (port of
+``corner_plot`` and ``triangle_plot_single`` from
+``lumfuncmcmc_tpu/utils/plotting.py``).
+
+matplotlib is imported inside the plotting functions only: a machine
+without it can still run every other part of the package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lumfuncmcmc_tpu_torch.ops.omega import LOG10_4PI as _LOG10_4PI
+
+
+def _pyplot():
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    plt.rcParams.update({
+        "xtick.direction": "in", "ytick.direction": "in",
+        "xtick.top": True, "ytick.right": True,
+    })
+    return plt
+
+
+def _quantile_title(x, label):
+    q16, q50, q84 = np.percentile(x, [16, 50, 84])
+    return (f"{label} = ${q50:.2f}_{{-{q50 - q16:.2f}}}"
+            f"^{{+{q84 - q50:.2f}}}$")
+
+
+def corner_plot(samples, labels, bins=30, range_frac=0.95, fig=None):
+    """Minimal triangle plot: histograms on the diagonal (with
+    16/50/84% titles and quantile lines), 2-D histograms + contours
+    below the diagonal."""
+    plt = _pyplot()
+    samples = np.asarray(samples)
+    ndim = samples.shape[1]
+    lo = np.percentile(samples, 100 * (1 - range_frac) / 2, axis=0)
+    hi = np.percentile(samples, 100 * (1 + range_frac) / 2, axis=0)
+    span = np.where(hi > lo, hi - lo, 1.0)
+    lo, hi = lo - 0.02 * span, hi + 0.02 * span
+
+    size = max(2.0 * ndim, 6.0)
+    if fig is None:
+        fig = plt.figure(figsize=(size, size))
+    axes = fig.subplots(ndim, ndim, squeeze=False)
+    fs = 11 + int(round(0.75 * ndim))
+    for i in range(ndim):
+        for j in range(ndim):
+            ax = axes[i][j]
+            if j > i:
+                ax.set_visible(False)
+                continue
+            if i == j:
+                ax.hist(samples[:, i], bins=bins, range=(lo[i], hi[i]),
+                        histtype="step", color="k")
+                for q in np.percentile(samples[:, i], [16, 50, 84]):
+                    ax.axvline(q, color="k", ls="dashed", lw=0.8)
+                ax.set_title(_quantile_title(samples[:, i], labels[i]),
+                             fontsize=fs - 2)
+                ax.set_yticks([])
+            else:
+                h, xe, ye = np.histogram2d(
+                    samples[:, j], samples[:, i], bins=bins,
+                    range=[(lo[j], hi[j]), (lo[i], hi[i])])
+                ax.pcolormesh(xe, ye, h.T, cmap="Greys", rasterized=True)
+                hs = np.sort(h.ravel())[::-1]
+                cdf = np.cumsum(hs) / max(hs.sum(), 1)
+                levels = sorted({float(hs[np.searchsorted(cdf, f)])
+                                 for f in (0.39, 0.86)
+                                 if np.searchsorted(cdf, f) < hs.size})
+                if levels:
+                    xc = 0.5 * (xe[:-1] + xe[1:])
+                    yc = 0.5 * (ye[:-1] + ye[1:])
+                    try:
+                        ax.contour(xc, yc, h.T, levels=levels,
+                                   colors="k", linewidths=0.8)
+                    except ValueError:
+                        pass  # degenerate histogram (e.g. single cell)
+            ax.set_xlim(lo[j], hi[j])
+            if i != j:
+                ax.set_ylim(lo[i], hi[i])
+            if i == ndim - 1:
+                ax.set_xlabel(labels[j], fontsize=fs)
+                ax.tick_params(labelsize=fs - 4)
+                ax.tick_params(axis="x", rotation=45)
+            else:
+                ax.set_xticklabels([])
+            if j == 0 and i != 0:
+                ax.set_ylabel(labels[i], fontsize=fs)
+                ax.tick_params(labelsize=fs - 4)
+            else:
+                ax.set_yticklabels([])
+    fig.subplots_adjust(hspace=0.06, wspace=0.06)
+    return fig
+
+
+def triangle_plot_single(model, outname, lnprobcut=7.5, imgtype="png",
+                         rndsamples=200):
+    """Corner plot with the LF inset: 200 posterior LF draws, the median
+    LF, and an x-window starting at the completeness floor."""
+    from lumfuncmcmc_tpu_torch.models.model import (
+        posterior_lfs, select_samples)
+    from lumfuncmcmc_tpu_torch.ops.completeness import fleming_root_logf_np
+
+    plt = _pyplot()
+    nsamples = select_samples(model.samples, lnprobcut)
+    model.log.info("Shape of nsamples (with a lnprobcut applied)")
+    model.log.info(str(nsamples.shape))
+    fig = corner_plot(nsamples[:, :-1], model.get_param_names())
+
+    ndim = nsamples.shape[1] - 1
+    poss = ([0.50 - 0.008 * (ndim - 4), 0.78 - 0.001 * (ndim - 4),
+             0.48 + 0.008 * (ndim - 4), 0.19 + 0.001 * (ndim - 4)]
+            if ndim >= 4 else [0.67, 0.75, 0.32, 0.23])
+    ax1 = fig.add_axes(poss)
+    ax1.set_yscale("log")
+    ax1.set_xlabel(r"$\log$ L (erg s$^{-1}$)")
+    ax1.set_ylabel(r"$\phi_{\rm{true}}$ (Mpc$^{-3}$ dex$^{-1}$)")
+    ax1.minorticks_on()
+
+    lum = model.lum
+    indsort = np.argsort(lum)
+    # medianLF / median_flim / median_alpha and the V_eff overlay come
+    # from one routine so they cannot diverge
+    model.set_median_fit(rndsamples=rndsamples, lnprobcut=lnprobcut)
+    rng = np.random.default_rng(model.cfg.seed + 3)
+    idx = rng.integers(0, nsamples.shape[0], rndsamples)
+    draws = nsamples[idx, :-1]
+    lfs = posterior_lfs(model, draws)
+    for mod in lfs:
+        ax1.plot(lum[indsort], mod[indsort], color="r", linestyle="solid",
+                 alpha=0.1)
+    ax1.plot(lum[indsort], model.medianLF[indsort], color="dimgray",
+             linestyle="solid")
+
+    # axis limits from the completeness floor
+    logF50 = np.log10(model.median_flim) - 17.0
+    if model.cfg.min_comp_frac > 0.001:
+        roots = fleming_root_logf_np(logF50, model.median_alpha,
+                                     model.cfg.min_comp_frac,
+                                     model.cfg.fcmin)
+    else:
+        roots = logF50 - 2.0
+    zmin_dl = float(model.ctx.cosmo.log10_dl_cm_at(
+        torch.tensor(model.zmin, dtype=model.dtype, device=model.device)))
+    xmin = float(np.max(roots)) + _LOG10_4PI + 2.0 * zmin_dl
+    xmax = min(lum.max(), np.median(draws[:, 0]) + 1.0)
+    ax1.set_xlim(left=xmin, right=xmax)
+    cond = (lum >= xmin) & (lum <= xmax)
+    if cond.any():
+        ax1.set_ylim(bottom=np.percentile(model.medianLF[cond], 0),
+                     top=np.percentile(model.medianLF[cond], 100))
+    fig.savefig(f"{outname}.{imgtype}", dpi=200)
+    plt.close(fig)

@@ -1,0 +1,114 @@
+"""The ``fit`` CLI of both packages on one synthetic catalog.
+
+The same command line runs through the JAX package and the PyTorch port:
+both write the same artifact files with the same columns, and every
+posterior median of the port lies within 0.5 posterior sd of the JAX
+package's. The chains differ (the frameworks draw different random
+numbers) but are long enough (~700 effective samples) that an honest
+port sits ~0.1 sd away.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from lumfuncmcmc_tpu.cli.main import main as jax_main
+from lumfuncmcmc_tpu.config import LFConfig
+from lumfuncmcmc_tpu.utils.io import read_fixed_width_two_line
+from lumfuncmcmc_tpu_torch.cli.main import main as port_main
+
+torch.set_num_threads(2)
+# 64 walkers: over four catalog seeds the largest of the nine median gaps
+# was 0.44-0.83 sd at 32 walkers and 0.16-0.31 sd at 64, with the worst
+# column changing from seed to seed (chain noise, not a bias)
+ARGS = ["--synthetic", "300", "-mcf", "0.5", "-ns", "400", "-nw", "64",
+        "--size-ln", "21", "-o", "t.dat"]
+BASE = "t_nb50_nw64_ns400_mcf50"
+
+
+def _no_plot_config(path):
+    od = dict(LFConfig().output_dict)
+    od["triangle plot"] = False
+    with open(path, "w") as fh:
+        json.dump({"output_dict": od}, fh)
+    return str(path)
+
+
+def _run(main, workdir, extra):
+    os.makedirs(workdir)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        assert main(["fit"] + ARGS + extra) == 0
+    finally:
+        os.chdir(cwd)
+    out = os.path.join(workdir, "LFMCMCOut")
+    return out, sorted(os.listdir(out))
+
+
+def _compare(tmp_path, extra, port_extra=()):
+    cfg_path = _no_plot_config(tmp_path / "cfg.json")
+    extra = extra + ["--config", cfg_path]
+    jdir, jfiles = _run(jax_main, str(tmp_path / "jax"), extra)
+    tdir, tfiles = _run(port_main, str(tmp_path / "port"),
+                        extra + list(port_extra))
+    assert tfiles == jfiles
+    assert f"fitposterior_{BASE}.dat" in tfiles
+    for name in tfiles:
+        if name.endswith(".dat"):
+            jt = read_fixed_width_two_line(os.path.join(jdir, name))
+            tt = read_fixed_width_two_line(os.path.join(tdir, name))
+            assert list(tt) == list(jt), name
+    jpost = read_fixed_width_two_line(
+        os.path.join(jdir, f"fitposterior_{BASE}.dat"))
+    tpost = read_fixed_width_two_line(
+        os.path.join(tdir, f"fitposterior_{BASE}.dat"))
+    assert np.isfinite(tpost["Ln Prob"]).all()
+    for col in jpost:
+        if col == "Ln Prob":
+            continue
+        sd = np.std(jpost[col])
+        gap = abs(np.median(tpost[col]) - np.median(jpost[col])) / sd
+        assert gap < 0.5, (col, gap)
+    # the bestfitLF luminosities are the same catalog
+    name = f"bestfitLF_{BASE}.dat"
+    np.testing.assert_allclose(
+        read_fixed_width_two_line(os.path.join(tdir, name))["Luminosity"],
+        read_fixed_width_two_line(os.path.join(jdir, name))["Luminosity"],
+        rtol=1e-12)
+
+
+def test_fit_cli_matches_jax_package(tmp_path):
+    """Free completeness, the port's eager engine (the CPU default)."""
+    _compare(tmp_path, [])
+
+
+def test_fit_fix_comp_cli_through_the_kernel_path(tmp_path):
+    """Fixed completeness through ``--use-pallas``: on the CPU that is the
+    kernels' plain versions, the same code path the card takes up to the
+    kernel launch."""
+    _compare(tmp_path, ["-fc"], port_extra=["--use-pallas"])
+
+
+def test_port_triangle_plot_resume_and_unported_flags(tmp_path,
+                                                      monkeypatch):
+    pytest.importorskip("matplotlib")
+    monkeypatch.chdir(tmp_path)
+    args = ["fit", "--synthetic", "200", "-mcf", "0.5", "-ns", "40", "-nw",
+            "16", "--size-ln", "11", "-o", "p.dat"]
+    assert port_main(args) == 0
+    png = tmp_path / "LFMCMCOut" / "triangle_p_nb50_nw16_ns40_mcf50.png"
+    assert png.exists()
+    mtime = png.stat().st_mtime_ns
+    # an existing fitposterior: reload and replot, no sampling
+    assert port_main(args) == 0
+    assert png.stat().st_mtime_ns >= mtime
+    for flag in (["--map"], ["--sampler", "nuts"], ["--min-ess", "100"],
+                 ["--ensembles", "2"], ["--exact-bounds"]):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            port_main(args + flag)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        port_main(["vmax", "--synthetic", "10"])

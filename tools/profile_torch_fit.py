@@ -1,0 +1,163 @@
+"""Per-step time breakdown of the PyTorch port's flagship fit on one card.
+
+Run from the repository root on a machine with an NVIDIA GPU:
+
+    python3 tools/profile_torch_fit.py [--steps 1000] [--profile-steps 100]
+
+The catalog and model are the smoke test's flagship ones (``LFConfig``
+defaults with ``min_comp_frac=0.5``: 5 fields, 100 walkers, 2000
+synthetic sources, float32 on the card). For each engine and grid it
+times ``run_stretch`` on the model's ``lnprob_batch`` (host clock, device
+sync at both ends, after warm-up), then the sampler loop alone with a
+trivial lnprob, one W=50 lnprob call, and a ``torch.profiler`` trace of
+the flagship loop (device time, launches, the kernels' share). Prints
+one line per measurement and a JSON summary last. Imports only the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from lumfuncmcmc_tpu_torch import LFConfig  # noqa: E402
+from lumfuncmcmc_tpu_torch.models.model import LumFuncModel  # noqa: E402
+from lumfuncmcmc_tpu_torch.samplers.affine import run_stretch  # noqa: E402
+from lumfuncmcmc_tpu_torch.utils.synth import (  # noqa: E402
+    apply_completeness_cut, make_catalog)
+
+NWALKERS, NSYNTH, WARMUP = 100, 2000, 20
+
+
+def _model(cfg, cat, dev):
+    return LumFuncModel(cfg, z=cat["z"], flux=cat["flux"],
+                        flux_e=cat["flux_e"], field_id=cat["field_id"],
+                        device=dev, dtype=torch.float32)
+
+
+def _loop_seconds(lnprob, pos0, nsteps, dev):
+    """Host seconds of ``run_stretch`` over ``nsteps``, synced at both
+    ends, after a warm-up run."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    run_stretch(lnprob, pos0, gen, WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_stretch(lnprob, pos0, gen, nsteps)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _attr(evt, *names):
+    for n in names:
+        if hasattr(evt, n):
+            return getattr(evt, n)
+    return 0.0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--profile-steps", type=int, default=100)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("this profile needs a CUDA device")
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print(f"card: {smi[0] if smi else 'unknown'}; torch {torch.__version__}")
+
+    base = LFConfig(min_comp_frac=0.5, nwalkers=NWALKERS)
+    cat = apply_completeness_cut(
+        make_catalog(base, n_target=NSYNTH, seed=base.seed), base)
+    cases = [("kernel engine, trapz-101", base.replace(use_pallas=True)),
+             ("eager engine, trapz-101", base.replace(use_pallas=False)),
+             ("kernel engine, gauss-32",
+              base.replace(use_pallas=True, quadrature="gauss")),
+             ("kernel engine, fixed trapz-201",
+              base.replace(use_pallas=True, fix_comp=True)),
+             ("eager engine, fixed trapz-201",
+              base.replace(use_pallas=False, fix_comp=True))]
+    out = {"card": smi[0] if smi else None, "steps": args.steps,
+           "step_ms": {}}
+    flagship = None
+    for label, cfg in cases:
+        model = _model(cfg, cat, dev)
+        lnprob = model.lnprob_batch()
+        pos0 = model._initial_positions(
+            torch.Generator(device=dev).manual_seed(cfg.seed))
+        sec = _loop_seconds(lnprob, pos0, args.steps, dev)
+        ms = sec / args.steps * 1e3
+        out["step_ms"][label] = ms
+        print(f"{label}: {ms:.4f} ms per full step "
+              f"({NWALKERS * args.steps / sec:.1f} lnprob evals/s)")
+        if flagship is None:
+            flagship = (lnprob, pos0)
+
+    lnprob, pos0 = flagship
+    trivial = lambda th: -0.5 * (th * th).sum(dim=1)  # noqa: E731
+    sec = _loop_seconds(trivial, pos0, args.steps, dev)
+    out["loop_only_ms"] = sec / args.steps * 1e3
+    print(f"sampler loop alone (trivial Gaussian lnprob): "
+          f"{out['loop_only_ms']:.4f} ms per full step")
+
+    half = pos0[:NWALKERS // 2].contiguous()
+    for _ in range(10):
+        lnprob(half)
+    torch.cuda.synchronize()
+    ncall = 1000
+    t0 = time.perf_counter()
+    for _ in range(ncall):
+        lnprob(half)
+    torch.cuda.synchronize()
+    out["lnprob_call_us"] = (time.perf_counter() - t0) / ncall * 1e6
+    print(f"one flagship lnprob call (W=50), host-paced: "
+          f"{out['lnprob_call_us']:.2f} us")
+
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(1)
+    run_stretch(lnprob, pos0, gen, WARMUP)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_stretch(lnprob, pos0, gen, args.profile_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, launches, kern = 0.0, 0, {}
+    for evt in prof.key_averages():
+        if evt.key.startswith("cudaLaunch"):
+            launches += evt.count
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue            # host ops also carry their kernels' time
+        self_dev = _attr(evt, "self_device_time_total", "self_cuda_time_total")
+        dev_us += self_dev
+        name = evt.key.split("(")[0]
+        if name in ("free_partials", "finish"):
+            kern[name] = {"calls": evt.count, "device_us": self_dev}
+    unprof = out["step_ms"][cases[0][0]] * args.profile_steps / 1e3
+    out["profile"] = {
+        "steps": args.profile_steps, "wall_s": wall, "device_s": dev_us / 1e6,
+        "busy_profiled": dev_us / 1e6 / wall, "busy_unprofiled":
+        dev_us / 1e6 / unprof, "cudaLaunchKernel": launches,
+        "kernels": kern}
+    print(f"profiler, {args.profile_steps} flagship steps: wall {wall:.4f} s "
+          f"(profiler on), device time {dev_us / 1e3:.3f} ms, busy "
+          f"{100 * dev_us / 1e6 / wall:.1f}% of the profiled wall and "
+          f"{100 * dev_us / 1e6 / unprof:.1f}% of the unprofiled one; "
+          f"{launches} cudaLaunchKernel calls; kernels {kern}")
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
