@@ -8,25 +8,42 @@ Phases, in order; any failure ends the run with a nonzero exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
    ``nvidia-smi``'s name and power limit;
-2. build the kernels of ``lumfuncmcmc_tpu_torch/csrc`` from source;
-3. each kernel against its plain PyTorch version on the card (float32,
-   rtol 1e-4) and both against the float64 eager engine (rtol 5e-4), on
-   the flagship catalog at trapz-101 and gauss-32 (``free_lnlike``) and
-   trapz-201 (``fixed_lnlike``), for walker batches of 50, 100 and 13
-   with out-of-box and negative-Flim thetas; kernel and plain times;
-4. the port's ``fit`` CLI end to end (100 walkers x 2000 steps on a
+2. build the kernels of ``lumfuncmcmc_tpu_torch/csrc/lnlike.cu`` from
+   source (one ``nvcc``);
+3. each value kernel against its plain PyTorch version on the card
+   (float32, rtol 1e-4) and both against the float64 eager engine (rtol
+   5e-4), on the fits' own catalog (``fit --synthetic 2000``'s) at
+   trapz-101 and gauss-32 (``free_lnlike``) and trapz-201
+   (``fixed_lnlike``), for the batches the fits give them (50 and 100
+   walkers; 8 chains for the NUTS start guard, 300 x 8 rows for its Ln
+   Prob recompute) and 13, with out-of-box and negative-Flim thetas;
+   kernel and plain times;
+4. each value+gradient kernel (``free_lnlike_vg``, ``fixed_lnlike_vg``)
+   the same way at W = 1, 8 and 256 (values rtol 1e-4, gradients by the
+   JAX package's ``_grad_close`` rule at 2e-3), and the theta-level
+   value+gradient against float64 eager autograd (5e-4, 2e-3);
+5. the port's ``fit`` CLI end to end (100 walkers x 2000 steps on a
    2000-source synthetic catalog), free and fixed completeness: the JAX
    CLI's artifact set, finite Ln Prob, a sane acceptance fraction, and
-   launch counters proving the sampler went through the kernels.
+   launch counters proving the sampler went through the kernels;
+6. ``fit --sampler nuts`` on the same catalog (8 chains, 200 warmup, 300
+   samples), free and fixed: artifacts, divergences < 5%, mean
+   accept-stat in (0.6, 0.97), max R-hat < 1.1, the logL* median within
+   3 posterior sd of the stretch fit's, and value+gradient launches equal
+   to the sampler's transitions + leapfrog steps.
 
-Prints the kernel summary as one JSON line, then the device line last.
+Each path runs with every launch counter set to 0 just before it and
+read just after. Prints the kernel summary as one JSON line, then the
+device line last.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -48,9 +65,23 @@ from lumfuncmcmc_tpu_torch.utils.synth import (
 
 RTOL_KERNEL = 1e-4   # f32 sums of <= 2e5 terms in another order
 RTOL_F64 = 5e-4      # the JAX package's Pallas-vs-f64 bar
+RTOL_GRAD = 2e-3     # the JAX package's gradient bar (_grad_close)
 NSTEPS, NWALKERS, NSYNTH = 2000, 100, 2000
-KERNEL_SOURCE = "lumfuncmcmc_tpu_torch/csrc/lnlike.cu"
+NUTS_STEPS, NUTS_CHAINS, NUTS_WARMUP = 300, 8, 200
+SOURCE = "lumfuncmcmc_tpu_torch/csrc/lnlike.cu"
 TPU_FILE = "lumfuncmcmc_tpu/ops/pallas_lnlike.py"
+KERNELS = ("free_lnlike", "fixed_lnlike", "free_lnlike_vg",
+           "fixed_lnlike_vg")
+# The card's peaks for the bound (H100 SXM at 700 W): float32 outside the
+# tensor cores, and HBM.
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+# float32 operations per cell evaluation, counted from csrc/lnlike.cu (an FMA
+# is 2, each exp/log/rsqrt/div/max/compare 1; fcmin > 0): the value
+# kernels' free grid cell 23 and unmasked source 23 (a masked one 1),
+# fixed grid cell 8; the value+gradient kernels' free grid cell 46 and
+# unmasked source 45, fixed grid cell 12.
+OPS = {"free_lnlike": (23, 23), "fixed_lnlike": (8, 0),
+       "free_lnlike_vg": (46, 45), "fixed_lnlike_vg": (12, 0)}
 
 
 def fail(msg):
@@ -128,6 +159,35 @@ def _rel(a, b):
     return float(torch.max(torch.abs(a - b) / torch.abs(b)))
 
 
+def _grad_rel(gp, gref):
+    """The JAX package's ``_grad_close`` measure (tests/test_pallas.py):
+    |gp - gref| over max(|gref|, 1e-3 of the row's largest component)."""
+    denom = torch.maximum(gref.abs(), 1e-3 * gref.abs().amax(
+        dim=-1, keepdim=True))
+    return float(((gp - gref).abs() / denom).max())
+
+
+def _bound(kname, data, w):
+    """Least time the card could take for one call of ``kname`` on these
+    inputs: the larger of bytes (each input read once, each output
+    written once) over HBM bandwidth and float32 operations (this data's
+    cells and unmasked sources) over the float32 peak.
+    Returns ``(bound_ms, bound_by, bytes, ops)``."""
+    fixed = kname.startswith("fixed")
+    nfeat = 5 if fixed else 6 + 2 * data.nfields
+    ncell = data.g_a.numel()
+    nsrc = 0 if fixed else data.s_a.numel()
+    nvalid = 0 if fixed else int((data.s_mask > 0).sum())
+    out_cols = (1 + nfeat) if kname.endswith("_vg") else 1
+    nbytes = 4 * (w * nfeat + (3 if fixed else 5) * ncell + 6 * nsrc
+                  + w * out_cols) + data.chunks.numel() * 4
+    per_cell, per_src = OPS[kname]
+    ops = w * (ncell * per_cell + nvalid * per_src + (nsrc - nvalid))
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
 def _central_thetas(cfg, layout, w, gen, dev):
     """``w`` walkers within ~1% of the box width of the catalog's true
     parameters, where a fit spends its steps. Uniform prior draws reach
@@ -145,37 +205,47 @@ def _central_thetas(cfg, layout, w, gen, dev):
     return torch.minimum(torch.maximum(th, lo), hi)
 
 
-def phase_kernels(dev):
-    """Kernel vs plain version vs float64 eager engine on the card."""
+def _cases(dev, suffix):
+    """The checked shapes: (kernel name, grid, cfg, layout, float32 and
+    float64 contexts, the float32 kernel data), on the catalog the fits
+    below build (``fit --synthetic NSYNTH``, cli/common.py), so each
+    kernel sees the sources and chunks the fits give it."""
     base = LFConfig(min_comp_frac=0.5)
     cat = apply_completeness_cut(
-        make_catalog(base, n_target=1000, seed=7), base)
-    cases = [("free_lnlike", "trapz-101", base),
-             ("free_lnlike", "gauss-32", base.replace(quadrature="gauss")),
-             ("fixed_lnlike", "trapz-201", base.replace(fix_comp=True))]
-    summary = {}
-    for kname, grid, cfg in cases:
+        make_catalog(base, n_target=NSYNTH, seed=base.seed), base)
+    kw = dict(z=cat["z"], flux=cat["flux"], flux_e=cat["flux_e"],
+              field_id=cat["field_id"], device=dev)
+    for fam, grid, cfg in (
+            ("free", "trapz-101", base),
+            ("free", "gauss-32", base.replace(quadrature="gauss")),
+            ("fixed", "trapz-201", base.replace(fix_comp=True))):
         layout = ThetaLayout.from_config(cfg)
-        kw = dict(z=cat["z"], flux=cat["flux"], flux_e=cat["flux_e"],
-                  field_id=cat["field_id"], device=dev)
         _, ctx32 = build_context(cfg, dtype=torch.float32, **kw)
         _, ctx64 = build_context(cfg, dtype=torch.float64, **kw)
         data = cl.prepare_cuda_data(ctx32, layout.fix_comp, layout.fcmin,
                                     dtype=torch.float32)
+        yield f"{fam}_lnlike{suffix}", grid, cfg, layout, ctx32, ctx64, data
+
+
+def phase_kernels(dev):
+    """Kernel vs plain version vs float64 eager engine on the card."""
+    summary = {}
+    for kname, grid, cfg, layout, ctx32, ctx64, data in _cases(dev, ""):
         eager64 = make_lnprob(ctx64, layout)
         lo, hi = layout.bounds_arrays(torch.float64, dev)
         kernel = getattr(cl, kname)
         plain = getattr(cl, kname + "_reference")
 
-        def features(th):
-            th = cl._clamp_flim(th.float(), layout)
-            if layout.fix_comp:
-                return cl._features_fixed(th, ctx32, layout, data.lref,
-                                          torch.float32)
-            return cl._features_free(th, layout, data.lref, data.fcmin,
-                                     torch.float32)
+        rec = summary.setdefault(kname, {"max_abs_err": 0.0,
+                                         "max_rel_err": 0.0})
 
-        for w in (50, 100, 13):
+        def features(th):
+            return cl._features(th.float(), data, layout, torch.float32)
+
+        # the stretch fits' batches (half and all of the walkers), the
+        # NUTS start guard's (the chains) and its Ln Prob recompute's
+        # (samples x chains), and an odd one
+        for w in (50, NWALKERS, 13, NUTS_CHAINS, NUTS_STEPS * NUTS_CHAINS):
             gen = torch.Generator(device=dev).manual_seed(1000 + w)
             th = sample_init(gen, layout, w, dtype=torch.float64, device=dev)
             th[0, 0] = layout.hi[0] + 1.0                 # out of box
@@ -211,9 +281,8 @@ def phase_kernels(dev):
             lnp = cl.make_cuda_lnprob(ctx32, layout)(th.float())
             if not torch.equal(torch.isfinite(lnp), fin):
                 fail(f"{kname} {grid} W={w}: lnprob -inf pattern differs")
+            rec["max_rel_err"] = max(rec["max_rel_err"], err_k)
             if w == 50:
-                rec = summary.setdefault(kname, {"max_abs_err": 0.0,
-                                                 "max_rel_err": 0.0})
                 thc = _central_thetas(cfg, layout, w, gen, dev)
                 fc = features(thc)
                 got_c, ref_c = kernel(fc, data), plain(fc, data)
@@ -229,7 +298,7 @@ def phase_kernels(dev):
                     fail(f"{kname} {grid} near the true parameters: "
                          f"{err_c:.3e} vs plain, {err_cf:.3e} vs f64 eager")
                 rec["max_abs_err"] = max(rec["max_abs_err"], abs_c)
-                rec["max_rel_err"] = max(rec["max_rel_err"], err_k, err_c)
+                rec["max_rel_err"] = max(rec["max_rel_err"], err_c)
                 ms = _device_ms(lambda: kernel(feats, data))
                 pms = _device_ms(lambda: plain(feats, data))
                 cms = _call_ms(lambda: kernel(feats, data))
@@ -237,9 +306,115 @@ def phase_kernels(dev):
                       f"{ms * 1e3:.2f} us, plain {pms * 1e3:.2f} us; "
                       f"eager wrapper call {cms * 1e3:.2f} us")
                 if grid in ("trapz-101", "trapz-201"):   # flagship shapes
+                    bms, by, nb, nops = _bound(kname, data, w)
+                    print(f"{kname} {grid} W=50 bound: {bms * 1e3:.4f} us "
+                          f"({by}: {nb} bytes, {nops} f32 operations)")
                     rec.update(ms=ms, plain_ms=pms, call_ms=cms,
+                               bound_ms=bms, bound_by=by,
                                shape=f"W=50, {grid}, "
                                      f"{data.g_a.shape[0]} cells")
+    return summary
+
+
+def phase_vg_kernels(dev):
+    """Value+gradient kernels vs their plain versions, and the
+    theta-level value+gradient vs float64 eager autograd, on the card."""
+    summary = {}
+    for kname, grid, cfg, layout, ctx32, ctx64, data in _cases(dev, "_vg"):
+        kernel = getattr(cl, kname)
+        plain = getattr(cl, kname + "_reference")
+        post32 = cl.make_cuda_lnprob_and_grad(ctx32, layout)
+        eager64 = make_lnprob(ctx64, layout)
+        lo, hi = layout.bounds_arrays(torch.float64, dev)
+        rec = summary.setdefault(kname, {"max_abs_err": 0.0,
+                                         "max_rel_err": 0.0,
+                                         "max_grad_err": 0.0})
+        for w in (1, 8, 256):
+            gen = torch.Generator(device=dev).manual_seed(2000 + w)
+            # prior draws shrunk toward the box centre, where chains
+            # move (the JAX package's vg tests take the same thetas);
+            # from W = 8 on, the last two rows are an out-of-box theta
+            # and a negative Flim (fixed completeness: a second
+            # out-of-box theta)
+            th = 0.7 * (lo + hi) / 2 + 0.3 * sample_init(
+                gen, layout, w, dtype=torch.float64, device=dev)
+            th = th.float().double()    # both paths get the same thetas
+            if w >= 8:
+                th[-1, 0] = layout.hi[0] + 1.0
+                if layout.fix_comp:
+                    th[-2, 1] = layout.hi[1] + 0.5
+                else:
+                    th[-2, 3] = -1.0
+            feats = cl._features(th.float(), data, layout, torch.float32)
+            got = kernel(feats, data)
+            ref = plain(feats, data)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+                fail(f"{kname} {grid} W={w}: non-finite raw rows")
+            ok = in_box(th, lo, hi)
+            err_v = _rel(got[ok, 0], ref[ok, 0])
+            err_g = _grad_rel(got[ok, 1:], ref[ok, 1:])
+            # theta level: kernel path vs float64 eager autograd
+            t32 = th.float().requires_grad_(True)
+            v32 = post32(t32)
+            (g32,) = torch.autograd.grad(v32.sum(), t32)
+            t64 = th.clone().requires_grad_(True)
+            v64 = eager64(t64)
+            (g64,) = torch.autograd.grad(v64.sum(), t64)
+            if (torch.isfinite(v32) != ok).any() or (
+                    g32[~ok] != 0).any() or not torch.isfinite(g32).all():
+                fail(f"{kname} {grid} W={w}: out-of-box rows are not -inf "
+                     "with a zero gradient")
+            err_tv = _rel(v32.detach().double()[ok], v64.detach()[ok])
+            err_tg = _grad_rel(g32.double()[ok], g64[ok])
+            print(f"{kname} {grid} W={w}: kernel vs plain value max rel "
+                  f"{err_v:.3e}, gradient {err_g:.3e}; theta-level vs f64 "
+                  f"eager autograd value {err_tv:.3e}, gradient "
+                  f"{err_tg:.3e}")
+            if err_v > RTOL_KERNEL or err_g > RTOL_GRAD:
+                fail(f"{kname} {grid} W={w}: kernel vs plain {err_v:.3e} "
+                     f"(value), {err_g:.3e} (gradient)")
+            if err_tv > RTOL_F64 or err_tg > RTOL_GRAD:
+                fail(f"{kname} {grid} W={w}: vs f64 eager autograd "
+                     f"{err_tv:.3e} (value), {err_tg:.3e} (gradient)")
+            rec["max_rel_err"] = max(rec["max_rel_err"], err_v)
+            rec["max_grad_err"] = max(rec["max_grad_err"], err_g)
+            if w == 1:
+                continue
+            if w == 8:
+                # the absolute error where a fit spends its steps (prior
+                # draws reach |lnL| ~ 1e7, where float32's spacing is ~1)
+                fc = cl._features(_central_thetas(cfg, layout, w, gen,
+                                                  dev).float(),
+                                  data, layout, torch.float32)
+                got_c, ref_c = kernel(fc, data), plain(fc, data)
+                abs_c = float((got_c[:, 0] - ref_c[:, 0]).abs().max())
+                err_gc = _grad_rel(got_c[:, 1:], ref_c[:, 1:])
+                print(f"{kname} {grid} W=8 near the true parameters: "
+                      f"kernel vs plain value max abs {abs_c:.3e} (|lnL| "
+                      f"<= {float(ref_c[:, 0].abs().max()):.3e}), gradient "
+                      f"{err_gc:.3e}")
+                if err_gc > RTOL_GRAD or abs_c > RTOL_KERNEL * float(
+                        ref_c[:, 0].abs().max()):
+                    fail(f"{kname} {grid} near the true parameters: "
+                         f"{abs_c:.3e} (value), {err_gc:.3e} (gradient)")
+                rec["max_abs_err"] = max(rec["max_abs_err"], abs_c)
+            f_w = feats
+            ms = _device_ms(lambda: kernel(f_w, data))
+            pms = _device_ms(lambda: plain(f_w, data))
+            bms, by, nb, nops = _bound(kname, data, w)
+            print(f"{kname} {grid} W={w} device time: kernel "
+                  f"{ms * 1e3:.2f} us, plain {pms * 1e3:.2f} us, bound "
+                  f"{bms * 1e3:.4f} us ({by}: {nb} bytes, {nops} f32 "
+                  "operations)")
+            if grid in ("trapz-101", "trapz-201"):       # the NUTS shapes
+                key = "" if w == 8 else f"_w{w}"
+                rec.update({f"ms{key}": ms, f"plain_ms{key}": pms,
+                            f"bound_ms{key}": bms, f"bound_by{key}": by})
+                if w == 8:
+                    rec["call_ms"] = _call_ms(lambda: kernel(f_w, data))
+                    rec["shape"] = (f"W=8, {grid}, "
+                                    f"{data.g_a.shape[0]} cells")
     return summary
 
 
@@ -258,42 +433,41 @@ class _Records(logging.Handler):
         fail(f"the fit logged no '{prefix}' line")
 
 
-def phase_fit(fix_comp, workdir, has_mpl):
-    """The port's CLI, end to end, through the kernels."""
+def _smoke_config(workdir, has_mpl):
     cfg_path = os.path.join(workdir, "smoke_config.json")
     od = dict(LFConfig().output_dict)
     od["triangle plot"] = has_mpl
     with open(cfg_path, "w") as fh:
         json.dump({"output_dict": od}, fh)
-    argv = ["fit", "--synthetic", str(NSYNTH), "-mcf", "0.5",
-            "-nw", str(NWALKERS), "-ns", str(NSTEPS), "--config", cfg_path]
-    if fix_comp:
-        argv.append("-fc")
+    return cfg_path
+
+
+def _drive(argv, run_dir):
+    """Run the port's CLI in ``run_dir`` with every launch counter set to
+    0 just before; returns (rc, launches, log records, device memory
+    peak, wall seconds), the counters read just after."""
     rec = _Records()
     log = logging.getLogger("lumfuncmcmc_tpu_torch")
     log.addHandler(rec)
     cwd = os.getcwd()
-    run_dir = os.path.join(workdir, "fc" if fix_comp else "free")
     os.makedirs(run_dir)
     os.chdir(run_dir)
     try:
-        cl.free_lnlike.launches = 0
-        cl.fixed_lnlike.launches = 0
+        for name in KERNELS:
+            getattr(cl, name).launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rc = cli_main(argv)
         wall = time.perf_counter() - t0
-        counts = {"free_lnlike": cl.free_lnlike.launches,
-                  "fixed_lnlike": cl.fixed_lnlike.launches}
+        counts = {name: getattr(cl, name).launches for name in KERNELS}
         peak = torch.cuda.max_memory_allocated()
     finally:
         os.chdir(cwd)
         log.removeHandler(rec)
-    label = "fit -fc" if fix_comp else "fit"
-    if rc != 0:
-        fail(f"{label} returned {rc}")
-    base = f"test_nb50_nw{NWALKERS}_ns{NSTEPS}_mcf50"
-    out = os.path.join(run_dir, "LFMCMCOut")
+    return rc, counts, rec, peak, wall
+
+
+def _artifacts(label, out, base, has_mpl):
     want = [f"fitposterior_{base}.dat", f"bestfitLF_{base}.dat",
             f"VeffLF_{base}.dat", "test.dat", "test.dat.args"]
     if has_mpl:
@@ -306,53 +480,177 @@ def phase_fit(fix_comp, workdir, has_mpl):
     lnp = np.asarray(post["Ln Prob"])
     if lnp.size == 0 or not np.all(np.isfinite(lnp)):
         fail(f"{label}: non-finite Ln Prob in fitposterior")
+    return post
+
+
+def phase_fit(fix_comp, workdir, has_mpl):
+    """The port's CLI, end to end, through the kernels. Returns the
+    launch counts and the posterior's logL* column."""
+    argv = ["fit", "--synthetic", str(NSYNTH), "-mcf", "0.5",
+            "-nw", str(NWALKERS), "-ns", str(NSTEPS), "--config",
+            _smoke_config(workdir, has_mpl)]
+    if fix_comp:
+        argv.append("-fc")
+    run_dir = os.path.join(workdir, "fc" if fix_comp else "free")
+    rc, counts, rec, peak, wall = _drive(argv, run_dir)
+    label = "fit -fc" if fix_comp else "fit"
+    if rc != 0:
+        fail(f"{label} returned {rc}")
+    base = f"test_nb50_nw{NWALKERS}_ns{NSTEPS}_mcf50"
+    post = _artifacts(label, os.path.join(run_dir, "LFMCMCOut"), base,
+                      has_mpl)
     acc = rec.value("Mean acceptance fraction:")
     if not 0.1 < acc < 0.9:
         fail(f"{label}: acceptance fraction {acc} outside (0.1, 0.9)")
     used = "fixed_lnlike" if fix_comp else "free_lnlike"
-    other = "free_lnlike" if fix_comp else "fixed_lnlike"
-    if counts[used] != 1 + 2 * NSTEPS or counts[other] != 0:
-        fail(f"{label}: launch counts {counts}, expected {used} = "
-             f"{1 + 2 * NSTEPS} and {other} = 0")
-    lstar = np.median(np.asarray(post[r"$\log L_*$"]))
-    print(f"{label}: artifacts ok ({len(lnp)} posterior rows), acceptance "
-          f"{acc:.4f}, sampling loop {rec.value('Total time taken:'):.3f} s,"
-          f" {rec.value('lnprob evaluations/s:'):.1f} lnprob evals/s, "
+    want = {k: 0 for k in KERNELS}
+    want[used] = 1 + 2 * NSTEPS
+    if counts != want:
+        fail(f"{label}: launch counts {counts}, expected {want}")
+    lstar = np.asarray(post[r"$\log L_*$"])
+    print(f"{label}: artifacts ok ({len(lstar)} posterior rows), "
+          f"acceptance {acc:.4f}, sampling loop "
+          f"{rec.value('Total time taken:'):.3f} s, "
+          f"{rec.value('lnprob evaluations/s:'):.1f} lnprob evals/s, "
           f"device memory peak {peak / 2**20:.1f} MiB, CLI wall "
           f"{wall:.1f} s, {used} launches {counts[used]}, median logL* "
-          f"{lstar:.3f}")
+          f"{np.median(lstar):.3f}")
+    return counts, lstar
+
+
+def _logged(rec, pattern, label):
+    """The float groups of ``pattern`` in the last log line matching it."""
+    for line in reversed(rec.lines):
+        m = re.search(pattern, line)
+        if m:
+            return [float(g) for g in m.groups()]
+    fail(f"{label}: no log line matches {pattern!r}")
+
+
+def phase_nuts(fix_comp, workdir, has_mpl, stretch_lstar):
+    """``fit --sampler nuts`` end to end through the value+gradient
+    kernels, held to the stretch fit of the same catalog."""
+    argv = ["fit", "--sampler", "nuts", "--synthetic", str(NSYNTH), "-mcf",
+            "0.5", "-ns", str(NUTS_STEPS), "--nchains", str(NUTS_CHAINS),
+            "--config", _smoke_config(workdir, has_mpl)]
+    if fix_comp:
+        argv.append("-fc")
+    label = "fit --sampler nuts" + (" -fc" if fix_comp else "")
+    run_dir = os.path.join(workdir, "nuts_fc" if fix_comp else "nuts_free")
+    rc, counts, rec, peak, wall = _drive(argv, run_dir)
+    if rc != 0:
+        fail(f"{label} returned {rc}")
+    base = f"test_nb50_nw{NWALKERS}_ns{NUTS_STEPS}_mcf50"
+    post = _artifacts(label, os.path.join(run_dir, "LFMCMCOut"), base,
+                      has_mpl)
+    secs, eps, accept, div_pct = _logged(
+        rec, r"Total time taken: ([\d.]+) s; step size ([\d.e+-]+); mean "
+        r"accept-stat ([\d.]+); divergent transitions ([\d.]+)%", label)
+    ntrans, nlf, nsync, lf_mean, lf_max, lf_chain = _logged(
+        rec, r"NUTS work: (\d+) transitions, (\d+) leapfrog steps "
+        r"\(batched over \d+ chains\), (\d+) host syncs; leapfrogs per "
+        r"transition: batched mean ([\d.]+), max (\d+), per chain mean "
+        r"([\d.]+)", label)
+    ess, rhat, ess_s = _logged(
+        rec, r"min ESS: ([\d.]+); max R-hat: ([\d.]+); ESS/sec: ([\d.]+)",
+        label)
+    if ntrans != NUTS_WARMUP + NUTS_STEPS:
+        fail(f"{label}: {ntrans} transitions, expected "
+             f"{NUTS_WARMUP + NUTS_STEPS}")
+    if not div_pct < 5.0:
+        fail(f"{label}: {div_pct}% divergent transitions (limit 5%)")
+    if not 0.6 < accept < 0.97:
+        fail(f"{label}: mean accept-stat {accept} outside (0.6, 0.97)")
+    if not rhat < 1.1:
+        fail(f"{label}: max R-hat {rhat} (limit 1.1)")
+    lstar = np.asarray(post[r"$\log L_*$"])
+    gap = abs(np.median(lstar) - np.median(stretch_lstar)) / np.std(lstar)
+    if not gap < 3.0:
+        fail(f"{label}: logL* median {np.median(lstar):.4f} is {gap:.2f} "
+             f"posterior sd from the stretch fit's "
+             f"{np.median(stretch_lstar):.4f} (limit 3)")
+    fam = "fixed" if fix_comp else "free"
+    other = "free" if fix_comp else "fixed"
+    rows = NUTS_STEPS * NUTS_CHAINS
+    want = {k: 0 for k in KERNELS}
+    want[f"{fam}_lnlike_vg"] = int(ntrans + nlf)
+    # the forward kernel: the start guard (one call) and the theta-space
+    # Ln Prob recompute (one call per MAX_ROWS rows)
+    want[f"{fam}_lnlike"] = 1 + math.ceil(rows / cl.MAX_ROWS)
+    if counts != want:
+        fail(f"{label}: launch counts {counts}, expected {want}")
+    if counts[f"{other}_lnlike_vg"] != 0:
+        fail(f"{label}: the other family's kernel ran")
+    print(f"{label}: artifacts ok ({len(lstar)} posterior rows); median "
+          f"logL* {np.median(lstar):.4f} vs stretch "
+          f"{np.median(stretch_lstar):.4f} ({gap:.2f} sd); "
+          f"{fam}_lnlike_vg launches {counts[f'{fam}_lnlike_vg']} = "
+          f"{int(ntrans)} transitions + {int(nlf)} leapfrog steps; "
+          f"{fam}_lnlike launches {counts[f'{fam}_lnlike']}")
+    print(f"{label}: Total time taken {secs:.2f} s ({NUTS_WARMUP} warmup + "
+          f"{NUTS_STEPS} samples, {NUTS_CHAINS} chains)")
+    print(f"{label}: ESS/s {ess / secs:.3f} (min ESS {ess:.0f} over "
+          f"{secs:.2f} s; the log's rounded ESS/sec {ess_s:.0f}), max "
+          f"R-hat {rhat:.4f}")
+    print(f"{label}: step size {eps:.4g}, mean accept-stat {accept:.2f}, "
+          f"divergent transitions {div_pct:.2f}%")
+    print(f"{label}: leapfrogs per transition: batched mean {lf_mean:.2f}, "
+          f"max {int(lf_max)}, per chain mean {lf_chain:.2f}; "
+          f"{secs / (ntrans + nlf) * 1e3:.4f} ms per value+gradient call "
+          f"(transitions + leapfrog steps); {int(nsync)} host syncs")
+    print(f"{label}: device memory peak {peak / 2**20:.1f} MiB, CLI wall "
+          f"{wall:.1f} s")
     return counts
 
 
 def main():
     phase_device()
     phase_build()
-    summary = phase_kernels(torch.device("cuda:0"))
+    dev = torch.device("cuda:0")
+    summary = phase_kernels(dev)
+    summary.update(phase_vg_kernels(dev))
     try:
         import matplotlib  # noqa: F401
         has_mpl = True
     except ImportError:
         has_mpl = False
+    launches = {k: 0 for k in KERNELS}
     with tempfile.TemporaryDirectory() as workdir:
-        launches = {}
         for fix_comp in (False, True):
-            for k, v in phase_fit(fix_comp, workdir, has_mpl).items():
-                launches[k] = launches.get(k, 0) + v
-    if "jax" in sys.modules:
-        fail("the port imported jax")
-    replaces = {"free_lnlike": (601, 761), "fixed_lnlike": (751, 813)}
+            counts, lstar = phase_fit(fix_comp, workdir, has_mpl)
+            for k, v in counts.items():
+                launches[k] += v
+            for k, v in phase_nuts(fix_comp, workdir, has_mpl,
+                                   lstar).items():
+                launches[k] += v
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "lumfuncmcmc_tpu")]
+    if bad:
+        fail(f"the port imported {sorted(bad)[:5]}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"{name} was never launched on the main paths")
+    replaces = {"free_lnlike": (601, 761), "fixed_lnlike": (751, 813),
+                "free_lnlike_vg": (832,), "fixed_lnlike_vg": (1255,)}
     kernels = []
-    for name in ("free_lnlike", "fixed_lnlike"):
+    for name in KERNELS:
         s = summary[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        row = {
+            "name": name, "route": "cuda", "source": SOURCE,
             "replaces": f"{TPU_FILE}:{replaces[name][0]}",
-            "also_replaces": f"{TPU_FILE}:{replaces[name][1]}",
             "launches": launches[name],
-            "max_abs_err": s["max_abs_err"],
-            "max_rel_err": s["max_rel_err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "call_ms": s["call_ms"],
-            "shape": s["shape"]})
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
+            "max_rel_err": s["max_rel_err"], "call_ms": s["call_ms"],
+            "shape": s["shape"]}
+        if len(replaces[name]) > 1:
+            row["also_replaces"] = f"{TPU_FILE}:{replaces[name][1]}"
+        for k in ("max_grad_err", "ms_w256", "plain_ms_w256",
+                  "bound_ms_w256"):
+            if k in s:
+                row[k] = s[k]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

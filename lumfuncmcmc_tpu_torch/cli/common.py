@@ -1,6 +1,7 @@
 """Shared CLI plumbing (port of ``lumfuncmcmc_tpu/cli/common.py``): the
 common flag set (the JAX CLI's, so the same command line works), config
-building, catalog loading and the device/precision policy.
+building, catalog loading and the device/precision policy (the card
+unless ``--device cpu``).
 
 Config precedence is CLI > --config file > defaults; a flag value of 0
 is not treated as unset.
@@ -13,7 +14,8 @@ import argparse
 import numpy as np
 import torch
 
-from lumfuncmcmc_tpu.config import LFConfig, load_config_file, merge_config
+from lumfuncmcmc_tpu_torch.config import (
+    LFConfig, load_config_file, merge_config)
 from lumfuncmcmc_tpu_torch.utils.logging import setup_logging
 
 
@@ -251,15 +253,28 @@ def _load_inputs(args, cfg):
                 field_names=cat["field_names"])
 
 
-def _apply_precision(cfg):
+def _apply_precision(cfg, device="cuda"):
     """Choose the run's device and dtype — the one place the port does.
 
-    The device is the first CUDA card when PyTorch sees one, else the
-    CPU. ``cfg.use_x64`` picks the dtype: None means float64 on the CPU
+    ``device`` is ``"cuda"`` (the first card; the default everywhere) or
+    ``"cpu"``; the CPU runs only when asked for. With ``"cuda"`` and no
+    usable card this raises: nothing falls back to the CPU.
+    ``cfg.use_x64`` picks the dtype: None means float64 on the CPU
     (accuracy) and float32 on the card (speed). Returns
     ``(device, dtype)`` and logs them.
     """
-    device = torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no usable CUDA device (torch.cuda.is_available() is "
+                "False); the port runs on the card unless asked "
+                "otherwise: pass --device cpu (device='cpu') to run on "
+                "the CPU")
+        if device.index is None:
+            device = torch.device("cuda:0")
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}: use cuda or cpu")
     use = cfg.use_x64
     if use is None:
         use = device.type == "cpu"

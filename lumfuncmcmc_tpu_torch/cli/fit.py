@@ -1,5 +1,7 @@
 """The ``fit`` subcommand: single-epoch Schechter fit (port of
-``cmd_fit`` / ``_run_fit_family`` from ``lumfuncmcmc_tpu/cli/fit.py``).
+``cmd_fit`` / ``_run_fit_family`` / ``_dispatch_sampler`` from
+``lumfuncmcmc_tpu/cli/fit.py``): the stretch/DE/mix ensemble or, with
+``--sampler nuts``, batched NUTS.
 
 Flags whose features are not ported yet raise ``NotImplementedError``
 naming the flag, before any work starts.
@@ -14,31 +16,49 @@ from lumfuncmcmc_tpu_torch.cli.common import (
 from lumfuncmcmc_tpu_torch.cli.outputs import _resume_if_done, _write_outputs
 
 # CLI-only flags (no LFConfig field) -> the value that means "not
-# requested"; unported config fields (sampler, init_map, exact_bounds,
-# meshes, checkpoint_every) are refused by the model itself
+# requested"; unported config fields (init_map, exact_bounds, meshes,
+# checkpoint_every) are refused by the model itself
 _NOT_PORTED_FLAGS = {
     "map": False, "ic": False, "ppc": False, "evidence": None,
     "evidence_swap": 0, "evidence_tune": 0, "min_ess": None,
-    "ensembles": None, "nchains": None, "nuts_pooled": False,
+    "ensembles": None, "nuts_pooled": False,
     "profile": None, "distributed": None,
 }
 
 
-def _reject_unported(args):
+def _reject_unported(args, cfg):
     for flag, off in _NOT_PORTED_FLAGS.items():
+        if flag == "ensembles" and cfg.sampler == "nuts":
+            continue            # ignored with a warning under NUTS
         if getattr(args, flag, off) != off:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet "
                 "(run it with the JAX package, lumfuncmcmc_tpu)")
 
 
+def _dispatch_sampler(model, cfg, args):
+    """NUTS or the ensemble sampler; ``--nchains`` is validated either
+    way, as in the JAX CLI."""
+    nchains = getattr(args, "nchains", None)
+    nchains = 8 if nchains is None else int(nchains)
+    if nchains < 1:
+        raise SystemExit(f"--nchains must be >= 1, got {nchains}")
+    if cfg.sampler == "nuts":
+        if int(getattr(args, "ensembles", None) or 0) > 1:
+            print("WARNING: --ensembles applies to the ensemble "
+                  "sampler; ignored under --sampler nuts")
+        model.fit_model_nuts(nchains=nchains)
+    else:
+        model.fit_model()
+
+
 def _run_fit_family(args, model_cls, outdir):
     """Build config + model, the resume-and-replot early exit, the
     sampler, then the artifact writers."""
-    _reject_unported(args)
     args.output_filename = args.output_filename or "test.dat"
     cfg = _build_cfg(args)
-    device, dtype = _apply_precision(cfg)
+    _reject_unported(args, cfg)
+    device, dtype = _apply_precision(cfg, getattr(args, "device", "cuda"))
     os.makedirs(outdir, exist_ok=True)
     inputs = _load_inputs(args, cfg)
     cfg = _align_fields(cfg, inputs["field_names"])
@@ -54,7 +74,7 @@ def _run_fit_family(args, model_cls, outdir):
         return 0
     names = model.get_param_names()
     print("Labels:", names)
-    model.fit_model()
+    _dispatch_sampler(model, cfg, args)
     print("Finished fitting model and about to create outputs")
     _write_outputs(model, cfg, args, outdir, names)
     return 0

@@ -34,6 +34,10 @@ def main(argv=None):
     p_fit.add_argument("-fc", "--fix_comp", action="store_true",
                        default=None)
     p_fit.add_argument("-sr", "--same_rand", action="store_true")
+    p_fit.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                       help="where the fit runs: the first CUDA card "
+                            "(default; an error when there is none) or "
+                            "the CPU")
     p_fit.set_defaults(func=cmd_fit)
     for name in _NOT_PORTED_COMMANDS:
         sub.add_parser(name, help="not ported yet",

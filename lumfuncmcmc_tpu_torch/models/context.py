@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lumfuncmcmc_tpu.config import LFConfig
+from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.cosmology import (
     CosmoTable, SQARCSEC_PER_SR, build_cosmo_arrays,
     cosmo_table_from_arrays)
@@ -291,7 +291,11 @@ def build_context(cfg: LFConfig,
             "Raise min_comp_frac or remove the sources.")
     ln_om_src = np.log(om_src)
 
-    lref = float(lum.max())
+    # the anchor as the context carries it (rounded to ``dtype``), so the
+    # sums below are taken against the same lref as every later use: in
+    # float32 a 2e-6 shift of lref biases sum_pow_lum by 5e-6, which the
+    # Lstar gradient of the collapsed ln-term (~N ln10 in size) amplifies
+    lref = float(torch.tensor(float(lum.max()), dtype=dtype))
 
     def cast(a):   # a copy: the host arrays may be read-only or reused
         return torch.tensor(np.asarray(a, dtype=np.float64), dtype=dtype,

@@ -22,7 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
-from lumfuncmcmc_tpu.config import LFConfig
+from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import LFContext
 from lumfuncmcmc_tpu_torch.ops.omega import omega_from_logf
 from lumfuncmcmc_tpu_torch.ops.schechter import LN10, log_true_lum_func

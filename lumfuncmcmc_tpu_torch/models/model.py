@@ -2,10 +2,10 @@
 ``fit`` path of ``lumfuncmcmc_tpu/models/model.py``).
 
 :class:`LumFuncModel` keeps the public surface of the JAX class —
-``fit_model``, ``set_median_fit``, ``veff_lf``, ``add_fitinfo_to_table``,
-``triangle_plot`` and the ``samples`` / ``medianLF`` / ``Lavg`` /
-``lfbinorig`` / ``var`` attributes — with tensors on one explicit device
-and dtype inside.
+``fit_model``, ``fit_model_nuts``, ``set_median_fit``, ``veff_lf``,
+``add_fitinfo_to_table``, ``triangle_plot`` and the ``samples`` /
+``medianLF`` / ``Lavg`` / ``lfbinorig`` / ``var`` attributes — with
+tensors on one explicit device and dtype inside.
 """
 
 from __future__ import annotations
@@ -16,9 +16,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lumfuncmcmc_tpu.config import LFConfig
+from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.ensemble_driver import _EnsembleDriverMixin
+from lumfuncmcmc_tpu_torch.models.nuts_driver import _NutsDriverMixin
 from lumfuncmcmc_tpu_torch.models.likelihood import (
     ThetaLayout, make_lnprob, sample_init)
 from lumfuncmcmc_tpu_torch.models.veff import (
@@ -62,12 +63,12 @@ def posterior_lfs(model, draws):
 
 # flags whose features the port does not have yet, and the config value
 # that means "off"
-_NOT_PORTED = {"sampler": "stretch", "init_map": False,
+_NOT_PORTED = {"init_map": False,
                "exact_bounds": False, "mesh_walkers": 0,
                "mesh_sources": 1, "checkpoint_every": 0}
 
 
-class _BaseModel(_EnsembleDriverMixin):
+class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
     """Context build, engine choice, V_eff and the posterior table."""
 
     def __init__(self, cfg: LFConfig, z, flux=None, flux_e=None,
@@ -79,8 +80,9 @@ class _BaseModel(_EnsembleDriverMixin):
                     f"{name}={getattr(cfg, name)!r} is not ported yet "
                     "(run it with the JAX package, lumfuncmcmc_tpu)")
         if device is None or dtype is None:
+            # device None means the card: the CPU only when asked for
             from lumfuncmcmc_tpu_torch.cli.common import _apply_precision
-            device, dtype = _apply_precision(cfg)
+            device, dtype = _apply_precision(cfg, device or "cuda")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype
@@ -219,6 +221,11 @@ class LumFuncModel(_BaseModel):
 
     def _make_layout(self):
         return ThetaLayout.from_config(self.cfg)
+
+    def _make_scalar_lnprob(self):
+        """The eager engine's lnprob, (C, D) -> (C,): what NUTS
+        differentiates by autograd on the CPU."""
+        return make_lnprob(self.ctx, self.layout)
 
     def set_median_fit(self, rndsamples=200, lnprobcut=7.5, generator=None):
         """Median model LF over posterior draws + V_eff with the median

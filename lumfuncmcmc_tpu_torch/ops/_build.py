@@ -24,6 +24,15 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# entry point -> argtypes; each returns the cudaError_t of its launches
+_FREE_ARGS = [_p, _i, _i, _i] + [_p] * 11 + [_p, _i, _i, _p, _p, _p]
+_FIXED_ARGS = [_p, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p]
+ENTRY_POINTS = {"free_lnlike_launch": _FREE_ARGS,
+                "fixed_lnlike_launch": _FIXED_ARGS,
+                "free_lnlike_vg_launch": _FREE_ARGS,
+                "fixed_lnlike_vg_launch": _FIXED_ARGS}
+
 _lock = threading.Lock()
 _lib = None
 build_log = ""          # nvcc's output (ptxas register/spill report)
@@ -78,15 +87,10 @@ def load_library() -> ctypes.CDLL:
     entry point's argument types declared."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.free_lnlike_launch.argtypes = (
-            [p, i, i, i] + [p] * 11 + [p, i, i, p, p, p])
-        lib.free_lnlike_launch.restype = i
-        lib.fixed_lnlike_launch.argtypes = (
-            [p, i, i] + [p] * 3 + [p, i, p, p, p])
-        lib.fixed_lnlike_launch.restype = i
-        _lib = lib
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for fn, argtypes in ENTRY_POINTS.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _i
+            _lib = lib
         return _lib

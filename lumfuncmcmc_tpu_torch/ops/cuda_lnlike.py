@@ -10,15 +10,31 @@ in the factored form of the TPU kernels: the theta-independent
 exponentials are precomputed on the host, ``P = 10^(logL - lref)`` and
 ``R = 10^(logf + 16)``, so the Schechter cutoff and the Fleming decay
 ratio become multiplies by per-walker scalars. Theta enters as a
-per-walker feature row (:func:`_features_free`, :func:`_features_fixed`).
+per-walker feature row (:func:`_features`).
+Unlike the TPU kernels, luminosities enter relative to ``lref``
+(``a = LN10 (logL - lref)``, feature ``lA = LN10 (Lstar - lref)``) and
+the fixed-completeness collapsed ln-term is computed in float64: in
+float32, ``a - lA`` of two ~97-sized numbers and ``sum(lum) - N Lstar``
+cancel to ~1e-5 relative, which the theta-gradient of ``sch_al`` feels
+where its two parts cancel near the mode.
 
-Two kernels (``csrc/lnlike.cu``):
+Four kernels of ``csrc/lnlike.cu``, value and value + gradient:
 
 - :func:`free_lnlike` — free completeness; replaces both
   ``_kernel_free_bcast`` (``pallas_lnlike.py:601``) and ``_kernel_free``
   (``:761``);
 - :func:`fixed_lnlike` — fixed completeness; replaces both
-  ``_kernel_fixed_bcast`` (``:751``) and ``_kernel_fixed`` (``:813``).
+  ``_kernel_fixed_bcast`` (``:751``) and ``_kernel_fixed`` (``:813``);
+- :func:`free_lnlike_vg` — free completeness, the lnlike and its
+  derivative with respect to every feature in one pass; replaces
+  ``_kernel_free_vg`` (``:832``);
+- :func:`fixed_lnlike_vg` — the same for fixed completeness; replaces
+  ``_kernel_fixed_vg`` (``:1255``).
+
+The value+gradient kernels feed :func:`make_cuda_lnprob_and_grad`, the
+NUTS gradient path: a ``torch.autograd.Function`` hands the feature
+gradient to autograd of the cheap feature map, the counterpart of the
+``jax.custom_vjp`` of ``_vg_scalar_from_rows`` (``:1614``).
 
 The TPU's broadcast/slab split exists only because of VMEM and does not
 carry over: one packing serves every catalog size. Cells and sources are
@@ -45,7 +61,7 @@ import torch
 from lumfuncmcmc_tpu_torch.cosmology import SQARCSEC_PER_SR
 from lumfuncmcmc_tpu_torch.models.context import LFContext
 from lumfuncmcmc_tpu_torch.models.likelihood import (
-    ThetaLayout, _ln_term_collapsed, in_box)
+    ThetaLayout, in_box)
 from lumfuncmcmc_tpu_torch.ops.completeness import (
     _log10_inverse_fleming_ratio)
 from lumfuncmcmc_tpu_torch.ops.schechter import LN10
@@ -53,6 +69,9 @@ from lumfuncmcmc_tpu_torch.ops.schechter import LN10
 _LOG_LN10 = math.log(LN10)
 _LOGF_REF = -16.0       # reference log10-flux for the R factorization
 CHUNK_CELLS = 2048      # cells (or sources) one CUDA block reduces
+MAX_ROWS = 65535        # walkers one launch takes (grid.y limit)
+VG_FREE_SLOTS = 7       # partial sums per (walker, chunk), csrc/lnlike.cu
+VG_FIXED_SLOTS = 3
 
 
 def _clamp_flim(theta, layout: ThetaLayout):
@@ -82,7 +101,7 @@ class CudaGridData:
     ``g_a``, ``g_p`` and ``g_w``.
     """
 
-    g_a: torch.Tensor                  # LN10 * logL
+    g_a: torch.Tensor                  # LN10 * (logL - lref)
     g_p: torch.Tensor                  # 10^(logL - lref)
     g_w: torch.Tensor                  # quadrature weight * area * ln10
     g_logf: Optional[torch.Tensor]     # log10 flux of grid cells
@@ -99,6 +118,9 @@ class CudaGridData:
     lref: float
     nfields: int
     fcmin: float                       # 0 disables the faint-end term
+    ln_sums: tuple                     # float64 (nsrc, sum(lum - lref),
+                                       #   sum_pow_lum, sum_ln_om) of the
+                                       #   collapsed ln-term
 
 
 def _grid_cols(ctx: LFContext, fix_comp: bool, lref: float):
@@ -119,7 +141,7 @@ def _grid_cols(ctx: LFContext, fix_comp: bool, lref: float):
     for f in range(nf):
         ll, lf = logL[f].ravel(), logf[f].ravel()
         gcols.append({
-            "logf": lf, "a": LN10 * ll,
+            "logf": lf, "a": LN10 * (ll - lref),
             "p": 10.0 ** np.clip(ll - lref, -30.0, 25.0),
             "r": 10.0 ** np.clip(lf - _LOGF_REF, -30.0, 25.0),
             "w": w[f].ravel(),
@@ -171,7 +193,7 @@ def prepare_cuda_data(ctx: LFContext, fix_comp: bool, fcmin: float = 0.0,
         for f in range(nf):
             sel = np.nonzero(fid == f)[0]
             scols.append({
-                "logf": logf_s[sel], "a": LN10 * lum[sel],
+                "logf": logf_s[sel], "a": LN10 * (lum[sel] - lref),
                 "p": 10.0 ** np.clip(lum[sel] - lref, -30.0, 25.0),
                 "r": 10.0 ** np.clip(logf_s[sel] - _LOGF_REF, -30.0, 25.0),
                 "lnom0": np.log(np.maximum(om0_s[sel], 1e-300)),
@@ -194,7 +216,9 @@ def prepare_cuda_data(ctx: LFContext, fix_comp: bool, fcmin: float = 0.0,
         chunks=torch.as_tensor(_chunk_table(grid_off, src_off),
                                device=device),
         grid_off=grid_off, src_off=src_off, lref=lref, nfields=nf,
-        fcmin=float(fcmin) if fcmin else 0.0)
+        fcmin=float(fcmin) if fcmin else 0.0,
+        ln_sums=(float(ctx.nsrc), float((ctx.lum.double() - lref).sum()),
+                 float(ctx.sum_pow_lum), float(ctx.sum_ln_om)))
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +228,7 @@ def prepare_cuda_data(ctx: LFContext, fix_comp: bool, fcmin: float = 0.0,
 def _feat_free_one(theta, layout: ThetaLayout, lref: float, fcmin: float):
     """(W, D) thetas -> (W, 6+2F) free-completeness features::
 
-        0 c_grid = LN10*phistar            3 lA = LN10*Lstar
+        0 c_grid = LN10*phistar            3 lA = LN10*(Lstar - lref)
         1 c_src  = ln(ln10) + LN10*phistar 4 t1 = 10^(lref - Lstar)
         2 aA = sch_al + 1                  5 alpha_c
         6+f    logF50_f
@@ -222,7 +246,7 @@ def _feat_free_one(theta, layout: ThetaLayout, lref: float, fcmin: float):
         torch.stack([LN10 * phistar,
                      _LOG_LN10 + LN10 * phistar,
                      sch_al + 1.0,
-                     LN10 * lstar,
+                     LN10 * (lstar - lref),
                      10.0 ** (lref - lstar),
                      alpha_c], dim=1),
         logf50,
@@ -230,25 +254,33 @@ def _feat_free_one(theta, layout: ThetaLayout, lref: float, fcmin: float):
     ], dim=1)
 
 
-def _features_free(thetas, layout, lref, fcmin, dtype):
-    """(W, D) thetas -> contiguous (W, 6+2F) features in ``dtype``."""
-    return _feat_free_one(thetas, layout, lref, fcmin).to(dtype).contiguous()
-
-
-def _feat_fixed_one(theta, ctx: LFContext, layout: ThetaLayout,
-                    lref: float):
+def _feat_fixed_one(theta, data: CudaGridData, layout: ThetaLayout):
     """(W, D) thetas -> (W, 5) fixed-completeness features
-    ``[c_grid, aA, lA, t1, lnpart]``; the O(1) collapsed ln-term rides
-    along as ``lnpart`` so the kernel emits the complete lnlike."""
+    ``[c_grid, aA, lA, t1, lnpart]``; the O(1) collapsed ln-term
+    (``_ln_term_collapsed``) rides along as ``lnpart`` so the kernel
+    emits the complete lnlike. It is computed in float64, with the
+    catalog sum taken relative to ``lref``."""
     lstar, phistar, sch_al, _, _ = layout.unpack(theta)
-    lnpart = _ln_term_collapsed(ctx, lstar, phistar, sch_al)
-    return torch.stack([LN10 * phistar, sch_al + 1.0, LN10 * lstar,
-                        10.0 ** (lref - lstar), lnpart], dim=1)
+    n, sum_rel, sum_pow, sum_om = data.ln_sums
+    dl = data.lref - lstar.double()
+    lnpart = (n * (_LOG_LN10 + LN10 * phistar.double())
+              + LN10 * (sch_al.double() + 1.0) * (sum_rel + n * dl)
+              - torch.exp(LN10 * dl) * sum_pow + sum_om)
+    return torch.stack([LN10 * phistar, sch_al + 1.0,
+                        LN10 * (lstar - data.lref),
+                        10.0 ** (data.lref - lstar),
+                        lnpart.to(theta.dtype)], dim=1)
 
 
-def _features_fixed(thetas, ctx, layout, lref, dtype):
-    """(W, D) thetas -> contiguous (W, 5) features in ``dtype``."""
-    return _feat_fixed_one(thetas, ctx, layout, lref).to(dtype).contiguous()
+def _features(thetas, data: CudaGridData, layout: ThetaLayout, dtype):
+    """(W, D) thetas -> the kernels' contiguous feature rows in ``dtype``:
+    :func:`_clamp_flim`, then the completeness family's feature map."""
+    th = _clamp_flim(thetas, layout)
+    if layout.fix_comp:
+        feats = _feat_fixed_one(th, data, layout)
+    else:
+        feats = _feat_free_one(th, layout, data.lref, data.fcmin)
+    return feats.to(dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +330,86 @@ def fixed_lnlike_reference(feats, data: CudaGridData):
     return lnpart[:, 0] - (torch.exp(e) * data.g_w).sum(dim=1)
 
 
+def _fc_terms(logf, r, ac, lf50, t2, fcmin):
+    """(ln fc, d ln fc/dx, d ln fc/d t2) for (W, n) cells, the value
+    part exactly as :func:`_ln_fc`: ``u = rsqrt(1+x^2)`` is reused for
+    ``u^3`` and ``q = exp(-R t2)`` for the t2 derivative, so the
+    gradient adds no transcendental (``_kernel_free_vg``'s
+    ``fc_terms``, ``pallas_lnlike.py:870``)."""
+    x = ac * (logf - lf50)
+    u = torch.rsqrt(1.0 + x * x)
+    fc = torch.clamp(0.5 + 0.5 * x * u, min=1e-30)
+    lfc = torch.log(fc)
+    dfx = 0.5 * u * u * u / fc
+    if not fcmin:
+        return lfc, dfx, torch.zeros_like(lfc)
+    q = torch.exp(-(r * t2))
+    inv_d = 1.0 / (1.0 - q)
+    return lfc * inv_d, dfx * inv_d, -lfc * (r * q) * inv_d * inv_d
+
+
+def free_lnlike_vg_reference(feats, data: CudaGridData):
+    """Plain version of the free-completeness value+gradient kernel:
+    (W, 6+2F) features -> (W, 7+2F) rows ``[lnl, d_cg, d_cs, d_aA, d_lA,
+    d_t1, d_ac, d_lf50_0.., d_t2_0..]``, the column order of
+    ``_kernel_free_vg``; ``d_t2`` is 0 when ``fcmin = 0``."""
+    nf, fcmin = data.nfields, data.fcmin
+    c_g, c_s, aA, lA, t1, ac = (feats[:, i:i + 1] for i in range(6))
+    zero = torch.zeros(feats.shape[0], dtype=feats.dtype,
+                       device=feats.device)
+    lnl, d_cg, d_cs, d_aA, d_lA, d_t1, d_ac = (zero,) * 7
+    d_lf, d_t2 = [], []
+    for f in range(nf):
+        lf50 = feats[:, 6 + f:7 + f]
+        t2 = feats[:, 6 + nf + f:7 + nf + f]
+        g = slice(data.grid_off[f], data.grid_off[f + 1])
+        logf = data.g_logf[g]
+        lnfc, dfx, dft = _fc_terms(logf, data.g_r[g], ac, lf50, t2, fcmin)
+        am = data.g_a[g] - lA
+        p = data.g_p[g]
+        e = torch.exp(c_g + aA * am - p * t1 + lnfc) * data.g_w[g]
+        s0 = e.sum(dim=1)
+        lnl, d_cg = lnl - s0, d_cg - s0
+        d_lA = d_lA + aA[:, 0] * s0
+        d_aA = d_aA - (e * am).sum(dim=1)
+        d_t1 = d_t1 + (e * p).sum(dim=1)
+        d_ac = d_ac - (e * dfx * (logf - lf50)).sum(dim=1)
+        lf_f = ac[:, 0] * (e * dfx).sum(dim=1)
+        t2_f = -(e * dft).sum(dim=1)
+
+        s = slice(data.src_off[f], data.src_off[f + 1])
+        m = data.s_mask[s]
+        logf = data.s_logf[s]
+        lnfc, dfx, dft = _fc_terms(logf, data.s_r[s], ac, lf50, t2, fcmin)
+        am = data.s_a[s] - lA
+        p = data.s_p[s]
+        contrib = c_s + aA * am - p * t1 + data.s_lnom0[s] + lnfc
+        lnl = lnl + torch.where(m > 0.0, contrib,
+                                torch.zeros_like(contrib)).sum(dim=1)
+        s0 = m.sum()
+        d_cs = d_cs + s0
+        d_lA = d_lA - aA[:, 0] * s0
+        d_aA = d_aA + (m * am).sum(dim=1)
+        d_t1 = d_t1 - (m * p).sum()
+        d_ac = d_ac + (m * dfx * (logf - lf50)).sum(dim=1)
+        d_lf.append(lf_f - ac[:, 0] * (m * dfx).sum(dim=1))
+        d_t2.append(t2_f + (m * dft).sum(dim=1))
+    return torch.stack([lnl, d_cg, d_cs, d_aA, d_lA, d_t1, d_ac]
+                       + d_lf + d_t2, dim=1)
+
+
+def fixed_lnlike_vg_reference(feats, data: CudaGridData):
+    """Plain version of the fixed-completeness value+gradient kernel:
+    (W, 5) -> (W, 6) rows ``[lnl, d_c, d_aA, d_lA, d_t1, d_lnpart]``."""
+    c, aA, lA, t1, lnpart = (feats[:, i:i + 1] for i in range(5))
+    am = data.g_a - lA
+    e = torch.exp(c + aA * am - data.g_p * t1) * data.g_w
+    s0 = e.sum(dim=1)
+    return torch.stack([lnpart[:, 0] - s0, -s0, -(e * am).sum(dim=1),
+                        aA[:, 0] * s0, (e * data.g_p).sum(dim=1),
+                        torch.ones_like(s0)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -313,9 +425,9 @@ def _check_cuda_inputs(feats, nfeat, data, arrays):
     if feats.dim() != 2 or feats.shape[1] != nfeat:
         raise ValueError(f"features must be (W, {nfeat}), got "
                          f"{tuple(feats.shape)}")
-    if not 0 < feats.shape[0] <= 65535:
+    if not 0 < feats.shape[0] <= MAX_ROWS:
         raise ValueError(f"walker batch of {feats.shape[0]} is outside "
-                         "the kernel's 1..65535 launch range")
+                         f"the kernel's 1..{MAX_ROWS} launch range")
     if not feats.is_contiguous():
         raise ValueError("features must be contiguous")
     for a in arrays + (data.chunks,):
@@ -329,9 +441,39 @@ def _check_cuda_inputs(feats, nfeat, data, arrays):
             raise TypeError(f"grid data must be float32, got {a.dtype}")
 
 
-def _launch_checked(name, rc):
+_FREE_ARRAYS = ("g_logf", "g_a", "g_p", "g_r", "g_w", "s_logf", "s_a",
+                "s_p", "s_r", "s_lnom0", "s_mask")
+_FIXED_ARRAYS = ("g_a", "g_p", "g_w")
+
+
+def _launch(name, feats, data: CudaGridData, slots, out_cols):
+    """Check the inputs and launch kernel ``name`` of ``csrc/lnlike.cu``
+    on the current stream of ``feats``' device, with a (W, nchunks,
+    ``slots``) scratch buffer; returns the (W,) output, or (W,
+    ``out_cols``) when ``out_cols`` is set. Raises on any failure."""
+    if feats.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {feats.device}")
+    from lumfuncmcmc_tpu_torch.ops._build import load_library
+    fixed = name.startswith("fixed")
+    arrays = tuple(getattr(data, a)
+                   for a in (_FIXED_ARRAYS if fixed else _FREE_ARRAYS))
+    nfeat = 5 if fixed else 6 + 2 * data.nfields
+    _check_cuda_inputs(feats, nfeat, data, arrays)
+    lib = load_library()
+    w, nchunks = feats.shape[0], data.chunks.shape[0]
+    partial = torch.empty((w, nchunks, slots), dtype=torch.float32,
+                          device=feats.device)
+    out = torch.empty((w, out_cols) if out_cols else (w,),
+                      dtype=torch.float32, device=feats.device)
+    head = (w, nfeat) if fixed else (w, nfeat, data.nfields)
+    flags = () if fixed else (int(bool(data.fcmin)),)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    rc = getattr(lib, f"{name}_launch")(
+        _ptr(feats), *head, *(_ptr(a) for a in arrays), _ptr(data.chunks),
+        nchunks, *flags, _ptr(partial), _ptr(out), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
 
 
 def free_lnlike(feats, data: CudaGridData):
@@ -342,25 +484,7 @@ def free_lnlike(feats, data: CudaGridData):
     """
     if feats.device.type == "cpu":
         return free_lnlike_reference(feats, data)
-    if feats.device.type != "cuda":
-        raise ValueError(f"free_lnlike: unsupported device {feats.device}")
-    from lumfuncmcmc_tpu_torch.ops._build import load_library
-    arrays = (data.g_logf, data.g_a, data.g_p, data.g_r, data.g_w,
-              data.s_logf, data.s_a, data.s_p, data.s_r, data.s_lnom0,
-              data.s_mask)
-    _check_cuda_inputs(feats, 6 + 2 * data.nfields, data, arrays)
-    lib = load_library()
-    w, nchunks = feats.shape[0], data.chunks.shape[0]
-    partial = torch.empty((w, nchunks), dtype=torch.float32,
-                          device=feats.device)
-    out = torch.empty(w, dtype=torch.float32, device=feats.device)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    rc = lib.free_lnlike_launch(
-        _ptr(feats), w, feats.shape[1], data.nfields,
-        *(_ptr(a) for a in arrays), _ptr(data.chunks), nchunks,
-        int(bool(data.fcmin)), _ptr(partial), _ptr(out),
-        ctypes.c_void_p(stream))
-    _launch_checked("free_lnlike", rc)
+    out = _launch("free_lnlike", feats, data, 1, 0)
     free_lnlike.launches += 1
     return out
 
@@ -376,27 +500,66 @@ def fixed_lnlike(feats, data: CudaGridData):
     """
     if feats.device.type == "cpu":
         return fixed_lnlike_reference(feats, data)
-    if feats.device.type != "cuda":
-        raise ValueError(f"fixed_lnlike: unsupported device {feats.device}")
-    from lumfuncmcmc_tpu_torch.ops._build import load_library
-    arrays = (data.g_a, data.g_p, data.g_w)
-    _check_cuda_inputs(feats, 5, data, arrays)
-    lib = load_library()
-    w, nchunks = feats.shape[0], data.chunks.shape[0]
-    partial = torch.empty((w, nchunks), dtype=torch.float32,
-                          device=feats.device)
-    out = torch.empty(w, dtype=torch.float32, device=feats.device)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    rc = lib.fixed_lnlike_launch(
-        _ptr(feats), w, feats.shape[1], *(_ptr(a) for a in arrays),
-        _ptr(data.chunks), nchunks, _ptr(partial), _ptr(out),
-        ctypes.c_void_p(stream))
-    _launch_checked("fixed_lnlike", rc)
+    out = _launch("fixed_lnlike", feats, data, 1, 0)
     fixed_lnlike.launches += 1
     return out
 
 
 fixed_lnlike.launches = 0
+
+
+def free_lnlike_vg(feats, data: CudaGridData):
+    """Free-completeness lnlike and its feature gradient, (W, 6+2F)
+    features -> (W, 7+2F) rows (:func:`free_lnlike_vg_reference`'s
+    columns).
+
+    CPU tensors take :func:`free_lnlike_vg_reference`; CUDA tensors
+    launch the ``free_lnlike_vg`` kernel of ``csrc/lnlike.cu`` or raise.
+    """
+    if feats.device.type == "cpu":
+        return free_lnlike_vg_reference(feats, data)
+    out = _launch("free_lnlike_vg", feats, data, VG_FREE_SLOTS,
+                  7 + 2 * data.nfields)
+    free_lnlike_vg.launches += 1
+    return out
+
+
+free_lnlike_vg.launches = 0
+
+
+def fixed_lnlike_vg(feats, data: CudaGridData):
+    """Fixed-completeness lnlike and its feature gradient, (W, 5)
+    features -> (W, 6) rows (:func:`fixed_lnlike_vg_reference`'s
+    columns).
+
+    CPU tensors take :func:`fixed_lnlike_vg_reference`; CUDA tensors
+    launch the ``fixed_lnlike_vg`` kernel of ``csrc/lnlike.cu`` or raise.
+    """
+    if feats.device.type == "cpu":
+        return fixed_lnlike_vg_reference(feats, data)
+    out = _launch("fixed_lnlike_vg", feats, data, VG_FIXED_SLOTS, 6)
+    fixed_lnlike_vg.launches += 1
+    return out
+
+
+fixed_lnlike_vg.launches = 0
+
+
+class _LnlikeOfFeats(torch.autograd.Function):
+    """lnlike of (W, nfeat) features through one value+gradient call;
+    the backward is one elementwise multiply by the saved gradient
+    columns (``_vg_scalar_from_rows``'s ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, feats, data, vg):
+        rows = vg(feats, data)
+        ctx.save_for_backward(rows[:, 1:])
+        return rows[:, 0]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (gfeats,) = ctx.saved_tensors
+        return gfeats * grad_out[:, None], None, None
 
 
 # ---------------------------------------------------------------------------
@@ -425,16 +588,43 @@ def make_cuda_lnprob(ctx: LFContext, layout: ThetaLayout):
     # bounds made once: a host tensor per call would sync the device
     lo, hi = layout.bounds_arrays(ctx.lum.dtype, device)
 
+    value = fixed_lnlike if layout.fix_comp else free_lnlike
+
     def batched(thetas):
-        th = _clamp_flim(thetas, layout)
-        if layout.fix_comp:
-            lnl = fixed_lnlike(
-                _features_fixed(th, ctx, layout, data.lref, kdtype), data)
-        else:
-            lnl = free_lnlike(
-                _features_free(th, layout, data.lref, data.fcmin, kdtype),
-                data)
-        lnl = lnl.to(thetas.dtype)
+        lnl = value(_features(thetas, data, layout, kdtype),
+                    data).to(thetas.dtype)
+        return torch.where(in_box(thetas, lo, hi), lnl,
+                           torch.full_like(lnl, -math.inf))
+
+    batched.engine = "cuda" if device.type == "cuda" else "plain"
+    return batched
+
+
+def make_cuda_lnprob_and_grad(ctx: LFContext, layout: ThetaLayout):
+    """(C, D) -> (C,) lnprob that autograd differentiates through the
+    value+gradient kernels — one kernel launch per value-and-gradient
+    evaluation (the counterpart of ``make_pallas_lnprob_and_grad``,
+    ``pallas_lnlike.py:1771``, single family, both completeness modes).
+
+    :func:`_features` (with autograd on), one
+    :class:`_LnlikeOfFeats` call, then the box mask: an out-of-box row
+    gives -inf and a gradient of exactly 0 (the clamp keeps its features
+    and their gradient finite, so the mask's zero cotangent stays 0).
+    Kernel dtype and library loading as :func:`make_cuda_lnprob`.
+    """
+    device = ctx.lum.device
+    if device.type == "cuda":
+        from lumfuncmcmc_tpu_torch.ops._build import load_library
+        load_library()
+    kdtype = torch.float32 if device.type == "cuda" else ctx.lum.dtype
+    data = prepare_cuda_data(ctx, layout.fix_comp, layout.fcmin,
+                             dtype=kdtype)
+    lo, hi = layout.bounds_arrays(ctx.lum.dtype, device)
+    vg = fixed_lnlike_vg if layout.fix_comp else free_lnlike_vg
+
+    def batched(thetas):
+        feats = _features(thetas, data, layout, kdtype)
+        lnl = _LnlikeOfFeats.apply(feats, data, vg).to(thetas.dtype)
         return torch.where(in_box(thetas, lo, hi), lnl,
                            torch.full_like(lnl, -math.inf))
 

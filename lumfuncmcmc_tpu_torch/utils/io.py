@@ -4,8 +4,8 @@
 - :func:`read_catalog` reads whitespace-delimited ascii with a header
   row (``Field``, ``z``, ``{line}_flux[_e]`` in 1e-17 cgs or
   ``{line}_lum[_e]``), applies the per-field completeness cut and
-  builds the per-source field index; plain tables go through the JAX
-  package's jax-free C reader (``lumfuncmcmc_tpu.native``).
+  builds the per-source field index; plain tables go through the C
+  reader of :mod:`lumfuncmcmc_tpu_torch.native`.
 - :func:`write_fixed_width_two_line` / :func:`read_fixed_width_two_line`
   produce/consume astropy's ``ascii.fixed_width_two_line`` format.
 """
@@ -17,7 +17,7 @@ from typing import Optional
 
 import numpy as np
 
-from lumfuncmcmc_tpu.config import LFConfig
+from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.ops.completeness import fleming_root_logf_np
 
 
@@ -49,13 +49,13 @@ def read_ascii_table(path: str) -> dict:
     '#' are skipped.
 
     Plain tables go through the native C parser when available
-    (``lumfuncmcmc_tpu.native`` — ~10x the Python reader on a 1e6-row
-    catalog, bitwise-identical floats); fixed-width layouts and files
+    (:mod:`lumfuncmcmc_tpu_torch.native` — ~10x the Python reader on a
+    1e6-row catalog, bitwise-identical floats); fixed-width layouts and files
     the C parser declines (mixed-type columns) fall through to the
     Python path below.
     """
     if not _looks_fixed_width(path):
-        from lumfuncmcmc_tpu.native import read_table_fast
+        from lumfuncmcmc_tpu_torch.native import read_table_fast
         fast = read_table_fast(path)
         if fast is not None:
             return fast

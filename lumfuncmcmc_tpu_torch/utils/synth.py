@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from lumfuncmcmc_tpu.config import LFConfig
+from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.cosmology import (
     build_cosmo_arrays, SQARCSEC_PER_SR)
 from lumfuncmcmc_tpu_torch.ops.completeness import (

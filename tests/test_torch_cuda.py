@@ -13,6 +13,7 @@ from lumfuncmcmc_tpu_torch import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.likelihood import ThetaLayout, sample_init
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
+from lumfuncmcmc_tpu_torch.samplers import nuts
 from lumfuncmcmc_tpu_torch.samplers.affine import run_stretch
 from lumfuncmcmc_tpu_torch.utils.synth import (
     apply_completeness_cut, make_catalog)
@@ -46,17 +47,14 @@ def test_kernel_matches_plain_version(device, fix_comp, w):
     ctx = _context(cfg, device)
     data = cl.prepare_cuda_data(ctx, fix_comp, cfg.fcmin)
     gen = torch.Generator(device=device).manual_seed(w)
-    th = cl._clamp_flim(sample_init(gen, layout, w, dtype=torch.float32,
-                                    device=device), layout)
+    feats = cl._features(sample_init(gen, layout, w, dtype=torch.float32,
+                                     device=device), data, layout,
+                         torch.float32)
     before = (cl.free_lnlike.launches, cl.fixed_lnlike.launches)
     if fix_comp:
-        feats = cl._features_fixed(th, ctx, layout, data.lref,
-                                   torch.float32)
         got = cl.fixed_lnlike(feats, data)
         ref = cl.fixed_lnlike_reference(feats, data)
     else:
-        feats = cl._features_free(th, layout, data.lref, data.fcmin,
-                                  torch.float32)
         got = cl.free_lnlike(feats, data)
         ref = cl.free_lnlike_reference(feats, data)
     after = (cl.free_lnlike.launches, cl.fixed_lnlike.launches)
@@ -102,3 +100,96 @@ def test_step_loop_never_synchronises_with_the_host(device):
     assert chain.shape == (25, 32, layout.ndim)
     assert torch.isfinite(lnps[-1]).all()
     assert 0 < float(acc.sum()) < 25 * 32
+
+
+def _grad_close(gp, gref, rtol=2e-3):
+    """The JAX package's gradient gate: relative per component, floored
+    at 1e-3 of the row's largest component."""
+    denom = np.maximum(np.abs(gref),
+                       1e-3 * np.abs(gref).max(axis=-1, keepdims=True))
+    np.testing.assert_array_less(np.abs(gp - gref) / denom, rtol)
+
+
+def _vg_feats(cfg, layout, ctx, data, w, device):
+    gen = torch.Generator(device=device).manual_seed(w)
+    lo, hi = layout.bounds_arrays(torch.float32, device)
+    th = sample_init(gen, layout, w, dtype=torch.float32, device=device)
+    th = 0.7 * (lo + hi) / 2 + 0.3 * th         # where a chain moves
+    return cl._features(th, data, layout, torch.float32)
+
+
+@pytest.mark.parametrize("fix_comp", [False, True])
+@pytest.mark.parametrize("w", [1, 13, 256])
+def test_vg_kernel_matches_plain_version(device, fix_comp, w):
+    """Each value+gradient kernel equals its plain version in float32 on
+    the card: values rtol 1e-4, gradient columns by ``_grad_close``."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=41, fix_comp=fix_comp)
+    layout = ThetaLayout.from_config(cfg)
+    ctx = _context(cfg, device)
+    data = cl.prepare_cuda_data(ctx, fix_comp, cfg.fcmin)
+    feats = _vg_feats(cfg, layout, ctx, data, w, device)
+    kernel = cl.fixed_lnlike_vg if fix_comp else cl.free_lnlike_vg
+    plain = (cl.fixed_lnlike_vg_reference if fix_comp
+             else cl.free_lnlike_vg_reference)
+    n0 = kernel.launches
+    got = kernel(feats, data).cpu().numpy()
+    ref = plain(feats, data).cpu().numpy()
+    assert kernel.launches == n0 + 1
+    assert got.shape == (w, 1 + feats.shape[1])
+    np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=1e-4)
+    _grad_close(got[:, 1:], ref[:, 1:])
+
+
+def test_vg_wrapper_rejects_what_the_kernel_cannot_take(device):
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=11)
+    ctx = _context(cfg, device)
+    data = cl.prepare_cuda_data(ctx, False, cfg.fcmin)
+    fixed = cl.prepare_cuda_data(ctx, True)
+    with pytest.raises(TypeError, match="float32"):
+        cl.free_lnlike_vg(torch.zeros((4, 16), device=device,
+                                      dtype=torch.float64), data)
+    with pytest.raises(ValueError, match="features must be"):
+        cl.free_lnlike_vg(torch.zeros((4, 15), device=device), data)
+    with pytest.raises(ValueError, match="features must be"):
+        cl.fixed_lnlike_vg(torch.zeros((4, 6), device=device), fixed)
+    with pytest.raises(ValueError, match="launch range"):
+        cl.fixed_lnlike_vg(torch.zeros((65536, 5), device=device), fixed)
+    cpu_data = cl.prepare_cuda_data(_context(cfg, "cpu"), False, cfg.fcmin)
+    with pytest.raises(ValueError, match="grid data on cpu"):
+        cl.free_lnlike_vg(torch.zeros((4, 16), device=device), cpu_data)
+
+
+def test_nuts_transition_through_the_kernels_matches_plain(device,
+                                                            monkeypatch):
+    """One float32 NUTS transition of 8 chains through the value+gradient
+    kernel equals the same transition through the plain versions on the
+    card, given the same numbers (1e-4)."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=41)
+    layout = ThetaLayout.from_config(cfg)
+    ctx = _context(cfg, device)
+    lo, hi = layout.bounds_arrays(torch.float32, device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    th = 0.8 * (lo + hi) / 2 + 0.2 * sample_init(
+        gen, layout, 8, dtype=torch.float32, device=device)
+    rands = nuts.generator_draw(gen, 8, layout.ndim, 5, torch.float32,
+                                device)("s", 0)
+    results = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(cl, "free_lnlike_vg",
+                                cl.free_lnlike_vg_reference)
+        lnp_y, _, to_y = nuts.make_unconstrained(
+            cl.make_cuda_lnprob_and_grad(ctx, layout), lo, hi)
+        n0 = cl.free_lnlike_vg.launches if not plain else 0
+        counts = nuts.NutsCounts()
+        out = nuts._nuts_step(nuts.value_and_grad(lnp_y), 5, 0.02, rands,
+                              to_y(th), counts)
+        if not plain:
+            assert (cl.free_lnlike_vg.launches - n0
+                    == counts.transitions + counts.leapfrogs)
+        results.append([o.cpu().numpy() for o in out])
+    (yk, vk, ak, dk), (yp, vp, ap, dp) = results
+    np.testing.assert_array_equal(dk, dp)
+    np.testing.assert_allclose(yk, yp, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(vk, vp, rtol=1e-4)
+    np.testing.assert_allclose(ak, ap, rtol=1e-4, atol=1e-4)

@@ -1,11 +1,13 @@
 """The ``fit`` CLI of both packages on one synthetic catalog.
 
-The same command line runs through the JAX package and the PyTorch port:
-both write the same artifact files with the same columns, and every
-posterior median of the port lies within 0.5 posterior sd of the JAX
-package's. The chains differ (the frameworks draw different random
-numbers) but are long enough (~700 effective samples) that an honest
-port sits ~0.1 sd away.
+The same command line runs through the JAX package and the PyTorch port
+(``--device cpu`` added for the port, whose default is the card): both
+write the same artifact files with the same columns, and every posterior
+median of the port lies within 0.5 posterior sd of the JAX package's.
+The chains differ (the frameworks draw different random numbers) but are
+long enough (~700 effective samples) that an honest port sits ~0.1 sd
+away. ``--sampler nuts`` is checked against the port's own stretch run
+of the same command.
 """
 
 import json
@@ -54,7 +56,7 @@ def _compare(tmp_path, extra, port_extra=()):
     extra = extra + ["--config", cfg_path]
     jdir, jfiles = _run(jax_main, str(tmp_path / "jax"), extra)
     tdir, tfiles = _run(port_main, str(tmp_path / "port"),
-                        extra + list(port_extra))
+                        extra + ["--device", "cpu"] + list(port_extra))
     assert tfiles == jfiles
     assert f"fitposterior_{BASE}.dat" in tfiles
     for name in tfiles:
@@ -98,7 +100,7 @@ def test_port_triangle_plot_resume_and_unported_flags(tmp_path,
     pytest.importorskip("matplotlib")
     monkeypatch.chdir(tmp_path)
     args = ["fit", "--synthetic", "200", "-mcf", "0.5", "-ns", "40", "-nw",
-            "16", "--size-ln", "11", "-o", "p.dat"]
+            "16", "--size-ln", "11", "-o", "p.dat", "--device", "cpu"]
     assert port_main(args) == 0
     png = tmp_path / "LFMCMCOut" / "triangle_p_nb50_nw16_ns40_mcf50.png"
     assert png.exists()
@@ -106,9 +108,60 @@ def test_port_triangle_plot_resume_and_unported_flags(tmp_path,
     # an existing fitposterior: reload and replot, no sampling
     assert port_main(args) == 0
     assert png.stat().st_mtime_ns >= mtime
-    for flag in (["--map"], ["--sampler", "nuts"], ["--min-ess", "100"],
-                 ["--ensembles", "2"], ["--exact-bounds"]):
+    for flag in (["--map"], ["--min-ess", "100"], ["--ensembles", "2"],
+                 ["--exact-bounds"], ["--sampler", "nuts", "--nuts-pooled"],
+                 ["--sampler", "nuts", "--min-ess", "100"],
+                 ["--sampler", "nuts", "--checkpoint-every", "5"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_main(args + flag)
     with pytest.raises(SystemExit, match="not ported yet"):
         port_main(["vmax", "--synthetic", "10"])
+    with pytest.raises(SystemExit, match="--nchains must be >= 1"):
+        # a new output name: an existing fitposterior skips the sampler
+        port_main([a.replace("p.dat", "q.dat") for a in args]
+                  + ["--nchains", "0"])
+
+
+NUTS_ARGS = ["--sampler", "nuts", "-fc", "--device", "cpu", "--size-ln",
+             "21", "--synthetic", "300", "-ns", "150", "--nchains", "4",
+             "-o", "t.dat"]
+NUTS_BASE = "t_nb50_nw100_ns150_mcf0"
+
+
+def test_nuts_cli_matches_the_stretch_run(tmp_path):
+    """``fit --sampler nuts`` writes the stretch run's artifact names and
+    columns, and its medians lie within 1 posterior sd of the stretch
+    run's (same command without ``--sampler nuts``)."""
+    cfg_path = _no_plot_config(tmp_path / "cfg.json")
+    runs = {}
+    for name, argv in (("nuts", NUTS_ARGS),
+                       ("stretch", NUTS_ARGS[2:])):
+        workdir = str(tmp_path / name)
+        os.makedirs(workdir)
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            assert port_main(["fit"] + argv + ["--config", cfg_path]) == 0
+        finally:
+            os.chdir(cwd)
+        out = os.path.join(workdir, "LFMCMCOut")
+        runs[name] = (out, sorted(os.listdir(out)))
+    (ndir, nfiles), (sdir, sfiles) = runs["nuts"], runs["stretch"]
+    assert nfiles == sfiles
+    assert f"fitposterior_{NUTS_BASE}.dat" in nfiles
+    for name in nfiles:
+        if name.endswith(".dat"):
+            assert list(read_fixed_width_two_line(
+                os.path.join(ndir, name))) == list(read_fixed_width_two_line(
+                    os.path.join(sdir, name))), name
+    npost, spost = (read_fixed_width_two_line(
+        os.path.join(d, f"fitposterior_{NUTS_BASE}.dat"))
+        for d in (ndir, sdir))
+    assert len(npost["Ln Prob"]) == 150 * 4
+    assert np.isfinite(npost["Ln Prob"]).all()
+    for col in spost:
+        if col == "Ln Prob":
+            continue
+        gap = (abs(np.median(npost[col]) - np.median(spost[col]))
+               / np.std(spost[col]))
+        assert gap < 1.0, (col, gap)

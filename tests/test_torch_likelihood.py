@@ -31,6 +31,7 @@ from lumfuncmcmc_tpu_torch.models import likelihood as tlik
 from lumfuncmcmc_tpu_torch.models.context import (
     CTX_FIELDS, context_from_arrays)
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
+from lumfuncmcmc_tpu_torch.ops.schechter import LN10
 
 torch.set_num_threads(2)
 
@@ -166,26 +167,34 @@ def test_plain_kernel_versions_match_pallas_interpret_f32(case):
 
 def test_feature_maps_and_packing_match_pallas():
     """Feature rows and packed cell arrays equal the JAX package's
-    (float32 there, float64 here) at float32 rounding."""
+    (float32 there, float64 here) at float32 rounding; the port's
+    luminosities ``g_a`` and feature ``lA`` are the JAX package's less
+    ``LN10 * lref``."""
     from lumfuncmcmc_tpu.ops import pallas_lnlike as pl
     cfg, jctx, jlayout, arrays = _setup("free", size_ln=13, n=150)
     layout = tlik.ThetaLayout.from_config(cfg)
     ctx = context_from_arrays(arrays, "cpu", torch.float64)
     data = cl.prepare_cuda_data(ctx, False, cfg.fcmin)
     jdata = pl.prepare_pallas_data(jctx, False, flat=True)
+    shift = {"g_a": LN10 * data.lref}
     for name in ("g_logf", "g_a", "g_p", "g_r", "g_w"):
         packed = np.asarray(getattr(jdata, name))[0]
         parts = [packed[o:o + (data.grid_off[f + 1] - data.grid_off[f])]
                  for f, (o, _) in enumerate(jdata.grid_rows)]
-        np.testing.assert_allclose(getattr(data, name).numpy(),
-                                   np.concatenate(parts), rtol=1e-6)
+        np.testing.assert_allclose(
+            getattr(data, name).numpy() + shift.get(name, 0.0),
+            np.concatenate(parts), rtol=1e-6)
     th = np.abs(_thetas(layout, 9, 2))
-    feats = cl._features_free(cl._clamp_flim(torch.as_tensor(th), layout),
-                              layout, data.lref, data.fcmin, torch.float64)
+    feats = cl._features(torch.as_tensor(th), data, layout, torch.float64)
     want = np.asarray(pl._features_free(
         pl._clamp_flim(jnp.asarray(th), jlayout), jlayout, jdata.lref,
         cfg.fcmin))
-    np.testing.assert_allclose(feats.numpy(), want, rtol=1e-5)
+    got = feats.numpy()
+    np.testing.assert_allclose(np.delete(got, 3, 1), np.delete(want, 3, 1),
+                               rtol=1e-5)
+    # lA: the same absolute allowance as rtol 1e-5 on JAX's LN10 * Lstar
+    np.testing.assert_allclose(got[:, 3] + LN10 * data.lref, want[:, 3],
+                               rtol=1e-5)
     # every cell and source appears in exactly one chunk
     ch = data.chunks.numpy()
     assert (ch[:, 2] - ch[:, 1] <= cl.CHUNK_CELLS).all()

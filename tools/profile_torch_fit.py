@@ -3,6 +3,7 @@
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/profile_torch_fit.py [--steps 1000] [--profile-steps 100]
+    python3 tools/profile_torch_fit.py --sampler nuts [--transitions 20]
 
 The catalog and model are the smoke test's flagship ones (``LFConfig``
 defaults with ``min_comp_frac=0.5``: 5 fields, 100 walkers, 2000
@@ -10,7 +11,12 @@ synthetic sources, float32 on the card). For each engine and grid it
 times ``run_stretch`` on the model's ``lnprob_batch`` (host clock, device
 sync at both ends, after warm-up), then the sampler loop alone with a
 trivial lnprob, one W=50 lnprob call, and a ``torch.profiler`` trace of
-the flagship loop (device time, launches, the kernels' share). Prints
+the flagship loop (device time, launches, the kernels' share). With
+``--sampler nuts`` it times NUTS instead (8 chains, free completeness,
+trapz-101, the value+gradient kernel): ``--transitions`` transitions
+with the step size and mass a 100-transition warmup adapts, then two
+more under ``torch.profiler`` — ms per value+gradient call, leapfrogs
+per transition, the card's busy share and the kernel's device time. Prints
 one line per measurement and a JSON summary last. Imports only the port.
 """
 
@@ -30,6 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from lumfuncmcmc_tpu_torch import LFConfig  # noqa: E402
 from lumfuncmcmc_tpu_torch.models.model import LumFuncModel  # noqa: E402
+from lumfuncmcmc_tpu_torch.samplers import nuts  # noqa: E402
 from lumfuncmcmc_tpu_torch.samplers.affine import run_stretch  # noqa: E402
 from lumfuncmcmc_tpu_torch.utils.synth import (  # noqa: E402
     apply_completeness_cut, make_catalog)
@@ -62,10 +69,92 @@ def _attr(evt, *names):
     return 0.0
 
 
+def _device_us(prof, names=()):
+    """Total self device time (us) of the profiled window, and per kernel
+    name in ``names`` its calls and device time."""
+    dev_us, launches, kern = 0.0, 0, {}
+    for evt in prof.key_averages():
+        if evt.key.startswith("cudaLaunch"):
+            launches += evt.count
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue            # host ops also carry their kernels' time
+        self_dev = _attr(evt, "self_device_time_total", "self_cuda_time_total")
+        dev_us += self_dev
+        name = evt.key.split("(")[0]
+        if name in names:
+            kern[name] = {"calls": evt.count, "device_us": self_dev}
+    return dev_us, launches, kern
+
+
+def profile_nuts(cat, dev, smi, transitions, profiled=2):
+    """NUTS on the card: ``transitions`` transitions of 8 chains with the
+    step size and diagonal mass of a 100-transition warmup, timed (host
+    clock, synced), then ``profiled`` more under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = LFConfig(min_comp_frac=0.5, nwalkers=NWALKERS, sampler="nuts")
+    model = _model(cfg, cat, dev)
+    lo, hi = model.layout.bounds_arrays(torch.float32, dev)
+    lnp_y, _, to_y = nuts.make_unconstrained(model._nuts_gradient_post(),
+                                             lo, hi)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    start = 0.8 * (lo + hi) / 2 + 0.2 * model._initial_positions(gen)[:8]
+    warm = nuts.run_nuts(lnp_y, to_y(start), gen, num_warmup=100,
+                         num_samples=1)
+    scale, eps = warm.scale, warm.eps
+    y = warm.samples[-1] / scale
+    vg = nuts.value_and_grad(lambda yp: lnp_y(yp * scale))
+    draw = nuts.generator_draw(gen, 8, y.shape[1], 8, torch.float32, dev)
+    out = {"card": smi, "mode": "nuts"}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for label, n in (("timed", transitions), ("profiled", profiled)):
+        counts = nuts.NutsCounts()
+        torch.cuda.synchronize()
+        if label == "profiled":
+            prof.__enter__()
+        t0 = time.perf_counter()
+        for t in range(n):
+            y, _, _, _ = nuts._nuts_step(vg, 8, eps, draw("s", t), y, counts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if label == "profiled":
+            prof.__exit__(None, None, None)
+        calls = counts.transitions + counts.leapfrogs
+        out[label] = {"transitions": n, "wall_s": wall, "vg_calls": calls,
+                      "ms_per_vg_call": wall / calls * 1e3,
+                      "leapfrogs_per_transition":
+                          counts.leapfrogs / counts.transitions,
+                      "host_syncs": counts.syncs}
+        print(f"NUTS {label}: {n} transitions, {calls} value+gradient "
+              f"calls in {wall:.4f} s ({wall / calls * 1e3:.4f} ms per "
+              f"call, {counts.leapfrogs / counts.transitions:.2f} batched "
+              f"leapfrogs per transition, step size {float(eps):.4g})",
+              flush=True)
+    dev_us, launches, kern = _device_us(
+        prof, ("free_vg_partials", "free_vg_finish"))
+    p_wall, p_calls = out["profiled"]["wall_s"], out["profiled"]["vg_calls"]
+    unprof = out["timed"]["ms_per_vg_call"] * p_calls / 1e3
+    out["profile"] = {
+        "device_s": dev_us / 1e6, "busy_profiled": dev_us / 1e6 / p_wall,
+        "busy_unprofiled": dev_us / 1e6 / unprof,
+        "cudaLaunchKernel": launches,
+        "launches_per_vg_call": launches / p_calls, "kernels": kern}
+    print(f"NUTS profiler: device time {dev_us / 1e3:.3f} ms over "
+          f"{p_calls} value+gradient calls, busy "
+          f"{100 * dev_us / 1e6 / p_wall:.2f}% of the profiled wall and "
+          f"{100 * dev_us / 1e6 / unprof:.2f}% of the unprofiled one; "
+          f"{launches} cudaLaunchKernel calls ({launches / p_calls:.1f} "
+          f"per value+gradient call); kernels {kern}")
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--profile-steps", type=int, default=100)
+    ap.add_argument("--sampler", choices=["stretch", "nuts"],
+                    default="stretch")
+    ap.add_argument("--transitions", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("this profile needs a CUDA device")
@@ -79,6 +168,9 @@ def main(argv=None):
     base = LFConfig(min_comp_frac=0.5, nwalkers=NWALKERS)
     cat = apply_completeness_cut(
         make_catalog(base, n_target=NSYNTH, seed=base.seed), base)
+    if args.sampler == "nuts":
+        return profile_nuts(cat, dev, smi[0] if smi else None,
+                            args.transitions)
     cases = [("kernel engine, trapz-101", base.replace(use_pallas=True)),
              ("eager engine, trapz-101", base.replace(use_pallas=False)),
              ("kernel engine, gauss-32",
@@ -133,17 +225,7 @@ def main(argv=None):
         run_stretch(lnprob, pos0, gen, args.profile_steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us, launches, kern = 0.0, 0, {}
-    for evt in prof.key_averages():
-        if evt.key.startswith("cudaLaunch"):
-            launches += evt.count
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue            # host ops also carry their kernels' time
-        self_dev = _attr(evt, "self_device_time_total", "self_cuda_time_total")
-        dev_us += self_dev
-        name = evt.key.split("(")[0]
-        if name in ("free_partials", "finish"):
-            kern[name] = {"calls": evt.count, "device_us": self_dev}
+    dev_us, launches, kern = _device_us(prof, ("free_partials", "finish"))
     unprof = out["step_ms"][cases[0][0]] * args.profile_steps / 1e3
     out["profile"] = {
         "steps": args.profile_steps, "wall_s": wall, "device_s": dev_us / 1e6,
