@@ -8,29 +8,35 @@ Phases, in order; any failure ends the run with a nonzero exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
    ``nvidia-smi``'s name and power limit;
-2. build the kernels of ``lumfuncmcmc_tpu_torch/csrc/lnlike.cu`` from
-   source (one ``nvcc``);
+2. build the kernels of ``lumfuncmcmc_tpu_torch/csrc/`` from source (one
+   ``nvcc`` over ``lnlike.cu`` and ``lnlike_z.cu``);
 3. each value kernel against its plain PyTorch version on the card
    (float32, rtol 1e-4) and both against the float64 eager engine (rtol
    5e-4), on the fits' own catalog (``fit --synthetic 2000``'s) at
    trapz-101 and gauss-32 (``free_lnlike``) and trapz-201
-   (``fixed_lnlike``), for the batches the fits give them (50 and 100
-   walkers; 8 chains for the NUTS start guard, 300 x 8 rows for its Ln
-   Prob recompute) and 13, with out-of-box and negative-Flim thetas;
-   kernel and plain times;
-4. each value+gradient kernel (``free_lnlike_vg``, ``fixed_lnlike_vg``)
-   the same way at W = 1, 8 and 256 (values rtol 1e-4, gradients by the
-   JAX package's ``_grad_close`` rule at 2e-3), and the theta-level
-   value+gradient against float64 eager autograd (5e-4, 2e-3);
+   (``fixed_lnlike``, ``z_lnlike``), for the batches the fits give them
+   (50 and 100 walkers; 8 chains for the NUTS start guard, samples x 8
+   rows for its Ln Prob recompute) and 13, with out-of-box thetas, a
+   negative Flim (free) and a row on the ``sch_al`` bound (z); kernel
+   and plain times;
+4. each value+gradient kernel (``free_lnlike_vg``, ``fixed_lnlike_vg``,
+   ``z_lnlike_vg``) the same way at W = 1, 8 and 256 (values rtol 1e-4,
+   gradients by the JAX package's ``_grad_close`` rule at 2e-3), and the
+   theta-level value+gradient against float64 eager autograd (5e-4,
+   2e-3), the z model under both ``z_param``s;
 5. the port's ``fit`` CLI end to end (100 walkers x 2000 steps on a
    2000-source synthetic catalog), free and fixed completeness: the JAX
    CLI's artifact set, finite Ln Prob, a sane acceptance fraction, and
    launch counters proving the sampler went through the kernels;
-6. ``fit --sampler nuts`` on the same catalog (8 chains, 200 warmup, 300
+6. ``fit --sampler nuts`` on the same catalog (8 chains, 200 warmup, 200
    samples), free and fixed: artifacts, divergences < 5%, mean
    accept-stat in (0.6, 0.97), max R-hat < 1.1, the logL* median within
    3 posterior sd of the stretch fit's, and value+gradient launches equal
-   to the sampler's transitions + leapfrog steps.
+   to the sampler's transitions + leapfrog steps;
+7. ``fitz`` the same way as 5 (into ``LFMCMCzOut/``, the LF matrix
+   columns of ``bestfitLF``, the middle pivots constraining: posterior sd
+   of L2 and phi2 < 0.8) and ``fitz --sampler nuts`` as 6 at 300
+   samples, its L2 median held to the stretch ``fitz``'s.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after. Prints the kernel summary as one JSON line, then the
@@ -48,6 +54,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -57,6 +64,9 @@ from lumfuncmcmc_tpu_torch.cli.main import main as cli_main
 from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.likelihood import (
     ThetaLayout, in_box, make_lnprob, sample_init)
+from lumfuncmcmc_tpu_torch.models.likelihood_z import (
+    ThetaLayoutZ, in_box_z, make_lnprob_z)
+from lumfuncmcmc_tpu_torch.models.model import select_samples
 from lumfuncmcmc_tpu_torch.ops import _build
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
 from lumfuncmcmc_tpu_torch.utils.io import read_fixed_width_two_line
@@ -67,11 +77,12 @@ RTOL_KERNEL = 1e-4   # f32 sums of <= 2e5 terms in another order
 RTOL_F64 = 5e-4      # the JAX package's Pallas-vs-f64 bar
 RTOL_GRAD = 2e-3     # the JAX package's gradient bar (_grad_close)
 NSTEPS, NWALKERS, NSYNTH = 2000, 100, 2000
-NUTS_STEPS, NUTS_CHAINS, NUTS_WARMUP = 300, 8, 200
-SOURCE = "lumfuncmcmc_tpu_torch/csrc/lnlike.cu"
+NUTS_CHAINS, NUTS_WARMUP = 8, 200
+NUTS_STEPS = {"single": 200, "z": 300}      # samples, by model family
+CSRC = "lumfuncmcmc_tpu_torch/csrc/"
 TPU_FILE = "lumfuncmcmc_tpu/ops/pallas_lnlike.py"
 KERNELS = ("free_lnlike", "fixed_lnlike", "free_lnlike_vg",
-           "fixed_lnlike_vg")
+           "fixed_lnlike_vg", "z_lnlike", "z_lnlike_vg")
 # The card's peaks for the bound (H100 SXM at 700 W): float32 outside the
 # tensor cores, and HBM.
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -80,8 +91,13 @@ PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
 # kernels' free grid cell 23 and unmasked source 23 (a masked one 1),
 # fixed grid cell 8; the value+gradient kernels' free grid cell 46 and
 # unmasked source 45, fixed grid cell 12.
-OPS = {"free_lnlike": (23, 23), "fixed_lnlike": (8, 0),
-       "free_lnlike_vg": (46, 45), "fixed_lnlike_vg": (12, 0)}
+# From csrc/lnlike_z.cu, a third count per (z node, band of L rows) for the
+# hoisted node quantities: z_lnlike grid cell 7, unmasked source 16, node
+# 12; z_lnlike_vg grid cell 11, unmasked source 31, node 25 (the
+# end-of-column contraction included).
+OPS = {"free_lnlike": (23, 23, 0), "fixed_lnlike": (8, 0, 0),
+       "free_lnlike_vg": (46, 45, 0), "fixed_lnlike_vg": (12, 0, 0),
+       "z_lnlike": (7, 16, 12), "z_lnlike_vg": (11, 31, 25)}
 
 
 def fail(msg):
@@ -171,18 +187,26 @@ def _bound(kname, data, w):
     """Least time the card could take for one call of ``kname`` on these
     inputs: the larger of bytes (each input read once, each output
     written once) over HBM bandwidth and float32 operations (this data's
-    cells and unmasked sources) over the float32 peak.
+    cells, unmasked sources and, for the z kernels, z nodes per band) over
+    the float32 peak.
     Returns ``(bound_ms, bound_by, bytes, ops)``."""
-    fixed = kname.startswith("fixed")
-    nfeat = 5 if fixed else 6 + 2 * data.nfields
+    fam = kname.split("_")[0]
     ncell = data.g_a.numel()
-    nsrc = 0 if fixed else data.s_a.numel()
-    nvalid = 0 if fixed else int((data.s_mask > 0).sum())
+    nsrc = 0 if fam == "fixed" else data.s_a.numel()
+    nvalid = 0 if fam == "fixed" else int((data.s_mask > 0).sum())
+    if fam == "z":
+        nfeat, nf, sz = 7, data.shape[0], data.shape[2]
+        nnode = int((data.chunks[:, 3] == 0).sum()) * sz
+        ndata = 3 * ncell + 2 * nf * sz + 5 * nsrc
+    else:
+        nfeat = 5 if fam == "fixed" else 6 + 2 * data.nfields
+        nnode = 0
+        ndata = (3 if fam == "fixed" else 5) * ncell + 6 * nsrc
     out_cols = (1 + nfeat) if kname.endswith("_vg") else 1
-    nbytes = 4 * (w * nfeat + (3 if fixed else 5) * ncell + 6 * nsrc
-                  + w * out_cols) + data.chunks.numel() * 4
-    per_cell, per_src = OPS[kname]
-    ops = w * (ncell * per_cell + nvalid * per_src + (nsrc - nvalid))
+    nbytes = 4 * (w * nfeat + ndata + w * out_cols) + data.chunks.numel() * 4
+    per_cell, per_src, per_node = OPS[kname]
+    ops = w * (ncell * per_cell + nvalid * per_src + (nsrc - nvalid)
+               + nnode * per_node)
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_OPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
@@ -194,7 +218,11 @@ def _central_thetas(cfg, layout, w, gen, dev):
     |lnL| ~ 1e12, where float32's spacing alone is ~6e4, so the absolute
     error reported for a kernel is taken here."""
     vals = {"Lstar": cfg.Lstar, "phistar": cfg.phistar,
-            "sch_al": cfg.sch_al, "alpha": cfg.alpha}
+            "sch_al": cfg.sch_al, "alpha": cfg.alpha,
+            "L1": cfg.Lstar, "L2": cfg.Lstar, "L3": cfg.Lstar,
+            "phi1": cfg.phistar, "phi2": cfg.phistar, "phi3": cfg.phistar,
+            "Lmid": cfg.Lstar, "Lslope": 0.0, "Lcurv": 0.0,
+            "pmid": cfg.phistar, "pslope": 0.0, "pcurv": 0.0}
     c = torch.tensor([cfg.Flim[int(n.split("_")[1])]
                       if n.startswith("Flim_") else vals[n]
                       for n in layout.names], dtype=torch.float64,
@@ -205,33 +233,85 @@ def _central_thetas(cfg, layout, w, gen, dev):
     return torch.minimum(torch.maximum(th, lo), hi)
 
 
+def _in_rows(fn, th, rows):
+    """``fn`` over ``th`` in pieces of ``rows`` rows: the float64 eager
+    engine holds several (rows, cells) temporaries at once."""
+    return torch.cat([fn(th[i:i + rows]) for i in range(0, len(th), rows)])
+
+
 def _cases(dev, suffix):
-    """The checked shapes: (kernel name, grid, cfg, layout, float32 and
-    float64 contexts, the float32 kernel data), on the catalog the fits
-    below build (``fit --synthetic NSYNTH``, cli/common.py), so each
-    kernel sees the sources and chunks the fits give it."""
+    """The checked shapes, on the catalog the fits below build (``fit
+    --synthetic NSYNTH``, cli/common.py), so each kernel sees the sources
+    and chunks the fits give it. Each case carries its kernel's name, grid,
+    config, layout, float32 and float64 contexts and float32 kernel data,
+    and its family's feature map, float64 eager lnprob, prior test and
+    kernel-path lnprob makers."""
     base = LFConfig(min_comp_frac=0.5)
     cat = apply_completeness_cut(
         make_catalog(base, n_target=NSYNTH, seed=base.seed), base)
     kw = dict(z=cat["z"], flux=cat["flux"], flux_e=cat["flux_e"],
               field_id=cat["field_id"], device=dev)
+    ctxs = {}       # z_param changes the theta map only, not the context
     for fam, grid, cfg in (
             ("free", "trapz-101", base),
             ("free", "gauss-32", base.replace(quadrature="gauss")),
-            ("fixed", "trapz-201", base.replace(fix_comp=True))):
-        layout = ThetaLayout.from_config(cfg)
-        _, ctx32 = build_context(cfg, dtype=torch.float32, **kw)
-        _, ctx64 = build_context(cfg, dtype=torch.float64, **kw)
-        data = cl.prepare_cuda_data(ctx32, layout.fix_comp, layout.fcmin,
-                                    dtype=torch.float32)
-        yield f"{fam}_lnlike{suffix}", grid, cfg, layout, ctx32, ctx64, data
+            ("fixed", "trapz-201", base.replace(fix_comp=True)),
+            ("z", "trapz-201", base.replace(fix_comp=True)),
+            ("z", "trapz-201 natural",
+             base.replace(fix_comp=True, z_param="natural"))):
+        if cfg.z_param == "natural" and not suffix:
+            continue    # z_param changes the theta map: a theta-level case
+        key = (cfg.fix_comp, cfg.quadrature)
+        if key not in ctxs:
+            ctxs[key] = [build_context(cfg, dtype=dt, **kw)[1]
+                         for dt in (torch.float32, torch.float64)]
+        ctx32, ctx64 = ctxs[key]
+        if fam == "z":
+            layout = ThetaLayoutZ.from_config(cfg)
+            case = SimpleNamespace(
+                data=cl.prepare_cuda_z_data(ctx32, layout,
+                                            dtype=torch.float32),
+                features=cl._features_z, inside=in_box_z,
+                eager64=make_lnprob_z(ctx64, layout),
+                lnprob32=cl.make_cuda_lnprob_z(ctx32, layout),
+                steps=NUTS_STEPS["z"])
+        else:
+            layout = ThetaLayout.from_config(cfg)
+            case = SimpleNamespace(
+                data=cl.prepare_cuda_data(ctx32, layout.fix_comp,
+                                          layout.fcmin, dtype=torch.float32),
+                features=cl._features, inside=in_box,
+                eager64=make_lnprob(ctx64, layout),
+                lnprob32=cl.make_cuda_lnprob(ctx32, layout),
+                steps=NUTS_STEPS["single"])
+        case.post32 = cl.make_cuda_lnprob_and_grad(
+            ctx32, layout, model="z" if fam == "z" else "single")
+        case.kname, case.fam, case.grid = f"{fam}_lnlike{suffix}", fam, grid
+        case.cfg, case.layout = cfg, layout
+        yield case
+
+
+def _spoil(case, th):
+    """Plant the rows a fit can meet: an out-of-box theta last, and
+    before it a negative Flim (free), a second out-of-box theta (fixed),
+    or a theta on the ``sch_al`` bound, which the z prior keeps (z)."""
+    layout = case.layout
+    th[-1, 0] = layout.hi[0] + 1.0
+    if case.fam == "z":
+        th[-2, 6] = layout.hi[6]
+    elif layout.fix_comp:
+        th[-2, 1] = layout.hi[1] + 0.5
+    else:
+        th[-2, 2 if layout.fix_sch_al else 3] = -1.0
+    return th
 
 
 def phase_kernels(dev):
     """Kernel vs plain version vs float64 eager engine on the card."""
     summary = {}
-    for kname, grid, cfg, layout, ctx32, ctx64, data in _cases(dev, ""):
-        eager64 = make_lnprob(ctx64, layout)
+    for case in _cases(dev, ""):
+        kname, grid, layout, data = (case.kname, case.grid, case.layout,
+                                     case.data)
         lo, hi = layout.bounds_arrays(torch.float64, dev)
         kernel = getattr(cl, kname)
         plain = getattr(cl, kname + "_reference")
@@ -240,18 +320,15 @@ def phase_kernels(dev):
                                          "max_rel_err": 0.0})
 
         def features(th):
-            return cl._features(th.float(), data, layout, torch.float32)
+            return case.features(th.float(), data, layout, torch.float32)
 
         # the stretch fits' batches (half and all of the walkers), the
         # NUTS start guard's (the chains) and its Ln Prob recompute's
         # (samples x chains), and an odd one
-        for w in (50, NWALKERS, 13, NUTS_CHAINS, NUTS_STEPS * NUTS_CHAINS):
+        for w in (50, NWALKERS, 13, NUTS_CHAINS, case.steps * NUTS_CHAINS):
             gen = torch.Generator(device=dev).manual_seed(1000 + w)
-            th = sample_init(gen, layout, w, dtype=torch.float64, device=dev)
-            th[0, 0] = layout.hi[0] + 1.0                 # out of box
-            if not layout.fix_comp:
-                k = 2 if layout.fix_sch_al else 3
-                th[1, k] = -1.0                           # negative Flim
+            th = _spoil(case, sample_init(gen, layout, w,
+                                          dtype=torch.float64, device=dev))
             feats = features(th)
             got = kernel(feats, data)
             ref = plain(feats, data)
@@ -259,12 +336,15 @@ def phase_kernels(dev):
             if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
                 fail(f"{kname} {grid} W={w}: non-finite raw lnlike")
             err_k = _rel(got, ref)
-            ok = in_box(th, lo, hi)
-            want = eager64(th)
+            ok = case.inside(th, lo, hi)
+            if int((~ok).sum()) != (1 if case.fam == "z" else 2):
+                fail(f"{kname} {grid} W={w}: {int((~ok).sum())} rows "
+                     "outside the prior")
+            want = _in_rows(case.eager64, th, 300)
             fin = torch.isfinite(want)
             if not torch.equal(fin, ok):
                 fail(f"{kname} {grid} W={w}: eager -inf pattern is not "
-                     "the box mask")
+                     "the prior mask")
             err_kf = _rel(got.double()[fin], want[fin])
             err_pf = _rel(ref.double()[fin], want[fin])
             print(f"{kname} {grid} W={w}: kernel vs plain max rel "
@@ -278,15 +358,15 @@ def phase_kernels(dev):
                 fail(f"{kname} {grid} W={w}: vs f64 eager "
                      f"{max(err_kf, err_pf):.3e} > {RTOL_F64}")
             # the whole lnprob path gives the same -inf pattern
-            lnp = cl.make_cuda_lnprob(ctx32, layout)(th.float())
-            if not torch.equal(torch.isfinite(lnp), fin):
+            if not torch.equal(torch.isfinite(case.lnprob32(th.float())),
+                               fin):
                 fail(f"{kname} {grid} W={w}: lnprob -inf pattern differs")
             rec["max_rel_err"] = max(rec["max_rel_err"], err_k)
             if w == 50:
-                thc = _central_thetas(cfg, layout, w, gen, dev)
+                thc = _central_thetas(case.cfg, layout, w, gen, dev)
                 fc = features(thc)
                 got_c, ref_c = kernel(fc, data), plain(fc, data)
-                want_c = eager64(thc)
+                want_c = case.eager64(thc)
                 abs_c = float((got_c - ref_c).abs().max())
                 err_c = _rel(got_c, ref_c)
                 err_cf = _rel(got_c.double(), want_c)
@@ -316,15 +396,26 @@ def phase_kernels(dev):
     return summary
 
 
+def _eager_value_and_grad(case, th):
+    """Float64 eager autograd over ``th``, 64 rows at a time."""
+    vals, grads = [], []
+    for i in range(0, len(th), 64):
+        t = th[i:i + 64].clone().requires_grad_(True)
+        v = case.eager64(t)
+        grads.append(torch.autograd.grad(v.sum(), t)[0])
+        vals.append(v.detach())
+    return torch.cat(vals), torch.cat(grads)
+
+
 def phase_vg_kernels(dev):
     """Value+gradient kernels vs their plain versions, and the
     theta-level value+gradient vs float64 eager autograd, on the card."""
     summary = {}
-    for kname, grid, cfg, layout, ctx32, ctx64, data in _cases(dev, "_vg"):
+    for case in _cases(dev, "_vg"):
+        kname, grid, layout, data = (case.kname, case.grid, case.layout,
+                                     case.data)
         kernel = getattr(cl, kname)
         plain = getattr(cl, kname + "_reference")
-        post32 = cl.make_cuda_lnprob_and_grad(ctx32, layout)
-        eager64 = make_lnprob(ctx64, layout)
         lo, hi = layout.bounds_arrays(torch.float64, dev)
         rec = summary.setdefault(kname, {"max_abs_err": 0.0,
                                          "max_rel_err": 0.0,
@@ -333,39 +424,31 @@ def phase_vg_kernels(dev):
             gen = torch.Generator(device=dev).manual_seed(2000 + w)
             # prior draws shrunk toward the box centre, where chains
             # move (the JAX package's vg tests take the same thetas);
-            # from W = 8 on, the last two rows are an out-of-box theta
-            # and a negative Flim (fixed completeness: a second
-            # out-of-box theta)
+            # from W = 8 on, the last two rows are _spoil's
             th = 0.7 * (lo + hi) / 2 + 0.3 * sample_init(
                 gen, layout, w, dtype=torch.float64, device=dev)
             th = th.float().double()    # both paths get the same thetas
             if w >= 8:
-                th[-1, 0] = layout.hi[0] + 1.0
-                if layout.fix_comp:
-                    th[-2, 1] = layout.hi[1] + 0.5
-                else:
-                    th[-2, 3] = -1.0
-            feats = cl._features(th.float(), data, layout, torch.float32)
+                _spoil(case, th)
+            feats = case.features(th.float(), data, layout, torch.float32)
             got = kernel(feats, data)
             ref = plain(feats, data)
             torch.cuda.synchronize()
             if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
                 fail(f"{kname} {grid} W={w}: non-finite raw rows")
-            ok = in_box(th, lo, hi)
+            ok = case.inside(th, lo, hi)
             err_v = _rel(got[ok, 0], ref[ok, 0])
             err_g = _grad_rel(got[ok, 1:], ref[ok, 1:])
             # theta level: kernel path vs float64 eager autograd
             t32 = th.float().requires_grad_(True)
-            v32 = post32(t32)
+            v32 = case.post32(t32)
             (g32,) = torch.autograd.grad(v32.sum(), t32)
-            t64 = th.clone().requires_grad_(True)
-            v64 = eager64(t64)
-            (g64,) = torch.autograd.grad(v64.sum(), t64)
+            v64, g64 = _eager_value_and_grad(case, th)
             if (torch.isfinite(v32) != ok).any() or (
                     g32[~ok] != 0).any() or not torch.isfinite(g32).all():
                 fail(f"{kname} {grid} W={w}: out-of-box rows are not -inf "
                      "with a zero gradient")
-            err_tv = _rel(v32.detach().double()[ok], v64.detach()[ok])
+            err_tv = _rel(v32.detach().double()[ok], v64[ok])
             err_tg = _grad_rel(g32.double()[ok], g64[ok])
             print(f"{kname} {grid} W={w}: kernel vs plain value max rel "
                   f"{err_v:.3e}, gradient {err_g:.3e}; theta-level vs f64 "
@@ -379,14 +462,14 @@ def phase_vg_kernels(dev):
                      f"{err_tv:.3e} (value), {err_tg:.3e} (gradient)")
             rec["max_rel_err"] = max(rec["max_rel_err"], err_v)
             rec["max_grad_err"] = max(rec["max_grad_err"], err_g)
-            if w == 1:
-                continue
+            if w == 1 or grid.endswith("natural"):
+                continue    # natural: the same kernel on the same data
             if w == 8:
                 # the absolute error where a fit spends its steps (prior
                 # draws reach |lnL| ~ 1e7, where float32's spacing is ~1)
-                fc = cl._features(_central_thetas(cfg, layout, w, gen,
-                                                  dev).float(),
-                                  data, layout, torch.float32)
+                fc = case.features(
+                    _central_thetas(case.cfg, layout, w, gen, dev).float(),
+                    data, layout, torch.float32)
                 got_c, ref_c = kernel(fc, data), plain(fc, data)
                 abs_c = float((got_c[:, 0] - ref_c[:, 0]).abs().max())
                 err_gc = _grad_rel(got_c[:, 1:], ref_c[:, 1:])
@@ -483,39 +566,81 @@ def _artifacts(label, out, base, has_mpl):
     return post
 
 
-def phase_fit(fix_comp, workdir, has_mpl):
+# The fit paths: CLI arguments after the subcommand, output directory, the
+# kernel family, the posterior column the NUTS run is held to, and which
+# NUTS depth applies.
+PATHS = {
+    "fit": SimpleNamespace(cmd="fit", extra=[], out="LFMCMCOut",
+                           fam="free", col=r"$\log L_*$", model="single"),
+    "fit -fc": SimpleNamespace(cmd="fit", extra=["-fc"], out="LFMCMCOut",
+                               fam="fixed", col=r"$\log L_*$",
+                               model="single"),
+    "fitz": SimpleNamespace(cmd="fitz", extra=[], out="LFMCMCzOut", fam="z",
+                            col=r"$\log {\rm{L}}2_*$", model="z"),
+}
+
+
+def _check_lf_matrix(label, out, base):
+    """``fitz``'s bestfitLF: the LF matrix beside its axes."""
+    tab = read_fixed_width_two_line(
+        os.path.join(out, f"bestfitLF_{base}.dat"))
+    cols = list(tab)
+    if cols[:2] != ["Luminosity_cols", "Redshift_rows"] or cols[2:] != [
+            f"LF_z{i}" for i in range(len(cols) - 2)] or len(cols) != 102:
+        fail(f"{label}: bestfitLF columns {cols[:4]}... ({len(cols)})")
+    lf = np.asarray([tab[c] for c in cols[2:]])
+    if not (np.isfinite(lf).all() and (lf > 0).all()):
+        fail(f"{label}: the LF matrix is not finite and positive")
+
+
+def phase_fit(label, workdir, has_mpl):
     """The port's CLI, end to end, through the kernels. Returns the
-    launch counts and the posterior's logL* column."""
-    argv = ["fit", "--synthetic", str(NSYNTH), "-mcf", "0.5",
+    launch counts and the posterior's ``col`` column."""
+    path = PATHS[label]
+    argv = [path.cmd, "--synthetic", str(NSYNTH), "-mcf", "0.5",
             "-nw", str(NWALKERS), "-ns", str(NSTEPS), "--config",
-            _smoke_config(workdir, has_mpl)]
-    if fix_comp:
-        argv.append("-fc")
-    run_dir = os.path.join(workdir, "fc" if fix_comp else "free")
+            _smoke_config(workdir, has_mpl)] + path.extra
+    run_dir = os.path.join(workdir, path.fam)
     rc, counts, rec, peak, wall = _drive(argv, run_dir)
-    label = "fit -fc" if fix_comp else "fit"
     if rc != 0:
         fail(f"{label} returned {rc}")
     base = f"test_nb50_nw{NWALKERS}_ns{NSTEPS}_mcf50"
-    post = _artifacts(label, os.path.join(run_dir, "LFMCMCOut"), base,
-                      has_mpl)
+    out = os.path.join(run_dir, path.out)
+    post = _artifacts(label, out, base, has_mpl)
     acc = rec.value("Mean acceptance fraction:")
     if not 0.1 < acc < 0.9:
         fail(f"{label}: acceptance fraction {acc} outside (0.1, 0.9)")
-    used = "fixed_lnlike" if fix_comp else "free_lnlike"
+    used = f"{path.fam}_lnlike"
     want = {k: 0 for k in KERNELS}
     want[used] = 1 + 2 * NSTEPS
     if counts != want:
         fail(f"{label}: launch counts {counts}, expected {want}")
-    lstar = np.asarray(post[r"$\log L_*$"])
-    print(f"{label}: artifacts ok ({len(lstar)} posterior rows), "
+    col = np.asarray(post[path.col])
+    extra = ""
+    if path.fam == "z":
+        _check_lf_matrix(label, out, base)
+        # the middle pivots are the best constrained: they must constrain
+        # (the JAX package's own bar, tests/test_end_to_end.py), over the
+        # rows the parameters table is made of (select_samples: a walker
+        # still far down the lnprob slope is no posterior draw)
+        names = list(post)
+        sel = select_samples(np.column_stack([post[k] for k in names]))
+        sd_l2 = float(np.std(sel[:, names.index(path.col)]))
+        sd_p2 = float(np.std(sel[:, names.index(r"$\log \phi2_*$")]))
+        if not (sd_l2 < 0.8 and sd_p2 < 0.8):
+            fail(f"{label}: posterior sd of L2 {sd_l2:.3f}, phi2 "
+                 f"{sd_p2:.3f} (limit 0.8)")
+        extra = (f", posterior sd L2 {sd_l2:.4f}, phi2 {sd_p2:.4f} over "
+                 f"{len(sel)} selected rows (all rows: {np.std(col):.4f}, "
+                 f"{np.std(np.asarray(post[names[4]])):.4f})")
+    print(f"{label}: artifacts ok ({len(col)} posterior rows), "
           f"acceptance {acc:.4f}, sampling loop "
           f"{rec.value('Total time taken:'):.3f} s, "
           f"{rec.value('lnprob evaluations/s:'):.1f} lnprob evals/s, "
           f"device memory peak {peak / 2**20:.1f} MiB, CLI wall "
-          f"{wall:.1f} s, {used} launches {counts[used]}, median logL* "
-          f"{np.median(lstar):.3f}")
-    return counts, lstar
+          f"{wall:.1f} s, {used} launches {counts[used]}, median "
+          f"{path.col} {np.median(col):.3f}{extra}")
+    return counts, col
 
 
 def _logged(rec, pattern, label):
@@ -527,22 +652,25 @@ def _logged(rec, pattern, label):
     fail(f"{label}: no log line matches {pattern!r}")
 
 
-def phase_nuts(fix_comp, workdir, has_mpl, stretch_lstar):
-    """``fit --sampler nuts`` end to end through the value+gradient
-    kernels, held to the stretch fit of the same catalog."""
-    argv = ["fit", "--sampler", "nuts", "--synthetic", str(NSYNTH), "-mcf",
-            "0.5", "-ns", str(NUTS_STEPS), "--nchains", str(NUTS_CHAINS),
-            "--config", _smoke_config(workdir, has_mpl)]
-    if fix_comp:
-        argv.append("-fc")
-    label = "fit --sampler nuts" + (" -fc" if fix_comp else "")
-    run_dir = os.path.join(workdir, "nuts_fc" if fix_comp else "nuts_free")
+def phase_nuts(stretch_label, workdir, has_mpl, stretch_col):
+    """``--sampler nuts`` end to end through the value+gradient kernels,
+    held to the stretch fit of the same catalog."""
+    path = PATHS[stretch_label]
+    nsteps = NUTS_STEPS[path.model]
+    argv = [path.cmd, "--sampler", "nuts", "--synthetic", str(NSYNTH),
+            "-mcf", "0.5", "-ns", str(nsteps), "--nchains",
+            str(NUTS_CHAINS), "--config",
+            _smoke_config(workdir, has_mpl)] + path.extra
+    label = " ".join([path.cmd, "--sampler nuts"] + path.extra)
+    run_dir = os.path.join(workdir, f"nuts_{path.fam}")
     rc, counts, rec, peak, wall = _drive(argv, run_dir)
     if rc != 0:
         fail(f"{label} returned {rc}")
-    base = f"test_nb50_nw{NWALKERS}_ns{NUTS_STEPS}_mcf50"
-    post = _artifacts(label, os.path.join(run_dir, "LFMCMCOut"), base,
-                      has_mpl)
+    base = f"test_nb50_nw{NWALKERS}_ns{nsteps}_mcf50"
+    out = os.path.join(run_dir, path.out)
+    post = _artifacts(label, out, base, has_mpl)
+    if path.fam == "z":
+        _check_lf_matrix(label, out, base)
     secs, eps, accept, div_pct = _logged(
         rec, r"Total time taken: ([\d.]+) s; step size ([\d.e+-]+); mean "
         r"accept-stat ([\d.]+); divergent transitions ([\d.]+)%", label)
@@ -554,24 +682,23 @@ def phase_nuts(fix_comp, workdir, has_mpl, stretch_lstar):
     ess, rhat, ess_s = _logged(
         rec, r"min ESS: ([\d.]+); max R-hat: ([\d.]+); ESS/sec: ([\d.]+)",
         label)
-    if ntrans != NUTS_WARMUP + NUTS_STEPS:
+    if ntrans != NUTS_WARMUP + nsteps:
         fail(f"{label}: {ntrans} transitions, expected "
-             f"{NUTS_WARMUP + NUTS_STEPS}")
+             f"{NUTS_WARMUP + nsteps}")
     if not div_pct < 5.0:
         fail(f"{label}: {div_pct}% divergent transitions (limit 5%)")
     if not 0.6 < accept < 0.97:
         fail(f"{label}: mean accept-stat {accept} outside (0.6, 0.97)")
     if not rhat < 1.1:
         fail(f"{label}: max R-hat {rhat} (limit 1.1)")
-    lstar = np.asarray(post[r"$\log L_*$"])
-    gap = abs(np.median(lstar) - np.median(stretch_lstar)) / np.std(lstar)
+    col = np.asarray(post[path.col])
+    gap = abs(np.median(col) - np.median(stretch_col)) / np.std(col)
     if not gap < 3.0:
-        fail(f"{label}: logL* median {np.median(lstar):.4f} is {gap:.2f} "
-             f"posterior sd from the stretch fit's "
-             f"{np.median(stretch_lstar):.4f} (limit 3)")
-    fam = "fixed" if fix_comp else "free"
-    other = "free" if fix_comp else "fixed"
-    rows = NUTS_STEPS * NUTS_CHAINS
+        fail(f"{label}: {path.col} median {np.median(col):.4f} is "
+             f"{gap:.2f} posterior sd from the stretch fit's "
+             f"{np.median(stretch_col):.4f} (limit 3)")
+    fam = path.fam
+    rows = nsteps * NUTS_CHAINS
     want = {k: 0 for k in KERNELS}
     want[f"{fam}_lnlike_vg"] = int(ntrans + nlf)
     # the forward kernel: the start guard (one call) and the theta-space
@@ -579,16 +706,14 @@ def phase_nuts(fix_comp, workdir, has_mpl, stretch_lstar):
     want[f"{fam}_lnlike"] = 1 + math.ceil(rows / cl.MAX_ROWS)
     if counts != want:
         fail(f"{label}: launch counts {counts}, expected {want}")
-    if counts[f"{other}_lnlike_vg"] != 0:
-        fail(f"{label}: the other family's kernel ran")
-    print(f"{label}: artifacts ok ({len(lstar)} posterior rows); median "
-          f"logL* {np.median(lstar):.4f} vs stretch "
-          f"{np.median(stretch_lstar):.4f} ({gap:.2f} sd); "
+    print(f"{label}: artifacts ok ({len(col)} posterior rows); median "
+          f"{path.col} {np.median(col):.4f} vs stretch "
+          f"{np.median(stretch_col):.4f} ({gap:.2f} sd); "
           f"{fam}_lnlike_vg launches {counts[f'{fam}_lnlike_vg']} = "
           f"{int(ntrans)} transitions + {int(nlf)} leapfrog steps; "
           f"{fam}_lnlike launches {counts[f'{fam}_lnlike']}")
     print(f"{label}: Total time taken {secs:.2f} s ({NUTS_WARMUP} warmup + "
-          f"{NUTS_STEPS} samples, {NUTS_CHAINS} chains)")
+          f"{nsteps} samples, {NUTS_CHAINS} chains)")
     print(f"{label}: ESS/s {ess / secs:.3f} (min ESS {ess:.0f} over "
           f"{secs:.2f} s; the log's rounded ESS/sec {ess_s:.0f}), max "
           f"R-hat {rhat:.4f}")
@@ -616,12 +741,11 @@ def main():
         has_mpl = False
     launches = {k: 0 for k in KERNELS}
     with tempfile.TemporaryDirectory() as workdir:
-        for fix_comp in (False, True):
-            counts, lstar = phase_fit(fix_comp, workdir, has_mpl)
+        for label in PATHS:
+            counts, col = phase_fit(label, workdir, has_mpl)
             for k, v in counts.items():
                 launches[k] += v
-            for k, v in phase_nuts(fix_comp, workdir, has_mpl,
-                                   lstar).items():
+            for k, v in phase_nuts(label, workdir, has_mpl, col).items():
                 launches[k] += v
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "lumfuncmcmc_tpu")]
@@ -631,12 +755,15 @@ def main():
         if n == 0:
             fail(f"{name} was never launched on the main paths")
     replaces = {"free_lnlike": (601, 761), "fixed_lnlike": (751, 813),
-                "free_lnlike_vg": (832,), "fixed_lnlike_vg": (1255,)}
+                "free_lnlike_vg": (832,), "fixed_lnlike_vg": (1255,),
+                "z_lnlike": (659, 677), "z_lnlike_vg": (1142,)}
     kernels = []
     for name in KERNELS:
         s = summary[name]
         row = {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": CSRC + ("lnlike_z.cu" if name.startswith("z_")
+                              else "lnlike.cu"),
             "replaces": f"{TPU_FILE}:{replaces[name][0]}",
             "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],

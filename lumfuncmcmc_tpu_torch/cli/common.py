@@ -10,6 +10,7 @@ is not treated as unset.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -214,6 +215,19 @@ def _build_cfg(args) -> LFConfig:
     elif cfg.line_name == "Ha":
         cfg = cfg.replace(line_plot_name=r"${\rm{H\alpha}}$")
     return cfg
+
+
+def _pivot_z(cfg: LFConfig, filename) -> LFConfig:
+    """Pivot-redshift special cases of the reference's z run script, by
+    catalog file name and by line."""
+    base = os.path.basename(filename) if filename else ""
+    if base == "OIIIGautamWillNoAGN.dat":
+        z = (1.20, 1.76, 2.32)
+    else:
+        z = (1.20, 1.53, 1.86)
+    if cfg.line_name == "Ha":
+        z = (1.18, 1.36, 1.54)
+    return cfg.replace(z1=z[0], z2=z[1], z3=z[2])
 
 
 def _align_fields(cfg, field_names):

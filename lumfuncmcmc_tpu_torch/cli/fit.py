@@ -1,7 +1,12 @@
-"""The ``fit`` subcommand: single-epoch Schechter fit (port of
-``cmd_fit`` / ``_run_fit_family`` / ``_dispatch_sampler`` from
-``lumfuncmcmc_tpu/cli/fit.py``): the stretch/DE/mix ensemble or, with
-``--sampler nuts``, batched NUTS.
+"""The MCMC fit subcommands (port of ``cmd_fit`` / ``cmd_fitz`` /
+``_run_fit_family`` / ``_dispatch_sampler`` from
+``lumfuncmcmc_tpu/cli/fit.py``):
+
+- ``fit``  — single-epoch Schechter fit, into ``LFMCMCOut/``
+- ``fitz`` — redshift-evolving fit, into ``LFMCMCzOut/``
+
+each with the stretch/DE/mix ensemble or, with ``--sampler nuts``,
+batched NUTS.
 
 Flags whose features are not ported yet raise ``NotImplementedError``
 naming the flag, before any work starts.
@@ -12,7 +17,7 @@ from __future__ import annotations
 import os
 
 from lumfuncmcmc_tpu_torch.cli.common import (
-    _align_fields, _apply_precision, _build_cfg, _load_inputs)
+    _align_fields, _apply_precision, _build_cfg, _load_inputs, _pivot_z)
 from lumfuncmcmc_tpu_torch.cli.outputs import _resume_if_done, _write_outputs
 
 # CLI-only flags (no LFConfig field) -> the value that means "not
@@ -52,12 +57,14 @@ def _dispatch_sampler(model, cfg, args):
         model.fit_model()
 
 
-def _run_fit_family(args, model_cls, outdir):
+def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
     """Build config + model, the resume-and-replot early exit, the
     sampler, then the artifact writers."""
     args.output_filename = args.output_filename or "test.dat"
     cfg = _build_cfg(args)
     _reject_unported(args, cfg)
+    if pivot:
+        cfg = _pivot_z(cfg, args.filename)
     device, dtype = _apply_precision(cfg, getattr(args, "device", "cuda"))
     os.makedirs(outdir, exist_ok=True)
     inputs = _load_inputs(args, cfg)
@@ -76,10 +83,16 @@ def _run_fit_family(args, model_cls, outdir):
     print("Labels:", names)
     _dispatch_sampler(model, cfg, args)
     print("Finished fitting model and about to create outputs")
-    _write_outputs(model, cfg, args, outdir, names)
+    _write_outputs(model, cfg, args, outdir, names, z_variant=z_variant)
     return 0
 
 
 def cmd_fit(args):
     from lumfuncmcmc_tpu_torch.models.model import LumFuncModel
     return _run_fit_family(args, LumFuncModel, "LFMCMCOut")
+
+
+def cmd_fitz(args):
+    from lumfuncmcmc_tpu_torch.models.model import LumFuncModelZ
+    return _run_fit_family(args, LumFuncModelZ, "LFMCMCzOut",
+                           z_variant=True, pivot=True)

@@ -1,9 +1,10 @@
-"""CLI entry point of the port: ``python -m lumfuncmcmc_tpu_torch fit``.
+"""CLI entry point of the port: ``python -m lumfuncmcmc_tpu_torch
+{fit,fitz}``.
 
-Only ``fit`` (the single-epoch Schechter fit) is ported; it takes the
-JAX CLI's flag set, so the same command line works with either package.
-The JAX package's other subcommands are listed and answer "not ported
-yet".
+``fit`` (the single-epoch Schechter fit) and ``fitz`` (the
+redshift-evolving one) are ported; they take the JAX CLI's flag sets,
+so the same command line works with either package. The JAX package's
+other subcommands are listed and answer "not ported yet".
 """
 
 from __future__ import annotations
@@ -12,15 +13,22 @@ import argparse
 import sys
 
 from lumfuncmcmc_tpu_torch.cli.common import _add_common_flags
-from lumfuncmcmc_tpu_torch.cli.fit import cmd_fit
+from lumfuncmcmc_tpu_torch.cli.fit import cmd_fit, cmd_fitz
 from lumfuncmcmc_tpu_torch.utils.logging import setup_logging
 
-_NOT_PORTED_COMMANDS = ("fitz", "fith", "vmax", "compare-ic", "stack-ic")
+_NOT_PORTED_COMMANDS = ("fith", "vmax", "compare-ic", "stack-ic")
 
 
 def _not_ported(args):
     raise SystemExit(f"'{args.command}' is not ported yet (run it with the "
                      "JAX package, lumfuncmcmc_tpu)")
+
+
+def _add_device_flag(p):
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the fit runs: the first CUDA card "
+                        "(default; an error when there is none) or "
+                        "the CPU")
 
 
 def main(argv=None):
@@ -34,11 +42,13 @@ def main(argv=None):
     p_fit.add_argument("-fc", "--fix_comp", action="store_true",
                        default=None)
     p_fit.add_argument("-sr", "--same_rand", action="store_true")
-    p_fit.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                       help="where the fit runs: the first CUDA card "
-                            "(default; an error when there is none) or "
-                            "the CPU")
+    _add_device_flag(p_fit)
     p_fit.set_defaults(func=cmd_fit)
+
+    p_fitz = sub.add_parser("fitz", help="redshift-evolving Schechter fit")
+    _add_common_flags(p_fitz)
+    _add_device_flag(p_fitz)
+    p_fitz.set_defaults(func=cmd_fitz)
     for name in _NOT_PORTED_COMMANDS:
         sub.add_parser(name, help="not ported yet",
                        add_help=False).set_defaults(func=_not_ported)

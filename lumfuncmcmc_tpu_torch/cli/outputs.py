@@ -1,4 +1,5 @@
-"""Artifact writers for ``fit`` (port of the ``fit`` part of
+"""Artifact writers for ``fit`` and ``fitz`` (port of
+``_write_outputs`` and ``_resume_if_done`` of
 ``lumfuncmcmc_tpu/cli/outputs.py``).
 
 The artifacts — fitposterior, bestfitLF, VeffLF, the parameters table,
@@ -14,7 +15,7 @@ import os
 import numpy as np
 
 
-def _write_outputs(model, cfg, args, outdir, names):
+def _write_outputs(model, cfg, args, outdir, names, z_variant=False):
     from lumfuncmcmc_tpu_torch.utils.io import (
         artifact_path, write_fixed_width_two_line)
     od = cfg.output_dict
@@ -38,11 +39,19 @@ def _write_outputs(model, cfg, args, outdir, names):
                           cfg, ext="dat"), cols)
         print("Finished writing fitposterior file")
     if od.get("bestfitLF"):
+        if not z_variant:
+            cols = {"Luminosity": model.lum,
+                    "Luminosity_Err": model.lum_e,
+                    "MedianLF": model.medianLF}
+        else:
+            # the z variant writes the LF matrix alongside its axes
+            cols = {"Luminosity_cols": model.Lout,
+                    "Redshift_rows": model.zout,
+                    **{f"LF_z{i}": model.medianLF[i]
+                       for i in range(model.medianLF.shape[0])}}
         write_fixed_width_two_line(
             artifact_path(outdir, "bestfitLF", args.output_filename, cfg,
-                          ext="dat"),
-            {"Luminosity": model.lum, "Luminosity_Err": model.lum_e,
-             "MedianLF": model.medianLF})
+                          ext="dat"), cols)
         print("Finished writing bestfitLF file")
     if od.get("VeffLF"):
         write_fixed_width_two_line(

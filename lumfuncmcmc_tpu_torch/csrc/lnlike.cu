@@ -1,6 +1,8 @@
 // Single-epoch log-likelihood kernels for Hopper (sm_90a): the value
 // kernels and their value + feature-gradient twins (the NUTS gradient
-// path).
+// path). The z model's kernels are in lnlike_z.cu; both sources share
+// common.cuh (block size, block reduction, the value kernels' finish pass)
+// and are compiled into one library by ops/_build.py.
 //
 // free_lnlike replaces the TPU kernels _kernel_free_bcast
 // (lumfuncmcmc_tpu/ops/pallas_lnlike.py:601) and _kernel_free (:761);
@@ -59,35 +61,10 @@
 
 #include <cuda_runtime.h>
 
-#define THREADS 256
+#include "common.cuh"
+
 #define FREE_SLOTS 7     // ops/cuda_lnlike.py VG_FREE_SLOTS
 #define FIXED_SLOTS 3    // ops/cuda_lnlike.py VG_FIXED_SLOTS
-#define FINISH_TILE 256  // chunks a _vg finish kernel stages at a time
-
-// Sum each of v[0..K) over the block; the results are valid in thread 0.
-template <int K>
-__device__ __forceinline__ void block_sum_k(float (&v)[K]) {
-    __shared__ float red[K][THREADS / 32];
-    const int lane = threadIdx.x & 31;
-    const int wid = threadIdx.x >> 5;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        float x = v[k];
-        for (int o = 16; o > 0; o >>= 1)
-            x += __shfl_down_sync(0xffffffffu, x, o);
-        if (lane == 0) red[k][wid] = x;
-    }
-    __syncthreads();
-    if (wid == 0) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-            float x = (lane < THREADS / 32) ? red[k][lane] : 0.0f;
-            for (int o = 16; o > 0; o >>= 1)
-                x += __shfl_down_sync(0xffffffffu, x, o);
-            v[k] = x;
-        }
-    }
-}
 
 // ---------------------------------------------------------------------------
 // value kernels
@@ -157,20 +134,6 @@ fixed_partials(const float* __restrict__ feats, int nfeat,
         acc[0] -= expf(cg + aA * (g_a[i] - lA) - g_p[i] * t1) * g_w[i];
     block_sum_k<1>(acc);
     if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = acc[0];
-}
-
-// out[w] = (base_col >= 0 ? feats[w, base_col] : 0) + sum_c partial[w, c],
-// summed in chunk order.
-__global__ void finish(const float* __restrict__ partial, int nchunks,
-                       const float* __restrict__ feats, int nfeat,
-                       int base_col, int nwalkers, float* __restrict__ out) {
-    const int w = blockIdx.x * blockDim.x + threadIdx.x;
-    if (w >= nwalkers) return;
-    double s = base_col >= 0 ? (double)feats[(size_t)w * nfeat + base_col]
-                             : 0.0;
-    const float* p = partial + (size_t)w * nchunks;
-    for (int c = 0; c < nchunks; ++c) s += (double)p[c];
-    out[w] = (float)s;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""User-facing fit driver for the single-epoch model (port of the
-``fit`` path of ``lumfuncmcmc_tpu/models/model.py``).
+"""User-facing fit models (port of the ``fit`` and ``fitz`` paths of
+``lumfuncmcmc_tpu/models/model.py``): :class:`LumFuncModel`, the
+single-epoch model, and :class:`LumFuncModelZ`, the redshift-evolving
+one.
 
-:class:`LumFuncModel` keeps the public surface of the JAX class —
+They keep the public surface of the JAX classes —
 ``fit_model``, ``fit_model_nuts``, ``set_median_fit``, ``veff_lf``,
 ``add_fitinfo_to_table``, ``triangle_plot`` and the ``samples`` /
 ``medianLF`` / ``Lavg`` / ``lfbinorig`` / ``var`` attributes — with
@@ -22,10 +24,12 @@ from lumfuncmcmc_tpu_torch.models.ensemble_driver import _EnsembleDriverMixin
 from lumfuncmcmc_tpu_torch.models.nuts_driver import _NutsDriverMixin
 from lumfuncmcmc_tpu_torch.models.likelihood import (
     ThetaLayout, make_lnprob, sample_init)
+from lumfuncmcmc_tpu_torch.models.likelihood_z import (
+    ThetaLayoutZ, make_lnprob_z)
 from lumfuncmcmc_tpu_torch.models.veff import (
     binned_lf_bootstrap, log_bin_edges, veff_weights)
 from lumfuncmcmc_tpu_torch.ops.completeness import fleming_root_logf_np
-from lumfuncmcmc_tpu_torch.ops.schechter import true_lum_func
+from lumfuncmcmc_tpu_torch.ops.schechter import schechter_z, true_lum_func
 from lumfuncmcmc_tpu_torch.samplers.diagnostics import (
     mcse_quantile, rank_normalized_rhat)
 from lumfuncmcmc_tpu_torch.utils.logging import setup_logging
@@ -71,6 +75,8 @@ _NOT_PORTED = {"init_map": False,
 class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
     """Context build, engine choice, V_eff and the posterior table."""
 
+    model_kind = "single"   # which kernel family the engines take
+
     def __init__(self, cfg: LFConfig, z, flux=None, flux_e=None,
                  lum=None, lum_e=None, field_id=None, field_names=None,
                  device=None, dtype=None):
@@ -107,9 +113,15 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
     def _make_layout(self):
         raise NotImplementedError
 
-    def _initial_positions(self, generator):
+    def _make_scalar_lnprob(self):
+        """The eager engine's lnprob, (C, D) -> (C,): what NUTS
+        differentiates by autograd on the CPU."""
+        raise NotImplementedError
+
+    def _initial_positions(self, generator, diff_rand=True):
+        """Walker starts: uniform draws inside the prior box."""
         return sample_init(generator, self.layout, self.cfg.nwalkers,
-                           diff_rand=self.cfg.diff_rand, dtype=self.dtype,
+                           diff_rand=diff_rand, dtype=self.dtype,
                            device=self.device)
 
     @property
@@ -130,7 +142,13 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
         ``self.nfreeparams``."""
         cfg = self.cfg
         defaults = {"Lstar": cfg.Lstar, "phistar": cfg.phistar,
-                    "sch_al": cfg.sch_al, "alpha": cfg.alpha}
+                    "sch_al": cfg.sch_al, "alpha": cfg.alpha,
+                    "L1": cfg.Lstar, "L2": cfg.Lstar, "L3": cfg.Lstar,
+                    "phi1": cfg.phistar, "phi2": cfg.phistar,
+                    "phi3": cfg.phistar,
+                    # natural z-evolution parameterization
+                    "Lmid": cfg.Lstar, "Lslope": 0.0, "Lcurv": 0.0,
+                    "pmid": cfg.phistar, "pslope": 0.0, "pcurv": 0.0}
         vals = [cfg.Flim[int(name.split("_")[1])]
                 if name.startswith("Flim_") else defaults[name]
                 for name in self.layout.names]
@@ -161,10 +179,12 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
 
     def _meshless_batch(self):
         if self._resolve_use_pallas():
-            from lumfuncmcmc_tpu_torch.ops.cuda_lnlike import (
-                make_cuda_lnprob)
-            return make_cuda_lnprob(self.ctx, self.layout)
-        fn = make_lnprob(self.ctx, self.layout)
+            from lumfuncmcmc_tpu_torch.ops import cuda_lnlike
+            make = (cuda_lnlike.make_cuda_lnprob_z
+                    if self.model_kind == "z"
+                    else cuda_lnlike.make_cuda_lnprob)
+            return make(self.ctx, self.layout)
+        fn = self._make_scalar_lnprob()
         fn.engine = "eager"
         return fn
 
@@ -223,9 +243,12 @@ class LumFuncModel(_BaseModel):
         return ThetaLayout.from_config(self.cfg)
 
     def _make_scalar_lnprob(self):
-        """The eager engine's lnprob, (C, D) -> (C,): what NUTS
-        differentiates by autograd on the CPU."""
         return make_lnprob(self.ctx, self.layout)
+
+    def _initial_positions(self, generator):
+        # only the single-epoch model has the reference's -sr/--same_rand
+        return super()._initial_positions(generator,
+                                          diff_rand=self.cfg.diff_rand)
 
     def set_median_fit(self, rndsamples=200, lnprobcut=7.5, generator=None):
         """Median model LF over posterior draws + V_eff with the median
@@ -249,3 +272,41 @@ class LumFuncModel(_BaseModel):
     def triangle_plot(self, outname, lnprobcut=7.5, imgtype="png"):
         from lumfuncmcmc_tpu_torch.utils.plotting import triangle_plot_single
         triangle_plot_single(self, outname, lnprobcut, imgtype)
+
+
+class LumFuncModelZ(_BaseModel):
+    """Redshift-evolving Schechter fit (reference ``LumFuncMCMCz``)."""
+
+    model_kind = "z"
+
+    def __init__(self, cfg: LFConfig, *args, **kw):
+        # the z model always uses the fixed-completeness grid
+        super().__init__(cfg.replace(fix_comp=True), *args, **kw)
+
+    def _make_layout(self):
+        return ThetaLayoutZ.from_config(self.cfg)
+
+    def _make_scalar_lnprob(self):
+        return make_lnprob_z(self.ctx, self.layout)
+
+    def set_median_fit(self, lnprobcut=7.5, zlen=100, Llen=100,
+                       generator=None):
+        """Median-theta LF *matrix* over (z, L): sets ``zout`` (zlen,),
+        ``Lout`` (Llen,) and ``medianLF`` (zlen, Llen), then V_eff."""
+        nsamples = select_samples(self.samples, lnprobcut, drop_lnp=True)
+        med = torch.as_tensor(np.percentile(nsamples, 50.0, axis=0),
+                              dtype=torch.float64)[None, :]
+        piv = [float(v) for v in self.layout.unpack(med)]
+        lum = self.lum
+        self.Lout = np.linspace(lum.min() - 0.2, lum.max() + 0.2, Llen)
+        self.zout = np.linspace(self.zmin, self.zmax, zlen)
+        zz, ll = np.meshgrid(self.zout, self.Lout, indexing="ij")
+        self.medianLF = schechter_z(
+            torch.as_tensor(ll), torch.as_tensor(zz), piv[6], *piv[:6],
+            self.layout.z1, self.layout.z2, self.layout.z3).numpy()
+        self.veff_lf(generator=generator)
+        return self.medianLF
+
+    def triangle_plot(self, outname, lnprobcut=7.5, imgtype="png"):
+        from lumfuncmcmc_tpu_torch.utils.plotting import triangle_plot_z
+        triangle_plot_z(self, outname, lnprobcut, imgtype)

@@ -3,7 +3,7 @@
 meshless, without checkpoints and without ``min_ess``.
 
 The host class provides ``cfg``/``log``/``layout``/``ctx``/``device``/
-``dtype``, ``lnprob_batch``, ``_make_scalar_lnprob``,
+``dtype``/``model_kind``, ``lnprob_batch``, ``_make_scalar_lnprob``,
 ``_initial_positions``, ``_resolve_use_pallas`` and
 ``_log_convergence``.
 """
@@ -30,7 +30,8 @@ class _NutsDriverMixin:
         """The batched lnprob NUTS differentiates, (C, D) -> (C,).
 
         The port's own rule (no TPU tuning carries over): on a CUDA
-        device the value+gradient kernels for both completeness modes
+        device the value+gradient kernel of the model's family, both
+        completeness modes and the z model alike
         (:func:`make_cuda_lnprob_and_grad`); on the CPU autograd of the
         eager engine, or of the kernels' plain value+gradient versions
         under ``--use-pallas``.
@@ -42,7 +43,8 @@ class _NutsDriverMixin:
         if self.device.type == "cuda" or self._resolve_use_pallas():
             from lumfuncmcmc_tpu_torch.ops.cuda_lnlike import (
                 make_cuda_lnprob_and_grad)
-            post = make_cuda_lnprob_and_grad(self.ctx, self.layout)
+            post = make_cuda_lnprob_and_grad(self.ctx, self.layout,
+                                             model=self.model_kind)
             self.log.info("NUTS gradient path: %s value+gradient %s"
                           % ("CUDA" if post.engine == "cuda" else "plain",
                              "kernel" if post.engine == "cuda"

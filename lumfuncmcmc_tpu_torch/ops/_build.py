@@ -22,16 +22,20 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--threads", "0")     # the .cu sources compile side by side
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes; each returns the cudaError_t of its launches
 _FREE_ARGS = [_p, _i, _i, _i] + [_p] * 11 + [_p, _i, _i, _p, _p, _p]
 _FIXED_ARGS = [_p, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p]
+_Z_ARGS = [_p, _i, _i, _i, _i] + [_p] * 10 + [_p, _i, _p, _p, _p]
 ENTRY_POINTS = {"free_lnlike_launch": _FREE_ARGS,
                 "fixed_lnlike_launch": _FIXED_ARGS,
                 "free_lnlike_vg_launch": _FREE_ARGS,
-                "fixed_lnlike_vg_launch": _FIXED_ARGS}
+                "fixed_lnlike_vg_launch": _FIXED_ARGS,
+                "z_lnlike_launch": _Z_ARGS,
+                "z_lnlike_vg_launch": _Z_ARGS}
 
 _lock = threading.Lock()
 _lib = None

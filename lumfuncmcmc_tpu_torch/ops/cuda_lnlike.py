@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels for the single-epoch log-likelihood
-(counterpart of ``lumfuncmcmc_tpu/ops/pallas_lnlike.py``).
+"""Hand-written CUDA kernels for the single-epoch and the
+redshift-evolving log-likelihood (counterpart of
+``lumfuncmcmc_tpu/ops/pallas_lnlike.py``).
 
 Per walker theta the kernels evaluate
 
@@ -31,6 +32,24 @@ Four kernels of ``csrc/lnlike.cu``, value and value + gradient:
 - :func:`fixed_lnlike_vg` — the same for fixed completeness; replaces
   ``_kernel_fixed_vg`` (``:1255``).
 
+Two kernels of ``csrc/lnlike_z.cu`` for the redshift-evolving model
+(fixed completeness; (L*, phi*)(z) quadratic in z, :func:`_feat_z_one`):
+
+- :func:`z_lnlike` replaces both ``_kernel_z_bcast`` (``:659``) and
+  ``_kernel_z2_slab`` (``:677``), in the latter's factoring: the
+  quadratics and the cutoff scale ``t1(z)`` are formed once per z node,
+  so a cell costs one exp;
+- :func:`z_lnlike_vg` replaces ``_kernel_z_vg`` (``:1142``): the lnlike
+  and its derivative with respect to the 7 features from three column
+  sums per z node.
+
+Their features differ from the TPU's where float32 demands it: the
+quadratics are in ``dz = z - z2`` (the central pivot) and luminosities
+relative to ``lref``, with the pivot algebra done in float64, so no
+term is much larger than its result (the TPU form adds ~240-sized
+terms to a ~98-sized ``LN10 Lstar(z)`` and subtracts that from a
+~98-sized ``LN10 logL``). The function computed is the same.
+
 The value+gradient kernels feed :func:`make_cuda_lnprob_and_grad`, the
 NUTS gradient path: a ``torch.autograd.Function`` hands the feature
 gradient to autograd of the cheap feature map, the counterpart of the
@@ -44,8 +63,9 @@ into pieces of at most ``CHUNK_CELLS`` for the (chunk, walker) launch
 grid.
 
 Dispatch rule: a CPU tensor takes the plain PyTorch version
-(:func:`free_lnlike_reference`, :func:`fixed_lnlike_reference`), a CUDA
-tensor launches the kernel or raises. Nothing falls back.
+(:func:`free_lnlike_reference`, :func:`fixed_lnlike_reference`,
+:func:`z_lnlike_reference` and their ``_vg`` twins), a CUDA tensor
+launches the kernel or raises. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -62,6 +82,8 @@ from lumfuncmcmc_tpu_torch.cosmology import SQARCSEC_PER_SR
 from lumfuncmcmc_tpu_torch.models.context import LFContext
 from lumfuncmcmc_tpu_torch.models.likelihood import (
     ThetaLayout, in_box)
+from lumfuncmcmc_tpu_torch.models.likelihood_z import (
+    ThetaLayoutZ, in_box_z)
 from lumfuncmcmc_tpu_torch.ops.completeness import (
     _log10_inverse_fleming_ratio)
 from lumfuncmcmc_tpu_torch.ops.schechter import LN10
@@ -72,6 +94,8 @@ CHUNK_CELLS = 2048      # cells (or sources) one CUDA block reduces
 MAX_ROWS = 65535        # walkers one launch takes (grid.y limit)
 VG_FREE_SLOTS = 7       # partial sums per (walker, chunk), csrc/lnlike.cu
 VG_FIXED_SLOTS = 3
+VG_Z_SLOTS = 8          # csrc/lnlike_z.cu
+X_CLAMP = 60.0          # z_lnlike_vg clamps a source's x = a - lq here
 
 
 def _clamp_flim(theta, layout: ThetaLayout):
@@ -221,6 +245,80 @@ def prepare_cuda_data(ctx: LFContext, fix_comp: bool, fcmin: float = 0.0,
                  float(ctx.sum_pow_lum), float(ctx.sum_ln_om)))
 
 
+@dataclass(frozen=True)
+class CudaZData:
+    """Packed arrays for the z-model kernels (fixed completeness: Omega
+    lives in the frozen weights).
+
+    Grid arrays are (C,) in the context's (F, S_L, S_z) order, z
+    contiguous, so the z nodes of a field, ``n_dz``/``n_dz2`` (F * S_z,),
+    index a cell's last axis; source arrays are (N,). ``chunks`` is the
+    (nchunks, 4) int32 launch table ``(field, start, end, is_source)``:
+    a band of L rows ``[start, end)`` of one field's (S_L, S_z) panel, or
+    a source range. ``lo``/``hi`` are the prior box in float64, for the
+    feature map's clamp.
+    """
+
+    g_a: torch.Tensor       # LN10 * (logL - lref)
+    g_p: torch.Tensor       # 10^(logL - lref)
+    g_w: torch.Tensor       # frozen w_fixed; ln(ln10) rides in feature 2
+    n_dz: torch.Tensor      # z node - z2
+    n_dz2: torch.Tensor
+    s_a: torch.Tensor
+    s_dz: torch.Tensor      # source z - z2
+    s_dz2: torch.Tensor
+    s_lnom0: torch.Tensor   # ln Omega_src (frozen)
+    s_mask: torch.Tensor
+    chunks: torch.Tensor
+    shape: tuple            # (F, S_L, S_z)
+    lref: float
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+
+def _z_chunk_table(shape, nsrc):
+    """Bands of L rows holding about CHUNK_CELLS cells for every field,
+    then the sources in pieces of at most CHUNK_CELLS."""
+    nf, sl, sz = shape
+    band = max(1, CHUNK_CELLS // sz)
+    rows = [(f, r, min(r + band, sl), 0)
+            for f in range(nf) for r in range(0, sl, band)]
+    rows += [(0, s, min(s + CHUNK_CELLS, nsrc), 1)
+             for s in range(0, nsrc, CHUNK_CELLS)]
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 4)
+
+
+def prepare_cuda_z_data(ctx: LFContext, layout: ThetaLayoutZ,
+                        dtype=None) -> CudaZData:
+    """Pack the context's grids and sources into the z kernels' layout,
+    on the context's device, in ``dtype`` (default: the context's).
+    Everything is formed in float64 and cast once."""
+    device = ctx.lum.device
+    dtype = dtype or ctx.lum.dtype
+    lref = float(ctx.lref)
+    logL = ctx.logL_grid.double().cpu().numpy()
+    dz = ctx.zarr.double().cpu().numpy() - layout.z2          # (F, S_z)
+    lum = ctx.lum.double().cpu().numpy()
+    dzs = ctx.zsrc.double().cpu().numpy() - layout.z2
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a).ravel(), dtype=dtype,
+                               device=device)
+
+    lo, hi = layout.bounds_arrays(torch.float64, device)
+    return CudaZData(
+        g_a=t(LN10 * (logL - lref)),
+        g_p=t(10.0 ** np.clip(logL - lref, -30.0, 25.0)),
+        g_w=t(ctx.w_fixed.double().cpu().numpy()),
+        n_dz=t(dz), n_dz2=t(dz * dz),
+        s_a=t(LN10 * (lum - lref)), s_dz=t(dzs), s_dz2=t(dzs * dzs),
+        s_lnom0=t(ctx.ln_om_src.double().cpu().numpy()),
+        s_mask=t(ctx.src_mask.double().cpu().numpy()),
+        chunks=torch.as_tensor(_z_chunk_table(logL.shape, len(lum)),
+                               device=device),
+        shape=tuple(int(n) for n in logL.shape), lref=lref, lo=lo, hi=hi)
+
+
 # ---------------------------------------------------------------------------
 # feature maps (theta -> per-walker kernel scalars)
 # ---------------------------------------------------------------------------
@@ -281,6 +379,44 @@ def _features(thetas, data: CudaGridData, layout: ThetaLayout, dtype):
     else:
         feats = _feat_free_one(th, layout, data.lref, data.fcmin)
     return feats.to(dtype).contiguous()
+
+
+def _feat_z_one(theta, layout: ThetaLayoutZ, lref: float):
+    """(W, D) z-model thetas -> (W, 7) quadratic-coefficient features,
+    the quadratics taken in ``dz = z - z2`` and Lstar relative to
+    ``lref``::
+
+        0 LN10*pcurv   1 LN10*pslope   2 LN10*phi2 + ln(ln10)
+        3 LN10*Lcurv   4 LN10*Lslope   5 LN10*(L2 - lref)
+        6 aA = sch_al + 1
+
+    so ``LN10*phistar(z) + ln(ln10) = f0 dz^2 + f1 dz + f2`` and
+    ``lq(z) = LN10*(Lstar(z) - lref) = f3 dz^2 + f4 dz + f5``.
+    """
+    L1, L2, L3, p1, p2, p3, al = layout.unpack(theta)
+    d1, d3 = layout.z1 - layout.z2, layout.z3 - layout.z2
+
+    def curv_slope(y1, y2, y3):
+        s1, s3 = (y1 - y2) / d1, (y3 - y2) / d3
+        curv = (s1 - s3) / (d1 - d3)
+        return curv, s1 - curv * d1
+
+    pc, ps = curv_slope(p1, p2, p3)
+    lc, ls = curv_slope(L1, L2, L3)
+    return torch.stack([LN10 * pc, LN10 * ps, LN10 * p2 + _LOG_LN10,
+                        LN10 * lc, LN10 * ls, LN10 * (L2 - lref),
+                        al + 1.0], dim=1)
+
+
+def _features_z(thetas, data: CudaZData, layout: ThetaLayoutZ, dtype):
+    """(W, D) thetas -> the z kernels' contiguous (W, 7) feature rows in
+    ``dtype``. The pivot algebra runs in float64 (its differences of
+    ~42-sized pivots over ~0.3-sized spacings lose ~1e-5 relative in
+    float32). Thetas are clamped to the prior box first: a row the
+    caller masks keeps finite features, whatever its theta, so its
+    gradient is an exact 0."""
+    th = torch.clamp(thetas.double(), data.lo, data.hi)
+    return _feat_z_one(th, layout, data.lref).to(dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -410,6 +546,89 @@ def fixed_lnlike_vg_reference(feats, data: CudaGridData):
                         torch.ones_like(s0)], dim=1)
 
 
+def _z_node_rows(th, data: CudaZData, f: int):
+    """Per z node of field ``f``, each (W, S_z): ``dz``, ``dz2`` (1, S_z)
+    and the hoisted ``lq = LN10 (Lstar(z) - lref)``, ``t1 = exp(-lq) =
+    10^(lref - Lstar(z))`` and ``base = pr - aA lq`` with ``pr`` the
+    phistar quadratic."""
+    sz = data.shape[2]
+    dz = data.n_dz[f * sz:(f + 1) * sz][None, :]
+    dz2 = data.n_dz2[f * sz:(f + 1) * sz][None, :]
+    lq = th[3] * dz2 + th[4] * dz + th[5]
+    pr = th[0] * dz2 + th[1] * dz + th[2]
+    return dz, dz2, lq, torch.exp(-lq), pr - th[6] * lq
+
+
+def _z_panel(data: CudaZData, f: int):
+    """Field ``f``'s (1, S_L, S_z) panels of ``g_a``, ``g_p``, ``g_w``."""
+    _, sl, sz = data.shape
+    g = slice(f * sl * sz, (f + 1) * sl * sz)
+    return (data.g_a[g].view(1, sl, sz), data.g_p[g].view(1, sl, sz),
+            data.g_w[g].view(1, sl, sz))
+
+
+def z_lnlike_reference(feats, data: CudaZData):
+    """Plain version of the z-model kernel, in its hoisted form: per
+    field and z node ``t1`` and ``base`` once, then one exp per cell,
+    ``exp(base + aA a - P t1) w``; per source ``ln phi(a_s, z_s) +
+    ln Omega_s`` with no clamp on ``x = a_s - lq``. (W, 7) -> (W,)."""
+    th = [feats[:, i:i + 1] for i in range(7)]
+    tot = torch.zeros(feats.shape[0], dtype=feats.dtype,
+                      device=feats.device)
+    for f in range(data.shape[0]):
+        _, _, _, t1, base = _z_node_rows(th, data, f)
+        a, p, w = _z_panel(data, f)
+        e = base[:, None, :] + th[6][:, :, None] * a - p * t1[:, None, :]
+        tot = tot - (torch.exp(e) * w).sum(dim=(1, 2))
+    lq = th[3] * data.s_dz2 + th[4] * data.s_dz + th[5]
+    x = data.s_a - lq
+    contrib = (th[0] * data.s_dz2 + th[1] * data.s_dz + th[2] + th[6] * x
+               - torch.exp(x) + data.s_lnom0)
+    return tot + torch.where(data.s_mask > 0.0, contrib,
+                             torch.zeros_like(contrib)).sum(dim=1)
+
+
+def z_lnlike_vg_reference(feats, data: CudaZData):
+    """Plain version of the z-model value+gradient kernel: (W, 7)
+    features -> (W, 8) rows ``[lnl, d/d(f0..f6)]``. Per z node three
+    column sums over the L rows (``E``, ``E P``, ``E a``) are contracted
+    with ``dz``, ``dz2``, ``t1`` and ``lq``; the source part clamps ``x``
+    at ``X_CLAMP``, as ``_kernel_z_vg`` does."""
+    th = [feats[:, i:i + 1] for i in range(7)]
+    aA = th[6][:, 0]
+    zero = torch.zeros(feats.shape[0], dtype=feats.dtype,
+                       device=feats.device)
+    lnl, d = zero, [zero] * 7
+    for f in range(data.shape[0]):
+        dz, dz2, lq, t1, base = _z_node_rows(th, data, f)
+        a, p, w = _z_panel(data, f)
+        e = torch.exp(base[:, None, :] + th[6][:, :, None] * a
+                      - p * t1[:, None, :]) * w
+        col_e = e.sum(dim=1)                                # (W, S_z)
+        tp = t1 * (e * p).sum(dim=1)
+        s0 = col_e.sum(dim=1)
+        cez, cez2 = (col_e * dz).sum(dim=1), (col_e * dz2).sum(dim=1)
+        lnl = lnl - s0
+        d = [d[0] - cez2, d[1] - cez, d[2] - s0,
+             d[3] + aA * cez2 - (tp * dz2).sum(dim=1),
+             d[4] + aA * cez - (tp * dz).sum(dim=1),
+             d[5] + aA * s0 - tp.sum(dim=1),
+             d[6] - ((e * a).sum(dim=(1, 2)) - (lq * col_e).sum(dim=1))]
+    m, dz, dz2 = data.s_mask, data.s_dz, data.s_dz2
+    lq = th[3] * dz2 + th[4] * dz + th[5]
+    x = torch.clamp(data.s_a - lq, max=X_CLAMP)
+    ex = torch.exp(x)
+    contrib = (th[0] * dz2 + th[1] * dz + th[2] + th[6] * x - ex
+               + data.s_lnom0)
+    lnl = lnl + torch.where(m > 0.0, contrib,
+                            torch.zeros_like(contrib)).sum(dim=1)
+    mr = m * (th[6] - ex)
+    d = [d[0] + (m * dz2).sum(), d[1] + (m * dz).sum(), d[2] + m.sum(),
+         d[3] - (mr * dz2).sum(dim=1), d[4] - (mr * dz).sum(dim=1),
+         d[5] - mr.sum(dim=1), d[6] + (m * x).sum(dim=1)]
+    return torch.stack([lnl] + d, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -444,20 +663,32 @@ def _check_cuda_inputs(feats, nfeat, data, arrays):
 _FREE_ARRAYS = ("g_logf", "g_a", "g_p", "g_r", "g_w", "s_logf", "s_a",
                 "s_p", "s_r", "s_lnom0", "s_mask")
 _FIXED_ARRAYS = ("g_a", "g_p", "g_w")
+_Z_ARRAYS = ("g_a", "g_p", "g_w", "n_dz", "n_dz2", "s_a", "s_dz", "s_dz2",
+             "s_lnom0", "s_mask")
 
 
-def _launch(name, feats, data: CudaGridData, slots, out_cols):
-    """Check the inputs and launch kernel ``name`` of ``csrc/lnlike.cu``
-    on the current stream of ``feats``' device, with a (W, nchunks,
-    ``slots``) scratch buffer; returns the (W,) output, or (W,
-    ``out_cols``) when ``out_cols`` is set. Raises on any failure."""
+def _signature(name, data):
+    """What kernel ``name``'s C entry point takes for ``data``: (data
+    array names, feature count, the ints after ``(W, nfeat)``, the ints
+    after ``nchunks``)."""
+    if name.startswith("z"):
+        return _Z_ARRAYS, 7, data.shape[1:], ()
+    if name.startswith("fixed"):
+        return _FIXED_ARRAYS, 5, (), ()
+    return (_FREE_ARRAYS, 6 + 2 * data.nfields, (data.nfields,),
+            (int(bool(data.fcmin)),))
+
+
+def _launch(name, feats, data, slots, out_cols):
+    """Check the inputs and launch kernel ``name`` of ``csrc/`` on the
+    current stream of ``feats``' device, with a (W, nchunks, ``slots``)
+    scratch buffer; returns the (W,) output, or (W, ``out_cols``) when
+    ``out_cols`` is set. Raises on any failure."""
     if feats.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {feats.device}")
     from lumfuncmcmc_tpu_torch.ops._build import load_library
-    fixed = name.startswith("fixed")
-    arrays = tuple(getattr(data, a)
-                   for a in (_FIXED_ARRAYS if fixed else _FREE_ARRAYS))
-    nfeat = 5 if fixed else 6 + 2 * data.nfields
+    names, nfeat, head, flags = _signature(name, data)
+    arrays = tuple(getattr(data, a) for a in names)
     _check_cuda_inputs(feats, nfeat, data, arrays)
     lib = load_library()
     w, nchunks = feats.shape[0], data.chunks.shape[0]
@@ -465,84 +696,61 @@ def _launch(name, feats, data: CudaGridData, slots, out_cols):
                           device=feats.device)
     out = torch.empty((w, out_cols) if out_cols else (w,),
                       dtype=torch.float32, device=feats.device)
-    head = (w, nfeat) if fixed else (w, nfeat, data.nfields)
-    flags = () if fixed else (int(bool(data.fcmin)),)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     rc = getattr(lib, f"{name}_launch")(
-        _ptr(feats), *head, *(_ptr(a) for a in arrays), _ptr(data.chunks),
-        nchunks, *flags, _ptr(partial), _ptr(out), ctypes.c_void_p(stream))
+        _ptr(feats), w, nfeat, *head, *(_ptr(a) for a in arrays),
+        _ptr(data.chunks), nchunks, *flags, _ptr(partial), _ptr(out),
+        ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out
 
 
-def free_lnlike(feats, data: CudaGridData):
-    """Free-completeness lnlike, (W, 6+2F) features -> (W,).
+def _wrapper(name, plain, slots, out_cols, doc):
+    """The public wrapper of kernel ``name``: the plain version for a CPU
+    tensor; for any other tensor the kernel (counted in ``.launches``
+    where it launches, and nowhere else) or an error. ``out_cols`` maps
+    the data to the output's column count (None: a (W,) output)."""
 
-    CPU tensors take :func:`free_lnlike_reference`; CUDA tensors launch
-    the ``free_lnlike`` kernel of ``csrc/lnlike.cu`` or raise.
-    """
-    if feats.device.type == "cpu":
-        return free_lnlike_reference(feats, data)
-    out = _launch("free_lnlike", feats, data, 1, 0)
-    free_lnlike.launches += 1
-    return out
+    def kernel(feats, data):
+        if feats.device.type == "cpu":
+            return plain(feats, data)
+        out = _launch(name, feats, data, slots,
+                      out_cols(data) if out_cols else 0)
+        kernel.launches += 1
+        return out
 
-
-free_lnlike.launches = 0
-
-
-def fixed_lnlike(feats, data: CudaGridData):
-    """Fixed-completeness lnlike, (W, 5) features -> (W,).
-
-    CPU tensors take :func:`fixed_lnlike_reference`; CUDA tensors launch
-    the ``fixed_lnlike`` kernel of ``csrc/lnlike.cu`` or raise.
-    """
-    if feats.device.type == "cpu":
-        return fixed_lnlike_reference(feats, data)
-    out = _launch("fixed_lnlike", feats, data, 1, 0)
-    fixed_lnlike.launches += 1
-    return out
+    kernel.launches = 0
+    kernel.__name__ = kernel.__qualname__ = name
+    kernel.__doc__ = (f"{doc} CPU tensors take :func:`{plain.__name__}`; "
+                      f"CUDA tensors launch the ``{name}`` kernel of "
+                      "``csrc/`` or raise.")
+    return kernel
 
 
-fixed_lnlike.launches = 0
-
-
-def free_lnlike_vg(feats, data: CudaGridData):
-    """Free-completeness lnlike and its feature gradient, (W, 6+2F)
-    features -> (W, 7+2F) rows (:func:`free_lnlike_vg_reference`'s
-    columns).
-
-    CPU tensors take :func:`free_lnlike_vg_reference`; CUDA tensors
-    launch the ``free_lnlike_vg`` kernel of ``csrc/lnlike.cu`` or raise.
-    """
-    if feats.device.type == "cpu":
-        return free_lnlike_vg_reference(feats, data)
-    out = _launch("free_lnlike_vg", feats, data, VG_FREE_SLOTS,
-                  7 + 2 * data.nfields)
-    free_lnlike_vg.launches += 1
-    return out
-
-
-free_lnlike_vg.launches = 0
-
-
-def fixed_lnlike_vg(feats, data: CudaGridData):
-    """Fixed-completeness lnlike and its feature gradient, (W, 5)
-    features -> (W, 6) rows (:func:`fixed_lnlike_vg_reference`'s
-    columns).
-
-    CPU tensors take :func:`fixed_lnlike_vg_reference`; CUDA tensors
-    launch the ``fixed_lnlike_vg`` kernel of ``csrc/lnlike.cu`` or raise.
-    """
-    if feats.device.type == "cpu":
-        return fixed_lnlike_vg_reference(feats, data)
-    out = _launch("fixed_lnlike_vg", feats, data, VG_FIXED_SLOTS, 6)
-    fixed_lnlike_vg.launches += 1
-    return out
-
-
-fixed_lnlike_vg.launches = 0
+free_lnlike = _wrapper(
+    "free_lnlike", free_lnlike_reference, 1, None,
+    "Free-completeness lnlike, (W, 6+2F) features -> (W,).")
+fixed_lnlike = _wrapper(
+    "fixed_lnlike", fixed_lnlike_reference, 1, None,
+    "Fixed-completeness lnlike, (W, 5) features -> (W,).")
+free_lnlike_vg = _wrapper(
+    "free_lnlike_vg", free_lnlike_vg_reference, VG_FREE_SLOTS,
+    lambda data: 7 + 2 * data.nfields,
+    "Free-completeness lnlike and its feature gradient, (W, 6+2F) "
+    "features -> (W, 7+2F) rows.")
+fixed_lnlike_vg = _wrapper(
+    "fixed_lnlike_vg", fixed_lnlike_vg_reference, VG_FIXED_SLOTS,
+    lambda data: 6,
+    "Fixed-completeness lnlike and its feature gradient, (W, 5) features "
+    "-> (W, 6) rows.")
+z_lnlike = _wrapper(
+    "z_lnlike", z_lnlike_reference, 1, None,
+    "z-model lnlike, (W, 7) features -> (W,).")
+z_lnlike_vg = _wrapper(
+    "z_lnlike_vg", z_lnlike_vg_reference, VG_Z_SLOTS, lambda data: 8,
+    "z-model lnlike and its feature gradient, (W, 7) features -> (W, 8) "
+    "rows.")
 
 
 class _LnlikeOfFeats(torch.autograd.Function):
@@ -563,70 +771,75 @@ class _LnlikeOfFeats(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# public builder
+# the public make_* functions
 # ---------------------------------------------------------------------------
 
-def make_cuda_lnprob(ctx: LFContext, layout: ThetaLayout):
-    """(W, D) -> (W,) lnprob through the hand-written kernels, with the
-    semantics of ``make_lnprob``: the box-prior mask is applied outside
-    the kernel, so an out-of-box theta gives -inf.
-
-    On a CUDA context the kernels run in float32 whatever the context's
-    dtype (as the TPU kernels do); on the CPU the plain versions run in
-    the context's dtype. The result comes back in the thetas' dtype.
-    On a CUDA context the kernel library is built and loaded here, so
-    the first lnprob call (inside the sampler's timed window) does not
-    pay for it.
-    """
+def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
+    """The common body of the ``make_*`` functions. On a CUDA context
+    the kernels run in float32 whatever the context's dtype (as the TPU
+    kernels do) and the kernel library is built and loaded here, so the
+    first lnprob call (inside the sampler's timed window) does not pay
+    for it; on the CPU the plain versions run in the context's dtype.
+    The result comes back in the thetas' dtype, -inf outside the
+    prior."""
     device = ctx.lum.device
     if device.type == "cuda":
         from lumfuncmcmc_tpu_torch.ops._build import load_library
         load_library()
     kdtype = torch.float32 if device.type == "cuda" else ctx.lum.dtype
-    data = prepare_cuda_data(ctx, layout.fix_comp, layout.fcmin,
-                             dtype=kdtype)
     # bounds made once: a host tensor per call would sync the device
     lo, hi = layout.bounds_arrays(ctx.lum.dtype, device)
-
-    value = fixed_lnlike if layout.fix_comp else free_lnlike
+    if model == "z":
+        data = prepare_cuda_z_data(ctx, layout, dtype=kdtype)
+        features, inside = _features_z, in_box_z
+        value, vg = z_lnlike, z_lnlike_vg
+    elif model == "single":
+        data = prepare_cuda_data(ctx, layout.fix_comp, layout.fcmin,
+                                 dtype=kdtype)
+        features, inside = _features, in_box
+        value, vg = ((fixed_lnlike, fixed_lnlike_vg) if layout.fix_comp
+                     else (free_lnlike, free_lnlike_vg))
+    else:
+        raise NotImplementedError(f"model {model!r} has no kernel yet")
 
     def batched(thetas):
-        lnl = value(_features(thetas, data, layout, kdtype),
-                    data).to(thetas.dtype)
-        return torch.where(in_box(thetas, lo, hi), lnl,
+        feats = features(thetas, data, layout, kdtype)
+        lnl = (_LnlikeOfFeats.apply(feats, data, vg) if grad
+               else value(feats, data)).to(thetas.dtype)
+        return torch.where(inside(thetas, lo, hi), lnl,
                            torch.full_like(lnl, -math.inf))
 
     batched.engine = "cuda" if device.type == "cuda" else "plain"
     return batched
 
 
-def make_cuda_lnprob_and_grad(ctx: LFContext, layout: ThetaLayout):
+def make_cuda_lnprob(ctx: LFContext, layout: ThetaLayout):
+    """(W, D) -> (W,) single-epoch lnprob through the hand-written
+    kernels, with the semantics of ``make_lnprob``: the box-prior mask is
+    applied outside the kernel, so an out-of-box theta gives -inf.
+    Dtypes and library loading: :func:`_make_lnprob`."""
+    return _make_lnprob(ctx, layout, "single", grad=False)
+
+
+def make_cuda_lnprob_z(ctx: LFContext, layout: ThetaLayoutZ):
+    """(W, D) -> (W,) z-model lnprob through :func:`z_lnlike`, with the
+    semantics of ``make_lnprob_z``: the strict pivot prior masks outside
+    the kernel (counterpart of ``make_pallas_lnprob_z``,
+    ``pallas_lnlike.py:1518``, without its VMEM gate: one kernel serves
+    every catalog size)."""
+    return _make_lnprob(ctx, layout, "z", grad=False)
+
+
+def make_cuda_lnprob_and_grad(ctx: LFContext, layout, model: str = "single"):
     """(C, D) -> (C,) lnprob that autograd differentiates through the
     value+gradient kernels — one kernel launch per value-and-gradient
     evaluation (the counterpart of ``make_pallas_lnprob_and_grad``,
-    ``pallas_lnlike.py:1771``, single family, both completeness modes).
+    ``pallas_lnlike.py:1771``). ``model`` is "single" (both completeness
+    modes) or "z" (quadratic pivot evolution, strict pivot prior).
 
-    :func:`_features` (with autograd on), one
-    :class:`_LnlikeOfFeats` call, then the box mask: an out-of-box row
-    gives -inf and a gradient of exactly 0 (the clamp keeps its features
-    and their gradient finite, so the mask's zero cotangent stays 0).
-    Kernel dtype and library loading as :func:`make_cuda_lnprob`.
+    The feature map (with autograd on), one :class:`_LnlikeOfFeats` call,
+    then the prior mask: a masked row gives -inf and a gradient of
+    exactly 0 (the feature maps' clamps keep its features and their
+    gradient finite, so the mask's zero cotangent stays 0).
     """
-    device = ctx.lum.device
-    if device.type == "cuda":
-        from lumfuncmcmc_tpu_torch.ops._build import load_library
-        load_library()
-    kdtype = torch.float32 if device.type == "cuda" else ctx.lum.dtype
-    data = prepare_cuda_data(ctx, layout.fix_comp, layout.fcmin,
-                             dtype=kdtype)
-    lo, hi = layout.bounds_arrays(ctx.lum.dtype, device)
-    vg = fixed_lnlike_vg if layout.fix_comp else free_lnlike_vg
-
-    def batched(thetas):
-        feats = _features(thetas, data, layout, kdtype)
-        lnl = _LnlikeOfFeats.apply(feats, data, vg).to(thetas.dtype)
-        return torch.where(in_box(thetas, lo, hi), lnl,
-                           torch.full_like(lnl, -math.inf))
-
-    batched.engine = "cuda" if device.type == "cuda" else "plain"
-    return batched
+    return _make_lnprob(ctx, layout, model, grad=True)

@@ -1,5 +1,6 @@
 """Schechter luminosity-function forms (port of
-``lumfuncmcmc_tpu/ops/schechter.py``: the single-epoch subset)."""
+``lumfuncmcmc_tpu/ops/schechter.py``: the single-epoch forms and the
+redshift-evolving ones)."""
 
 from __future__ import annotations
 
@@ -25,3 +26,29 @@ def log_true_lum_func(logL, alpha, logLstar, logphistar):
 def true_lum_func(logL, alpha, logLstar, logphistar):
     """Schechter phi(logL) in Mpc^-3 dex^-1."""
     return torch.exp(log_true_lum_func(logL, alpha, logLstar, logphistar))
+
+
+def quad_coef(y1, y2, y3, z1, z2, z3):
+    """Quadratic coefficients through three pivots (Leja et al. 2020
+    style): y = a z^2 + b z + c."""
+    a = ((y3 - y1) + (y2 - y1) * (z1 - z3) / (z2 - z1)) / (
+        z3**2 - z1**2 + (z2**2 - z1**2) * (z1 - z3) / (z2 - z1))
+    b = (y2 - y1 - a * (z2**2 - z1**2)) / (z2 - z1)
+    c = y1 - a * z1**2 - b * z1
+    return a, b, c
+
+
+def log_schechter_z(logL, z, al, L1, L2, L3, phi1, phi2, phi3, z1, z2, z3):
+    """ln phi(logL, z) with (logL*, logphi*) quadratic in z through three
+    pivot values; ``logL``, ``z`` and the parameters broadcast."""
+    aphi, bphi, cphi = quad_coef(phi1, phi2, phi3, z1, z2, z3)
+    alum, blum, clum = quad_coef(L1, L2, L3, z1, z2, z3)
+    phistar = aphi * z**2 + bphi * z + cphi
+    lstar = alum * z**2 + blum * z + clum
+    return log_true_lum_func(logL, al, lstar, phistar)
+
+
+def schechter_z(logL, z, al, L1, L2, L3, phi1, phi2, phi3, z1, z2, z3):
+    """phi(logL, z) for the redshift-evolving model."""
+    return torch.exp(log_schechter_z(logL, z, al, L1, L2, L3,
+                                     phi1, phi2, phi3, z1, z2, z3))

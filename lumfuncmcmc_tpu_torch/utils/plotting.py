@@ -1,6 +1,6 @@
-"""Host-side matplotlib plots for the ``fit`` path (port of
-``corner_plot`` and ``triangle_plot_single`` from
-``lumfuncmcmc_tpu/utils/plotting.py``).
+"""Host-side matplotlib plots for the ``fit`` and ``fitz`` paths (port
+of ``corner_plot``, ``triangle_plot_single`` and ``triangle_plot_z``
+from ``lumfuncmcmc_tpu/utils/plotting.py``).
 
 matplotlib is imported inside the plotting functions only: a machine
 without it can still run every other part of the package.
@@ -98,6 +98,22 @@ def corner_plot(samples, labels, bins=30, range_frac=0.95, fig=None):
     return fig
 
 
+def add_lumfunc_axes(ax):
+    """Axis styling of the LF inset."""
+    ax.set_yscale("log")
+    ax.set_xlabel(r"$\log$ L (erg s$^{-1}$)")
+    ax.set_ylabel(r"$\phi_{\rm{true}}$ (Mpc$^{-3}$ dex$^{-1}$)")
+    ax.minorticks_on()
+
+
+def _inset_axes(fig, ndim, left):
+    """The LF inset in the corner plot's empty upper right."""
+    return fig.add_axes(
+        [left - 0.008 * (ndim - 4), 0.78 - 0.001 * (ndim - 4),
+         0.48 + 0.008 * (ndim - 4), 0.19 + 0.001 * (ndim - 4)]
+        if ndim >= 4 else [0.67, 0.75, 0.32, 0.23])
+
+
 def triangle_plot_single(model, outname, lnprobcut=7.5, imgtype="png",
                          rndsamples=200):
     """Corner plot with the LF inset: 200 posterior LF draws, the median
@@ -112,15 +128,8 @@ def triangle_plot_single(model, outname, lnprobcut=7.5, imgtype="png",
     model.log.info(str(nsamples.shape))
     fig = corner_plot(nsamples[:, :-1], model.get_param_names())
 
-    ndim = nsamples.shape[1] - 1
-    poss = ([0.50 - 0.008 * (ndim - 4), 0.78 - 0.001 * (ndim - 4),
-             0.48 + 0.008 * (ndim - 4), 0.19 + 0.001 * (ndim - 4)]
-            if ndim >= 4 else [0.67, 0.75, 0.32, 0.23])
-    ax1 = fig.add_axes(poss)
-    ax1.set_yscale("log")
-    ax1.set_xlabel(r"$\log$ L (erg s$^{-1}$)")
-    ax1.set_ylabel(r"$\phi_{\rm{true}}$ (Mpc$^{-3}$ dex$^{-1}$)")
-    ax1.minorticks_on()
+    ax1 = _inset_axes(fig, nsamples.shape[1] - 1, 0.50)
+    add_lumfunc_axes(ax1)
 
     lum = model.lum
     indsort = np.argsort(lum)
@@ -154,5 +163,38 @@ def triangle_plot_single(model, outname, lnprobcut=7.5, imgtype="png",
     if cond.any():
         ax1.set_ylim(bottom=np.percentile(model.medianLF[cond], 0),
                      top=np.percentile(model.medianLF[cond], 100))
+    fig.savefig(f"{outname}.{imgtype}", dpi=200)
+    plt.close(fig)
+
+
+def triangle_plot_z(model, outname, lnprobcut=7.5, imgtype="png",
+                    zlen=100, Llen=100):
+    """z-variant corner plot with the LF(z, L) pcolormesh inset."""
+    import warnings
+
+    from lumfuncmcmc_tpu_torch.models.model import select_samples
+
+    plt = _pyplot()
+    nsamples = select_samples(model.samples, lnprobcut)
+    fig = corner_plot(nsamples[:, :-1], model.get_param_names())
+    ax1 = _inset_axes(fig, nsamples.shape[1] - 1, 0.44)
+    add_lumfunc_axes(ax1)
+
+    model.set_median_fit(lnprobcut=lnprobcut, zlen=zlen, Llen=Llen)
+    LL, zzout = np.meshgrid(model.Lout, model.zout)
+    # reference semantics: the y coordinates are the LF values
+    # (non-monotonic by construction) coloured by redshift; matplotlib
+    # warns about the cell-centre interpretation, which is intended
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*cell centers.*")
+        im = ax1.pcolormesh(LL, model.medianLF, zzout, shading="auto",
+                            cmap="viridis")
+    med = np.percentile(nsamples[:, :3], 50.0, axis=0)
+    xmax = min(np.max(med) + 0.5, model.Lout.max())
+    cond = model.Lout <= xmax
+    ax1.set_ylim(bottom=max(np.percentile(model.medianLF[:, cond], 1),
+                            3.1e-5 * model.medianLF.max()))
+    ax1.set_xlim(right=xmax)
+    fig.colorbar(im, ax=ax1, label="Redshift", fraction=0.05, pad=0.02)
     fig.savefig(f"{outname}.{imgtype}", dpi=200)
     plt.close(fig)

@@ -12,6 +12,7 @@ import torch
 from lumfuncmcmc_tpu_torch import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.likelihood import ThetaLayout, sample_init
+from lumfuncmcmc_tpu_torch.models.likelihood_z import ThetaLayoutZ
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
 from lumfuncmcmc_tpu_torch.samplers import nuts
 from lumfuncmcmc_tpu_torch.samplers.affine import run_stretch
@@ -193,3 +194,83 @@ def test_nuts_transition_through_the_kernels_matches_plain(device,
     np.testing.assert_allclose(yk, yp, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(vk, vp, rtol=1e-4)
     np.testing.assert_allclose(ak, ap, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("size_ln", [41, 12])
+@pytest.mark.parametrize("w", [1, 13, 256])
+def test_z_kernels_match_plain_versions(device, w, size_ln):
+    """``z_lnlike`` and ``z_lnlike_vg`` equal their plain versions in
+    float32 on the card (values rtol 1e-4, gradient columns by
+    ``_grad_close``), on a grid with several L-row bands per field (41)
+    and one with a single ragged band (12), with a row on a pivot bound
+    and one far outside the box."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=size_ln, fix_comp=True)
+    layout = ThetaLayoutZ.from_config(cfg)
+    ctx = _context(cfg, device)
+    data = cl.prepare_cuda_z_data(ctx, layout)
+    gen = torch.Generator(device=device).manual_seed(w)
+    lo, hi = layout.bounds_arrays(torch.float32, device)
+    th = 0.7 * (lo + hi) / 2 + 0.3 * sample_init(
+        gen, layout, w, dtype=torch.float32, device=device)
+    th[0, 1] = layout.hi[1]
+    th[-1, 0] = 1000.0
+    feats = cl._features_z(th, data, layout, torch.float32)
+    for kernel, plain, cols in (
+            (cl.z_lnlike, cl.z_lnlike_reference, None),
+            (cl.z_lnlike_vg, cl.z_lnlike_vg_reference, 8)):
+        n0 = kernel.launches
+        got = kernel(feats, data).cpu().numpy()
+        ref = plain(feats, data).cpu().numpy()
+        assert kernel.launches == n0 + 1
+        assert got.shape == ((w, cols) if cols else (w,))
+        assert np.isfinite(got).all()
+        if cols:
+            np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=1e-4)
+            _grad_close(got[:, 1:], ref[:, 1:])
+        else:
+            np.testing.assert_allclose(got, ref, rtol=1e-4)
+
+
+def test_z_wrappers_reject_what_the_kernels_cannot_take(device):
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=11, fix_comp=True)
+    layout = ThetaLayoutZ.from_config(cfg)
+    data = cl.prepare_cuda_z_data(_context(cfg, device), layout)
+    cpu_data = cl.prepare_cuda_z_data(_context(cfg, "cpu"), layout)
+    for fn in (cl.z_lnlike, cl.z_lnlike_vg):
+        with pytest.raises(TypeError, match="float32"):
+            fn(torch.zeros((4, 7), device=device, dtype=torch.float64), data)
+        with pytest.raises(ValueError, match="features must be"):
+            fn(torch.zeros((4, 6), device=device), data)
+        with pytest.raises(ValueError, match="launch range"):
+            fn(torch.zeros((65536, 7), device=device), data)
+        with pytest.raises(ValueError, match="grid data on cpu"):
+            fn(torch.zeros((4, 7), device=device), cpu_data)
+
+
+def test_z_step_loop_never_synchronises_and_is_deterministic(device):
+    """The z model's stretch run under
+    ``torch.cuda.set_sync_debug_mode("error")``, and the kernels' fixed
+    summation order: the same call twice gives the same bits."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=21, fix_comp=True)
+    layout = ThetaLayoutZ.from_config(cfg)
+    ctx = _context(cfg, device)
+    lnprob = cl.make_cuda_lnprob_z(ctx, layout)
+    gen = torch.Generator(device=device).manual_seed(0)
+    pos0 = sample_init(gen, layout, 32, dtype=torch.float32, device=device)
+    first = lnprob(pos0)
+    assert torch.equal(first, lnprob(pos0))
+    post = cl.make_cuda_lnprob_and_grad(ctx, layout, model="z")
+    t = pos0.clone().requires_grad_(True)
+    (g1,) = torch.autograd.grad(post(t).sum(), t)
+    (g2,) = torch.autograd.grad(post(t).sum(), t)
+    assert torch.equal(g1, g2) and torch.isfinite(g1).all()
+    torch.cuda.synchronize()
+    n0 = cl.z_lnlike.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, chain, lnps, acc = run_stretch(lnprob, pos0, gen, 25)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cl.z_lnlike.launches - n0 == 1 + 2 * 25
+    assert chain.shape == (25, 32, layout.ndim)
+    assert torch.isfinite(lnps[-1]).all()

@@ -1,4 +1,5 @@
-"""The ``fit`` CLI of both packages on one synthetic catalog.
+"""The ``fit`` and ``fitz`` CLIs of both packages on one synthetic
+catalog.
 
 The same command line runs through the JAX package and the PyTorch port
 (``--device cpu`` added for the port, whose default is the card): both
@@ -7,7 +8,8 @@ median of the port lies within 0.5 posterior sd of the JAX package's.
 The chains differ (the frameworks draw different random numbers) but are
 long enough (~700 effective samples) that an honest port sits ~0.1 sd
 away. ``--sampler nuts`` is checked against the port's own stretch run
-of the same command.
+of the same command. ``fitz`` is held to the JAX ``fitz`` the same way
+(``LFMCMCzOut/``, the LF matrix columns of ``bestfitLF``), at 800 steps.
 """
 
 import json
@@ -39,60 +41,97 @@ def _no_plot_config(path):
     return str(path)
 
 
-def _run(main, workdir, extra):
+def _run(main, workdir, argv, outdir="LFMCMCOut"):
     os.makedirs(workdir)
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
-        assert main(["fit"] + ARGS + extra) == 0
+        assert main(argv) == 0
     finally:
         os.chdir(cwd)
-    out = os.path.join(workdir, "LFMCMCOut")
+    out = os.path.join(workdir, outdir)
     return out, sorted(os.listdir(out))
 
 
-def _compare(tmp_path, extra, port_extra=()):
+def _compare(tmp_path, extra, port_extra=(), command="fit",
+             outdir="LFMCMCOut", args=ARGS, base=BASE, max_gap=0.5):
+    """Run ``command`` through both CLIs; returns the two output
+    directories after the shared checks: the same files with the same
+    columns, finite Ln Prob, every median within ``max_gap`` posterior
+    sd of the JAX package's."""
     cfg_path = _no_plot_config(tmp_path / "cfg.json")
-    extra = extra + ["--config", cfg_path]
-    jdir, jfiles = _run(jax_main, str(tmp_path / "jax"), extra)
+    argv = [command] + args + extra + ["--config", cfg_path]
+    jdir, jfiles = _run(jax_main, str(tmp_path / "jax"), argv, outdir)
     tdir, tfiles = _run(port_main, str(tmp_path / "port"),
-                        extra + ["--device", "cpu"] + list(port_extra))
+                        argv + ["--device", "cpu"] + list(port_extra),
+                        outdir)
     assert tfiles == jfiles
-    assert f"fitposterior_{BASE}.dat" in tfiles
+    assert f"fitposterior_{base}.dat" in tfiles
     for name in tfiles:
         if name.endswith(".dat"):
             jt = read_fixed_width_two_line(os.path.join(jdir, name))
             tt = read_fixed_width_two_line(os.path.join(tdir, name))
             assert list(tt) == list(jt), name
     jpost = read_fixed_width_two_line(
-        os.path.join(jdir, f"fitposterior_{BASE}.dat"))
+        os.path.join(jdir, f"fitposterior_{base}.dat"))
     tpost = read_fixed_width_two_line(
-        os.path.join(tdir, f"fitposterior_{BASE}.dat"))
+        os.path.join(tdir, f"fitposterior_{base}.dat"))
     assert np.isfinite(tpost["Ln Prob"]).all()
     for col in jpost:
         if col == "Ln Prob":
             continue
         sd = np.std(jpost[col])
         gap = abs(np.median(tpost[col]) - np.median(jpost[col])) / sd
-        assert gap < 0.5, (col, gap)
-    # the bestfitLF luminosities are the same catalog
-    name = f"bestfitLF_{BASE}.dat"
+        assert gap < max_gap, (col, gap)
+    return jdir, tdir
+
+
+def _same_column(jdir, tdir, name, col):
     np.testing.assert_allclose(
-        read_fixed_width_two_line(os.path.join(tdir, name))["Luminosity"],
-        read_fixed_width_two_line(os.path.join(jdir, name))["Luminosity"],
+        read_fixed_width_two_line(os.path.join(tdir, name))[col],
+        read_fixed_width_two_line(os.path.join(jdir, name))[col],
         rtol=1e-12)
 
 
 def test_fit_cli_matches_jax_package(tmp_path):
     """Free completeness, the port's eager engine (the CPU default)."""
-    _compare(tmp_path, [])
+    jdir, tdir = _compare(tmp_path, [])
+    # the bestfitLF luminosities are the same catalog
+    _same_column(jdir, tdir, f"bestfitLF_{BASE}.dat", "Luminosity")
 
 
 def test_fit_fix_comp_cli_through_the_kernel_path(tmp_path):
     """Fixed completeness through ``--use-pallas``: on the CPU that is the
     kernels' plain versions, the same code path the card takes up to the
     kernel launch."""
-    _compare(tmp_path, ["-fc"], port_extra=["--use-pallas"])
+    jdir, tdir = _compare(tmp_path, ["-fc"], port_extra=["--use-pallas"])
+    _same_column(jdir, tdir, f"bestfitLF_{BASE}.dat", "Luminosity")
+
+
+ZARGS = ["--synthetic", "300", "-mcf", "0.5", "-ns", "800", "-nw", "64",
+         "--size-ln", "21", "-o", "t.dat"]
+ZBASE = "t_nb50_nw64_ns800_mcf50"
+
+
+@pytest.mark.parametrize("engine", ["eager", "plain"])
+def test_fitz_cli_matches_jax_package(tmp_path, engine):
+    """``fitz`` through the eager engine (the CPU default) and through
+    ``--use-pallas`` (the z kernels' plain versions): the JAX CLI's file
+    names and columns in ``LFMCMCzOut/``, pivot medians within 0.5
+    posterior sd, and the same LF-matrix axes."""
+    jdir, tdir = _compare(
+        tmp_path, [], command="fitz", outdir="LFMCMCzOut", args=ZARGS,
+        base=ZBASE,
+        port_extra=["--use-pallas"] if engine == "plain" else [])
+    name = f"bestfitLF_{ZBASE}.dat"
+    cols = list(read_fixed_width_two_line(os.path.join(tdir, name)))
+    assert cols == (["Luminosity_cols", "Redshift_rows"]
+                    + [f"LF_z{i}" for i in range(100)])
+    for col in cols[:2]:
+        _same_column(jdir, tdir, name, col)
+    post = read_fixed_width_two_line(
+        os.path.join(tdir, f"fitposterior_{ZBASE}.dat"))
+    assert len(post) == 8 and r"$\log {\rm{L}}2_*$" in post
 
 
 def test_port_triangle_plot_resume_and_unported_flags(tmp_path,
@@ -165,3 +204,75 @@ def test_nuts_cli_matches_the_stretch_run(tmp_path):
         gap = (abs(np.median(npost[col]) - np.median(spost[col]))
                / np.std(spost[col]))
         assert gap < 1.0, (col, gap)
+
+
+@pytest.mark.parametrize("extra", [["--use-pallas"],
+                                   ["-fsa", "--z-param", "natural"]],
+                         ids=["pivots-plain-vg", "natural-fsa-eager"])
+def test_fitz_nuts_cli_matches_the_stretch_run(tmp_path, extra):
+    """``fitz --sampler nuts`` (through the plain value+gradient version
+    of the z kernel, and with ``-fsa --z-param natural`` through autograd
+    of the eager engine) writes the stretch ``fitz``'s artifact names and
+    columns, and its medians lie within 1 posterior sd of the stretch
+    run's."""
+    cfg_path = _no_plot_config(tmp_path / "cfg.json")
+    common = ["--device", "cpu", "--size-ln", "21", "--synthetic", "300",
+              "-mcf", "0.5", "-o", "t.dat", "--config", cfg_path] + extra
+    ndir, nfiles = _run(port_main, str(tmp_path / "nuts"),
+                        ["fitz", "--sampler", "nuts", "-ns", "150",
+                         "--nchains", "4"] + common, "LFMCMCzOut")
+    sdir, sfiles = _run(port_main, str(tmp_path / "stretch"),
+                        ["fitz", "-ns", "600", "-nw", "64"] + common,
+                        "LFMCMCzOut")
+    nbase, sbase = "t_nb50_nw100_ns150_mcf50", "t_nb50_nw64_ns600_mcf50"
+    assert [f.replace(nbase, "") for f in nfiles] == [
+        f.replace(sbase, "") for f in sfiles]
+    for name in nfiles:
+        if name.endswith(".dat"):
+            assert list(read_fixed_width_two_line(
+                os.path.join(ndir, name))) == list(read_fixed_width_two_line(
+                    os.path.join(sdir, name.replace(nbase, sbase)))), name
+    npost = read_fixed_width_two_line(
+        os.path.join(ndir, f"fitposterior_{nbase}.dat"))
+    spost = read_fixed_width_two_line(
+        os.path.join(sdir, f"fitposterior_{sbase}.dat"))
+    assert len(npost) == (7 if "-fsa" in extra else 8)
+    assert len(npost["Ln Prob"]) == 150 * 4
+    assert np.isfinite(npost["Ln Prob"]).all()
+    for col in spost:
+        if col == "Ln Prob":
+            continue
+        gap = (abs(np.median(npost[col]) - np.median(spost[col]))
+               / np.std(spost[col]))
+        assert gap < 1.0, (col, gap)
+
+
+def test_fitz_resume_pivots_and_unported_flags(tmp_path, monkeypatch):
+    from lumfuncmcmc_tpu.cli.common import _pivot_z as jax_pivot_z
+    from lumfuncmcmc_tpu_torch import LFConfig as PortConfig
+    from lumfuncmcmc_tpu_torch.cli.common import _pivot_z
+    for fn, line in (("x/OIIIGautamWillNoAGN.dat", "OIII"), (None, "OIII"),
+                     ("cat.dat", "Ha"), ("OIIIGautamWillNoAGN.dat", "Ha")):
+        got = _pivot_z(PortConfig(line_name=line), fn)
+        want = jax_pivot_z(LFConfig(line_name=line), fn)
+        assert (got.z1, got.z2, got.z3) == (want.z1, want.z2, want.z3)
+    monkeypatch.chdir(tmp_path)
+    cfg_path = _no_plot_config(tmp_path / "cfg.json")
+    args = ["fitz", "--synthetic", "200", "-mcf", "0.5", "-ns", "30", "-nw",
+            "16", "--size-ln", "7", "-o", "p.dat", "--device", "cpu",
+            "--config", cfg_path]
+    assert port_main(args) == 0
+    post = tmp_path / "LFMCMCzOut" / "fitposterior_p_nb50_nw16_ns30_mcf50.dat"
+    mtime = post.stat().st_mtime_ns
+    # an existing LFMCMCzOut/ fitposterior: reload it, no sampling
+    assert port_main(args) == 0
+    assert post.stat().st_mtime_ns == mtime
+    for flag in (["--map"], ["--ic"], ["--ppc"], ["--evidence", "4"],
+                 ["--min-ess", "100"], ["--ensembles", "2"],
+                 ["--checkpoint-every", "5"], ["--mesh-walkers", "2"]):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            port_main([a.replace("p.dat", "q.dat") for a in args] + flag)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        port_main(["fith", "--synthetic", "10"])
+    with pytest.raises(SystemExit):
+        port_main(args + ["-sr"])           # fitz has no -sr/--same_rand

@@ -1,8 +1,8 @@
 """The port stands alone: with ``jax`` and ``lumfuncmcmc_tpu`` made
 unimportable, every module of ``lumfuncmcmc_tpu_torch`` imports and a
-tiny ``--device cpu`` fit runs; without ``--device cpu`` and with no
-CUDA device, ``fit`` fails and names ``--device cpu`` instead of running
-on the CPU.
+tiny ``--device cpu`` fit runs, ``fit`` and ``fitz`` alike; without
+``--device cpu`` and with no CUDA device, each fails and names
+``--device cpu`` instead of running on the CPU.
 """
 
 import os
@@ -36,7 +36,7 @@ assert not bad, bad
 print("IMPORTED", len(names), "RC", rc)
 '''
 
-FIT = ["fit", "--synthetic", "120", "-mcf", "0.5", "-ns", "10", "-nw", "8",
+FIT = ["--synthetic", "120", "-mcf", "0.5", "-ns", "10",
        "--size-ln", "7", "-o", "g.dat"]
 
 
@@ -51,19 +51,37 @@ def _run(tmp_path, code, argv, env_extra):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
 
 
-def test_port_imports_nothing_of_jax_and_runs_a_cpu_fit(tmp_path):
-    proc = _run(tmp_path, BLOCKED_RUN, FIT + ["--device", "cpu"], {})
+def _blocked_fit(tmp_path, command, outdir, nw):
+    proc = _run(tmp_path, BLOCKED_RUN,
+                [command] + FIT + ["-nw", str(nw), "--device", "cpu"], {})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RC 0" in proc.stdout
-    assert int(proc.stdout.split("IMPORTED")[1].split()[0]) >= 25
-    assert (tmp_path / "LFMCMCOut" / "fitposterior_g_nb50_nw8_ns10_mcf50.dat"
+    assert int(proc.stdout.split("IMPORTED")[1].split()[0]) >= 26
+    assert (tmp_path / outdir / f"fitposterior_g_nb50_nw{nw}_ns10_mcf50.dat"
             ).exists()
 
 
-def test_fit_without_a_card_fails_and_names_device_cpu(tmp_path):
+def _fit_without_a_card(tmp_path, command, outdir, nw):
     code = ("import sys; from lumfuncmcmc_tpu_torch.cli.main import main; "
             "sys.exit(main(sys.argv[1:]))")
-    proc = _run(tmp_path, code, FIT, {"CUDA_VISIBLE_DEVICES": ""})
+    proc = _run(tmp_path, code, [command] + FIT + ["-nw", str(nw)],
+                {"CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert "--device cpu" in proc.stderr
-    assert not (tmp_path / "LFMCMCOut" / "g.dat").exists()
+    assert not (tmp_path / outdir / "g.dat").exists()
+
+
+def test_port_imports_nothing_of_jax_and_runs_a_cpu_fit(tmp_path):
+    _blocked_fit(tmp_path, "fit", "LFMCMCOut", 8)
+
+
+def test_port_imports_nothing_of_jax_and_runs_a_cpu_fitz(tmp_path):
+    _blocked_fit(tmp_path, "fitz", "LFMCMCzOut", 16)
+
+
+def test_fit_without_a_card_fails_and_names_device_cpu(tmp_path):
+    _fit_without_a_card(tmp_path, "fit", "LFMCMCOut", 8)
+
+
+def test_fitz_without_a_card_fails_and_names_device_cpu(tmp_path):
+    _fit_without_a_card(tmp_path, "fitz", "LFMCMCzOut", 16)

@@ -4,6 +4,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/profile_torch_fit.py [--steps 1000] [--profile-steps 100]
     python3 tools/profile_torch_fit.py --sampler nuts [--transitions 20]
+    python3 tools/profile_torch_fit.py --model z [--sampler nuts]
 
 The catalog and model are the smoke test's flagship ones (``LFConfig``
 defaults with ``min_comp_frac=0.5``: 5 fields, 100 walkers, 2000
@@ -16,8 +17,11 @@ the flagship loop (device time, launches, the kernels' share). With
 trapz-101, the value+gradient kernel): ``--transitions`` transitions
 with the step size and mass a 100-transition warmup adapts, then two
 more under ``torch.profiler`` — ms per value+gradient call, leapfrogs
-per transition, the card's busy share and the kernel's device time. Prints
-one line per measurement and a JSON summary last. Imports only the port.
+per transition, the card's busy share and the kernel's device time.
+``--model z`` takes the redshift-evolving model instead (``fitz``:
+trapz-201, 7-dim theta, the ``z_lnlike`` / ``z_lnlike_vg`` kernels).
+Prints one line per measurement and a JSON summary last. Imports only
+the port.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from lumfuncmcmc_tpu_torch import LFConfig  # noqa: E402
-from lumfuncmcmc_tpu_torch.models.model import LumFuncModel  # noqa: E402
+from lumfuncmcmc_tpu_torch.models.model import (  # noqa: E402
+    LumFuncModel, LumFuncModelZ)
 from lumfuncmcmc_tpu_torch.samplers import nuts  # noqa: E402
 from lumfuncmcmc_tpu_torch.samplers.affine import run_stretch  # noqa: E402
 from lumfuncmcmc_tpu_torch.utils.synth import (  # noqa: E402
@@ -44,10 +49,10 @@ from lumfuncmcmc_tpu_torch.utils.synth import (  # noqa: E402
 NWALKERS, NSYNTH, WARMUP = 100, 2000, 20
 
 
-def _model(cfg, cat, dev):
-    return LumFuncModel(cfg, z=cat["z"], flux=cat["flux"],
-                        flux_e=cat["flux_e"], field_id=cat["field_id"],
-                        device=dev, dtype=torch.float32)
+def _model(cfg, cat, dev, z_model=False):
+    cls = LumFuncModelZ if z_model else LumFuncModel
+    return cls(cfg, z=cat["z"], flux=cat["flux"], flux_e=cat["flux_e"],
+               field_id=cat["field_id"], device=dev, dtype=torch.float32)
 
 
 def _loop_seconds(lnprob, pos0, nsteps, dev):
@@ -86,13 +91,13 @@ def _device_us(prof, names=()):
     return dev_us, launches, kern
 
 
-def profile_nuts(cat, dev, smi, transitions, profiled=2):
+def profile_nuts(cat, dev, smi, transitions, z_model, profiled=2):
     """NUTS on the card: ``transitions`` transitions of 8 chains with the
     step size and diagonal mass of a 100-transition warmup, timed (host
     clock, synced), then ``profiled`` more under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     cfg = LFConfig(min_comp_frac=0.5, nwalkers=NWALKERS, sampler="nuts")
-    model = _model(cfg, cat, dev)
+    model = _model(cfg, cat, dev, z_model)
     lo, hi = model.layout.bounds_arrays(torch.float32, dev)
     lnp_y, _, to_y = nuts.make_unconstrained(model._nuts_gradient_post(),
                                              lo, hi)
@@ -104,7 +109,7 @@ def profile_nuts(cat, dev, smi, transitions, profiled=2):
     y = warm.samples[-1] / scale
     vg = nuts.value_and_grad(lambda yp: lnp_y(yp * scale))
     draw = nuts.generator_draw(gen, 8, y.shape[1], 8, torch.float32, dev)
-    out = {"card": smi, "mode": "nuts"}
+    out = {"card": smi, "mode": "nuts", "model": model.model_kind}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     for label, n in (("timed", transitions), ("profiled", profiled)):
         counts = nuts.NutsCounts()
@@ -130,7 +135,8 @@ def profile_nuts(cat, dev, smi, transitions, profiled=2):
               f"leapfrogs per transition, step size {float(eps):.4g})",
               flush=True)
     dev_us, launches, kern = _device_us(
-        prof, ("free_vg_partials", "free_vg_finish"))
+        prof, ("z_vg_partials", "z_vg_finish") if z_model
+        else ("free_vg_partials", "free_vg_finish"))
     p_wall, p_calls = out["profiled"]["wall_s"], out["profiled"]["vg_calls"]
     unprof = out["timed"]["ms_per_vg_call"] * p_calls / 1e3
     out["profile"] = {
@@ -155,6 +161,7 @@ def main(argv=None):
     ap.add_argument("--sampler", choices=["stretch", "nuts"],
                     default="stretch")
     ap.add_argument("--transitions", type=int, default=20)
+    ap.add_argument("--model", choices=["single", "z"], default="single")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("this profile needs a CUDA device")
@@ -170,20 +177,27 @@ def main(argv=None):
         make_catalog(base, n_target=NSYNTH, seed=base.seed), base)
     if args.sampler == "nuts":
         return profile_nuts(cat, dev, smi[0] if smi else None,
-                            args.transitions)
-    cases = [("kernel engine, trapz-101", base.replace(use_pallas=True)),
-             ("eager engine, trapz-101", base.replace(use_pallas=False)),
-             ("kernel engine, gauss-32",
-              base.replace(use_pallas=True, quadrature="gauss")),
-             ("kernel engine, fixed trapz-201",
-              base.replace(use_pallas=True, fix_comp=True)),
-             ("eager engine, fixed trapz-201",
-              base.replace(use_pallas=False, fix_comp=True))]
+                            args.transitions, args.model == "z")
+    z_model = args.model == "z"
+    if z_model:
+        cases = [("kernel engine, z trapz-201",
+                  base.replace(use_pallas=True)),
+                 ("eager engine, z trapz-201",
+                  base.replace(use_pallas=False))]
+    else:
+        cases = [("kernel engine, trapz-101", base.replace(use_pallas=True)),
+                 ("eager engine, trapz-101", base.replace(use_pallas=False)),
+                 ("kernel engine, gauss-32",
+                  base.replace(use_pallas=True, quadrature="gauss")),
+                 ("kernel engine, fixed trapz-201",
+                  base.replace(use_pallas=True, fix_comp=True)),
+                 ("eager engine, fixed trapz-201",
+                  base.replace(use_pallas=False, fix_comp=True))]
     out = {"card": smi[0] if smi else None, "steps": args.steps,
            "step_ms": {}}
     flagship = None
     for label, cfg in cases:
-        model = _model(cfg, cat, dev)
+        model = _model(cfg, cat, dev, z_model)
         lnprob = model.lnprob_batch()
         pos0 = model._initial_positions(
             torch.Generator(device=dev).manual_seed(cfg.seed))
@@ -225,7 +239,8 @@ def main(argv=None):
         run_stretch(lnprob, pos0, gen, args.profile_steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us, launches, kern = _device_us(prof, ("free_partials", "finish"))
+    dev_us, launches, kern = _device_us(
+        prof, ("z_partials" if z_model else "free_partials", "finish"))
     unprof = out["step_ms"][cases[0][0]] * args.profile_steps / 1e3
     out["profile"] = {
         "steps": args.profile_steps, "wall_s": wall, "device_s": dev_us / 1e6,
