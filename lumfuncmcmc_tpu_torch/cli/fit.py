@@ -1,9 +1,10 @@
 """The MCMC fit subcommands (port of ``cmd_fit`` / ``cmd_fitz`` /
-``_run_fit_family`` / ``_dispatch_sampler`` from
+``cmd_fith`` / ``_run_fit_family`` / ``_dispatch_sampler`` from
 ``lumfuncmcmc_tpu/cli/fit.py``):
 
 - ``fit``  — single-epoch Schechter fit, into ``LFMCMCOut/``
 - ``fitz`` — redshift-evolving fit, into ``LFMCMCzOut/``
+- ``fith`` — hierarchical multi-field fit, into ``LFMCMCHOut/``
 
 each with the stretch/DE/mix ensemble or, with ``--sampler nuts``,
 batched NUTS.
@@ -96,3 +97,8 @@ def cmd_fitz(args):
     from lumfuncmcmc_tpu_torch.models.model import LumFuncModelZ
     return _run_fit_family(args, LumFuncModelZ, "LFMCMCzOut",
                            z_variant=True, pivot=True)
+
+
+def cmd_fith(args):
+    from lumfuncmcmc_tpu_torch.models.model import LumFuncModelH
+    return _run_fit_family(args, LumFuncModelH, "LFMCMCHOut")

@@ -1,4 +1,4 @@
-"""Artifact writers for ``fit`` and ``fitz`` (port of
+"""Artifact writers for ``fit``, ``fitz`` and ``fith`` (port of
 ``_write_outputs`` and ``_resume_if_done`` of
 ``lumfuncmcmc_tpu/cli/outputs.py``).
 

@@ -1,7 +1,7 @@
-"""User-facing fit models (port of the ``fit`` and ``fitz`` paths of
-``lumfuncmcmc_tpu/models/model.py``): :class:`LumFuncModel`, the
-single-epoch model, and :class:`LumFuncModelZ`, the redshift-evolving
-one.
+"""User-facing fit models (port of the ``fit``, ``fitz`` and ``fith``
+paths of ``lumfuncmcmc_tpu/models/model.py``): :class:`LumFuncModel`,
+the single-epoch model, :class:`LumFuncModelZ`, the redshift-evolving
+one, and :class:`LumFuncModelH`, the hierarchical multi-field one.
 
 They keep the public surface of the JAX classes —
 ``fit_model``, ``fit_model_nuts``, ``set_median_fit``, ``veff_lf``,
@@ -21,6 +21,8 @@ import torch
 from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.ensemble_driver import _EnsembleDriverMixin
+from lumfuncmcmc_tpu_torch.models.hierarchical import (
+    ThetaLayoutH, make_lnprob_h)
 from lumfuncmcmc_tpu_torch.models.nuts_driver import _NutsDriverMixin
 from lumfuncmcmc_tpu_torch.models.likelihood import (
     ThetaLayout, make_lnprob, sample_init)
@@ -148,10 +150,19 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
                     "phi3": cfg.phistar,
                     # natural z-evolution parameterization
                     "Lmid": cfg.Lstar, "Lslope": 0.0, "Lcurv": 0.0,
-                    "pmid": cfg.phistar, "pslope": 0.0, "pcurv": 0.0}
-        vals = [cfg.Flim[int(name.split("_")[1])]
-                if name.startswith("Flim_") else defaults[name]
-                for name in self.layout.names]
+                    "pmid": cfg.phistar, "pslope": 0.0, "pcurv": 0.0,
+                    # hierarchical hyperparameters
+                    "mu_L": cfg.Lstar, "sig_L": 0.3,
+                    "mu_p": cfg.phistar, "sig_p": 0.5}
+        vals = []
+        for name in self.layout.names:
+            stem, _, idx = name.partition("_")
+            if stem == "Flim":
+                vals.append(cfg.Flim[int(idx)])
+            elif stem in ("Lstar", "phistar") and idx:   # per-field
+                vals.append(getattr(cfg, stem))
+            else:
+                vals.append(defaults[name])
         self.nfreeparams = len(vals)
         return vals
 
@@ -180,10 +191,10 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
     def _meshless_batch(self):
         if self._resolve_use_pallas():
             from lumfuncmcmc_tpu_torch.ops import cuda_lnlike
-            make = (cuda_lnlike.make_cuda_lnprob_z
-                    if self.model_kind == "z"
-                    else cuda_lnlike.make_cuda_lnprob)
-            return make(self.ctx, self.layout)
+            make = {"single": cuda_lnlike.make_cuda_lnprob,
+                    "z": cuda_lnlike.make_cuda_lnprob_z,
+                    "hier": cuda_lnlike.make_cuda_lnprob_h}
+            return make[self.model_kind](self.ctx, self.layout)
         fn = self._make_scalar_lnprob()
         fn.engine = "eager"
         return fn
@@ -272,6 +283,46 @@ class LumFuncModel(_BaseModel):
     def triangle_plot(self, outname, lnprobcut=7.5, imgtype="png"):
         from lumfuncmcmc_tpu_torch.utils.plotting import triangle_plot_single
         triangle_plot_single(self, outname, lnprobcut, imgtype)
+
+
+class LumFuncModelH(_BaseModel):
+    """Hierarchical multi-field joint fit (see ``models/hierarchical.py``).
+    Completeness fixed, like the z model."""
+
+    model_kind = "hier"
+
+    def __init__(self, cfg: LFConfig, *args, **kw):
+        super().__init__(cfg.replace(fix_comp=True), *args, **kw)
+
+    def _make_layout(self):
+        return ThetaLayoutH.from_config(self.cfg)
+
+    def _make_scalar_lnprob(self):
+        return make_lnprob_h(self.ctx, self.layout)
+
+    def set_median_fit(self, rndsamples=200, lnprobcut=7.5, generator=None):
+        """Median LF at the population-mean parameters (``mu_L``,
+        ``mu_p``) over posterior draws, plus the V_eff cross-check."""
+        nsamples = select_samples(self.samples, lnprobcut)
+        rng = np.random.default_rng(self.cfg.seed + 2)
+        idx = rng.integers(0, nsamples.shape[0], rndsamples)
+        th = torch.as_tensor(nsamples[idx, :-1], dtype=self.dtype,
+                             device=self.device)
+        mu_l, _, mu_p, _, sch_al, _, _ = self.layout.unpack(th)
+        lf = true_lum_func(self.ctx.lum, sch_al[:, None], mu_l[:, None],
+                           mu_p[:, None])
+        self.medianLF = np.median(lf.double().cpu().numpy(), axis=0)
+        self.veff_lf(generator=generator)
+        return self.medianLF
+
+    def triangle_plot(self, outname, lnprobcut=7.5, imgtype="png"):
+        from lumfuncmcmc_tpu_torch.utils.plotting import _pyplot, corner_plot
+        plt = _pyplot()
+        self.set_median_fit(lnprobcut=lnprobcut)  # artifacts downstream
+        nsamples = select_samples(self.samples, lnprobcut)
+        fig = corner_plot(nsamples[:, :-1], self.get_param_names())
+        fig.savefig(f"{outname}.{imgtype}", dpi=200)
+        plt.close(fig)
 
 
 class LumFuncModelZ(_BaseModel):

@@ -31,7 +31,7 @@ class _NutsDriverMixin:
 
         The port's own rule (no TPU tuning carries over): on a CUDA
         device the value+gradient kernel of the model's family, both
-        completeness modes and the z model alike
+        completeness modes, the z model and the hierarchical one alike
         (:func:`make_cuda_lnprob_and_grad`); on the CPU autograd of the
         eager engine, or of the kernels' plain value+gradient versions
         under ``--use-pallas``.

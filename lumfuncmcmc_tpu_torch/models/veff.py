@@ -1,5 +1,5 @@
 """1/V_eff binned luminosity-function estimator with bootstrap errors
-(port of the ``fit`` path's part of ``lumfuncmcmc_tpu/models/veff.py``).
+(port of ``lumfuncmcmc_tpu/models/veff.py``).
 
 Per-source weights are closed form with the cumulative comoving-volume
 table (the Fleming factor is constant along z)::
@@ -8,18 +8,23 @@ table (the Fleming factor is constant along z)::
 
 with zmax_i = min(zmax, z at which L_i hits the field's min flux). The
 log-space bin edges are ``linspace(min(L)*1.001, max(L), nbin+1)``, as
-in the reference.
+in the reference (the faintest source falls below bin 0 and is left
+out); the linear version starts at the luminosity of the minimum flux at
+zmax. The partial-bin completeness correction (:func:`mult_factor`)
+uses fixed-order Gauss-Legendre.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from lumfuncmcmc_tpu_torch.cosmology import CosmoTable, SQARCSEC_PER_SR
 from lumfuncmcmc_tpu_torch.ops.completeness import fleming_from_logf
 from lumfuncmcmc_tpu_torch.ops.omega import LOG10_4PI as _LOG10_4PI
+from lumfuncmcmc_tpu_torch.ops.quadrature import integrate_gl_unit
 
 
 def max_z_for_lum(lum, logfmin, cosmo: CosmoTable):
@@ -91,3 +96,69 @@ def log_bin_edges(lum, nbins: int):
     """Reference log-space edges."""
     return torch.linspace(float(lum.min()) * 1.001, float(lum.max()),
                           nbins + 1, dtype=lum.dtype, device=lum.device)
+
+
+def _min_lum_at(z, logfmin, cosmo: CosmoTable):
+    """log10 luminosity of log-flux ``logfmin`` at redshift ``z``."""
+    return logfmin + _LOG10_4PI + 2.0 * cosmo.log10_dl_cm_at(z)
+
+
+def _on_table(v, cosmo: CosmoTable):
+    return torch.as_tensor(v, dtype=cosmo.zgrid.dtype,
+                           device=cosmo.zgrid.device)
+
+
+def linear_bin_edges(lum_linear, logfmin, zmax, cosmo: CosmoTable,
+                     nbins: int):
+    """Reference linear-space edges: from the luminosity of the minimum
+    flux at zmax up to max(L). ``lum_linear`` is linear luminosity
+    [erg/s]."""
+    lmin = 10.0 ** float(_min_lum_at(_on_table(zmax, cosmo), logfmin, cosmo))
+    return torch.linspace(lmin, float(lum_linear.max()), nbins + 1,
+                          dtype=lum_linear.dtype, device=lum_linear.device)
+
+
+def mult_factor(lum0, lum1, logfmin, zmin, zmax, cosmo: CosmoTable,
+                n_nodes: int = 128):
+    """Partial-bin completeness correction: the ratio of the full (z x L)
+    bin rectangle to its part above the minimum-luminosity curve
+    Lmin(z); inf for a bin wholly below the curve, 1 for one wholly
+    above."""
+    lum0, lum1, zmin, zmax = (_on_table(v, cosmo)
+                              for v in (lum0, lum1, zmin, zmax))
+
+    def covered_width(zq):
+        return torch.minimum(torch.clamp(
+            lum1 - _min_lum_at(zq, logfmin, cosmo), min=0.0), lum1 - lum0)
+
+    denom = integrate_gl_unit(covered_width, n_nodes, zmin, zmax)
+    full = (zmax - zmin) * (lum1 - lum0)
+    out = torch.where(_min_lum_at(zmax, logfmin, cosmo) <= lum0,
+                      torch.ones_like(full), full / denom)
+    return torch.where(_min_lum_at(zmin, logfmin, cosmo) >= lum1,
+                       torch.full_like(full, math.inf), out)
+
+
+def apply_partial_bin_correction(edges, lfbinorig, var, logfmin, zmin,
+                                 zmax, cosmo: CosmoTable):
+    """Scale partially covered faint bins by :func:`mult_factor`: walk
+    up from the faintest bin until the factor is 1. Takes and returns
+    host arrays (float64 numpy)."""
+    edges = np.asarray(edges, dtype=np.float64)
+    lf = np.array(lfbinorig, dtype=np.float64)
+    vr = np.array(var, dtype=np.float64)
+    for j in range(len(lf)):
+        m = float(mult_factor(edges[j], edges[j + 1], logfmin, zmin, zmax,
+                              cosmo))
+        if abs(m - 1.0) < 1.0e-8:
+            break
+        lf[j] *= m
+        vr[j] *= m * m
+    return lf, vr
+
+
+def equal_count_z_bins(z, numbins: int):
+    """Equal-count bin index per object (host-side numpy)."""
+    z = np.asarray(z)
+    idx = np.linspace(0, numbins, z.size, endpoint=False).astype(int)
+    return idx[z.argsort().argsort()]

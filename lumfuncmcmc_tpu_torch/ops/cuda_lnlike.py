@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels for the single-epoch and the
-redshift-evolving log-likelihood (counterpart of
+"""Hand-written CUDA kernels for the single-epoch, the
+redshift-evolving and the hierarchical log-likelihood (counterpart of
 ``lumfuncmcmc_tpu/ops/pallas_lnlike.py``).
 
 Per walker theta the kernels evaluate
@@ -50,6 +50,22 @@ term is much larger than its result (the TPU form adds ~240-sized
 terms to a ~98-sized ``LN10 Lstar(z)`` and subtracts that from a
 ~98-sized ``LN10 logL``). The function computed is the same.
 
+Two kernels of ``csrc/lnlike_h.cu`` for the hierarchical multi-field
+model (fixed completeness; per-field (L*, phi*), :func:`_feat_h_one`):
+
+- :func:`hier_lnlike` replaces both ``_kernel_hier_bcast`` (``:713``)
+  and ``_kernel_hier_slab`` (``:734``): the fixed-completeness kernel
+  whose blocks read ``(c_f, lA_f, t1_f)`` of their chunk's own field;
+- :func:`hier_lnlike_vg` replaces ``_kernel_hier_vg`` (``:1221``): the
+  lnlike and its derivative with respect to the 2+3F features from
+  three sums per field.
+
+Their features keep the TPU's order ``[aA, lnrest, (c_f, lA_f, t1_f) x
+F]`` but, as in the fixed-completeness family, luminosities are relative
+to ``lref`` and ``lnrest`` (the per-field collapsed ln-terms plus the
+Gaussian hyperprior) is formed in float64 from per-field catalog sums
+taken relative to ``lref``.
+
 The value+gradient kernels feed :func:`make_cuda_lnprob_and_grad`, the
 NUTS gradient path: a ``torch.autograd.Function`` hands the feature
 gradient to autograd of the cheap feature map, the counterpart of the
@@ -64,13 +80,15 @@ grid.
 
 Dispatch rule: a CPU tensor takes the plain PyTorch version
 (:func:`free_lnlike_reference`, :func:`fixed_lnlike_reference`,
-:func:`z_lnlike_reference` and their ``_vg`` twins), a CUDA tensor
+:func:`z_lnlike_reference`, :func:`hier_lnlike_reference` and their
+``_vg`` twins), a CUDA tensor
 launches the kernel or raises. Nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -80,6 +98,8 @@ import torch
 
 from lumfuncmcmc_tpu_torch.cosmology import SQARCSEC_PER_SR
 from lumfuncmcmc_tpu_torch.models.context import LFContext
+from lumfuncmcmc_tpu_torch.models.hierarchical import (
+    ThetaLayoutH, _ln_normal)
 from lumfuncmcmc_tpu_torch.models.likelihood import (
     ThetaLayout, in_box)
 from lumfuncmcmc_tpu_torch.models.likelihood_z import (
@@ -95,6 +115,8 @@ MAX_ROWS = 65535        # walkers one launch takes (grid.y limit)
 VG_FREE_SLOTS = 7       # partial sums per (walker, chunk), csrc/lnlike.cu
 VG_FIXED_SLOTS = 3
 VG_Z_SLOTS = 8          # csrc/lnlike_z.cu
+VG_HIER_SLOTS = 3       # csrc/lnlike_h.cu
+MAX_HIER_FIELDS = 64    # csrc/lnlike_h.cu: hier_vg_finish's column sums
 X_CLAMP = 60.0          # z_lnlike_vg clamps a source's x = a - lq here
 
 
@@ -145,6 +167,11 @@ class CudaGridData:
     ln_sums: tuple                     # float64 (nsrc, sum(lum - lref),
                                        #   sum_pow_lum, sum_ln_om) of the
                                        #   collapsed ln-term
+    # --- the hierarchical model only (prepare_cuda_h_data) ---
+    ln_sums_f: Optional[torch.Tensor] = None   # (4, F) float64: the same
+                                               #   four sums per field
+    lo: Optional[torch.Tensor] = None          # the prior box in float64,
+    hi: Optional[torch.Tensor] = None          #   for the features' clamp
 
 
 def _grid_cols(ctx: LFContext, fix_comp: bool, lref: float):
@@ -243,6 +270,27 @@ def prepare_cuda_data(ctx: LFContext, fix_comp: bool, fcmin: float = 0.0,
         fcmin=float(fcmin) if fcmin else 0.0,
         ln_sums=(float(ctx.nsrc), float((ctx.lum.double() - lref).sum()),
                  float(ctx.sum_pow_lum), float(ctx.sum_ln_om)))
+
+
+def prepare_cuda_h_data(ctx: LFContext, layout: ThetaLayoutH,
+                        dtype=None) -> CudaGridData:
+    """The fixed-completeness packing plus what the hierarchical feature
+    map needs: the per-field float64 sums of the collapsed ln-terms,
+    taken over the context's sources with luminosities relative to
+    ``lref``, and the prior box."""
+    data = prepare_cuda_data(ctx, fix_comp=True, dtype=dtype)
+    nf = data.nfields
+    if nf > MAX_HIER_FIELDS:
+        raise ValueError(f"the hierarchical kernels take at most "
+                         f"{MAX_HIER_FIELDS} fields, got {nf}")
+    rel = ctx.lum.double() - data.lref
+    mask = ctx.src_mask.double()
+    cols = torch.stack([mask, mask * rel, mask * torch.exp(LN10 * rel),
+                        mask * ctx.ln_om_src.double()])
+    sums = torch.zeros((4, nf), dtype=torch.float64, device=rel.device)
+    sums.index_add_(1, ctx.field_id, cols)
+    lo, hi = layout.bounds_arrays(torch.float64, rel.device)
+    return dataclasses.replace(data, ln_sums_f=sums, lo=lo, hi=hi)
 
 
 @dataclass(frozen=True)
@@ -417,6 +465,47 @@ def _features_z(thetas, data: CudaZData, layout: ThetaLayoutZ, dtype):
     gradient is an exact 0."""
     th = torch.clamp(thetas.double(), data.lo, data.hi)
     return _feat_z_one(th, layout, data.lref).to(dtype).contiguous()
+
+
+def _feat_h_one(theta, data: CudaGridData, layout: ThetaLayoutH):
+    """(W, D) float64 hierarchical thetas -> (W, 2+3F) features, the
+    column order of the TPU's ``_feat_h_one``::
+
+        0 aA = sch_al + 1        1 lnrest
+        2+3f c_f = LN10*phistar_f    3+3f lA_f = LN10*(Lstar_f - lref)
+        4+3f t1_f = 10^(lref - Lstar_f)
+
+    ``lnrest`` is the sum of the per-field collapsed ln-terms plus the
+    Gaussian population hyperprior; like ``_feat_fixed_one``'s
+    ``lnpart`` it takes the catalog sums relative to ``lref``.
+    """
+    mu_l, sig_l, mu_p, sig_p, sch_al, lstar_f, phistar_f = \
+        layout.unpack(theta)
+    n, sum_rel, sum_pow, sum_om = data.ln_sums_f
+    dl = data.lref - lstar_f
+    aA = sch_al + 1.0
+    lnpart_f = (n * (_LOG_LN10 + LN10 * phistar_f)
+                + LN10 * aA[:, None] * (sum_rel + n * dl)
+                - torch.exp(LN10 * dl) * sum_pow + sum_om)
+    hyper = (_ln_normal(lstar_f, mu_l[:, None], sig_l[:, None])
+             + _ln_normal(phistar_f, mu_p[:, None], sig_p[:, None]))
+    per_field = torch.stack([LN10 * phistar_f, -LN10 * dl,
+                             torch.exp(LN10 * dl)], dim=2)
+    return torch.cat([torch.stack([aA, (lnpart_f + hyper).sum(dim=1)],
+                                  dim=1),
+                      per_field.reshape(theta.shape[0], -1)], dim=1)
+
+
+def _features_hier(thetas, data: CudaGridData, layout: ThetaLayoutH, dtype):
+    """(W, D) thetas -> the hierarchical kernels' contiguous (W, 2+3F)
+    feature rows in ``dtype``. The map runs in float64: ``lnrest`` sums
+    ~1e4-sized terms of both signs, and the hyperprior's ``-ln sig``
+    and ``((x - mu)/sig)^2`` must keep their O(1) size beside them.
+    Thetas are clamped to the prior box first, so a row the caller
+    masks (``Lstar_f`` far outside, ``sig <= 0``) keeps finite features
+    and its gradient is an exact 0."""
+    th = torch.clamp(thetas.double(), data.lo, data.hi)
+    return _feat_h_one(th, data, layout).to(dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -629,6 +718,42 @@ def z_lnlike_vg_reference(feats, data: CudaZData):
     return torch.stack([lnl] + d, dim=1)
 
 
+def _hier_field_sums(feats, data: CudaGridData, f: int):
+    """Field ``f``'s ``(s0, s1, s2)``, each (W,): the sums over its cells
+    of ``e``, ``e (a - lA_f)`` and ``e P`` with ``e = exp(c_f + aA (a -
+    lA_f) - P t1_f) w``."""
+    aA = feats[:, 0:1]
+    c, lA, t1 = (feats[:, 2 + 3 * f + i:3 + 3 * f + i] for i in range(3))
+    g = slice(data.grid_off[f], data.grid_off[f + 1])
+    am = data.g_a[g] - lA
+    e = torch.exp(c + aA * am - data.g_p[g] * t1) * data.g_w[g]
+    return e.sum(dim=1), (e * am).sum(dim=1), (e * data.g_p[g]).sum(dim=1)
+
+
+def hier_lnlike_reference(feats, data: CudaGridData):
+    """Plain version of the hierarchical kernel: ``lnrest`` minus every
+    field's integral at its own ``(c_f, lA_f, t1_f)``.
+    (W, 2+3F) -> (W,)."""
+    tot = feats[:, 1]
+    for f in range(data.nfields):
+        tot = tot - _hier_field_sums(feats, data, f)[0]
+    return tot
+
+
+def hier_lnlike_vg_reference(feats, data: CudaGridData):
+    """Plain version of the hierarchical value+gradient kernel:
+    (W, 2+3F) -> (W, 3+3F) rows ``[lnl, d_aA, d_lnrest = 1, (d_c_f =
+    -s0_f, d_lA_f = aA s0_f, d_t1_f = s2_f) x F]``, the column order of
+    ``_kernel_hier_vg``."""
+    aA = feats[:, 0]
+    lnl, d_aA, cols = feats[:, 1], torch.zeros_like(aA), []
+    for f in range(data.nfields):
+        s0, s1, s2 = _hier_field_sums(feats, data, f)
+        lnl, d_aA = lnl - s0, d_aA - s1
+        cols += [-s0, aA * s0, s2]
+    return torch.stack([lnl, d_aA, torch.ones_like(aA)] + cols, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -673,6 +798,8 @@ def _signature(name, data):
     after ``nchunks``)."""
     if name.startswith("z"):
         return _Z_ARRAYS, 7, data.shape[1:], ()
+    if name.startswith("hier"):
+        return _FIXED_ARRAYS, 2 + 3 * data.nfields, (data.nfields,), ()
     if name.startswith("fixed"):
         return _FIXED_ARRAYS, 5, (), ()
     return (_FREE_ARRAYS, 6 + 2 * data.nfields, (data.nfields,),
@@ -753,6 +880,16 @@ z_lnlike_vg = _wrapper(
     "rows.")
 
 
+hier_lnlike = _wrapper(
+    "hier_lnlike", hier_lnlike_reference, 1, None,
+    "Hierarchical-model lnlike, (W, 2+3F) features -> (W,).")
+hier_lnlike_vg = _wrapper(
+    "hier_lnlike_vg", hier_lnlike_vg_reference, VG_HIER_SLOTS,
+    lambda data: 3 + 3 * data.nfields,
+    "Hierarchical-model lnlike and its feature gradient, (W, 2+3F) "
+    "features -> (W, 3+3F) rows.")
+
+
 class _LnlikeOfFeats(torch.autograd.Function):
     """lnlike of (W, nfeat) features through one value+gradient call;
     the backward is one elementwise multiply by the saved gradient
@@ -799,6 +936,10 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
         features, inside = _features, in_box
         value, vg = ((fixed_lnlike, fixed_lnlike_vg) if layout.fix_comp
                      else (free_lnlike, free_lnlike_vg))
+    elif model == "hier":
+        data = prepare_cuda_h_data(ctx, layout, dtype=kdtype)
+        features, inside = _features_hier, in_box
+        value, vg = hier_lnlike, hier_lnlike_vg
     else:
         raise NotImplementedError(f"model {model!r} has no kernel yet")
 
@@ -830,12 +971,24 @@ def make_cuda_lnprob_z(ctx: LFContext, layout: ThetaLayoutZ):
     return _make_lnprob(ctx, layout, "z", grad=False)
 
 
+def make_cuda_lnprob_h(ctx: LFContext, layout: ThetaLayoutH):
+    """(W, D) -> (W,) hierarchical-model lnprob through
+    :func:`hier_lnlike`, with the semantics of ``make_lnprob_h``: the
+    per-field grid integrals run in the kernel, the collapsed ln-terms
+    and the population hyperprior ride along as the ``lnrest`` feature,
+    and the box prior masks outside the kernel (counterpart of
+    ``make_pallas_lnprob_h``, ``pallas_lnlike.py:1574``, without its
+    VMEM gate and its fallback)."""
+    return _make_lnprob(ctx, layout, "hier", grad=False)
+
+
 def make_cuda_lnprob_and_grad(ctx: LFContext, layout, model: str = "single"):
     """(C, D) -> (C,) lnprob that autograd differentiates through the
     value+gradient kernels — one kernel launch per value-and-gradient
     evaluation (the counterpart of ``make_pallas_lnprob_and_grad``,
     ``pallas_lnlike.py:1771``). ``model`` is "single" (both completeness
-    modes) or "z" (quadratic pivot evolution, strict pivot prior).
+    modes), "z" (quadratic pivot evolution, strict pivot prior) or
+    "hier" (per-field (L*, phi*) under Gaussian hyperpriors).
 
     The feature map (with autograd on), one :class:`_LnlikeOfFeats` call,
     then the prior mask: a masked row gives -inf and a gradient of

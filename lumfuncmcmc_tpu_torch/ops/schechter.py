@@ -1,5 +1,6 @@
 """Schechter luminosity-function forms (port of
-``lumfuncmcmc_tpu/ops/schechter.py``: the single-epoch forms and the
+``lumfuncmcmc_tpu/ops/schechter.py``: the single-epoch forms, the four
+parameterizations the V_eff Schechter fit takes, and the
 redshift-evolving ones)."""
 
 from __future__ import annotations
@@ -7,6 +8,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from lumfuncmcmc_tpu_torch.ops.gamma import upper_gamma
 
 LN10 = 2.302585092994046
 _LOG_LN10 = math.log(LN10)
@@ -26,6 +29,31 @@ def log_true_lum_func(logL, alpha, logLstar, logphistar):
 def true_lum_func(logL, alpha, logLstar, logphistar):
     """Schechter phi(logL) in Mpc^-3 dex^-1."""
     return torch.exp(log_true_lum_func(logL, alpha, logLstar, logphistar))
+
+
+def schechter(L, al, phistar, Lstar):
+    """Linear-space Schechter dn/d(L/L*)."""
+    x = L / Lstar
+    return phistar * x**al * torch.exp(-x)
+
+
+def schechter_log(L, al, phistar, Lstar):
+    """Log-space Schechter with log10 parameters."""
+    return true_lum_func(L, al, Lstar, phistar)
+
+
+def schechter_integ(L, al, integ, Lstar):
+    """Schechter with the total integral as the amplitude parameter:
+    integ = phistar * Gamma(al+1, 1e36/L*)."""
+    return schechter(L, al, integ / upper_gamma(al + 1.0, 1.0e36 / Lstar),
+                     Lstar)
+
+
+def schechter_integ_log(L, al, integ, Lstar):
+    """Log-space integral-parameterized Schechter; ``integ`` and
+    ``Lstar`` are log10 quantities."""
+    integ_nophi = upper_gamma(al + 1.0, 10.0 ** (36.0 - Lstar))
+    return schechter_log(L, al, integ - torch.log10(integ_nophi), Lstar)
 
 
 def quad_coef(y1, y2, y3, z1, z2, z3):

@@ -1,12 +1,15 @@
-"""Host-side matplotlib plots for the ``fit`` and ``fitz`` paths (port
-of ``corner_plot``, ``triangle_plot_single`` and ``triangle_plot_z``
-from ``lumfuncmcmc_tpu/utils/plotting.py``).
+"""Host-side matplotlib plots (port of ``corner_plot``,
+``triangle_plot_single``, ``triangle_plot_z`` and the ``vmax`` plots
+``plot_schechter``, ``plot_z_evolution`` and ``plot_param_space`` from
+``lumfuncmcmc_tpu/utils/plotting.py``).
 
 matplotlib is imported inside the plotting functions only: a machine
 without it can still run every other part of the package.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -198,3 +201,127 @@ def triangle_plot_z(model, outname, lnprobcut=7.5, imgtype="png",
     fig.colorbar(im, ax=ax1, label="Redshift", fraction=0.05, pad=0.02)
     fig.savefig(f"{outname}.{imgtype}", dpi=200)
     plt.close(fig)
+
+
+def _amp_and_label(pars, lavg, log, integ, prefix=""):
+    """(plot ratio, legend label) of a Schechter fit: the linear forms
+    are drawn per bin width in L/L*."""
+    if log:
+        return 1.0, (r"%s$\alpha=%.*f$, amp$=%.2f$, $\log L_*=%.2f$"
+                     % (prefix, 2 if prefix else 3, pars["al"],
+                        pars["integ" if integ else "phistar"],
+                        pars["Lstar"]))
+    ratio = pars["Lstar"] / (lavg[1] - lavg[0])
+    return ratio, (r"%s$\alpha=%.*f$, amp$=%.1e$, $L_*=%.1e$"
+                   % (prefix, 2 if prefix else 3, pars["al"],
+                      pars["integ" if integ else "phistar"] * ratio,
+                      pars["Lstar"]))
+
+
+def _schechter_axes(plt, log):
+    fig, ax = plt.subplots()
+    if not log:
+        ax.set_xscale("log")
+    ax.set_yscale("log")
+    return fig, ax
+
+
+def _save_schechter(plt, fig, ax, img_dir, stem, log, integ, legend_kw):
+    if log:
+        ax.set_xlabel(r"$\log$ L (erg s$^{-1}$)")
+        ax.set_ylabel(r"$\phi_{\rm{true}}$ (Number Mpc$^{-3}$ dex$^{-1}$)")
+    else:
+        ax.set_xlabel(r"L (erg s$^{-1}$)")
+        ax.set_ylabel(r"$dn/d({\rm{L/L_*}})$ (Number Mpc$^{-3}$)")
+    ax.legend(loc="best", **legend_kw)
+    ax.minorticks_on()
+    sub = "Log" if log else "Lin"
+    os.makedirs(os.path.join(img_dir, sub), exist_ok=True)
+    suffix = ("_log" if log else "") + ("_integ" if integ else "")
+    fn = os.path.join(img_dir, sub, f"{stem}{suffix}.png")
+    fig.savefig(fn, bbox_inches="tight", dpi=300)
+    plt.close(fig)
+    return fn
+
+
+def _band(fit, lavg):
+    """The 3-sigma delta-method band, or None where the covariance is
+    not usable."""
+    dely = fit.eval_uncertainty(lavg, sigma=3)
+    return dely if np.all(np.isfinite(dely)) else None
+
+
+def plot_schechter(Lavg, lfbinorig, var, fit, name, img_dir="ImageFiles",
+                   log=False, integ=False):
+    """Best-fit Schechter over the binned V_eff LF with a 3-sigma
+    band."""
+    plt = _pyplot()
+    fig, ax = _schechter_axes(plt, log)
+    best = fit.best_fit(Lavg)
+    ratio, label = _amp_and_label(fit.params, Lavg, log, integ)
+    ax.plot(Lavg, best * ratio, "r-", label="Fit: " + label)
+    ax.errorbar(Lavg, lfbinorig * ratio, yerr=np.sqrt(var) * ratio,
+                fmt="b^", label="Measured LF")
+    dely = _band(fit, Lavg)
+    if dely is not None:
+        ax.fill_between(Lavg, ratio * (best - dely), ratio * (best + dely),
+                        color="r", alpha=0.2,
+                        label=r"$3 \sigma$ Uncertainty Band")
+    return _save_schechter(plt, fig, ax, img_dir, os.path.splitext(name)[0],
+                           log, integ, {})
+
+
+_MARKERS = ["o", "^", "*", "s", "+", "v", "<", ">"]
+
+
+def plot_z_evolution(results, name, img_dir="ImageFiles", log=True,
+                     integ=False):
+    """Overlay per-z-bin binned LFs and their Schechter fits on one
+    figure. ``results``: list of dicts with keys Lavg, lfbinorig, var,
+    fit, zlabel."""
+    plt = _pyplot()
+    fig, ax = _schechter_axes(plt, log)
+    for i, r in enumerate(results):
+        best = r["fit"].best_fit(r["Lavg"])
+        ratio, label = _amp_and_label(r["fit"].params, r["Lavg"], log,
+                                      integ, prefix=r["zlabel"] + ": ")
+        eb = ax.errorbar(r["Lavg"], r["lfbinorig"] * ratio,
+                         yerr=np.sqrt(r["var"]) * ratio,
+                         marker=_MARKERS[i % len(_MARKERS)],
+                         linestyle="none", label="")
+        color = eb.lines[0].get_color()
+        ax.plot(r["Lavg"], best * ratio, color=color, label=label)
+        dely = _band(r["fit"], r["Lavg"])
+        if dely is not None:
+            ax.fill_between(r["Lavg"], ratio * (best - dely),
+                            ratio * (best + dely), color=color,
+                            alpha=0.2, label="")
+    return _save_schechter(plt, fig, ax, img_dir,
+                           os.path.splitext(name)[0] + "_zevol", log, integ,
+                           {"fontsize": "x-small"})
+
+
+def plot_param_space(mcf, al, ls, mcfmc=None, almc=None, lsmc=None,
+                     ln="OIII", lp=r"[OIII] $\lambda 5007$",
+                     img_dir="ImageFiles", extratext=""):
+    """Scatter of (alpha, L*) colored by min completeness fraction."""
+    plt = _pyplot()
+    fig = plt.figure()
+    # one shared normalization: independent autoscaling would map the
+    # same completeness fraction to different colors in the two sets
+    allc = (np.concatenate([np.asarray(mcf), np.asarray(mcfmc)])
+            if mcfmc is not None else np.asarray(mcf))
+    vmin, vmax = float(np.min(allc)), float(np.max(allc))
+    sc = plt.scatter(al, ls, c=mcf, s=12, cmap="viridis",
+                     vmin=vmin, vmax=vmax)
+    if almc is not None:
+        sc = plt.scatter(almc, lsmc, c=mcfmc, s=40, marker="*",
+                         cmap="viridis", vmin=vmin, vmax=vmax)
+    plt.xlabel(r"%s $\alpha$" % lp)
+    plt.ylabel(r"%s $\mathcal{L}_*$" % lp)
+    plt.colorbar(sc, label="Min Completeness Fraction")
+    os.makedirs(img_dir, exist_ok=True)
+    fn = os.path.join(img_dir, f"al_ls_mcf_space_mcmc_{ln}{extratext}.png")
+    plt.savefig(fn, bbox_inches="tight", dpi=300)
+    plt.close(fig)
+    return fn

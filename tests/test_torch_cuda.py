@@ -11,6 +11,7 @@ import torch
 
 from lumfuncmcmc_tpu_torch import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
+from lumfuncmcmc_tpu_torch.models.hierarchical import ThetaLayoutH
 from lumfuncmcmc_tpu_torch.models.likelihood import ThetaLayout, sample_init
 from lumfuncmcmc_tpu_torch.models.likelihood_z import ThetaLayoutZ
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
@@ -272,5 +273,98 @@ def test_z_step_loop_never_synchronises_and_is_deterministic(device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert cl.z_lnlike.launches - n0 == 1 + 2 * 25
+    assert chain.shape == (25, 32, layout.ndim)
+    assert torch.isfinite(lnps[-1]).all()
+
+
+@pytest.mark.parametrize("fix_sch_al", [False, True])
+@pytest.mark.parametrize("size_ln", [41, 12])
+@pytest.mark.parametrize("w", [1, 13, 256])
+def test_hier_kernels_match_plain_versions(device, w, size_ln, fix_sch_al):
+    """``hier_lnlike`` and ``hier_lnlike_vg`` equal their plain versions
+    in float32 on the card (values rtol 1e-4, gradient columns by
+    ``_grad_close``), on a grid with one chunk per field (41, 12: a
+    ragged one), in both theta layouts, with a ``sig_L = 0`` row and one
+    far outside the box."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=size_ln, fix_comp=True,
+                   fix_sch_al=fix_sch_al)
+    layout = ThetaLayoutH.from_config(cfg)
+    nf = layout.nfields
+    data = cl.prepare_cuda_h_data(_context(cfg, device), layout)
+    gen = torch.Generator(device=device).manual_seed(w)
+    lo, hi = layout.bounds_arrays(torch.float32, device)
+    th = 0.7 * (lo + hi) / 2 + 0.3 * sample_init(
+        gen, layout, w, dtype=torch.float32, device=device)
+    th[0, 1] = 0.0
+    th[-1, layout.ndim - 2 * nf] = 1000.0
+    feats = cl._features_hier(th, data, layout, torch.float32)
+    assert feats.shape == (w, 2 + 3 * nf) and torch.isfinite(feats).all()
+    for kernel, plain, cols in (
+            (cl.hier_lnlike, cl.hier_lnlike_reference, None),
+            (cl.hier_lnlike_vg, cl.hier_lnlike_vg_reference, 3 + 3 * nf)):
+        n0 = kernel.launches
+        got = kernel(feats, data).cpu().numpy()
+        ref = plain(feats, data).cpu().numpy()
+        assert kernel.launches == n0 + 1
+        assert got.shape == ((w, cols) if cols else (w,))
+        assert np.isfinite(got).all()
+        if cols:
+            np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=1e-4)
+            _grad_close(got[:, 1:], ref[:, 1:])
+            np.testing.assert_array_equal(got[:, 2], 1.0)
+        else:
+            np.testing.assert_allclose(got, ref, rtol=1e-4)
+
+
+def test_hier_wrappers_reject_what_the_kernels_cannot_take(device):
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=11, fix_comp=True)
+    layout = ThetaLayoutH.from_config(cfg)
+    data = cl.prepare_cuda_h_data(_context(cfg, device), layout)
+    cpu_data = cl.prepare_cuda_h_data(_context(cfg, "cpu"), layout)
+    for fn in (cl.hier_lnlike, cl.hier_lnlike_vg):
+        with pytest.raises(TypeError, match="float32"):
+            fn(torch.zeros((4, 17), device=device, dtype=torch.float64),
+               data)
+        with pytest.raises(ValueError, match="features must be"):
+            fn(torch.zeros((4, 5), device=device), data)
+        with pytest.raises(ValueError, match="launch range"):
+            fn(torch.zeros((65536, 17), device=device), data)
+        with pytest.raises(ValueError, match="grid data on cpu"):
+            fn(torch.zeros((4, 17), device=device), cpu_data)
+
+
+def test_hier_step_loop_never_synchronises_and_is_deterministic(device):
+    """The hierarchical model's stretch run under
+    ``torch.cuda.set_sync_debug_mode("error")``, and the kernels' fixed
+    summation order: the same call twice gives the same bits. A masked
+    row's gradient is an exact 0 through the kernel too."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=21, fix_comp=True)
+    layout = ThetaLayoutH.from_config(cfg)
+    ctx = _context(cfg, device)
+    lnprob = cl.make_cuda_lnprob_h(ctx, layout)
+    gen = torch.Generator(device=device).manual_seed(0)
+    pos0 = sample_init(gen, layout, 32, dtype=torch.float32, device=device)
+    first = lnprob(pos0)
+    assert torch.equal(first, lnprob(pos0))
+    post = cl.make_cuda_lnprob_and_grad(ctx, layout, model="hier")
+    t = pos0.clone()
+    t[0, 1] = -1.0
+    t.requires_grad_(True)
+    n0 = cl.hier_lnlike_vg.launches
+    v = post(t)
+    (g1,) = torch.autograd.grad(v.sum(), t)
+    (g2,) = torch.autograd.grad(post(t).sum(), t)
+    assert cl.hier_lnlike_vg.launches == n0 + 2
+    assert torch.equal(g1, g2) and torch.isfinite(g1).all()
+    assert torch.isneginf(v[0]) and (g1[0] == 0).all() and (
+        g1[1:] != 0).any()
+    torch.cuda.synchronize()
+    n0 = cl.hier_lnlike.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, chain, lnps, acc = run_stretch(lnprob, pos0, gen, 25)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cl.hier_lnlike.launches - n0 == 1 + 2 * 25
     assert chain.shape == (25, 32, layout.ndim)
     assert torch.isfinite(lnps[-1]).all()

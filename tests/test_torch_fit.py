@@ -154,7 +154,7 @@ def test_port_triangle_plot_resume_and_unported_flags(tmp_path,
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_main(args + flag)
     with pytest.raises(SystemExit, match="not ported yet"):
-        port_main(["vmax", "--synthetic", "10"])
+        port_main(["compare-ic", "a.dat", "b.dat"])
     with pytest.raises(SystemExit, match="--nchains must be >= 1"):
         # a new output name: an existing fitposterior skips the sampler
         port_main([a.replace("p.dat", "q.dat") for a in args]
@@ -272,7 +272,10 @@ def test_fitz_resume_pivots_and_unported_flags(tmp_path, monkeypatch):
                  ["--checkpoint-every", "5"], ["--mesh-walkers", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_main([a.replace("p.dat", "q.dat") for a in args] + flag)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        port_main(["fith", "--synthetic", "10"])
+    # fith is ported: the hierarchical fit runs, into its own directory
+    assert port_main(["fith" if a == "fitz" else a.replace("p.dat", "h.dat")
+                      for a in args]) == 0
+    assert (tmp_path / "LFMCMCHOut"
+            / "fitposterior_h_nb50_nw16_ns30_mcf50.dat").exists()
     with pytest.raises(SystemExit):
         port_main(args + ["-sr"])           # fitz has no -sr/--same_rand

@@ -1,6 +1,7 @@
 """The port stands alone: with ``jax`` and ``lumfuncmcmc_tpu`` made
 unimportable, every module of ``lumfuncmcmc_tpu_torch`` imports and a
-tiny ``--device cpu`` fit runs, ``fit`` and ``fitz`` alike; without
+tiny ``--device cpu`` run of each subcommand (``fit``, ``fitz``,
+``fith``, ``vmax``) works; without
 ``--device cpu`` and with no CUDA device, each fails and names
 ``--device cpu`` instead of running on the CPU.
 """
@@ -79,9 +80,39 @@ def test_port_imports_nothing_of_jax_and_runs_a_cpu_fitz(tmp_path):
     _blocked_fit(tmp_path, "fitz", "LFMCMCzOut", 16)
 
 
+def test_port_imports_nothing_of_jax_and_runs_a_cpu_fith(tmp_path):
+    _blocked_fit(tmp_path, "fith", "LFMCMCHOut", 32)
+
+
+VMAX = ["vmax", "--synthetic", "400", "-mcf", "0.5", "-nbins", "8"]
+VMAX_DAT = os.path.join("ImageFiles", "Log",
+                        "OIII_Vmax_LF_mcf_50_bins_8_log.dat")
+
+
+def test_port_imports_nothing_of_jax_and_runs_a_cpu_vmax(tmp_path):
+    proc = _run(tmp_path, BLOCKED_RUN, VMAX + ["--device", "cpu"], {})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RC 0" in proc.stdout and "[[Schechter fit]]" in proc.stdout
+    assert int(proc.stdout.split("IMPORTED")[1].split()[0]) >= 31
+    assert (tmp_path / VMAX_DAT).exists()
+
+
+def test_vmax_without_a_card_fails_and_names_device_cpu(tmp_path):
+    code = ("import sys; from lumfuncmcmc_tpu_torch.cli.main import main; "
+            "sys.exit(main(sys.argv[1:]))")
+    proc = _run(tmp_path, code, VMAX, {"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr
+    assert not (tmp_path / VMAX_DAT).exists()
+
+
 def test_fit_without_a_card_fails_and_names_device_cpu(tmp_path):
     _fit_without_a_card(tmp_path, "fit", "LFMCMCOut", 8)
 
 
 def test_fitz_without_a_card_fails_and_names_device_cpu(tmp_path):
     _fit_without_a_card(tmp_path, "fitz", "LFMCMCzOut", 16)
+
+
+def test_fith_without_a_card_fails_and_names_device_cpu(tmp_path):
+    _fit_without_a_card(tmp_path, "fith", "LFMCMCHOut", 32)

@@ -372,7 +372,7 @@ def test_z_wrappers_never_fall_back_to_the_plain_version():
                 fn(torch.zeros((4, 8), device="cuda"), data)
     assert (cl.z_lnlike.launches, cl.z_lnlike_vg.launches) == before
     with pytest.raises(NotImplementedError, match="no kernel yet"):
-        cl.make_cuda_lnprob_and_grad(ctx, tl, model="hier")
+        cl.make_cuda_lnprob_and_grad(ctx, tl, model="stream")
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,6 +5,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/profile_torch_fit.py [--steps 1000] [--profile-steps 100]
     python3 tools/profile_torch_fit.py --sampler nuts [--transitions 20]
     python3 tools/profile_torch_fit.py --model z [--sampler nuts]
+    python3 tools/profile_torch_fit.py --model hier [--sampler nuts]
 
 The catalog and model are the smoke test's flagship ones (``LFConfig``
 defaults with ``min_comp_frac=0.5``: 5 fields, 100 walkers, 2000
@@ -19,7 +20,9 @@ with the step size and mass a 100-transition warmup adapts, then two
 more under ``torch.profiler`` — ms per value+gradient call, leapfrogs
 per transition, the card's busy share and the kernel's device time.
 ``--model z`` takes the redshift-evolving model instead (``fitz``:
-trapz-201, 7-dim theta, the ``z_lnlike`` / ``z_lnlike_vg`` kernels).
+trapz-201, 7-dim theta, the ``z_lnlike`` / ``z_lnlike_vg`` kernels),
+``--model hier`` the hierarchical multi-field one (``fith``: trapz-201,
+15-dim theta, ``hier_lnlike`` / ``hier_lnlike_vg``).
 Prints one line per measurement and a JSON summary last. Imports only
 the port.
 """
@@ -40,7 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from lumfuncmcmc_tpu_torch import LFConfig  # noqa: E402
 from lumfuncmcmc_tpu_torch.models.model import (  # noqa: E402
-    LumFuncModel, LumFuncModelZ)
+    LumFuncModel, LumFuncModelH, LumFuncModelZ)
 from lumfuncmcmc_tpu_torch.samplers import nuts  # noqa: E402
 from lumfuncmcmc_tpu_torch.samplers.affine import run_stretch  # noqa: E402
 from lumfuncmcmc_tpu_torch.utils.synth import (  # noqa: E402
@@ -49,10 +52,17 @@ from lumfuncmcmc_tpu_torch.utils.synth import (  # noqa: E402
 NWALKERS, NSYNTH, WARMUP = 100, 2000, 20
 
 
-def _model(cfg, cat, dev, z_model=False):
-    cls = LumFuncModelZ if z_model else LumFuncModel
-    return cls(cfg, z=cat["z"], flux=cat["flux"], flux_e=cat["flux_e"],
-               field_id=cat["field_id"], device=dev, dtype=torch.float32)
+MODELS = {"single": LumFuncModel, "z": LumFuncModelZ, "hier": LumFuncModelH}
+# the device kernels of each family's main and value+gradient paths
+KERNELS = {"single": ("free_partials", "free_vg_partials", "free_vg_finish"),
+           "z": ("z_partials", "z_vg_partials", "z_vg_finish"),
+           "hier": ("hier_partials", "hier_vg_partials", "hier_vg_finish")}
+
+
+def _model(cfg, cat, dev, kind="single"):
+    return MODELS[kind](cfg, z=cat["z"], flux=cat["flux"],
+                        flux_e=cat["flux_e"], field_id=cat["field_id"],
+                        device=dev, dtype=torch.float32)
 
 
 def _loop_seconds(lnprob, pos0, nsteps, dev):
@@ -91,13 +101,13 @@ def _device_us(prof, names=()):
     return dev_us, launches, kern
 
 
-def profile_nuts(cat, dev, smi, transitions, z_model, profiled=2):
+def profile_nuts(cat, dev, smi, transitions, kind, profiled=2):
     """NUTS on the card: ``transitions`` transitions of 8 chains with the
     step size and diagonal mass of a 100-transition warmup, timed (host
     clock, synced), then ``profiled`` more under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     cfg = LFConfig(min_comp_frac=0.5, nwalkers=NWALKERS, sampler="nuts")
-    model = _model(cfg, cat, dev, z_model)
+    model = _model(cfg, cat, dev, kind)
     lo, hi = model.layout.bounds_arrays(torch.float32, dev)
     lnp_y, _, to_y = nuts.make_unconstrained(model._nuts_gradient_post(),
                                              lo, hi)
@@ -134,9 +144,7 @@ def profile_nuts(cat, dev, smi, transitions, z_model, profiled=2):
               f"call, {counts.leapfrogs / counts.transitions:.2f} batched "
               f"leapfrogs per transition, step size {float(eps):.4g})",
               flush=True)
-    dev_us, launches, kern = _device_us(
-        prof, ("z_vg_partials", "z_vg_finish") if z_model
-        else ("free_vg_partials", "free_vg_finish"))
+    dev_us, launches, kern = _device_us(prof, KERNELS[kind][1:])
     p_wall, p_calls = out["profiled"]["wall_s"], out["profiled"]["vg_calls"]
     unprof = out["timed"]["ms_per_vg_call"] * p_calls / 1e3
     out["profile"] = {
@@ -161,7 +169,7 @@ def main(argv=None):
     ap.add_argument("--sampler", choices=["stretch", "nuts"],
                     default="stretch")
     ap.add_argument("--transitions", type=int, default=20)
-    ap.add_argument("--model", choices=["single", "z"], default="single")
+    ap.add_argument("--model", choices=list(MODELS), default="single")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("this profile needs a CUDA device")
@@ -177,12 +185,12 @@ def main(argv=None):
         make_catalog(base, n_target=NSYNTH, seed=base.seed), base)
     if args.sampler == "nuts":
         return profile_nuts(cat, dev, smi[0] if smi else None,
-                            args.transitions, args.model == "z")
-    z_model = args.model == "z"
-    if z_model:
-        cases = [("kernel engine, z trapz-201",
+                            args.transitions, args.model)
+    kind = args.model
+    if kind != "single":
+        cases = [(f"kernel engine, {kind} trapz-201",
                   base.replace(use_pallas=True)),
-                 ("eager engine, z trapz-201",
+                 (f"eager engine, {kind} trapz-201",
                   base.replace(use_pallas=False))]
     else:
         cases = [("kernel engine, trapz-101", base.replace(use_pallas=True)),
@@ -197,7 +205,7 @@ def main(argv=None):
            "step_ms": {}}
     flagship = None
     for label, cfg in cases:
-        model = _model(cfg, cat, dev, z_model)
+        model = _model(cfg, cat, dev, kind)
         lnprob = model.lnprob_batch()
         pos0 = model._initial_positions(
             torch.Generator(device=dev).manual_seed(cfg.seed))
@@ -240,7 +248,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us, launches, kern = _device_us(
-        prof, ("z_partials" if z_model else "free_partials", "finish"))
+        prof, (KERNELS[kind][0], "finish"))
     unprof = out["step_ms"][cases[0][0]] * args.profile_steps / 1e3
     out["profile"] = {
         "steps": args.profile_steps, "wall_s": wall, "device_s": dev_us / 1e6,
