@@ -4,12 +4,14 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a nonzero exit:
+Phases (run as 1, 2, 10, 3, 4, 11, then the fit paths and 9); any
+failure ends the run with a nonzero exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
    ``nvidia-smi``'s name and power limit;
 2. build the kernels of ``lumfuncmcmc_tpu_torch/csrc/`` from source (one
-   ``nvcc`` over ``lnlike.cu``, ``lnlike_z.cu`` and ``lnlike_h.cu``);
+   ``nvcc`` over ``lnlike.cu``, ``lnlike_z.cu``, ``lnlike_h.cu``,
+   ``lnlike_stream.cu`` and ``roofline.cu``; each kernel's registers);
 3. each value kernel against its plain PyTorch version on the card
    (float32, rtol 1e-4) and both against the float64 eager engine (rtol
    5e-4), on the fits' own catalog (``fit --synthetic 2000``'s) at
@@ -48,11 +50,33 @@ Phases, in order; any failure ends the run with a nonzero exit:
    ``.png`` artifacts under the image directory, finite positive
    ``BinLF``, and a finite Schechter fit whose ``Lstar`` and ``al`` lie
    inside their bounds and not on them (a z bin's ``al``, known to +-0.3,
-   may sit on its upper bound, where the LM ends without its flag).
+   may sit on its upper bound, where the LM ends without its flag);
+10. the same-mix roofline: ``roofline_chain`` against its plain version
+   (rtol 1e-5), then its main path, ``transcendental_peak``, with the
+   counter set to 0 before and read after: the card's sustained rate on
+   the likelihood's own transcendental mix, which gives every kernel a
+   second bound (``same_mix_ms``: its transcendentals over that rate);
+11. the streaming kernels (``free_stream_lnlike``,
+   ``free_stream_lnlike_vg``) on the mega catalog (``fit --synthetic
+   1200000 --seed 7 --quadrature gauss``'s: 1,019,385 sources), at the
+   batches its fits give them (value W = 50 and an odd 51; vg W = 1, 8,
+   256): against their plain versions (rtol 1e-4 values, 2e-3 gradients),
+   at theta level against the float64 eager engine (5e-4, 2e-3), the lnp
+   difference of 32 close theta pairs near the truth against float64
+   through each kernel's value (<= 0.05 absolute), and the sum of 2
+   shards against one (1e-6); the
+   resident kernels' times at the same shape beside theirs;
+12. ``fit mega``: ``fit`` and ``fit --sampler nuts`` on that catalog with
+   ``use_x64`` (float64 lnprob, float32 kernels): the artifacts, the log's
+   1,019,385 sources and streaming engine, exact launch counts (stretch
+   2 x steps + 1 ``free_stream_lnlike`` and no ``free_lnlike``; NUTS
+   transitions + leapfrogs ``free_stream_lnlike_vg``), the NUTS gates,
+   the stretch fit's ``select_samples`` logL* median within 3 NUTS
+   posterior sd of the NUTS median and within 0.05 dex of the truth.
 
-Phases 5-8 run side by side, each path's stretch and NUTS fit in a
-process of its own (``--path``): the sampler loops are host-bound, so
-the four take about the time of the longest. Each fit runs with every
+Phases 5-8 and 12 run side by side, each path's stretch and NUTS fit in
+a process of its own (``--path``): the sampler loops are host-bound, so
+the five take about the time of the longest. Each fit runs with every
 launch counter set to 0 just before it and read just after. Prints the
 kernel summary as one JSON line, then the device line last.
 """
@@ -87,6 +111,7 @@ from lumfuncmcmc_tpu_torch.models.likelihood_z import (
 from lumfuncmcmc_tpu_torch.models.model import select_samples
 from lumfuncmcmc_tpu_torch.ops import _build
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
+from lumfuncmcmc_tpu_torch.ops import roofline as rl
 from lumfuncmcmc_tpu_torch.utils.io import read_fixed_width_two_line
 from lumfuncmcmc_tpu_torch.utils.synth import (
     apply_completeness_cut, make_catalog)
@@ -98,15 +123,23 @@ NSTEPS, NWALKERS, NSYNTH = 2000, 100, 2000
 NUTS_CHAINS, NUTS_WARMUP = 8, 200
 # NUTS samples by kernel family (warmup is the CLI's 200 and holds most of
 # the leapfrogs, so the samples are what a depth cut can take)
-NUTS_STEPS = {"free": 150, "fixed": 200, "z": 300, "hier": 300}
+NUTS_STEPS = {"free": 150, "fixed": 200, "z": 300, "hier": 300,
+              "mega": 150}
 CSRC = "lumfuncmcmc_tpu_torch/csrc/"
 TPU_FILE = "lumfuncmcmc_tpu/ops/pallas_lnlike.py"
 KERNELS = ("free_lnlike", "fixed_lnlike", "free_lnlike_vg",
            "fixed_lnlike_vg", "z_lnlike", "z_lnlike_vg", "hier_lnlike",
-           "hier_lnlike_vg")
-PATH_SECONDS = 1000     # what the fit paths' processes may take together
+           "hier_lnlike_vg", "free_stream_lnlike", "free_stream_lnlike_vg",
+           "roofline_chain")
+PATH_SECONDS = 900      # what the fit paths' processes may take together
 DEVICE_LINE = "Device: cuda:0"      # what a run on the card logs first
-SOURCES = {"z": "lnlike_z.cu", "hier": "lnlike_h.cu"}   # else lnlike.cu
+# the mega catalog: the JAX benchmark's stream tier (make_catalog with
+# n_target 1.2e6, seed 7, gauss-32 quadrature)
+MEGA_TARGET, MEGA_SEED, MEGA_SOURCES = 1_200_000, 7, 1_019_385
+MEGA_STEPS = 2000       # stretch steps of the mega fit
+DLNP_TOL = 0.05         # lnp difference of close thetas vs float64
+SOURCES = {"z": "lnlike_z.cu", "hier": "lnlike_h.cu",
+           "free_stream": "lnlike_stream.cu", "roofline": "roofline.cu"}
 # The card's peaks for the bound (H100 SXM at 700 W): float32 outside the
 # tensor cores, and HBM.
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -121,10 +154,25 @@ PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
 # end-of-column contraction included).
 # From csrc/lnlike_h.cu: the fixed-completeness cells, hier_lnlike 8 and
 # hier_lnlike_vg 12 (the per-field lookup is three loads per block).
+# From csrc/lnlike_stream.cu: the grid cells as in lnlike.cu, an unmasked
+# source's ln fc alone (the affine terms are collapsed on the host) 15 and
+# with its derivatives 33.
+# From csrc/roofline.cu: 26 per element and iteration.
 OPS = {"free_lnlike": (23, 23, 0), "fixed_lnlike": (8, 0, 0),
        "free_lnlike_vg": (46, 45, 0), "fixed_lnlike_vg": (12, 0, 0),
        "z_lnlike": (7, 16, 12), "z_lnlike_vg": (11, 31, 25),
-       "hier_lnlike": (8, 0, 0), "hier_lnlike_vg": (12, 0, 0)}
+       "hier_lnlike": (8, 0, 0), "hier_lnlike_vg": (12, 0, 0),
+       "free_stream_lnlike": (23, 15, 0),
+       "free_stream_lnlike_vg": (46, 33, 0), "roofline_chain": (26, 0, 0)}
+# Transcendentals (exp/log/rsqrt, the roofline's convention) per grid
+# cell, unmasked source and z node: a free cell rsqrt, log, the decay exp
+# and the integrand exp; a free source the first three; the fixed,
+# hierarchical and z cells one exp (a z source one, a z node one).
+TRANS = {"free": (4, 3, 0), "fixed": (1, 0, 0), "z": (1, 1, 1),
+         "hier": (1, 0, 0), "roofline": (4, 0, 0)}
+
+
+_SMI = ["not read"]     # nvidia-smi's name and power limit line
 
 
 def fail(msg):
@@ -145,16 +193,22 @@ def phase_device():
         timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    _SMI[:] = [smi.stdout.strip().splitlines()[0]]
+    print(_SMI[0])
 
 
 def phase_build():
     path = _build.build()
     print(f"kernel build: {_build.build_seconds:.2f} s -> "
           f"{os.path.relpath(path)}")
+    kernel = "?"
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        elif "registers" in line or ("spill" in line and not re.search(
+                r"0 bytes spill stores, 0 bytes spill loads", line)):
+            print(f"  ptxas: {kernel}: {line.split(':', 1)[1].strip()}")
     _build.load_library()
 
 
@@ -210,18 +264,44 @@ def _grad_rel(gp, gref):
     return float(((gp - gref).abs() / denom).max())
 
 
+def _kernel(name):
+    """The wrapper of kernel ``name`` (its ``.launches`` counter)."""
+    return rl.roofline_chain if name == "roofline_chain" else getattr(
+        cl, name)
+
+
+def _source(name):
+    for key, src in SOURCES.items():
+        if name.startswith(key):
+            return CSRC + src
+    return CSRC + "lnlike.cu"
+
+
 def _bound(kname, data, w):
     """Least time the card could take for one call of ``kname`` on these
     inputs: the larger of bytes (each input read once, each output
     written once) over HBM bandwidth and float32 operations (this data's
     cells, unmasked sources and, for the z kernels, z nodes per band) over
-    the float32 peak.
-    Returns ``(bound_ms, bound_by, bytes, ops)``."""
+    the float32 peak. ``w`` is the walker batch (the iteration count for
+    ``roofline_chain``, whose ``data`` is its input).
+    Returns ``(bound_ms, bound_by, bytes, ops, transcendentals)``."""
     fam = kname.split("_")[0]
+    per_cell, per_src, per_node = OPS[kname]
+    if fam == "roofline":
+        nbytes, ops = 8 * data.numel(), per_cell * w * data.numel()
+        trans = TRANS[fam][0] * w * data.numel()
+        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_OPS
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations", nbytes, ops,
+                trans)
+    stream = "stream" in kname
     ncell = data.g_a.numel()
     gridonly = fam in ("fixed", "hier")
-    nsrc = 0 if gridonly else data.s_a.numel()
-    nvalid = 0 if gridonly else int((data.s_mask > 0).sum())
+    if stream:
+        nsrc, nvalid = data.s_logf.shape[1], int((data.s_mask[0] > 0).sum())
+    else:
+        nsrc = 0 if gridonly else data.s_a.numel()
+        nvalid = 0 if gridonly else int((data.s_mask > 0).sum())
     if fam == "z":
         nfeat, nf, sz = 7, data.shape[0], data.shape[2]
         nnode = int((data.chunks[:, 3] == 0).sum()) * sz
@@ -230,15 +310,19 @@ def _bound(kname, data, w):
         nfeat = {"fixed": 5, "hier": 2 + 3 * data.nfields}.get(
             fam, 6 + 2 * data.nfields)
         nnode = 0
-        ndata = (3 if gridonly else 5) * ncell + 6 * nsrc
+        ndata = (3 if gridonly else 5) * ncell + (3 if stream else 6) * nsrc
     out_cols = (1 + nfeat) if kname.endswith("_vg") else 1
-    nbytes = 4 * (w * nfeat + ndata + w * out_cols) + data.chunks.numel() * 4
-    per_cell, per_src, per_node = OPS[kname]
+    out_bytes = (8 if stream else 4) * w * out_cols
+    nbytes = (4 * (w * nfeat + ndata) + out_bytes
+              + data.chunks.numel() * 4)
     ops = w * (ncell * per_cell + nvalid * per_src + (nsrc - nvalid)
                + nnode * per_node)
+    tc, ts, tn = TRANS[fam]
+    trans = w * (ncell * tc + nvalid * ts + nnode * tn)
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_OPS
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops,
+            trans)
 
 
 def _central_thetas(cfg, layout, w, gen, dev):
@@ -433,11 +517,11 @@ def phase_kernels(dev):
                       f"{ms * 1e3:.2f} us, plain {pms * 1e3:.2f} us; "
                       f"eager wrapper call {cms * 1e3:.2f} us")
                 if grid in ("trapz-101", "trapz-201"):   # flagship shapes
-                    bms, by, nb, nops = _bound(kname, data, w)
+                    bms, by, nb, nops, ntr = _bound(kname, data, w)
                     print(f"{kname} {grid} W=50 bound: {bms * 1e3:.4f} us "
                           f"({by}: {nb} bytes, {nops} f32 operations)")
                     rec.update(ms=ms, plain_ms=pms, call_ms=cms,
-                               bound_ms=bms, bound_by=by,
+                               bound_ms=bms, bound_by=by, trans=ntr,
                                shape=f"W=50, {grid}, "
                                      f"{data.g_a.shape[0]} cells")
     return summary
@@ -532,7 +616,7 @@ def phase_vg_kernels(dev):
             f_w = feats
             ms = _device_ms(lambda: kernel(f_w, data))
             pms = _device_ms(lambda: plain(f_w, data))
-            bms, by, nb, nops = _bound(kname, data, w)
+            bms, by, nb, nops, ntr = _bound(kname, data, w)
             print(f"{kname} {grid} W={w} device time: kernel "
                   f"{ms * 1e3:.2f} us, plain {pms * 1e3:.2f} us, bound "
                   f"{bms * 1e3:.4f} us ({by}: {nb} bytes, {nops} f32 "
@@ -540,11 +624,268 @@ def phase_vg_kernels(dev):
             if grid in ("trapz-101", "trapz-201"):       # the NUTS shapes
                 key = "" if w == 8 else f"_w{w}"
                 rec.update({f"ms{key}": ms, f"plain_ms{key}": pms,
-                            f"bound_ms{key}": bms, f"bound_by{key}": by})
+                            f"bound_ms{key}": bms, f"bound_by{key}": by,
+                            f"trans{key}": ntr})
                 if w == 8:
                     rec["call_ms"] = _call_ms(lambda: kernel(f_w, data))
                     rec["shape"] = (f"W=8, {grid}, "
                                     f"{data.g_a.shape[0]} cells")
+    return summary
+
+
+def phase_roofline(dev):
+    """``roofline_chain`` against its plain version, then its main path,
+    ``transcendental_peak``, with the launch counter set to 0 just before
+    and read just after. Returns the kernel's summary row and the
+    measured rate."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = 0.05 + 0.9 * torch.rand((256, 1024), generator=gen, device=dev)
+    got = rl.roofline_chain(x, 8)
+    ref = rl.roofline_chain_reference(x, 8)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = _rel(got, ref)
+    print(f"roofline_chain (256, 1024) x 8 iterations: kernel vs plain max "
+          f"abs {err:.3e}, max rel {rel:.3e}")
+    if not (torch.isfinite(got).all() and rel <= 1e-5):
+        fail(f"roofline_chain vs plain {rel:.3e} > 1e-5")
+    rl.roofline_chain.launches = 0
+    peak = rl.transcendental_peak(dev)
+    launches = rl.roofline_chain.launches
+    if launches != 2 * (1 + peak["reps"]):
+        fail(f"transcendental_peak launched roofline_chain {launches} times")
+    it = peak["iters_lo"]
+    ms = peak["wall_lo_s"] * 1e3
+    xp = 0.05 + 0.9 * torch.rand((peak["rows"], peak["cols"]),
+                                 generator=gen, device=dev)
+    pms = _call_ms(lambda: rl.roofline_chain_reference(xp, it), inner=1,
+                   reps=3)
+    bms, by, nb, nops, ntr = _bound("roofline_chain", xp, it)
+    print(f"same-mix peak (transcendental_peak, {peak['rows']} x "
+          f"{peak['cols']}, {peak['iters_lo']} and {peak['iters_hi']} "
+          f"iterations, best of {peak['reps']}): "
+          f"{peak['elements_per_sec']:.5e} elements/s, "
+          f"{peak['transcendentals_per_sec']:.5e} transcendentals/s, "
+          f"{peak['per_iter_s'] * 1e6:.4f} us per iteration, overhead "
+          f"{peak['overhead_s'] * 1e6:.2f} us; on {_SMI[0]}")
+    print(f"roofline_chain {it} iterations: kernel {ms * 1e3:.2f} us, plain "
+          f"{pms * 1e3:.2f} us, bound {bms * 1e3:.3f} us ({by}: {nb} bytes, "
+          f"{nops} f32 operations), {launches} launches")
+    row = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+           "plain_ms": pms, "bound_ms": bms, "bound_by": by, "trans": ntr,
+           "call_ms": ms, "launches": launches,
+           "shape": f"(256, 1024) x {it} iterations",
+           "elements_per_sec": peak["elements_per_sec"],
+           "transcendentals_per_sec": peak["transcendentals_per_sec"]}
+    return row, peak["transcendentals_per_sec"]
+
+
+def _mega_case(dev):
+    """The mega catalog (``fit --synthetic 1200000 --seed 7 --quadrature
+    gauss``'s) as a float64 context on the card, its streaming data, the
+    truth as a theta, and the float64 eager lnprob."""
+    cfg = LFConfig(min_comp_frac=0.5, quadrature="gauss")
+    cat = apply_completeness_cut(
+        make_catalog(cfg, n_target=MEGA_TARGET, seed=MEGA_SEED), cfg)
+    if len(cat["z"]) != MEGA_SOURCES:
+        fail(f"the mega catalog has {len(cat['z'])} sources, expected "
+             f"{MEGA_SOURCES}")
+    _, ctx = build_context(cfg, z=cat["z"], flux=cat["flux"],
+                           flux_e=cat["flux_e"], field_id=cat["field_id"],
+                           device=dev, dtype=torch.float64)
+    layout = ThetaLayout.from_config(cfg)
+    tt = cat["theta_true"]
+    truth = torch.tensor([tt["Lstar"], tt["phistar"], tt["sch_al"],
+                          *cfg.Flim, cfg.alpha], dtype=torch.float64,
+                         device=dev)
+    lo, hi = layout.bounds_arrays(torch.float64, dev)
+    return SimpleNamespace(
+        cfg=cfg, ctx=ctx, layout=layout, truth=truth, width=hi - lo,
+        data=cl.prepare_cuda_stream_data(ctx, cfg.fcmin,
+                                         dtype=torch.float32),
+        eager64=make_lnprob(ctx, layout))
+
+
+def _near(m, w, gen, scale):
+    """``w`` thetas around the truth, ``scale`` box widths apart."""
+    return m.truth + scale * m.width * torch.randn(
+        (w, m.truth.numel()), generator=gen, dtype=torch.float64,
+        device=m.truth.device)
+
+
+def phase_stream(dev):
+    """The streaming kernels on the mega catalog: against their plain
+    versions, the float64 eager engine and (lnp differences of close
+    thetas) float64 itself; the sum of shards; times beside the resident
+    kernels' at the same shape."""
+    m = _mega_case(dev)
+    data, layout = m.data, m.layout
+    lnprob = cl.make_cuda_lnprob(m.ctx, layout)
+    post = cl.make_cuda_lnprob_and_grad(m.ctx, layout)
+    if not (lnprob.engine == post.engine == "cuda-stream"):
+        fail(f"the mega catalog takes {lnprob.engine} / {post.engine}, "
+             "not the streaming kernels")
+    resident = cl.prepare_cuda_data(m.ctx, False, m.cfg.fcmin,
+                                    dtype=torch.float32)
+    print(f"mega catalog: {MEGA_SOURCES} sources, "
+          f"{int(data.g_a.numel())} cells, {lnprob.stream[1]} source tiles "
+          f"of {cl.CHUNK_CELLS} ({data.s_logf.shape[1]} slots), "
+          f"{int(data.chunks.shape[0])} pieces")
+
+    def feats_of(th, d=data):
+        return cl._features_stream(th, d, layout, torch.float32)
+
+    summary = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0}
+               for k in ("free_stream_lnlike", "free_stream_lnlike_vg")}
+    rec = summary["free_stream_lnlike"]
+    gen = torch.Generator(device=dev).manual_seed(1019)
+    for w in (50, 51):
+        th = _near(m, w, gen, 0.002)
+        f = feats_of(th).float()
+        got = cl.free_stream_lnlike(f, data)
+        ref = cl.free_stream_lnlike_reference(f, data)
+        full = lnprob(th)
+        want = _in_rows(m.eager64, th, 16)
+        torch.cuda.synchronize()
+        err_k, abs_k = _rel(got, ref), float((got - ref).abs().max())
+        err_f = _rel(full, want)
+        print(f"free_stream_lnlike mega W={w}: kernel vs plain max rel "
+              f"{err_k:.3e}, max abs {abs_k:.3e} (|part| <= "
+              f"{float(ref.abs().max()):.4e}); lnprob vs f64 eager "
+              f"{err_f:.3e} (max abs {float((full - want).abs().max()):.4f}"
+              f", |lnL| <= {float(want.abs().max()):.4e})")
+        if not (torch.isfinite(got).all() and err_k <= RTOL_KERNEL
+                and err_f <= RTOL_F64):
+            fail(f"free_stream_lnlike mega W={w}: {err_k:.3e} vs plain, "
+                 f"{err_f:.3e} vs f64 eager")
+        rec["max_rel_err"] = max(rec["max_rel_err"], err_k)
+        rec["max_abs_err"] = max(rec["max_abs_err"], abs_k)
+    # the accept step's quantity: lnp differences of 32 close pairs
+    base = _near(m, 32, gen, 0.001)
+    th = torch.cat([base, base + 6e-5 * m.width * torch.randn(
+        base.shape, generator=gen, dtype=torch.float64, device=dev)])
+    want = _in_rows(m.eager64, th, 16)
+    got = lnprob(th)
+    got_vg = post(th)       # the value column NUTS's accept step reads
+    fr = cl._features(th.float(), resident, layout, torch.float32)
+    res = cl.free_lnlike(fr, resident).double()
+
+    def dlnp(v):
+        return v[32:] - v[:32]
+
+    def d_err(v):
+        return float((dlnp(v) - dlnp(want)).abs().max())
+
+    d_val, d_vg, d_res = d_err(got), d_err(got_vg), d_err(res)
+    print(f"mega: lnp differences of 32 close pairs (|dlnp| "
+          f"{float(dlnp(want).abs().min()):.3f} to "
+          f"{float(dlnp(want).abs().max()):.3f}) vs float64: max error "
+          f"{d_val:.4e} through free_stream_lnlike, {d_vg:.4e} through "
+          f"free_stream_lnlike_vg's value (limit {DLNP_TOL}); the float32 "
+          f"resident free_lnlike's {d_res:.4e}")
+    if not (d_val <= DLNP_TOL and d_vg <= DLNP_TOL):
+        fail(f"mega: lnp difference error {d_val:.4e} (value kernel), "
+             f"{d_vg:.4e} (value+gradient kernel)")
+    rec["dlnp_err"], rec["resident_dlnp_err"] = d_val, d_res
+    summary["free_stream_lnlike_vg"]["dlnp_err"] = d_vg
+    # two shards on the one card add up to the whole
+    th = _near(m, 50, gen, 0.002)
+    f1 = feats_of(th)
+    whole = cl.free_stream_lnlike(f1.float(), data) + cl._stream_collapsed(
+        f1, data)
+    two = cl.prepare_cuda_stream_data(m.ctx, m.cfg.fcmin, nshards=2,
+                                      dtype=torch.float32)
+    f2 = feats_of(th, two)
+    tot = sum(cl.free_stream_lnlike(f2.float(), two, k)
+              + cl._stream_collapsed(f2, two, k) for k in range(2))
+    err_sh = _rel(tot, whole)
+    print(f"free_stream_lnlike mega: 2 shards vs 1, max rel {err_sh:.3e}")
+    if not err_sh <= 1e-6:
+        fail(f"free_stream_lnlike mega: 2 shards vs 1 {err_sh:.3e}")
+    del two
+    fw = f1.float()
+    fr = cl._features(th.float(), resident, layout, torch.float32)
+    ms = _device_ms(lambda: cl.free_stream_lnlike(fw, data), inner=10,
+                    reps=9)
+    pms = _device_ms(lambda: cl.free_stream_lnlike_reference(fw, data),
+                     inner=3, reps=5)
+    rms = _device_ms(lambda: cl.free_lnlike(fr, resident), inner=10, reps=9)
+    cms = _call_ms(lambda: cl.free_stream_lnlike(fw, data))
+    lms = _call_ms(lambda: lnprob(th), inner=20, reps=5)
+    bms, by, nb, nops, ntr = _bound("free_stream_lnlike", data, 50)
+    print(f"free_stream_lnlike mega W=50 device time: kernel "
+          f"{ms * 1e3:.2f} us, plain {pms * 1e3:.2f} us, resident "
+          f"free_lnlike {rms * 1e3:.2f} us; eager wrapper call "
+          f"{cms * 1e3:.2f} us, whole lnprob call {lms * 1e3:.2f} us; "
+          f"bound {bms * 1e3:.4f} us ({by}: {nb} bytes, {nops} f32 "
+          f"operations, {ntr} transcendentals)")
+    rec.update(ms=ms, plain_ms=pms, call_ms=cms, lnprob_call_ms=lms,
+               bound_ms=bms, bound_by=by, trans=ntr, resident_ms=rms,
+               shape=f"W=50, gauss-32 mega, {MEGA_SOURCES} sources")
+
+    rec = summary["free_stream_lnlike_vg"]
+    rec["max_grad_err"] = 0.0
+    fr_vg = None
+    for w in (1, 8, 256):
+        th = _near(m, w, gen, 0.01)
+        f = feats_of(th).float()
+        got = cl.free_stream_lnlike_vg(f, data)
+        ref = cl.free_stream_lnlike_vg_reference(f, data)
+        torch.cuda.synchronize()
+        cols = [c for c in range(1, got.shape[1]) if c != 2]
+        err_v = _rel(got[:, 0], ref[:, 0])
+        err_g = _grad_rel(got[:, cols], ref[:, cols])
+        t = th.clone().requires_grad_(True)
+        v = post(t)
+        (g,) = torch.autograd.grad(v.sum(), t)
+        vals, grads = [], []
+        for i in range(0, w, 32):
+            ti = th[i:i + 32].clone().requires_grad_(True)
+            vi = m.eager64(ti)
+            grads.append(torch.autograd.grad(vi.sum(), ti)[0])
+            vals.append(vi.detach())
+        v64, g64 = torch.cat(vals), torch.cat(grads)
+        err_tv = _rel(v.detach(), v64)
+        err_tg = _grad_rel(g, g64)
+        print(f"free_stream_lnlike_vg mega W={w}: kernel vs plain value max "
+              f"rel {err_v:.3e}, gradient {err_g:.3e}; theta-level vs f64 "
+              f"eager autograd value {err_tv:.3e}, gradient {err_tg:.3e}")
+        if err_v > RTOL_KERNEL or err_g > RTOL_GRAD or not bool(
+                (got[:, 2] == 0).all()):
+            fail(f"free_stream_lnlike_vg mega W={w}: kernel vs plain "
+                 f"{err_v:.3e} (value), {err_g:.3e} (gradient)")
+        if err_tv > RTOL_F64 or err_tg > RTOL_GRAD:
+            fail(f"free_stream_lnlike_vg mega W={w}: vs f64 eager autograd "
+                 f"{err_tv:.3e} (value), {err_tg:.3e} (gradient)")
+        rec["max_rel_err"] = max(rec["max_rel_err"], err_v)
+        rec["max_grad_err"] = max(rec["max_grad_err"], err_g)
+        if w == 1:
+            continue
+        if w == 8:
+            rec["max_abs_err"] = float((got[:, 0] - ref[:, 0]).abs().max())
+        fr_vg = cl._features(th.float(), resident, layout, torch.float32)
+        ms = _device_ms(lambda: cl.free_stream_lnlike_vg(f, data), inner=10,
+                        reps=9)
+        pms = _device_ms(lambda: cl.free_stream_lnlike_vg_reference(f, data),
+                         inner=2, reps=5)
+        rms = _device_ms(lambda: cl.free_lnlike_vg(fr_vg, resident),
+                         inner=10, reps=9)
+        bms, by, nb, nops, ntr = _bound("free_stream_lnlike_vg", data, w)
+        print(f"free_stream_lnlike_vg mega W={w} device time: kernel "
+              f"{ms * 1e3:.2f} us, plain {pms * 1e3:.2f} us, resident "
+              f"free_lnlike_vg {rms * 1e3:.2f} us; bound {bms * 1e3:.4f} us "
+              f"({by}: {nb} bytes, {nops} f32 operations, {ntr} "
+              "transcendentals)")
+        key = "" if w == 8 else f"_w{w}"
+        rec.update({f"ms{key}": ms, f"plain_ms{key}": pms,
+                    f"bound_ms{key}": bms, f"bound_by{key}": by,
+                    f"trans{key}": ntr, f"resident_ms{key}": rms})
+        if w == 8:
+            rec["call_ms"] = _call_ms(lambda: cl.free_stream_lnlike_vg(
+                f, data))
+            rec["shape"] = f"W=8, gauss-32 mega, {MEGA_SOURCES} sources"
+    del m, resident
+    torch.cuda.empty_cache()
     return summary
 
 
@@ -563,12 +904,15 @@ class _Records(logging.Handler):
         fail(f"the fit logged no '{prefix}' line")
 
 
-def _smoke_config(workdir, has_mpl):
-    cfg_path = os.path.join(workdir, "smoke_config.json")
+def _smoke_config(workdir, has_mpl, x64=False):
+    """The fits' ``--config`` file: plots only where matplotlib is, and
+    ``use_x64`` (a float64 lnprob) for the mega catalog."""
+    cfg_path = os.path.join(workdir, f"smoke_config{'_x64' * x64}.json")
     od = dict(LFConfig().output_dict)
     od["triangle plot"] = has_mpl
     with open(cfg_path, "w") as fh:
-        json.dump({"output_dict": od}, fh)
+        json.dump({"output_dict": od, **({"use_x64": True} if x64 else {})},
+                  fh)
     return cfg_path
 
 
@@ -584,12 +928,12 @@ def _drive(argv, run_dir):
     os.chdir(run_dir)
     try:
         for name in KERNELS:
-            getattr(cl, name).launches = 0
+            _kernel(name).launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rc = cli_main(argv)
         wall = time.perf_counter() - t0
-        counts = {name: getattr(cl, name).launches for name in KERNELS}
+        counts = {name: _kernel(name).launches for name in KERNELS}
         peak = torch.cuda.max_memory_allocated()
     finally:
         os.chdir(cwd)
@@ -613,19 +957,41 @@ def _artifacts(label, out, base, has_mpl):
     return post
 
 
-# The fit paths: CLI arguments after the subcommand, output directory, the
-# kernel family (which also picks the NUTS depth) and the posterior column
-# the NUTS run is held to.
+def _path(cmd, extra, out, fam, col, **kw):
+    """A fit path: CLI arguments after the subcommand, output directory,
+    the kernel family, the posterior column the NUTS run is held to, the
+    catalog size, stretch steps, NUTS samples and whether it runs with
+    ``use_x64``."""
+    base = dict(nsynth=NSYNTH, nsteps=NSTEPS, nuts=NUTS_STEPS[fam],
+                x64=False)
+    return SimpleNamespace(cmd=cmd, extra=extra, out=out, fam=fam, col=col,
+                           **{**base, **kw})
+
+
 PATHS = {
-    "fit": SimpleNamespace(cmd="fit", extra=[], out="LFMCMCOut",
-                           fam="free", col=r"$\log L_*$"),
-    "fit -fc": SimpleNamespace(cmd="fit", extra=["-fc"], out="LFMCMCOut",
-                               fam="fixed", col=r"$\log L_*$"),
-    "fitz": SimpleNamespace(cmd="fitz", extra=[], out="LFMCMCzOut", fam="z",
-                            col=r"$\log {\rm{L}}2_*$"),
-    "fith": SimpleNamespace(cmd="fith", extra=[], out="LFMCMCHOut",
-                            fam="hier", col=r"$\mu_{L_*}$"),
+    "fit": _path("fit", [], "LFMCMCOut", "free", r"$\log L_*$"),
+    "fit -fc": _path("fit", ["-fc"], "LFMCMCOut", "fixed", r"$\log L_*$"),
+    "fitz": _path("fitz", [], "LFMCMCzOut", "z", r"$\log {\rm{L}}2_*$"),
+    "fith": _path("fith", [], "LFMCMCHOut", "hier", r"$\mu_{L_*}$"),
+    "fit mega": _path("fit", ["--seed", str(MEGA_SEED), "--quadrature",
+                              "gauss"], "LFMCMCOut", "free", r"$\log L_*$",
+                      nsynth=MEGA_TARGET, nsteps=MEGA_STEPS,
+                      nuts=NUTS_STEPS["mega"], x64=True),
 }
+
+
+def _route(path, rec, label):
+    """The kernel name stem the path's catalog takes: the streaming one
+    under free completeness from ``STREAM_MIN_SOURCES`` sources on (the
+    count its log reports)."""
+    (nsrc,) = _logged(rec, r"Context build: [\d.]+ s \((\d+) sources",
+                      label)
+    stream = path.fam == "free" and nsrc >= cl.STREAM_MIN_SOURCES
+    if stream:
+        want = (f"Engine: CUDA streaming kernels ({int(nsrc)} sources, ")
+        if not any(ln.startswith(want) for ln in rec.lines):
+            fail(f"{label}: the log does not name the streaming engine")
+    return ("free_stream" if stream else path.fam), int(nsrc)
 
 
 def _check_lf_matrix(label, out, base):
@@ -645,26 +1011,45 @@ def phase_fit(label, workdir, has_mpl):
     """The port's CLI, end to end, through the kernels. Returns the
     launch counts and the posterior's ``col`` column."""
     path = PATHS[label]
-    argv = [path.cmd, "--synthetic", str(NSYNTH), "-mcf", "0.5",
-            "-nw", str(NWALKERS), "-ns", str(NSTEPS), "--config",
-            _smoke_config(workdir, has_mpl)] + path.extra
-    run_dir = os.path.join(workdir, path.fam)
+    argv = [path.cmd, "--synthetic", str(path.nsynth), "-mcf", "0.5",
+            "-nw", str(NWALKERS), "-ns", str(path.nsteps), "--config",
+            _smoke_config(workdir, has_mpl, path.x64)] + path.extra
+    run_dir = os.path.join(workdir, label.replace(" ", "_"))
     rc, counts, rec, peak, wall = _drive(argv, run_dir)
     if rc != 0:
         fail(f"{label} returned {rc}")
-    base = f"test_nb50_nw{NWALKERS}_ns{NSTEPS}_mcf50"
+    base = f"test_nb50_nw{NWALKERS}_ns{path.nsteps}_mcf50"
     out = os.path.join(run_dir, path.out)
     post = _artifacts(label, out, base, has_mpl)
     acc = rec.value("Mean acceptance fraction:")
     if not 0.1 < acc < 0.9:
         fail(f"{label}: acceptance fraction {acc} outside (0.1, 0.9)")
-    used = f"{path.fam}_lnlike"
+    stem, nsrc = _route(path, rec, label)
+    used = f"{stem}_lnlike"
     want = {k: 0 for k in KERNELS}
-    want[used] = 1 + 2 * NSTEPS
+    want[used] = 1 + 2 * path.nsteps
     if counts != want:
         fail(f"{label}: launch counts {counts}, expected {want}")
     col = np.asarray(post[path.col])
     extra = ""
+    if path.x64:
+        if not any(ln.startswith(DEVICE_LINE) and ln.endswith("float64")
+                   for ln in rec.lines):
+            fail(f"{label}: the run's dtype is not float64")
+        if nsrc != MEGA_SOURCES:
+            fail(f"{label}: {nsrc} sources, expected {MEGA_SOURCES}")
+        # the stretch ensemble contracts ~100x from the prior box: its
+        # posterior is the select_samples rows (as the parameters table's)
+        names = list(post)
+        sel = select_samples(np.column_stack([post[k] for k in names]))
+        col = sel[:, names.index(path.col)]
+        truth = LFConfig().Lstar
+        if not abs(np.median(col) - truth) < 0.05:
+            fail(f"{label}: logL* median {np.median(col):.4f}, truth "
+                 f"{truth} (limit 0.05 dex)")
+        extra = (f", {len(sel)} selected rows, their logL* median "
+                 f"{np.median(col):.4f} (truth {truth}), sd "
+                 f"{np.std(col):.5f}; {nsrc} sources")
     if path.fam == "z":
         _check_lf_matrix(label, out, base)
         # the middle pivots are the best constrained: they must constrain
@@ -721,13 +1106,13 @@ def phase_nuts(stretch_label, workdir, has_mpl, stretch_col):
     """``--sampler nuts`` end to end through the value+gradient kernels,
     held to the stretch fit of the same catalog."""
     path = PATHS[stretch_label]
-    nsteps = NUTS_STEPS[path.fam]
-    argv = [path.cmd, "--sampler", "nuts", "--synthetic", str(NSYNTH),
+    nsteps = path.nuts
+    argv = [path.cmd, "--sampler", "nuts", "--synthetic", str(path.nsynth),
             "-mcf", "0.5", "-ns", str(nsteps), "--nchains",
             str(NUTS_CHAINS), "--config",
-            _smoke_config(workdir, has_mpl)] + path.extra
+            _smoke_config(workdir, has_mpl, path.x64)] + path.extra
     label = " ".join([path.cmd, "--sampler nuts"] + path.extra)
-    run_dir = os.path.join(workdir, f"nuts_{path.fam}")
+    run_dir = os.path.join(workdir, "nuts_" + stretch_label.replace(" ", "_"))
     rc, counts, rec, peak, wall = _drive(argv, run_dir)
     if rc != 0:
         fail(f"{label} returned {rc}")
@@ -762,7 +1147,7 @@ def phase_nuts(stretch_label, workdir, has_mpl, stretch_col):
         fail(f"{label}: {path.col} median {np.median(col):.4f} is "
              f"{gap:.2f} posterior sd from the stretch fit's "
              f"{np.median(stretch_col):.4f} (limit 3)")
-    fam = path.fam
+    fam, _ = _route(path, rec, label)
     rows = nsteps * NUTS_CHAINS
     want = {k: 0 for k in KERNELS}
     want[f"{fam}_lnlike_vg"] = int(ntrans + nlf)
@@ -918,6 +1303,22 @@ def phase_paths(workdir, has_mpl):
     return launches
 
 
+# kernel -> the TPU kernel(s) it replaces, file:line
+REPLACES = {
+    "free_lnlike": (f"{TPU_FILE}:601", f"{TPU_FILE}:761"),
+    "fixed_lnlike": (f"{TPU_FILE}:751", f"{TPU_FILE}:813"),
+    "free_lnlike_vg": (f"{TPU_FILE}:832",),
+    "fixed_lnlike_vg": (f"{TPU_FILE}:1255",),
+    "z_lnlike": (f"{TPU_FILE}:659", f"{TPU_FILE}:677"),
+    "z_lnlike_vg": (f"{TPU_FILE}:1142",),
+    "hier_lnlike": (f"{TPU_FILE}:713", f"{TPU_FILE}:734"),
+    "hier_lnlike_vg": (f"{TPU_FILE}:1221",),
+    "free_stream_lnlike": (f"{TPU_FILE}:941", f"{TPU_FILE}:404"),
+    "free_stream_lnlike_vg": (f"{TPU_FILE}:1009", f"{TPU_FILE}:1711"),
+    "roofline_chain": ("lumfuncmcmc_tpu/ops/pallas_roofline.py:59",),
+}
+
+
 def main():
     if sys.argv[1:2] == ["--path"]:
         return run_path(sys.argv[2], sys.argv[3], sys.argv[4] == "1")
@@ -925,8 +1326,12 @@ def main():
     phase_device()
     phase_build()
     dev = torch.device("cuda:0")
-    summary = phase_kernels(dev)
+    roof, peak = phase_roofline(dev)
+    summary = {"roofline_chain": roof}
+    summary.update(phase_kernels(dev))
     summary.update(phase_vg_kernels(dev))
+    summary.update(phase_stream(dev))
+    print(f"kernel phases: {time.perf_counter() - t_start:.1f} s")
     try:
         import matplotlib  # noqa: F401
         has_mpl = True
@@ -936,34 +1341,37 @@ def main():
         launches = phase_paths(workdir, has_mpl)
         phase_vmax(workdir, has_mpl)
     _check_no_jax()
+    launches["roofline_chain"] = roof["launches"]
     for name, n in launches.items():
         if n == 0:
             fail(f"{name} was never launched on the main paths")
-    replaces = {"free_lnlike": (601, 761), "fixed_lnlike": (751, 813),
-                "free_lnlike_vg": (832,), "fixed_lnlike_vg": (1255,),
-                "z_lnlike": (659, 677), "z_lnlike_vg": (1142,),
-                "hier_lnlike": (713, 734), "hier_lnlike_vg": (1221,)}
     kernels = []
     for name in KERNELS:
         s = summary[name]
         row = {
-            "name": name, "route": "cuda",
-            "source": CSRC + SOURCES.get(name.split("_")[0], "lnlike.cu"),
-            "replaces": f"{TPU_FILE}:{replaces[name][0]}",
+            "name": name, "route": "cuda", "source": _source(name),
+            "replaces": REPLACES[name][0],
             "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
+            "same_mix_ms": s["trans"] / peak * 1e3,
             "max_rel_err": s["max_rel_err"], "call_ms": s["call_ms"],
             "shape": s["shape"]}
-        if len(replaces[name]) > 1:
-            row["also_replaces"] = f"{TPU_FILE}:{replaces[name][1]}"
+        if len(REPLACES[name]) > 1:
+            row["also_replaces"] = REPLACES[name][1]
         for k in ("max_grad_err", "ms_w256", "plain_ms_w256",
-                  "bound_ms_w256"):
+                  "bound_ms_w256", "resident_ms", "resident_ms_w256",
+                  "dlnp_err", "resident_dlnp_err", "lnprob_call_ms",
+                  "elements_per_sec",
+                  "transcendentals_per_sec"):
             if k in s:
                 row[k] = s[k]
+        if "trans_w256" in s:
+            row["same_mix_ms_w256"] = s["trans_w256"] / peak * 1e3
         kernels.append(row)
     print(f"script time {time.perf_counter() - t_start:.1f} s")
+    print(_SMI[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

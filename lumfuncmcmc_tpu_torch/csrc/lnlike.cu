@@ -1,8 +1,8 @@
 // Single-epoch log-likelihood kernels for Hopper (sm_90a): the value
 // kernels and their value + feature-gradient twins (the NUTS gradient
-// path). The z model's kernels are in lnlike_z.cu; both sources share
-// common.cuh (block size, block reduction, the value kernels' finish pass)
-// and are compiled into one library by ops/_build.py.
+// path). The z model's kernels are in lnlike_z.cu; the sources share
+// common.cuh (block size, block reduction, the ln fc terms, the value
+// kernels' finish pass) and are compiled into one library by ops/_build.py.
 //
 // free_lnlike replaces the TPU kernels _kernel_free_bcast
 // (lumfuncmcmc_tpu/ops/pallas_lnlike.py:601) and _kernel_free (:761);
@@ -70,15 +70,6 @@
 // value kernels
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float ln_fc(float logf_, float r, float ac,
-                                       float lf50, float t2, int fcmin) {
-    const float x = ac * (logf_ - lf50);
-    const float fc = fmaxf(0.5f + 0.5f * x * rsqrtf(1.0f + x * x), 1e-30f);
-    const float lf = logf(fc);
-    if (!fcmin) return lf;
-    return lf / (1.0f - expf(-(r * t2)));
-}
-
 __global__ void __launch_bounds__(THREADS)
 free_partials(const float* __restrict__ feats, int nfeat, int nfields,
               const float* __restrict__ g_logf, const float* __restrict__ g_a,
@@ -139,26 +130,6 @@ fixed_partials(const float* __restrict__ feats, int nfeat,
 // ---------------------------------------------------------------------------
 // value + gradient kernels
 // ---------------------------------------------------------------------------
-
-struct FcTerms {
-    float lnfc;   // ln fc (over 1 - exp(-R t2) when fcmin is set)
-    float dfx;    // d lnfc / dx, x = ac (logf - lF50)
-    float dft;    // d lnfc / d t2
-};
-
-__device__ __forceinline__ FcTerms fc_terms(float logf_, float r, float ac,
-                                            float lf50, float t2,
-                                            int fcmin) {
-    const float x = ac * (logf_ - lf50);
-    const float u = rsqrtf(1.0f + x * x);
-    const float fc = fmaxf(0.5f + 0.5f * x * u, 1e-30f);
-    const float lfc = logf(fc);
-    const float dfx = 0.5f * u * u * u / fc;
-    if (!fcmin) return {lfc, dfx, 0.0f};
-    const float q = expf(-(r * t2));
-    const float inv_d = 1.0f / (1.0f - q);
-    return {lfc * inv_d, dfx * inv_d, -lfc * (r * q) * inv_d * inv_d};
-}
 
 // Grid chunk slots:   [Se, Se*am, Se*P, Se*dfx*dl, Se*dfx, Se*dft, 0]
 // Source chunk slots: [Scontrib, Sm, Sm*am, Sm*P, Sm*dfx*dl, Sm*dfx, Sm*dft]

@@ -194,9 +194,30 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
             make = {"single": cuda_lnlike.make_cuda_lnprob,
                     "z": cuda_lnlike.make_cuda_lnprob_z,
                     "hier": cuda_lnlike.make_cuda_lnprob_h}
-            return make[self.model_kind](self.ctx, self.layout)
+            return self._check_stream(make[self.model_kind](self.ctx,
+                                                            self.layout))
         fn = self._make_scalar_lnprob()
         fn.engine = "eager"
+        return fn
+
+    def _check_stream(self, fn):
+        """Log the streaming engine, where ``fn`` takes it (free
+        completeness from ``STREAM_MIN_SOURCES`` sources on), and refuse
+        it unless the run is float64: there a float32 lnp cannot resolve
+        the accept step, so the route fixes the sampler's dtype. Returns
+        ``fn``."""
+        if hasattr(fn, "stream"):
+            n, tiles = fn.stream
+            self.log.info("Engine: %s (%d sources, %d tiles)" % (
+                "CUDA streaming kernels" if fn.engine == "cuda-stream"
+                else "plain versions of the streaming kernels", n, tiles))
+            if self.dtype != torch.float64:
+                raise ValueError(
+                    "free completeness at %d sources takes the streaming "
+                    "kernels, which need a float64 lnprob (a %s one "
+                    "cannot resolve the accept step at |lnL| ~ %.0e): set "
+                    "use_x64 (a --config file with {\"use_x64\": true})"
+                    % (n, str(self.dtype).replace("torch.", ""), 15.0 * n))
         return fn
 
     def veff_lf(self, flim=None, alpha=None, generator=None):

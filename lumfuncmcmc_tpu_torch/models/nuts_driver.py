@@ -4,7 +4,7 @@ meshless, without checkpoints and without ``min_ess``.
 
 The host class provides ``cfg``/``log``/``layout``/``ctx``/``device``/
 ``dtype``/``model_kind``, ``lnprob_batch``, ``_make_scalar_lnprob``,
-``_initial_positions``, ``_resolve_use_pallas`` and
+``_initial_positions``, ``_resolve_use_pallas``, ``_check_stream`` and
 ``_log_convergence``.
 """
 
@@ -31,7 +31,8 @@ class _NutsDriverMixin:
 
         The port's own rule (no TPU tuning carries over): on a CUDA
         device the value+gradient kernel of the model's family, both
-        completeness modes, the z model and the hierarchical one alike
+        completeness modes, the z model and the hierarchical one alike,
+        the streaming one for a mega catalog under free completeness
         (:func:`make_cuda_lnprob_and_grad`); on the CPU autograd of the
         eager engine, or of the kernels' plain value+gradient versions
         under ``--use-pallas``.
@@ -45,11 +46,11 @@ class _NutsDriverMixin:
                 make_cuda_lnprob_and_grad)
             post = make_cuda_lnprob_and_grad(self.ctx, self.layout,
                                              model=self.model_kind)
+            cuda = post.engine.startswith("cuda")
             self.log.info("NUTS gradient path: %s value+gradient %s"
-                          % ("CUDA" if post.engine == "cuda" else "plain",
-                             "kernel" if post.engine == "cuda"
-                             else "versions of the kernels"))
-            return post
+                          % ("CUDA" if cuda else "plain",
+                             "kernel" if cuda else "versions of the kernels"))
+            return self._check_stream(post)
         self.log.info("NUTS gradient path: autograd of the eager engine")
         return self._make_scalar_lnprob()
 

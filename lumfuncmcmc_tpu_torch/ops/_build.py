@@ -31,6 +31,7 @@ _FREE_ARGS = [_p, _i, _i, _i] + [_p] * 11 + [_p, _i, _i, _p, _p, _p]
 _FIXED_ARGS = [_p, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p]
 _Z_ARGS = [_p, _i, _i, _i, _i] + [_p] * 10 + [_p, _i, _p, _p, _p]
 _HIER_ARGS = [_p, _i, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p]
+_STREAM_ARGS = [_p, _i, _i, _i] + [_p] * 8 + [_p, _i, _i, _p, _p, _p]
 ENTRY_POINTS = {"free_lnlike_launch": _FREE_ARGS,
                 "fixed_lnlike_launch": _FIXED_ARGS,
                 "free_lnlike_vg_launch": _FREE_ARGS,
@@ -38,7 +39,10 @@ ENTRY_POINTS = {"free_lnlike_launch": _FREE_ARGS,
                 "z_lnlike_launch": _Z_ARGS,
                 "z_lnlike_vg_launch": _Z_ARGS,
                 "hier_lnlike_launch": _HIER_ARGS,
-                "hier_lnlike_vg_launch": _HIER_ARGS}
+                "hier_lnlike_vg_launch": _HIER_ARGS,
+                "free_stream_lnlike_launch": _STREAM_ARGS,
+                "free_stream_lnlike_vg_launch": _STREAM_ARGS,
+                "roofline_chain_launch": [_p, _p, _i, _i, _p]}
 
 _lock = threading.Lock()
 _lib = None

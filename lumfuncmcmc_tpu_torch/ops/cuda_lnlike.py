@@ -66,6 +66,27 @@ to ``lref`` and ``lnrest`` (the per-field collapsed ln-terms plus the
 Gaussian hyperprior) is formed in float64 from per-field catalog sums
 taken relative to ``lref``.
 
+Two kernels of ``csrc/lnlike_stream.cu`` for free completeness on mega
+catalogs (at least ``STREAM_MIN_SOURCES`` sources, where
+:func:`_make_lnprob` takes them):
+
+- :func:`free_stream_lnlike` replaces ``_kernel_free_stream``
+  (``:941``, and ``make_stream_shard_batched``, ``:404``): blocks read
+  a piece of one field's sources once and reuse it for a tile of walkers;
+- :func:`free_stream_lnlike_vg` replaces ``_kernel_free_stream_vg``
+  (``:1009``, and ``make_stream_shard_vg``, ``:1711``).
+
+Their layout (:func:`prepare_cuda_stream_data`) is per shard, the
+contract of ``prepare_stream_shard_data`` (``:346``): grid weights over
+``nshards``, each field's sources dealt round-robin to the shards and
+padded to whole tiles, one tile table for all shards. At 10^6 sources
+|lnL| ~ 1.5e7, so float32 alone cannot resolve the accept step's lnp
+differences; three changes from the TPU form keep them to ~0.02
+(``tests/test_torch_stream.py``): the kernels sum and return the value in
+float64, the theta-affine source terms are collapsed in float64 from
+per-shard catalog sums (:func:`_stream_collapsed`, added on the host),
+and ``logf``/``lF50`` enter relative to ``_LOGF_REF``.
+
 The value+gradient kernels feed :func:`make_cuda_lnprob_and_grad`, the
 NUTS gradient path: a ``torch.autograd.Function`` hands the feature
 gradient to autograd of the cheap feature map, the counterpart of the
@@ -118,6 +139,15 @@ VG_Z_SLOTS = 8          # csrc/lnlike_z.cu
 VG_HIER_SLOTS = 3       # csrc/lnlike_h.cu
 MAX_HIER_FIELDS = 64    # csrc/lnlike_h.cu: hier_vg_finish's column sums
 X_CLAMP = 60.0          # z_lnlike_vg clamps a source's x = a - lq here
+# free completeness takes the streaming kernels from this many sources on:
+# where the float32 resident kernel's error in the lnp differences of close
+# thetas reaches 0.05 (0.035 at 17,088 sources, 0.054 at 42,427 on the
+# card; ~3.7e4 interpolated), beyond which only the streaming route's
+# float64 sums resolve the accept step; its W = 50 time is within 12% of
+# the resident kernel's from there to 8.5e4 sources and below it after
+# (PERF.md, tools/stream_crossover.py)
+STREAM_MIN_SOURCES = 40_000
+VG_STREAM_SLOTS = 6     # partial sums per (walker, piece), lnlike_stream.cu
 
 
 def _clamp_flim(theta, layout: ThetaLayout):
@@ -367,6 +397,97 @@ def prepare_cuda_z_data(ctx: LFContext, layout: ThetaLayoutZ,
         shape=tuple(int(n) for n in logL.shape), lref=lref, lo=lo, hi=hi)
 
 
+@dataclass(frozen=True)
+class CudaStreamData:
+    """The streaming kernels' per-shard layout (free completeness).
+
+    Grid arrays are (C,), fields back to back, with the quadrature
+    weights divided by ``nshards``; source arrays are (nshards, S): shard
+    k holds every ``nshards``-th source of each field, each field padded
+    to a whole number of ``CHUNK_CELLS``-source tiles (mask 0 in the
+    padding), at offsets ``src_off`` shared by every shard. ``chunks``
+    is the one (nchunks, 4) int32 launch table ``(field, start, end,
+    is_source)`` of grid chunks and source tiles. ``logf`` is relative
+    to ``_LOGF_REF``. ``sums`` is (nshards, 4) float64: each shard's
+    ``(n, sum a, sum P, sum ln Omega0)`` over its unmasked sources, for
+    the collapsed theta-affine source terms.
+    """
+
+    g_logf: torch.Tensor     # log10 flux - _LOGF_REF
+    g_a: torch.Tensor        # LN10 * (logL - lref)
+    g_p: torch.Tensor        # 10^(logL - lref)
+    g_r: torch.Tensor        # 10^(logf - _LOGF_REF)
+    g_w: torch.Tensor        # weight * area * ln10 / nshards
+    s_logf: torch.Tensor     # (nshards, S)
+    s_r: torch.Tensor
+    s_mask: torch.Tensor
+    sums: torch.Tensor       # (nshards, 4) float64
+    chunks: torch.Tensor
+    grid_off: tuple
+    src_off: tuple
+    lref: float
+    nfields: int
+    fcmin: float
+    nshards: int
+
+
+def prepare_cuda_stream_data(ctx: LFContext, fcmin: float, nshards: int = 1,
+                             dtype=None) -> CudaStreamData:
+    """Pack the context into the streaming kernels' per-shard layout, on
+    the context's device, in ``dtype`` (default: the context's); the
+    counterpart of ``prepare_pallas_data(..., flat=False,
+    src_row_align=_SLAB_ROWS)`` (one shard) and
+    ``prepare_stream_shard_data`` (``pallas_lnlike.py:299``, ``:346``)."""
+    device = ctx.lum.device
+    dtype = dtype or ctx.lum.dtype
+    lref = float(ctx.lref)
+    nf = int(ctx.logL_grid.shape[0])
+    gcols = _grid_cols(ctx, False, lref)
+    for cols in gcols:
+        cols["logf"] = cols["logf"] - _LOGF_REF
+        cols["w"] = cols["w"] / float(nshards)
+    g, grid_off = _concat(gcols, ["logf", "a", "p", "r", "w"])
+
+    fid = ctx.field_id.cpu().numpy()
+    lum = ctx.lum.double().cpu().numpy()
+    logf = ctx.logf_src.double().cpu().numpy() - _LOGF_REF
+    om0 = ctx.omega0_src.double().cpu().numpy() / SQARCSEC_PER_SR
+    mask = ctx.src_mask.double().cpu().numpy()
+    a = LN10 * (lum - lref)
+    terms = np.stack([mask, mask * a,
+                      mask * 10.0 ** np.clip(lum - lref, -30.0, 25.0),
+                      mask * np.log(np.maximum(om0, 1e-300))])
+    sel_f = [np.nonzero(fid == f)[0] for f in range(nf)]
+    per_shard = [-(-len(s) // nshards) for s in sel_f]      # ceil
+    padded = [-(-n // CHUNK_CELLS) * CHUNK_CELLS for n in per_shard]
+    src_off = tuple(int(x) for x in np.concatenate([[0],
+                                                    np.cumsum(padded)]))
+    s_logf = np.zeros((nshards, src_off[-1]))
+    s_r = np.ones((nshards, src_off[-1]))
+    s_mask = np.zeros((nshards, src_off[-1]))
+    sums = np.zeros((nshards, 4))
+    for k in range(nshards):
+        for f in range(nf):
+            idx = sel_f[f][k::nshards]
+            at = slice(src_off[f], src_off[f] + len(idx))
+            s_logf[k, at] = logf[idx]
+            s_r[k, at] = 10.0 ** np.clip(logf[idx], -30.0, 25.0)
+            s_mask[k, at] = mask[idx]
+            sums[k] += terms[:, idx].sum(axis=1)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return CudaStreamData(
+        g_logf=t(g["logf"]), g_a=t(g["a"]), g_p=t(g["p"]), g_r=t(g["r"]),
+        g_w=t(g["w"]), s_logf=t(s_logf), s_r=t(s_r), s_mask=t(s_mask),
+        sums=torch.as_tensor(sums, dtype=torch.float64, device=device),
+        chunks=torch.as_tensor(_chunk_table(grid_off, src_off),
+                               device=device),
+        grid_off=grid_off, src_off=src_off, lref=lref, nfields=nf,
+        fcmin=float(fcmin) if fcmin else 0.0, nshards=int(nshards))
+
+
 # ---------------------------------------------------------------------------
 # feature maps (theta -> per-walker kernel scalars)
 # ---------------------------------------------------------------------------
@@ -508,6 +629,37 @@ def _features_hier(thetas, data: CudaGridData, layout: ThetaLayoutH, dtype):
     return _feat_h_one(th, data, layout).to(dtype).contiguous()
 
 
+def _features_stream(thetas, data: CudaStreamData, layout: ThetaLayout,
+                     dtype):
+    """(W, D) thetas -> the streaming kernels' (W, 6+2F) feature rows:
+    :func:`_feat_free_one`'s columns with ``lF50_f - _LOGF_REF`` (formed
+    in float64, where ``lF50 ~ -16`` keeps its digits), each value
+    rounded to ``dtype`` and held as float64. The rounding is a
+    straight-through one: autograd sees the identity, so the gradient
+    stays float64. The kernel and :func:`_stream_collapsed` both read
+    these rounded values, so every feature that the grid integral and
+    the source sum share is the same number in both (near the mode the
+    two parts cancel to O(1) out of ~1e6)."""
+    th = _clamp_flim(thetas.double(), layout)
+    f = _feat_free_one(th, layout, data.lref, data.fcmin)
+    nf = data.nfields
+    f = torch.cat([f[:, :6], f[:, 6:6 + nf] - _LOGF_REF, f[:, 6 + nf:]],
+                  dim=1)
+    return f + (f.to(dtype).double() - f).detach()
+
+
+def _stream_collapsed(feats, data: CudaStreamData, shard: int = 0):
+    """(W,) float64: shard ``shard``'s theta-affine source terms, ``sum
+    mask [c_s + aA (a - lA) - P t1 + ln Omega0]``, from its float64
+    catalog sums, with ``c_s = c_g + ln(ln10)`` (the value of
+    ``_feat_free_one``'s column 1, taken from column 0 so that the grid
+    and source parts share one rounding of ``phistar``)."""
+    n, sum_a, sum_p, sum_om = data.sums[shard]
+    return (n * (feats[:, 0] + _LOG_LN10)
+            + feats[:, 2] * (sum_a - n * feats[:, 3])
+            - feats[:, 4] * sum_p + sum_om)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path and the on-card reference)
 # ---------------------------------------------------------------------------
@@ -620,6 +772,78 @@ def free_lnlike_vg_reference(feats, data: CudaGridData):
         d_lf.append(lf_f - ac[:, 0] * (m * dfx).sum(dim=1))
         d_t2.append(t2_f + (m * dft).sum(dim=1))
     return torch.stack([lnl, d_cg, d_cs, d_aA, d_lA, d_t1, d_ac]
+                       + d_lf + d_t2, dim=1)
+
+
+def free_stream_lnlike_reference(feats, data: CudaStreamData, shard=0):
+    """Plain version of the streaming kernel for shard ``shard``: the
+    source sum of ``mask ln fc`` less the grid integral at weights over
+    ``nshards``, per field; each term in the dtype of ``feats``, the sums
+    in float64, as in the kernel. (W, 6+2F) -> (W,);
+    :func:`_stream_collapsed` completes the lnlike."""
+    nf, fcmin = data.nfields, data.fcmin
+    c_g, _, aA, lA, t1, ac = (feats[:, i:i + 1] for i in range(6))
+    tot = torch.zeros(feats.shape[0], dtype=torch.float64,
+                      device=feats.device)
+    for f in range(nf):
+        lf50 = feats[:, 6 + f:7 + f]
+        t2 = feats[:, 6 + nf + f:7 + nf + f]
+        g = slice(data.grid_off[f], data.grid_off[f + 1])
+        e = (c_g + aA * (data.g_a[g] - lA) - data.g_p[g] * t1
+             + _ln_fc(data.g_logf[g], data.g_r[g], ac, lf50, t2, fcmin))
+        tot = tot - (torch.exp(e) * data.g_w[g]).double().sum(dim=1)
+        s = slice(data.src_off[f], data.src_off[f + 1])
+        lnfc = _ln_fc(data.s_logf[shard, s], data.s_r[shard, s], ac, lf50,
+                      t2, fcmin)
+        tot = tot + torch.where(data.s_mask[shard, s] > 0.0, lnfc,
+                                torch.zeros_like(lnfc)).double().sum(dim=1)
+    return tot
+
+
+def free_stream_lnlike_vg_reference(feats, data: CudaStreamData, shard=0):
+    """Plain version of the streaming value+gradient kernel: (W, 6+2F)
+    features -> (W, 7+2F) float64 rows ``[lnl, d_cg, d_cs, d_aA, d_lA,
+    d_t1, d_ac, d_lf50_f.., d_t2_f..]`` of :func:`free_stream_lnlike`'s
+    part of the lnlike (``d_cs`` is 0: the collapsed terms carry
+    ``c_s``)."""
+    nf, fcmin = data.nfields, data.fcmin
+    c_g, _, aA, lA, t1, ac = (feats[:, i:i + 1] for i in range(6))
+    zero = torch.zeros(feats.shape[0], dtype=torch.float64,
+                       device=feats.device)
+    lnl, d_cg, d_aA, d_lA, d_t1, d_ac = (zero,) * 6
+    d_lf, d_t2 = [], []
+
+    def s64(x):
+        return x.double().sum(dim=1)
+
+    for f in range(nf):
+        lf50 = feats[:, 6 + f:7 + f]
+        t2 = feats[:, 6 + nf + f:7 + nf + f]
+        g = slice(data.grid_off[f], data.grid_off[f + 1])
+        logf = data.g_logf[g]
+        lnfc, dfx, dft = _fc_terms(logf, data.g_r[g], ac, lf50, t2, fcmin)
+        am = data.g_a[g] - lA
+        p = data.g_p[g]
+        e = torch.exp(c_g + aA * am - p * t1 + lnfc) * data.g_w[g]
+        s0 = s64(e)
+        lnl, d_cg = lnl - s0, d_cg - s0
+        d_lA = d_lA + aA[:, 0].double() * s0
+        d_aA = d_aA - s64(e * am)
+        d_t1 = d_t1 + s64(e * p)
+        d_ac = d_ac - s64(e * dfx * (logf - lf50))
+        lf_f = ac[:, 0].double() * s64(e * dfx)
+        t2_f = -s64(e * dft)
+
+        s = slice(data.src_off[f], data.src_off[f + 1])
+        m = data.s_mask[shard, s]
+        logf = data.s_logf[shard, s]
+        lnfc, dfx, dft = _fc_terms(logf, data.s_r[shard, s], ac, lf50, t2,
+                                   fcmin)
+        lnl = lnl + s64(torch.where(m > 0.0, lnfc, torch.zeros_like(lnfc)))
+        d_ac = d_ac + s64(m * dfx * (logf - lf50))
+        d_lf.append(lf_f - ac[:, 0].double() * s64(m * dfx))
+        d_t2.append(t2_f + s64(m * dft))
+    return torch.stack([lnl, d_cg, zero, d_aA, d_lA, d_t1, d_ac]
                        + d_lf + d_t2, dim=1)
 
 
@@ -833,17 +1057,61 @@ def _launch(name, feats, data, slots, out_cols):
     return out
 
 
-def _wrapper(name, plain, slots, out_cols, doc):
-    """The public wrapper of kernel ``name``: the plain version for a CPU
-    tensor; for any other tensor the kernel (counted in ``.launches``
-    where it launches, and nowhere else) or an error. ``out_cols`` maps
-    the data to the output's column count (None: a (W,) output)."""
+_STREAM_GRID = ("g_logf", "g_a", "g_p", "g_r", "g_w")
+_STREAM_SRC = ("s_logf", "s_r", "s_mask")
 
-    def kernel(feats, data):
+
+def _launch_stream(name, feats, data: CudaStreamData, shard=0):
+    """Check the inputs and launch streaming kernel ``name`` for shard
+    ``shard`` on the current stream of ``feats``' device; returns the
+    float64 (W,) value, or (W, 7+2F) rows for the value+gradient
+    kernel. Raises on any failure."""
+    if feats.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {feats.device}")
+    if not 0 <= shard < data.nshards:
+        raise ValueError(f"{name}: shard {shard} of {data.nshards}")
+    from lumfuncmcmc_tpu_torch.ops._build import load_library
+    nfeat = 6 + 2 * data.nfields
+    arrays = (tuple(getattr(data, a) for a in _STREAM_GRID)
+              + tuple(getattr(data, a)[shard] for a in _STREAM_SRC))
+    _check_cuda_inputs(feats, nfeat, data, arrays)
+    lib = load_library()
+    grad = name.endswith("_vg")
+    w, nchunks = feats.shape[0], data.chunks.shape[0]
+    partial = torch.empty((w, nchunks, VG_STREAM_SLOTS if grad else 1),
+                          dtype=torch.float64, device=feats.device)
+    out = torch.empty((w, 1 + nfeat) if grad else (w,), dtype=torch.float64,
+                      device=feats.device)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    rc = getattr(lib, f"{name}_launch")(
+        _ptr(feats), w, nfeat, data.nfields, *(_ptr(a) for a in arrays),
+        _ptr(data.chunks), nchunks, int(bool(data.fcmin)),
+        _ptr(partial), _ptr(out), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
+def _resident(slots, out_cols=None):
+    """The launch of a resident-layout kernel with ``slots`` partial sums;
+    ``out_cols`` maps the data to the output's column count (None: a
+    (W,) output)."""
+    def launch(name, feats, data):
+        return _launch(name, feats, data, slots,
+                       out_cols(data) if out_cols else 0)
+    return launch
+
+
+def _wrapper(name, plain, launch, doc):
+    """The public wrapper of kernel ``name``: the plain version for a CPU
+    tensor; for any other tensor ``launch`` (counted in ``.launches``
+    where it launches, and nowhere else) or an error. Arguments after
+    ``(feats, data)`` go to both."""
+
+    def kernel(feats, data, *args):
         if feats.device.type == "cpu":
-            return plain(feats, data)
-        out = _launch(name, feats, data, slots,
-                      out_cols(data) if out_cols else 0)
+            return plain(feats, data, *args)
+        out = launch(name, feats, data, *args)
         kernel.launches += 1
         return out
 
@@ -856,48 +1124,60 @@ def _wrapper(name, plain, slots, out_cols, doc):
 
 
 free_lnlike = _wrapper(
-    "free_lnlike", free_lnlike_reference, 1, None,
+    "free_lnlike", free_lnlike_reference, _resident(1),
     "Free-completeness lnlike, (W, 6+2F) features -> (W,).")
 fixed_lnlike = _wrapper(
-    "fixed_lnlike", fixed_lnlike_reference, 1, None,
+    "fixed_lnlike", fixed_lnlike_reference, _resident(1),
     "Fixed-completeness lnlike, (W, 5) features -> (W,).")
 free_lnlike_vg = _wrapper(
-    "free_lnlike_vg", free_lnlike_vg_reference, VG_FREE_SLOTS,
-    lambda data: 7 + 2 * data.nfields,
+    "free_lnlike_vg", free_lnlike_vg_reference,
+    _resident(VG_FREE_SLOTS, lambda data: 7 + 2 * data.nfields),
     "Free-completeness lnlike and its feature gradient, (W, 6+2F) "
     "features -> (W, 7+2F) rows.")
 fixed_lnlike_vg = _wrapper(
-    "fixed_lnlike_vg", fixed_lnlike_vg_reference, VG_FIXED_SLOTS,
-    lambda data: 6,
+    "fixed_lnlike_vg", fixed_lnlike_vg_reference,
+    _resident(VG_FIXED_SLOTS, lambda data: 6),
     "Fixed-completeness lnlike and its feature gradient, (W, 5) features "
     "-> (W, 6) rows.")
 z_lnlike = _wrapper(
-    "z_lnlike", z_lnlike_reference, 1, None,
+    "z_lnlike", z_lnlike_reference, _resident(1),
     "z-model lnlike, (W, 7) features -> (W,).")
 z_lnlike_vg = _wrapper(
-    "z_lnlike_vg", z_lnlike_vg_reference, VG_Z_SLOTS, lambda data: 8,
+    "z_lnlike_vg", z_lnlike_vg_reference,
+    _resident(VG_Z_SLOTS, lambda data: 8),
     "z-model lnlike and its feature gradient, (W, 7) features -> (W, 8) "
     "rows.")
-
-
 hier_lnlike = _wrapper(
-    "hier_lnlike", hier_lnlike_reference, 1, None,
+    "hier_lnlike", hier_lnlike_reference, _resident(1),
     "Hierarchical-model lnlike, (W, 2+3F) features -> (W,).")
 hier_lnlike_vg = _wrapper(
-    "hier_lnlike_vg", hier_lnlike_vg_reference, VG_HIER_SLOTS,
-    lambda data: 3 + 3 * data.nfields,
+    "hier_lnlike_vg", hier_lnlike_vg_reference,
+    _resident(VG_HIER_SLOTS, lambda data: 3 + 3 * data.nfields),
     "Hierarchical-model lnlike and its feature gradient, (W, 2+3F) "
     "features -> (W, 3+3F) rows.")
+free_stream_lnlike = _wrapper(
+    "free_stream_lnlike", free_stream_lnlike_reference, _launch_stream,
+    "Streaming free-completeness lnlike of one shard (``shard``, default "
+    "0) without its collapsed source terms, (W, 6+2F) features -> (W,) "
+    "float64.")
+free_stream_lnlike_vg = _wrapper(
+    "free_stream_lnlike_vg", free_stream_lnlike_vg_reference,
+    _launch_stream,
+    "Streaming free-completeness lnlike of one shard and its feature "
+    "gradient, (W, 6+2F) features -> (W, 7+2F) float64 rows.")
 
 
 class _LnlikeOfFeats(torch.autograd.Function):
     """lnlike of (W, nfeat) features through one value+gradient call;
     the backward is one elementwise multiply by the saved gradient
-    columns (``_vg_scalar_from_rows``'s ``custom_vjp``)."""
+    columns (``_vg_scalar_from_rows``'s ``custom_vjp``). The features go
+    to the kernel in the data's dtype; the streaming path hands in
+    float64 features that are exact in it, so its value and gradient
+    stay float64."""
 
     @staticmethod
     def forward(ctx, feats, data, vg):
-        rows = vg(feats, data)
+        rows = vg(feats.to(data.g_a.dtype), data)
         ctx.save_for_backward(rows[:, 1:])
         return rows[:, 0]
 
@@ -931,6 +1211,8 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
         features, inside = _features_z, in_box_z
         value, vg = z_lnlike, z_lnlike_vg
     elif model == "single":
+        if not layout.fix_comp and ctx.lum.shape[0] >= STREAM_MIN_SOURCES:
+            return _make_stream_lnprob(ctx, layout, grad, kdtype, lo, hi)
         data = prepare_cuda_data(ctx, layout.fix_comp, layout.fcmin,
                                  dtype=kdtype)
         features, inside = _features, in_box
@@ -951,6 +1233,29 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
                            torch.full_like(lnl, -math.inf))
 
     batched.engine = "cuda" if device.type == "cuda" else "plain"
+    return batched
+
+
+def _make_stream_lnprob(ctx: LFContext, layout: ThetaLayout, grad: bool,
+                        kdtype, lo, hi):
+    """:func:`_make_lnprob`'s body for the streaming kernels: the kernel's
+    float64 part plus :func:`_stream_collapsed`, both from the same
+    rounded features, in float64; then the thetas' dtype and the prior
+    mask. ``batched.stream`` is ``(sources, source tiles)``."""
+    data = prepare_cuda_stream_data(ctx, layout.fcmin, dtype=kdtype)
+
+    def batched(thetas):
+        feats = _features_stream(thetas, data, layout, kdtype)
+        part = (_LnlikeOfFeats.apply(feats, data, free_stream_lnlike_vg)
+                if grad else free_stream_lnlike(feats.to(kdtype), data))
+        lnl = (part + _stream_collapsed(feats, data)).to(thetas.dtype)
+        return torch.where(in_box(thetas, lo, hi), lnl,
+                           torch.full_like(lnl, -math.inf))
+
+    batched.engine = ("cuda-stream" if ctx.lum.device.type == "cuda"
+                      else "plain-stream")
+    batched.stream = (int(ctx.lum.shape[0]),
+                      int((data.chunks[:, 3] == 1).sum()))
     return batched
 
 

@@ -112,6 +112,10 @@ def write_fixed_width_two_line(path: str, cols: dict, formats=None):
         vals = cols[nm]
         if fmt:
             rendered[nm] = [fmt % v for v in vals]
+        elif isinstance(vals, np.ndarray) and vals.dtype.kind == "f":
+            # a catalog-length column (10^6 rows): repr of the Python
+            # floats in one pass, as _render would give each
+            rendered[nm] = list(map(repr, vals.astype(np.float64).tolist()))
         else:
             rendered[nm] = [_render(v) for v in vals]
     widths = {nm: max(len(nm), max((len(s) for s in rendered[nm]),
@@ -120,10 +124,9 @@ def write_fixed_width_two_line(path: str, cols: dict, formats=None):
     with open(path, "w") as fh:
         fh.write(" ".join(nm.rjust(widths[nm]) for nm in names) + "\n")
         fh.write(" ".join("-" * widths[nm] for nm in names) + "\n")
-        nrows = len(next(iter(rendered.values()))) if names else 0
-        for i in range(nrows):
-            fh.write(" ".join(rendered[nm][i].rjust(widths[nm])
-                              for nm in names) + "\n")
+        padded = [[s.rjust(widths[nm]) for s in rendered[nm]]
+                  for nm in names]
+        fh.writelines(" ".join(row) + "\n" for row in zip(*padded))
 
 
 def _render(v) -> str:

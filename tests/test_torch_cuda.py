@@ -368,3 +368,139 @@ def test_hier_step_loop_never_synchronises_and_is_deterministic(device):
     assert cl.hier_lnlike.launches - n0 == 1 + 2 * 25
     assert chain.shape == (25, 32, layout.ndim)
     assert torch.isfinite(lnps[-1]).all()
+
+
+def _stream_case(device, w, nshards=1, seed=0):
+    """A 400-source catalog in the streaming layout and ``w`` feature rows
+    near the box centre."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=41)
+    layout = ThetaLayout.from_config(cfg)
+    ctx = _context(cfg, device, dtype=torch.float64)
+    data = cl.prepare_cuda_stream_data(ctx, cfg.fcmin, nshards=nshards,
+                                       dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(seed + w)
+    lo, hi = layout.bounds_arrays(torch.float64, device)
+    th = 0.7 * (lo + hi) / 2 + 0.3 * sample_init(
+        gen, layout, w, dtype=torch.float64, device=device)
+    feats = cl._features_stream(th, data, layout, torch.float32)
+    return cfg, layout, ctx, data, th, feats.float().contiguous()
+
+
+@pytest.mark.parametrize("w", [1, 13, 64])
+def test_stream_kernel_matches_plain_version(device, w):
+    """free_stream_lnlike equals its plain version on the card (rtol 1e-5:
+    float32 terms summed in double in another order), in float64."""
+    _, _, _, data, _, feats = _stream_case(device, w)
+    n0 = cl.free_stream_lnlike.launches
+    got = cl.free_stream_lnlike(feats, data)
+    ref = cl.free_stream_lnlike_reference(feats, data)
+    assert cl.free_stream_lnlike.launches == n0 + 1
+    assert got.dtype == torch.float64 and got.shape == (w,)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("w", [1, 13, 256])
+def test_stream_vg_kernel_matches_plain_version(device, w):
+    """free_stream_lnlike_vg equals its plain version on the card: values
+    rtol 1e-5, gradient columns by ``_grad_close``."""
+    _, _, _, data, _, feats = _stream_case(device, w)
+    n0 = cl.free_stream_lnlike_vg.launches
+    got = cl.free_stream_lnlike_vg(feats, data).cpu().numpy()
+    ref = cl.free_stream_lnlike_vg_reference(feats, data).cpu().numpy()
+    assert cl.free_stream_lnlike_vg.launches == n0 + 1
+    assert got.shape == (w, 1 + feats.shape[1])
+    np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=1e-5)
+    assert (got[:, 2] == 0).all()
+    cols = [c for c in range(1, got.shape[1]) if c != 2]
+    _grad_close(got[:, cols], ref[:, cols])
+
+
+def test_stream_shards_sum_to_the_whole(device):
+    """At 2 shards each shard's kernel equals its plain version, and the
+    shards' sum (kernel + collapsed terms) equals one shard's (1e-6)."""
+    _, layout, ctx, one, th, f1 = _stream_case(device, 13)
+    two = cl.prepare_cuda_stream_data(ctx, 0.1, nshards=2,
+                                      dtype=torch.float32)
+    f2 = cl._features_stream(th, two, layout, torch.float32)
+    tot = 0.0
+    for k in range(2):
+        got = cl.free_stream_lnlike(f2.float().contiguous(), two, k)
+        ref = cl.free_stream_lnlike_reference(f2.float(), two, k)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-5)
+        tot = tot + got + cl._stream_collapsed(f2, two, k)
+    whole = cl.free_stream_lnlike(f1, one) + cl._stream_collapsed(
+        f1.double(), one)
+    np.testing.assert_allclose(tot.cpu().numpy(), whole.cpu().numpy(),
+                               rtol=1e-6)
+
+
+def test_stream_wrappers_reject_what_the_kernels_cannot_take(device):
+    _, _, _, data, _, feats = _stream_case(device, 4)
+    for fn in (cl.free_stream_lnlike, cl.free_stream_lnlike_vg):
+        with pytest.raises(TypeError, match="float32"):
+            fn(feats.double(), data)
+        with pytest.raises(ValueError, match="features must be"):
+            fn(feats[:, :-1].contiguous(), data)
+        with pytest.raises(ValueError, match="shard"):
+            fn(feats, data, 1)
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=11)
+    cpu_data = cl.prepare_cuda_stream_data(_context(cfg, "cpu"), 0.1)
+    with pytest.raises(ValueError, match="grid data on cpu"):
+        cl.free_stream_lnlike(feats, cpu_data)
+
+
+def test_stream_step_loop_never_synchronises_and_is_deterministic(
+        device, monkeypatch):
+    """The stretch run through the streaming engine (gate lowered, float64
+    lnprob) under ``torch.cuda.set_sync_debug_mode("error")``; the same
+    call twice gives the same bits, value and gradient, and a masked
+    row's gradient is an exact 0."""
+    monkeypatch.setattr(cl, "STREAM_MIN_SOURCES", 0)
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=21)
+    layout = ThetaLayout.from_config(cfg)
+    ctx = _context(cfg, device, dtype=torch.float64)
+    lnprob = cl.make_cuda_lnprob(ctx, layout)
+    assert lnprob.engine == "cuda-stream"
+    gen = torch.Generator(device=device).manual_seed(0)
+    pos0 = sample_init(gen, layout, 32, dtype=torch.float64, device=device)
+    first = lnprob(pos0)
+    assert first.dtype == torch.float64 and torch.equal(first, lnprob(pos0))
+    post = cl.make_cuda_lnprob_and_grad(ctx, layout)
+    t = pos0.clone()
+    t[0, 3] = -1.0
+    t.requires_grad_(True)
+    n0 = cl.free_stream_lnlike_vg.launches
+    v = post(t)
+    (g1,) = torch.autograd.grad(v.sum(), t)
+    (g2,) = torch.autograd.grad(post(t).sum(), t)
+    assert cl.free_stream_lnlike_vg.launches == n0 + 2
+    assert torch.equal(g1, g2) and torch.isfinite(g1).all()
+    assert torch.isneginf(v[0]) and (g1[0] == 0).all()
+    torch.cuda.synchronize()
+    n0 = cl.free_stream_lnlike.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, chain, lnps, acc = run_stretch(lnprob, pos0, gen, 25)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cl.free_stream_lnlike.launches - n0 == 1 + 2 * 25
+    assert torch.isfinite(lnps[-1]).all()
+
+
+def test_roofline_kernel_matches_plain_version(device):
+    """roofline_chain equals its plain version on the card after 8
+    iterations (rtol 1e-5: the chain contracts, and nvcc may fuse a
+    multiply-add that PyTorch rounds twice), and the peak is positive."""
+    from lumfuncmcmc_tpu_torch.ops import roofline as rl
+    x = 0.05 + 0.9 * torch.rand((64, 1024), device=device)
+    n0 = rl.roofline_chain.launches
+    got = rl.roofline_chain(x, 8)
+    assert rl.roofline_chain.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               rl.roofline_chain_reference(x, 8).cpu().numpy(),
+                               rtol=1e-5)
+    r = rl.transcendental_peak(device, rows=64, cols=1024, iters_lo=16,
+                               iters_hi=144, reps=3)
+    assert r["transcendentals_per_sec"] > 0

@@ -116,3 +116,24 @@ def test_fitz_without_a_card_fails_and_names_device_cpu(tmp_path):
 
 def test_fith_without_a_card_fails_and_names_device_cpu(tmp_path):
     _fit_without_a_card(tmp_path, "fith", "LFMCMCHOut", 32)
+
+
+def test_port_imports_nothing_of_jax_and_runs_a_cpu_stream_fit(tmp_path):
+    """The streaming path (gate lowered) and the roofline module with
+    jax blocked: the fit logs the streaming engine."""
+    code = BLOCKED_RUN.replace(
+        "from lumfuncmcmc_tpu_torch.cli.main import main\n",
+        "from lumfuncmcmc_tpu_torch.cli.main import main\n"
+        "from lumfuncmcmc_tpu_torch.ops import cuda_lnlike, roofline\n"
+        "import torch\n"
+        "cuda_lnlike.STREAM_MIN_SOURCES = 0\n"
+        "assert roofline.roofline_chain(torch.full((4,), 0.5), 3).shape "
+        "== (4,)\n")
+    proc = _run(tmp_path, code, ["fit"] + FIT + ["-nw", "8", "--device",
+                                                 "cpu", "--use-pallas"], {})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RC 0" in proc.stdout
+    assert "plain versions of the streaming kernels" in (proc.stdout
+                                                         + proc.stderr)
+    assert (tmp_path / "LFMCMCOut" / "fitposterior_g_nb50_nw8_ns10_mcf50.dat"
+            ).exists()

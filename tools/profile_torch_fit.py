@@ -6,6 +6,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/profile_torch_fit.py --sampler nuts [--transitions 20]
     python3 tools/profile_torch_fit.py --model z [--sampler nuts]
     python3 tools/profile_torch_fit.py --model hier [--sampler nuts]
+    python3 tools/profile_torch_fit.py --mega [--sampler nuts]
 
 The catalog and model are the smoke test's flagship ones (``LFConfig``
 defaults with ``min_comp_frac=0.5``: 5 fields, 100 walkers, 2000
@@ -22,7 +23,13 @@ per transition, the card's busy share and the kernel's device time.
 ``--model z`` takes the redshift-evolving model instead (``fitz``:
 trapz-201, 7-dim theta, the ``z_lnlike`` / ``z_lnlike_vg`` kernels),
 ``--model hier`` the hierarchical multi-field one (``fith``: trapz-201,
-15-dim theta, ``hier_lnlike`` / ``hier_lnlike_vg``).
+15-dim theta, ``hier_lnlike`` / ``hier_lnlike_vg``). ``--mega`` takes
+the mega catalog of ``fit --synthetic 1200000 --seed 7 --quadrature
+gauss`` (1,019,385 sources, gauss-32) with a float64 lnprob
+(``use_x64``), through the streaming kernels (``free_stream_lnlike`` /
+``free_stream_lnlike_vg``); its stretch run sets them beside the resident
+``free_lnlike`` at the same shape (no eager engine: its float64 (W, N)
+temporaries are ~400 MB each).
 Prints one line per measurement and a JSON summary last. Imports only
 the port.
 """
@@ -44,25 +51,29 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from lumfuncmcmc_tpu_torch import LFConfig  # noqa: E402
 from lumfuncmcmc_tpu_torch.models.model import (  # noqa: E402
     LumFuncModel, LumFuncModelH, LumFuncModelZ)
+from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl  # noqa: E402
 from lumfuncmcmc_tpu_torch.samplers import nuts  # noqa: E402
 from lumfuncmcmc_tpu_torch.samplers.affine import run_stretch  # noqa: E402
 from lumfuncmcmc_tpu_torch.utils.synth import (  # noqa: E402
     apply_completeness_cut, make_catalog)
 
 NWALKERS, NSYNTH, WARMUP = 100, 2000, 20
+MEGA_TARGET, MEGA_SEED = 1_200_000, 7
 
 
 MODELS = {"single": LumFuncModel, "z": LumFuncModelZ, "hier": LumFuncModelH}
 # the device kernels of each family's main and value+gradient paths
 KERNELS = {"single": ("free_partials", "free_vg_partials", "free_vg_finish"),
            "z": ("z_partials", "z_vg_partials", "z_vg_finish"),
-           "hier": ("hier_partials", "hier_vg_partials", "hier_vg_finish")}
+           "hier": ("hier_partials", "hier_vg_partials", "hier_vg_finish"),
+           "stream": ("stream_partials", "stream_vg_partials",
+                      "stream_vg_finish", "stream_finish")}
 
 
-def _model(cfg, cat, dev, kind="single"):
+def _model(cfg, cat, dev, kind="single", dtype=torch.float32):
     return MODELS[kind](cfg, z=cat["z"], flux=cat["flux"],
                         flux_e=cat["flux_e"], field_id=cat["field_id"],
-                        device=dev, dtype=torch.float32)
+                        device=dev, dtype=dtype)
 
 
 def _loop_seconds(lnprob, pos0, nsteps, dev):
@@ -86,7 +97,8 @@ def _attr(evt, *names):
 
 def _device_us(prof, names=()):
     """Total self device time (us) of the profiled window, and per kernel
-    name in ``names`` its calls and device time."""
+    name in ``names`` its calls and device time (a template's
+    instantiations summed under its name)."""
     dev_us, launches, kern = 0.0, 0, {}
     for evt in prof.key_averages():
         if evt.key.startswith("cudaLaunch"):
@@ -95,20 +107,25 @@ def _device_us(prof, names=()):
             continue            # host ops also carry their kernels' time
         self_dev = _attr(evt, "self_device_time_total", "self_cuda_time_total")
         dev_us += self_dev
-        name = evt.key.split("(")[0]
+        name = evt.key.split("(")[0].split()[-1].split("<")[0]
         if name in names:
-            kern[name] = {"calls": evt.count, "device_us": self_dev}
+            k = kern.setdefault(name, {"calls": 0, "device_us": 0.0})
+            k["calls"] += evt.count
+            k["device_us"] += self_dev
     return dev_us, launches, kern
 
 
-def profile_nuts(cat, dev, smi, transitions, kind, profiled=2):
+def profile_nuts(cat, dev, smi, transitions, kind, profiled=2,
+                 mega=False):
     """NUTS on the card: ``transitions`` transitions of 8 chains with the
     step size and diagonal mass of a 100-transition warmup, timed (host
     clock, synced), then ``profiled`` more under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = LFConfig(min_comp_frac=0.5, nwalkers=NWALKERS, sampler="nuts")
-    model = _model(cfg, cat, dev, kind)
-    lo, hi = model.layout.bounds_arrays(torch.float32, dev)
+    cfg = LFConfig(min_comp_frac=0.5, nwalkers=NWALKERS, sampler="nuts",
+                   quadrature="gauss" if mega else "trapz")
+    dtype = torch.float64 if mega else torch.float32
+    model = _model(cfg, cat, dev, kind, dtype)
+    lo, hi = model.layout.bounds_arrays(dtype, dev)
     lnp_y, _, to_y = nuts.make_unconstrained(model._nuts_gradient_post(),
                                              lo, hi)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -118,8 +135,9 @@ def profile_nuts(cat, dev, smi, transitions, kind, profiled=2):
     scale, eps = warm.scale, warm.eps
     y = warm.samples[-1] / scale
     vg = nuts.value_and_grad(lambda yp: lnp_y(yp * scale))
-    draw = nuts.generator_draw(gen, 8, y.shape[1], 8, torch.float32, dev)
-    out = {"card": smi, "mode": "nuts", "model": model.model_kind}
+    draw = nuts.generator_draw(gen, 8, y.shape[1], 8, dtype, dev)
+    out = {"card": smi, "mode": "nuts", "model": model.model_kind,
+           "mega": mega}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     for label, n in (("timed", transitions), ("profiled", profiled)):
         counts = nuts.NutsCounts()
@@ -144,7 +162,8 @@ def profile_nuts(cat, dev, smi, transitions, kind, profiled=2):
               f"call, {counts.leapfrogs / counts.transitions:.2f} batched "
               f"leapfrogs per transition, step size {float(eps):.4g})",
               flush=True)
-    dev_us, launches, kern = _device_us(prof, KERNELS[kind][1:])
+    dev_us, launches, kern = _device_us(
+        prof, KERNELS["stream" if mega else kind][1:])
     p_wall, p_calls = out["profiled"]["wall_s"], out["profiled"]["vg_calls"]
     unprof = out["timed"]["ms_per_vg_call"] * p_calls / 1e3
     out["profile"] = {
@@ -170,7 +189,11 @@ def main(argv=None):
                     default="stretch")
     ap.add_argument("--transitions", type=int, default=20)
     ap.add_argument("--model", choices=list(MODELS), default="single")
+    ap.add_argument("--mega", action="store_true",
+                    help="the 1,019,385-source catalog, streaming kernels")
     args = ap.parse_args(argv)
+    if args.mega and args.model != "single":
+        sys.exit("--mega takes the single-epoch model")
     if not torch.cuda.is_available():
         sys.exit("this profile needs a CUDA device")
     dev = torch.device("cuda:0")
@@ -181,13 +204,24 @@ def main(argv=None):
     print(f"card: {smi[0] if smi else 'unknown'}; torch {torch.__version__}")
 
     base = LFConfig(min_comp_frac=0.5, nwalkers=NWALKERS)
-    cat = apply_completeness_cut(
-        make_catalog(base, n_target=NSYNTH, seed=base.seed), base)
+    if args.mega:
+        base = base.replace(quadrature="gauss")
+    cat = apply_completeness_cut(make_catalog(
+        base, n_target=MEGA_TARGET if args.mega else NSYNTH,
+        seed=MEGA_SEED if args.mega else base.seed), base)
+    print(f"catalog: {len(cat['z'])} sources")
     if args.sampler == "nuts":
         return profile_nuts(cat, dev, smi[0] if smi else None,
-                            args.transitions, args.model)
+                            args.transitions, args.model, mega=args.mega)
     kind = args.model
-    if kind != "single":
+    dtype = torch.float32
+    if args.mega:
+        dtype = torch.float64
+        cases = [("streaming engine, gauss-32 mega",
+                  base.replace(use_pallas=True)),
+                 ("resident kernel engine, gauss-32 mega",
+                  base.replace(use_pallas=True))]
+    elif kind != "single":
         cases = [(f"kernel engine, {kind} trapz-201",
                   base.replace(use_pallas=True)),
                  (f"eager engine, {kind} trapz-201",
@@ -205,8 +239,12 @@ def main(argv=None):
            "step_ms": {}}
     flagship = None
     for label, cfg in cases:
-        model = _model(cfg, cat, dev, kind)
+        model = _model(cfg, cat, dev, kind, dtype)
+        keep = cl.STREAM_MIN_SOURCES
+        if label.startswith("resident"):
+            cl.STREAM_MIN_SOURCES = 10**12      # the resident kernel
         lnprob = model.lnprob_batch()
+        cl.STREAM_MIN_SOURCES = keep
         pos0 = model._initial_positions(
             torch.Generator(device=dev).manual_seed(cfg.seed))
         sec = _loop_seconds(lnprob, pos0, args.steps, dev)
@@ -248,7 +286,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us, launches, kern = _device_us(
-        prof, (KERNELS[kind][0], "finish"))
+        prof, (KERNELS["stream"][0], KERNELS["stream"][3]) if args.mega
+        else (KERNELS[kind][0], "finish"))
     unprof = out["step_ms"][cases[0][0]] * args.profile_steps / 1e3
     out["profile"] = {
         "steps": args.profile_steps, "wall_s": wall, "device_s": dev_us / 1e6,
