@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases (run as 1, 2, 10, 3, 4, 11, then the fit paths and 9); any
+Phases (run as 1, 2, 10, 3, 4, 11, 13, then the fit paths and 9); any
 failure ends the run with a nonzero exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
@@ -63,8 +63,8 @@ failure ends the run with a nonzero exit:
    256): against their plain versions (rtol 1e-4 values, 2e-3 gradients),
    at theta level against the float64 eager engine (5e-4, 2e-3), the lnp
    difference of 32 close theta pairs near the truth against float64
-   through each kernel's value (<= 0.05 absolute), and the sum of 2
-   shards against one (1e-6); the
+   through each kernel's value (<= 0.05 absolute), two launches on one
+   input bit for bit, and the sum of 2 shards against one (1e-6); the
    resident kernels' times at the same shape beside theirs;
 12. ``fit mega``: ``fit`` and ``fit --sampler nuts`` on that catalog with
    ``use_x64`` (float64 lnprob, float32 kernels): the artifacts, the log's
@@ -72,7 +72,13 @@ failure ends the run with a nonzero exit:
    2 x steps + 1 ``free_stream_lnlike`` and no ``free_lnlike``; NUTS
    transitions + leapfrogs ``free_stream_lnlike_vg``), the NUTS gates,
    the stretch fit's ``select_samples`` logL* median within 3 NUTS
-   posterior sd of the NUTS median and within 0.05 dex of the truth.
+   posterior sd of the NUTS median and within 0.05 dex of the truth;
+13. the accept step's precision of ``fit -fc``, ``fitz`` and ``fith`` on
+   the mega catalog (ROADMAP C.1): as a float64 run takes them (float32
+   kernels), the lnp differences of 32 close theta pairs near the truth
+   through ``fixed_lnlike``, ``z_lnlike``, ``hier_lnlike`` and the value
+   column of each ``_vg`` twin, against the float64 eager engine (<= 0.05
+   absolute, each error printed).
 
 Phases 5-8 and 12 run side by side, each path's stretch and NUTS fit in
 a process of its own (``--path``): the sampler loops are host-bound, so
@@ -105,9 +111,9 @@ from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.hierarchical import (
     ThetaLayoutH, make_lnprob_h)
 from lumfuncmcmc_tpu_torch.models.likelihood import (
-    ThetaLayout, in_box, make_lnprob, sample_init)
+    ThetaLayout, make_lnprob, sample_init)
 from lumfuncmcmc_tpu_torch.models.likelihood_z import (
-    ThetaLayoutZ, in_box_z, make_lnprob_z)
+    ThetaLayoutZ, make_lnprob_z)
 from lumfuncmcmc_tpu_torch.models.model import select_samples
 from lumfuncmcmc_tpu_torch.ops import _build
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
@@ -208,7 +214,7 @@ def phase_build():
             kernel = m.group(1)
         elif "registers" in line or ("spill" in line and not re.search(
                 r"0 bytes spill stores, 0 bytes spill loads", line)):
-            print(f"  ptxas: {kernel}: {line.split(':', 1)[1].strip()}")
+            print(f"  ptxas: {kernel}: {line.split(':', 1)[-1].strip()}")
     _build.load_library()
 
 
@@ -307,14 +313,14 @@ def _bound(kname, data, w):
         nnode = int((data.chunks[:, 3] == 0).sum()) * sz
         ndata = 3 * ncell + 2 * nf * sz + 5 * nsrc
     else:
-        nfeat = {"fixed": 5, "hier": 2 + 3 * data.nfields}.get(
+        nfeat = {"fixed": 4, "hier": 1 + 3 * data.nfields}.get(
             fam, 6 + 2 * data.nfields)
         nnode = 0
         ndata = (3 if gridonly else 5) * ncell + (3 if stream else 6) * nsrc
     out_cols = (1 + nfeat) if kname.endswith("_vg") else 1
-    out_bytes = (8 if stream else 4) * w * out_cols
-    nbytes = (4 * (w * nfeat + ndata) + out_bytes
-              + data.chunks.numel() * 4)
+    out_bytes = 8 * w * out_cols
+    table = data.runs if stream else data.chunks
+    nbytes = 4 * (w * nfeat + ndata + table.numel()) + out_bytes
     ops = w * (ncell * per_cell + nvalid * per_src + (nsrc - nvalid)
                + nnode * per_node)
     tc, ts, tn = TRANS[fam]
@@ -359,9 +365,9 @@ def _cases(dev, suffix):
     """The checked shapes, on the catalog the fits below build (``fit
     --synthetic NSYNTH``, cli/common.py), so each kernel sees the sources
     and chunks the fits give it. Each case carries its kernel's name, grid,
-    config, layout, float32 and float64 contexts and float32 kernel data,
-    and its family's feature map, float64 eager lnprob, prior test and
-    kernel-path lnprob makers."""
+    config, layout and float32 kernel data, and its family's feature map
+    (rounded float64 rows), host-side collapsed terms, float64 eager
+    lnprob, prior test and kernel-path lnprobs."""
     base = LFConfig(min_comp_frac=0.5)
     cat = apply_completeness_cut(
         make_catalog(base, n_target=NSYNTH, seed=base.seed), base)
@@ -385,35 +391,26 @@ def _cases(dev, suffix):
             ctxs[key] = [build_context(cfg, dtype=dt, **kw)[1]
                          for dt in (torch.float32, torch.float64)]
         ctx32, ctx64 = ctxs[key]
-        if fam == "z":
-            layout = ThetaLayoutZ.from_config(cfg)
-            case = SimpleNamespace(
-                data=cl.prepare_cuda_z_data(ctx32, layout,
-                                            dtype=torch.float32),
-                features=cl._features_z, inside=in_box_z,
-                eager64=make_lnprob_z(ctx64, layout),
-                lnprob32=cl.make_cuda_lnprob_z(ctx32, layout),
-                steps=NUTS_STEPS[fam])
-        elif fam == "hier":
-            layout = ThetaLayoutH.from_config(cfg)
-            case = SimpleNamespace(
-                data=cl.prepare_cuda_h_data(ctx32, layout,
-                                            dtype=torch.float32),
-                features=cl._features_hier, inside=in_box,
-                eager64=make_lnprob_h(ctx64, layout),
-                lnprob32=cl.make_cuda_lnprob_h(ctx32, layout),
-                steps=NUTS_STEPS[fam])
-        else:
-            layout = ThetaLayout.from_config(cfg)
-            case = SimpleNamespace(
-                data=cl.prepare_cuda_data(ctx32, layout.fix_comp,
-                                          layout.fcmin, dtype=torch.float32),
-                features=cl._features, inside=in_box,
-                eager64=make_lnprob(ctx64, layout),
-                lnprob32=cl.make_cuda_lnprob(ctx32, layout),
-                steps=NUTS_STEPS[fam])
-        case.post32 = cl.make_cuda_lnprob_and_grad(
-            ctx32, layout, model=fam if fam in ("z", "hier") else "single")
+        model = fam if fam in ("z", "hier") else "single"
+        layout = {"z": ThetaLayoutZ, "hier": ThetaLayoutH}.get(
+            fam, ThetaLayout).from_config(cfg)
+        eager = {"z": make_lnprob_z, "hier": make_lnprob_h}.get(
+            fam, make_lnprob)
+        data, (features, collapsed, inside, _, _) = cl._family(
+            ctx32, layout, model, torch.float32)
+        case = SimpleNamespace(
+            data=data, inside=inside, eager64=eager(ctx64, layout),
+            lnprob32=cl._make_lnprob(ctx32, layout, model, grad=False),
+            steps=NUTS_STEPS[fam])
+        # the rounded float64 features, and the float64 terms the host
+        # adds to the kernel's value (fixed: the collapsed ln-term; hier:
+        # lnrest)
+        case.features = (lambda th, features=features, data=data,
+                         layout=layout: features(th, data, layout,
+                                                 torch.float32))
+        case.collapsed = collapsed or (lambda f, th: 0.0)
+        case.post32 = cl.make_cuda_lnprob_and_grad(ctx32, layout,
+                                                   model=model)
         case.kname, case.fam, case.grid = f"{fam}_lnlike{suffix}", fam, grid
         case.cfg, case.layout = cfg, layout
         yield case
@@ -451,7 +448,11 @@ def phase_kernels(dev):
                                          "max_rel_err": 0.0})
 
         def features(th):
-            return case.features(th.float(), data, layout, torch.float32)
+            return case.features(th.float())
+
+        def whole(part, feats, th):
+            """The kernel's value plus the host's collapsed terms."""
+            return part + case.collapsed(feats, th.float())
 
         # the stretch fits' batches (half and all of the walkers), the
         # NUTS start guard's (the chains) and its Ln Prob recompute's
@@ -461,8 +462,9 @@ def phase_kernels(dev):
             th = _spoil(case, sample_init(gen, layout, w,
                                           dtype=torch.float64, device=dev))
             feats = features(th)
-            got = kernel(feats, data)
-            ref = plain(feats, data)
+            f32 = feats.float()
+            got = kernel(f32, data)
+            ref = plain(f32, data)
             torch.cuda.synchronize()
             if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
                 fail(f"{kname} {grid} W={w}: non-finite raw lnlike")
@@ -476,8 +478,8 @@ def phase_kernels(dev):
             if not torch.equal(fin, ok):
                 fail(f"{kname} {grid} W={w}: eager -inf pattern is not "
                      "the prior mask")
-            err_kf = _rel(got.double()[fin], want[fin])
-            err_pf = _rel(ref.double()[fin], want[fin])
+            err_kf = _rel(whole(got, feats, th)[fin], want[fin])
+            err_pf = _rel(whole(ref, feats, th)[fin], want[fin])
             print(f"{kname} {grid} W={w}: kernel vs plain max rel "
                   f"{err_k:.3e}; kernel vs f64 eager {err_kf:.3e}; plain "
                   f"vs f64 eager {err_pf:.3e}; -inf rows "
@@ -496,11 +498,12 @@ def phase_kernels(dev):
             if w == 50:
                 thc = _central_thetas(case.cfg, layout, w, gen, dev)
                 fc = features(thc)
-                got_c, ref_c = kernel(fc, data), plain(fc, data)
+                got_c, ref_c = kernel(fc.float(), data), plain(fc.float(),
+                                                               data)
                 want_c = case.eager64(thc)
                 abs_c = float((got_c - ref_c).abs().max())
                 err_c = _rel(got_c, ref_c)
-                err_cf = _rel(got_c.double(), want_c)
+                err_cf = _rel(whole(got_c, fc, thc), want_c)
                 print(f"{kname} {grid} W=50 near the true parameters: "
                       f"kernel vs plain max abs {abs_c:.3e} (|lnL| <= "
                       f"{float(ref_c.abs().max()):.3e}), max rel "
@@ -510,9 +513,9 @@ def phase_kernels(dev):
                          f"{err_c:.3e} vs plain, {err_cf:.3e} vs f64 eager")
                 rec["max_abs_err"] = max(rec["max_abs_err"], abs_c)
                 rec["max_rel_err"] = max(rec["max_rel_err"], err_c)
-                ms = _device_ms(lambda: kernel(feats, data))
-                pms = _device_ms(lambda: plain(feats, data))
-                cms = _call_ms(lambda: kernel(feats, data))
+                ms = _device_ms(lambda: kernel(f32, data))
+                pms = _device_ms(lambda: plain(f32, data))
+                cms = _call_ms(lambda: kernel(f32, data))
                 print(f"{kname} {grid} W=50 device time: kernel "
                       f"{ms * 1e3:.2f} us, plain {pms * 1e3:.2f} us; "
                       f"eager wrapper call {cms * 1e3:.2f} us")
@@ -561,7 +564,7 @@ def phase_vg_kernels(dev):
             th = th.float().double()    # both paths get the same thetas
             if w >= 8:
                 _spoil(case, th)
-            feats = case.features(th.float(), data, layout, torch.float32)
+            feats = case.features(th.float()).float()
             got = kernel(feats, data)
             ref = plain(feats, data)
             torch.cuda.synchronize()
@@ -598,9 +601,8 @@ def phase_vg_kernels(dev):
             if w == 8:
                 # the absolute error where a fit spends its steps (prior
                 # draws reach |lnL| ~ 1e7, where float32's spacing is ~1)
-                fc = case.features(
-                    _central_thetas(case.cfg, layout, w, gen, dev).float(),
-                    data, layout, torch.float32)
+                fc = case.features(_central_thetas(
+                    case.cfg, layout, w, gen, dev).float()).float()
                 got_c, ref_c = kernel(fc, data), plain(fc, data)
                 abs_c = float((got_c[:, 0] - ref_c[:, 0]).abs().max())
                 err_gc = _grad_rel(got_c[:, 1:], ref_c[:, 1:])
@@ -700,10 +702,88 @@ def _mega_case(dev):
                          device=dev)
     lo, hi = layout.bounds_arrays(torch.float64, dev)
     return SimpleNamespace(
-        cfg=cfg, ctx=ctx, layout=layout, truth=truth, width=hi - lo,
+        cfg=cfg, cat=cat, ctx=ctx, layout=layout, truth=truth,
+        width=hi - lo,
         data=cl.prepare_cuda_stream_data(ctx, cfg.fcmin,
                                          dtype=torch.float32),
         eager64=make_lnprob(ctx, layout))
+
+
+def _close_pairs(center, width, gen, npairs=32):
+    """``npairs`` thetas 0.001 box widths around ``center``, then each
+    moved by 6e-5 box widths: the accept step's close pairs."""
+    base = center + 0.001 * width * torch.randn(
+        (npairs, center.numel()), generator=gen, dtype=torch.float64,
+        device=center.device)
+    return torch.cat([base, base + 6e-5 * width * torch.randn(
+        base.shape, generator=gen, dtype=torch.float64,
+        device=center.device)])
+
+
+def _dlnp_err(v, want):
+    """Largest error of the lnp differences of the pairs of
+    :func:`_close_pairs` (first half vs second half) against ``want``'s."""
+    n = len(want) // 2
+    return float(((v[n:] - v[:n]) - (want[n:] - want[:n])).abs().max())
+
+
+def phase_precision(dev, m):
+    """The accept step's precision past the float32 crossing (ROADMAP
+    C.1) for the resident kernels of ``fit -fc``, ``fitz`` and ``fith``:
+    on the mega catalog, as a float64 run takes them (float64 context and
+    thetas, float32 kernels), the lnp differences of 32 close theta pairs
+    near the truth through each family's value kernel and its
+    value+gradient kernel's value column, against the float64 eager
+    engine; fails above ``DLNP_TOL``. Returns {kernel: error}."""
+    cfg = m.cfg.replace(fix_comp=True)
+    cat, tt = m.cat, m.cat["theta_true"]
+    _, ctx = build_context(cfg, z=cat["z"], flux=cat["flux"],
+                           flux_e=cat["flux_e"], field_id=cat["field_id"],
+                           device=dev, dtype=torch.float64)
+    vals = {"Lstar": tt["Lstar"], "phistar": tt["phistar"],
+            "sch_al": tt["sch_al"], "L1": tt["Lstar"], "L2": tt["Lstar"],
+            "L3": tt["Lstar"], "phi1": tt["phistar"], "phi2": tt["phistar"],
+            "phi3": tt["phistar"], "mu_L": tt["Lstar"], "sig_L": 0.3,
+            "mu_p": tt["phistar"], "sig_p": 0.5}
+    gen = torch.Generator(device=dev).manual_seed(606)
+    errs = {}
+    for fam, layout, eager, model in (
+            ("fixed", ThetaLayout.from_config(cfg), make_lnprob, "single"),
+            ("z", ThetaLayoutZ.from_config(cfg), make_lnprob_z, "z"),
+            ("hier", ThetaLayoutH.from_config(cfg), make_lnprob_h, "hier")):
+        names = [n.split("_")[0] if n.split("_")[0] in ("Lstar", "phistar")
+                 else n for n in layout.names]
+        center = torch.tensor([vals[n] for n in names], dtype=torch.float64,
+                              device=dev)
+        lo, hi = layout.bounds_arrays(torch.float64, dev)
+        th = _close_pairs(center, hi - lo, gen)
+        want = _in_rows(eager(ctx, layout), th, 16)
+        lnprob = cl._make_lnprob(ctx, layout, model, grad=False)
+        post = cl.make_cuda_lnprob_and_grad(ctx, layout, model=model)
+        if not (lnprob.engine == post.engine == "cuda"):
+            fail(f"{fam} at the mega catalog takes {lnprob.engine} / "
+                 f"{post.engine}, not the resident kernels")
+        n0 = (getattr(cl, f"{fam}_lnlike").launches,
+              getattr(cl, f"{fam}_lnlike_vg").launches)
+        d_val = _dlnp_err(lnprob(th), want)
+        d_vg = _dlnp_err(post(th), want)
+        if (getattr(cl, f"{fam}_lnlike").launches - n0[0] != 1
+                or getattr(cl, f"{fam}_lnlike_vg").launches - n0[1] != 1):
+            fail(f"{fam}: the precision gate did not run through its "
+                 "kernels")
+        print(f"{fam} mega ({MEGA_SOURCES} sources, float64 run, float32 "
+              f"kernels): lnp differences of 32 close pairs (|dlnp| "
+              f"{float((want[32:] - want[:32]).abs().max()):.3f} at most) vs "
+              f"float64 eager: max error {d_val:.4e} through "
+              f"{fam}_lnlike, {d_vg:.4e} through {fam}_lnlike_vg's value "
+              f"(limit {DLNP_TOL})")
+        if not (d_val <= DLNP_TOL and d_vg <= DLNP_TOL):
+            fail(f"{fam} mega: lnp difference error {d_val:.4e} (value "
+                 f"kernel), {d_vg:.4e} (value+gradient kernel)")
+        errs[f"{fam}_lnlike"], errs[f"{fam}_lnlike_vg"] = d_val, d_vg
+    del ctx
+    torch.cuda.empty_cache()
+    return errs
 
 
 def _near(m, w, gen, scale):
@@ -713,12 +793,11 @@ def _near(m, w, gen, scale):
         device=m.truth.device)
 
 
-def phase_stream(dev):
-    """The streaming kernels on the mega catalog: against their plain
-    versions, the float64 eager engine and (lnp differences of close
-    thetas) float64 itself; the sum of shards; times beside the resident
-    kernels' at the same shape."""
-    m = _mega_case(dev)
+def phase_stream(dev, m):
+    """The streaming kernels on the mega catalog ``m``: against their
+    plain versions, the float64 eager engine and (lnp differences of close
+    thetas) float64 itself; two launches on one input bit for bit; the sum
+    of shards; times beside the resident kernels' at the same shape."""
     data, layout = m.data, m.layout
     lnprob = cl.make_cuda_lnprob(m.ctx, layout)
     post = cl.make_cuda_lnprob_and_grad(m.ctx, layout)
@@ -730,7 +809,8 @@ def phase_stream(dev):
     print(f"mega catalog: {MEGA_SOURCES} sources, "
           f"{int(data.g_a.numel())} cells, {lnprob.stream[1]} source tiles "
           f"of {cl.CHUNK_CELLS} ({data.s_logf.shape[1]} slots), "
-          f"{int(data.chunks.shape[0])} pieces")
+          f"{int(data.runs.shape[0])} runs of up to {data.run_pieces} "
+          f"tiles, waves of {data.waves[0]} / {data.waves[1]} blocks")
 
     def feats_of(th, d=data):
         return cl._features_stream(th, d, layout, torch.float32)
@@ -743,13 +823,18 @@ def phase_stream(dev):
         th = _near(m, w, gen, 0.002)
         f = feats_of(th).float()
         got = cl.free_stream_lnlike(f, data)
+        again = cl.free_stream_lnlike(f, data)
         ref = cl.free_stream_lnlike_reference(f, data)
         full = lnprob(th)
         want = _in_rows(m.eager64, th, 16)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"free_stream_lnlike mega W={w}: two launches on one "
+                 "input differ")
         err_k, abs_k = _rel(got, ref), float((got - ref).abs().max())
         err_f = _rel(full, want)
-        print(f"free_stream_lnlike mega W={w}: kernel vs plain max rel "
+        print(f"free_stream_lnlike mega W={w}: two launches bit-identical; "
+              f"kernel vs plain max rel "
               f"{err_k:.3e}, max abs {abs_k:.3e} (|part| <= "
               f"{float(ref.abs().max()):.4e}); lnprob vs f64 eager "
               f"{err_f:.3e} (max abs {float((full - want).abs().max()):.4f}"
@@ -761,25 +846,16 @@ def phase_stream(dev):
         rec["max_rel_err"] = max(rec["max_rel_err"], err_k)
         rec["max_abs_err"] = max(rec["max_abs_err"], abs_k)
     # the accept step's quantity: lnp differences of 32 close pairs
-    base = _near(m, 32, gen, 0.001)
-    th = torch.cat([base, base + 6e-5 * m.width * torch.randn(
-        base.shape, generator=gen, dtype=torch.float64, device=dev)])
+    th = _close_pairs(m.truth, m.width, gen)
     want = _in_rows(m.eager64, th, 16)
-    got = lnprob(th)
-    got_vg = post(th)       # the value column NUTS's accept step reads
-    fr = cl._features(th.float(), resident, layout, torch.float32)
-    res = cl.free_lnlike(fr, resident).double()
-
-    def dlnp(v):
-        return v[32:] - v[:32]
-
-    def d_err(v):
-        return float((dlnp(v) - dlnp(want)).abs().max())
-
-    d_val, d_vg, d_res = d_err(got), d_err(got_vg), d_err(res)
+    fr = cl._features(th.float(), resident, layout, torch.float32).float()
+    # post: the value column NUTS's accept step reads
+    d_val, d_vg, d_res = (_dlnp_err(v, want) for v in (
+        lnprob(th), post(th), cl.free_lnlike(fr, resident)))
+    dlnp = want[32:] - want[:32]
     print(f"mega: lnp differences of 32 close pairs (|dlnp| "
-          f"{float(dlnp(want).abs().min()):.3f} to "
-          f"{float(dlnp(want).abs().max()):.3f}) vs float64: max error "
+          f"{float(dlnp.abs().min()):.3f} to "
+          f"{float(dlnp.abs().max()):.3f}) vs float64: max error "
           f"{d_val:.4e} through free_stream_lnlike, {d_vg:.4e} through "
           f"free_stream_lnlike_vg's value (limit {DLNP_TOL}); the float32 "
           f"resident free_lnlike's {d_res:.4e}")
@@ -804,7 +880,7 @@ def phase_stream(dev):
         fail(f"free_stream_lnlike mega: 2 shards vs 1 {err_sh:.3e}")
     del two
     fw = f1.float()
-    fr = cl._features(th.float(), resident, layout, torch.float32)
+    fr = cl._features(th.float(), resident, layout, torch.float32).float()
     ms = _device_ms(lambda: cl.free_stream_lnlike(fw, data), inner=10,
                     reps=9)
     pms = _device_ms(lambda: cl.free_stream_lnlike_reference(fw, data),
@@ -830,8 +906,12 @@ def phase_stream(dev):
         th = _near(m, w, gen, 0.01)
         f = feats_of(th).float()
         got = cl.free_stream_lnlike_vg(f, data)
+        again = cl.free_stream_lnlike_vg(f, data)
         ref = cl.free_stream_lnlike_vg_reference(f, data)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"free_stream_lnlike_vg mega W={w}: two launches on one "
+                 "input differ")
         cols = [c for c in range(1, got.shape[1]) if c != 2]
         err_v = _rel(got[:, 0], ref[:, 0])
         err_g = _grad_rel(got[:, cols], ref[:, cols])
@@ -847,7 +927,8 @@ def phase_stream(dev):
         v64, g64 = torch.cat(vals), torch.cat(grads)
         err_tv = _rel(v.detach(), v64)
         err_tg = _grad_rel(g, g64)
-        print(f"free_stream_lnlike_vg mega W={w}: kernel vs plain value max "
+        print(f"free_stream_lnlike_vg mega W={w}: two launches "
+              f"bit-identical; kernel vs plain value max "
               f"rel {err_v:.3e}, gradient {err_g:.3e}; theta-level vs f64 "
               f"eager autograd value {err_tv:.3e}, gradient {err_tg:.3e}")
         if err_v > RTOL_KERNEL or err_g > RTOL_GRAD or not bool(
@@ -863,7 +944,8 @@ def phase_stream(dev):
             continue
         if w == 8:
             rec["max_abs_err"] = float((got[:, 0] - ref[:, 0]).abs().max())
-        fr_vg = cl._features(th.float(), resident, layout, torch.float32)
+        fr_vg = cl._features(th.float(), resident, layout,
+                             torch.float32).float()
         ms = _device_ms(lambda: cl.free_stream_lnlike_vg(f, data), inner=10,
                         reps=9)
         pms = _device_ms(lambda: cl.free_stream_lnlike_vg_reference(f, data),
@@ -884,7 +966,7 @@ def phase_stream(dev):
             rec["call_ms"] = _call_ms(lambda: cl.free_stream_lnlike_vg(
                 f, data))
             rec["shape"] = f"W=8, gauss-32 mega, {MEGA_SOURCES} sources"
-    del m, resident
+    del resident
     torch.cuda.empty_cache()
     return summary
 
@@ -1330,7 +1412,12 @@ def main():
     summary = {"roofline_chain": roof}
     summary.update(phase_kernels(dev))
     summary.update(phase_vg_kernels(dev))
-    summary.update(phase_stream(dev))
+    mega = _mega_case(dev)
+    summary.update(phase_stream(dev, mega))
+    for name, err in phase_precision(dev, mega).items():
+        summary[name]["dlnp_err"] = err
+    del mega
+    torch.cuda.empty_cache()
     print(f"kernel phases: {time.perf_counter() - t_start:.1f} s")
     try:
         import matplotlib  # noqa: F401

@@ -18,14 +18,17 @@
 //            + sum_src    mask ? (c_s + aA (a - lA) - P t1 + lnOm0 + ln fc) : 0
 //          ln fc = ln max(0.5 + 0.5 x rsqrt(1 + x^2), 1e-30), x = ac (logf - lF50_f),
 //          divided by (1 - exp(-R t2_f)) when fcmin is set.
-//   fixed: th[4] - sum_cells exp(c + aA (a - lA) - P t1) * w
+//   fixed: - sum_cells exp(c + aA (a - lA) - P t1) * w
+//          (its collapsed source term is added on the host, in float64,
+//          from the same rounded features: ops/cuda_lnlike.py
+//          _fixed_collapsed)
 // P = 10^(logL - lref) and R = 10^(logf + 16) are precomputed on the
 // host, so the per-element work is 2 exp + 1 log + 1 rsqrt + 1 div (free)
 // or 1 exp (fixed).
 // The _vg kernels emit, per walker, that lnlike AND its derivative with
 // respect to every feature of the row, in one pass over the cells:
 //   free:  [lnl, d_cg, d_cs, d_aA, d_lA, d_t1, d_ac, d_lf50_f.., d_t2_f..]
-//   fixed: [lnl, d_c, d_aA, d_lA, d_t1, 1]
+//   fixed: [lnl, d_c, d_aA, d_lA, d_t1]
 // The theta -> feature pullback is left to autograd of the cheap feature
 // map (ops/cuda_lnlike.py: make_cuda_lnprob_and_grad). Per cell the
 // derivative needs, beyond the forward's terms, only products of what the
@@ -47,15 +50,16 @@
 //     sources of one field, from the host chunk table (field, start, end,
 //     is_source)) for walker w, so W = 50 already gives ~1,500 blocks for
 //     132 SMs and W = 8 ~280;
-//   - each thread accumulates K separate sums in registers (K = 1 for the
-//     value kernels, 7 free / 3 fixed for the _vg ones), the block reduces
-//     all K with warp shuffles and one shared-memory pass, and writes them
-//     to a (W, nchunks, K) scratch buffer the caller allocates;
+//   - each thread accumulates K separate sums of its few terms in float32
+//     registers (K = 1 for the value kernels, 7 free / 3 fixed for the _vg
+//     ones), the block reduces all K in double with warp shuffles and one
+//     shared-memory pass, and writes them to a (W, nchunks, K) double
+//     scratch buffer the caller allocates;
 //   - a second small kernel sums each walker's partials in fixed chunk
 //     order (in double), routing each chunk's d_lf50/d_t2 terms to its
-//     field's column: no float atomics, identical results run to run, and
-//     the cancellation of d_cg + d_cs (~ -integral + N near the mode)
-//     happens in double.
+//     field's column, and writes float64: no float atomics, identical
+//     results run to run, and the cancellation of d_cg + d_cs (~ -integral
+//     + N near the mode) happens in double.
 // Plain expf/logf/rsqrtf (no --use_fast_math), matching the plain PyTorch
 // versions in ops/cuda_lnlike.py.
 
@@ -80,7 +84,7 @@ free_partials(const float* __restrict__ feats, int nfeat, int nfields,
               const float* __restrict__ s_lnom0,
               const float* __restrict__ s_mask,
               const int4* __restrict__ chunks, int nchunks, int fcmin,
-              float* __restrict__ partial) {
+              double* __restrict__ partial) {
     const int c = blockIdx.x;
     const int w = blockIdx.y;
     const int4 ch = chunks[c];            // (field, start, end, is_source)
@@ -105,8 +109,8 @@ free_partials(const float* __restrict__ feats, int nfeat, int nfields,
             }
         }
     }
-    block_sum_k<1>(acc);
-    if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = acc[0];
+    const double s = block_sum_f32_to_f64(acc[0]);
+    if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = s;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -114,7 +118,7 @@ fixed_partials(const float* __restrict__ feats, int nfeat,
                const float* __restrict__ g_a, const float* __restrict__ g_p,
                const float* __restrict__ g_w,
                const int4* __restrict__ chunks, int nchunks,
-               float* __restrict__ partial) {
+               double* __restrict__ partial) {
     const int c = blockIdx.x;
     const int w = blockIdx.y;
     const int4 ch = chunks[c];
@@ -123,8 +127,8 @@ fixed_partials(const float* __restrict__ feats, int nfeat,
     float acc[1] = {0.0f};
     for (int i = ch.y + threadIdx.x; i < ch.z; i += THREADS)
         acc[0] -= expf(cg + aA * (g_a[i] - lA) - g_p[i] * t1) * g_w[i];
-    block_sum_k<1>(acc);
-    if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = acc[0];
+    const double s = block_sum_f32_to_f64(acc[0]);
+    if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -148,7 +152,7 @@ free_vg_partials(const float* __restrict__ feats, int nfeat, int nfields,
                  const float* __restrict__ s_lnom0,
                  const float* __restrict__ s_mask,
                  const int4* __restrict__ chunks, int nchunks, int fcmin,
-                 float* __restrict__ partial) {
+                 double* __restrict__ partial) {
     const int c = blockIdx.x;
     const int w = blockIdx.y;
     const int4 ch = chunks[c];            // (field, start, end, is_source)
@@ -195,11 +199,14 @@ free_vg_partials(const float* __restrict__ feats, int nfeat, int nfields,
             }
         }
     }
-    block_sum_k<FREE_SLOTS>(acc);
-    if (threadIdx.x == 0) {
-        float* out = partial + ((size_t)w * nchunks + c) * FREE_SLOTS;
+    double sums[FREE_SLOTS];
 #pragma unroll
-        for (int k = 0; k < FREE_SLOTS; ++k) out[k] = acc[k];
+    for (int k = 0; k < FREE_SLOTS; ++k) sums[k] = acc[k];
+    block_sum_k<FREE_SLOTS>(sums);
+    if (threadIdx.x == 0) {
+        double* out = partial + ((size_t)w * nchunks + c) * FREE_SLOTS;
+#pragma unroll
+        for (int k = 0; k < FREE_SLOTS; ++k) out[k] = sums[k];
     }
 }
 
@@ -210,11 +217,11 @@ free_vg_partials(const float* __restrict__ feats, int nfeat, int nfields,
 // thread runs the same branch-free walk over the chunks; the walker's
 // partials and the chunk table are staged in shared memory, tile by
 // tile, with coalesced loads.
-__global__ void free_vg_finish(const float* __restrict__ partial,
+__global__ void free_vg_finish(const double* __restrict__ partial,
                                const int4* __restrict__ chunks, int nchunks,
                                const float* __restrict__ feats, int nfeat,
-                               int nfields, float* __restrict__ out) {
-    __shared__ float tile[FINISH_TILE * FREE_SLOTS];
+                               int nfields, double* __restrict__ out) {
+    __shared__ double tile[FINISH_TILE * FREE_SLOTS];
     __shared__ int tile_field[FINISH_TILE];
     __shared__ int tile_src[FINISH_TILE];
     const int w = blockIdx.x;
@@ -237,7 +244,7 @@ __global__ void free_vg_finish(const float* __restrict__ partial,
         case 7: gk = 4; gm = ac; sk = 5; sm = -ac; break;   // d_lf50_f
         default: gk = 5; gm = -1.0; sk = 6; sm = 1.0;       // d_t2_f
     }
-    const float* pw = partial + (size_t)w * nchunks * FREE_SLOTS;
+    const double* pw = partial + (size_t)w * nchunks * FREE_SLOTS;
     double s = 0.0;
     for (int c0 = 0; c0 < nchunks; c0 += FINISH_TILE) {
         const int n = min(FINISH_TILE, nchunks - c0);
@@ -254,10 +261,10 @@ __global__ void free_vg_finish(const float* __restrict__ partial,
             const bool src = tile_src[c] != 0;
             const double m = src ? sm : gm;
             if (m != 0.0 && (field < 0 || tile_field[c] == field))
-                s += m * (double)tile[c * FREE_SLOTS + (src ? sk : gk)];
+                s += m * tile[c * FREE_SLOTS + (src ? sk : gk)];
         }
     }
-    if (col < ncols) out[(size_t)w * ncols + col] = (float)s;
+    if (col < ncols) out[(size_t)w * ncols + col] = s;
 }
 
 // Slots: [Se, Se*am, Se*P].
@@ -267,7 +274,7 @@ fixed_vg_partials(const float* __restrict__ feats, int nfeat,
                   const float* __restrict__ g_p,
                   const float* __restrict__ g_w,
                   const int4* __restrict__ chunks, int nchunks,
-                  float* __restrict__ partial) {
+                  double* __restrict__ partial) {
     const int c = blockIdx.x;
     const int w = blockIdx.y;
     const int4 ch = chunks[c];
@@ -282,26 +289,27 @@ fixed_vg_partials(const float* __restrict__ feats, int nfeat,
         acc[1] += e * am;
         acc[2] += e * p;
     }
-    block_sum_k<FIXED_SLOTS>(acc);
+    double sums[FIXED_SLOTS] = {acc[0], acc[1], acc[2]};
+    block_sum_k<FIXED_SLOTS>(sums);
     if (threadIdx.x == 0) {
-        float* out = partial + ((size_t)w * nchunks + c) * FIXED_SLOTS;
+        double* out = partial + ((size_t)w * nchunks + c) * FIXED_SLOTS;
 #pragma unroll
-        for (int k = 0; k < FIXED_SLOTS; ++k) out[k] = acc[k];
+        for (int k = 0; k < FIXED_SLOTS; ++k) out[k] = sums[k];
     }
 }
 
-// Block w: out[w] = [lnpart - S0, -S0, -S1, aA S0, S2, 1]; thread k < 3
-// sums slot k over the chunks in order, in double, from tiles staged in
-// shared memory as in free_vg_finish.
-__global__ void fixed_vg_finish(const float* __restrict__ partial,
+// Block w: out[w] = [-S0, -S0, -S1, aA S0, S2]; thread k < 3 sums slot k
+// over the chunks in order, in double, from tiles staged in shared memory
+// as in free_vg_finish.
+__global__ void fixed_vg_finish(const double* __restrict__ partial,
                                 int nchunks,
                                 const float* __restrict__ feats, int nfeat,
-                                float* __restrict__ out) {
-    __shared__ float tile[FINISH_TILE * FIXED_SLOTS];
+                                double* __restrict__ out) {
+    __shared__ double tile[FINISH_TILE * FIXED_SLOTS];
     __shared__ double sums[FIXED_SLOTS];
     const int w = blockIdx.x;
     const int k = threadIdx.x;
-    const float* pw = partial + (size_t)w * nchunks * FIXED_SLOTS;
+    const double* pw = partial + (size_t)w * nchunks * FIXED_SLOTS;
     double s = 0.0;
     for (int c0 = 0; c0 < nchunks; c0 += FINISH_TILE) {
         const int n = min(FINISH_TILE, nchunks - c0);
@@ -310,19 +318,18 @@ __global__ void fixed_vg_finish(const float* __restrict__ partial,
             tile[i] = pw[(size_t)c0 * FIXED_SLOTS + i];
         __syncthreads();
         if (k < FIXED_SLOTS)
-            for (int c = 0; c < n; ++c) s += (double)tile[c * FIXED_SLOTS + k];
+            for (int c = 0; c < n; ++c) s += tile[c * FIXED_SLOTS + k];
     }
     if (k < FIXED_SLOTS) sums[k] = s;
     __syncthreads();
     if (k == 0) {
         const float* th = feats + (size_t)w * nfeat;
-        float* o = out + (size_t)w * 6;
-        o[0] = (float)((double)th[4] - sums[0]);
-        o[1] = (float)(-sums[0]);
-        o[2] = (float)(-sums[1]);
-        o[3] = (float)((double)th[1] * sums[0]);
-        o[4] = (float)sums[2];
-        o[5] = 1.0f;
+        double* o = out + (size_t)w * 5;
+        o[0] = -sums[0];
+        o[1] = -sums[0];
+        o[2] = -sums[1];
+        o[3] = (double)th[1] * sums[0];
+        o[4] = sums[2];
     }
 }
 
@@ -330,9 +337,9 @@ extern "C" {
 
 // All pointers are device pointers; the stream is a cudaStream_t. Returns
 // the cudaError_t of the launches (0 = success). Allocates nothing: the
-// caller passes a (W, nchunks, K) partial buffer (K = 1 for the value
-// kernels, FREE_SLOTS / FIXED_SLOTS for the _vg ones) and the output, (W,)
-// or (W, 1 + nfeat).
+// caller passes a (W, nchunks, K) double partial buffer (K = 1 for the
+// value kernels, FREE_SLOTS / FIXED_SLOTS for the _vg ones) and the double
+// output, (W,) or (W, 1 + nfeat).
 int free_lnlike_launch(const float* feats, int nwalkers, int nfeat,
                        int nfields,
                        const float* g_logf, const float* g_a,
@@ -341,7 +348,7 @@ int free_lnlike_launch(const float* feats, int nwalkers, int nfeat,
                        const float* s_p, const float* s_r,
                        const float* s_lnom0, const float* s_mask,
                        const int* chunks, int nchunks, int fcmin,
-                       float* partial, float* out, void* stream) {
+                       double* partial, double* out, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     dim3 grid(nchunks, nwalkers);
     free_partials<<<grid, THREADS, 0, st>>>(
@@ -349,23 +356,24 @@ int free_lnlike_launch(const float* feats, int nwalkers, int nfeat,
         s_r, s_lnom0, s_mask, (const int4*)chunks, nchunks, fcmin, partial);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    finish<<<(nwalkers + 127) / 128, 128, 0, st>>>(
-        partial, nchunks, feats, nfeat, -1, nwalkers, out);
+    finish<<<(nwalkers + 127) / 128, 128, 0, st>>>(partial, nchunks,
+                                                   nwalkers, out);
     return (int)cudaGetLastError();
 }
 
 int fixed_lnlike_launch(const float* feats, int nwalkers, int nfeat,
                         const float* g_a, const float* g_p, const float* g_w,
                         const int* chunks, int nchunks,
-                        float* partial, float* out, void* stream) {
+                        double* partial, double* out, void* stream) {
+    if (nfeat != 4) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     dim3 grid(nchunks, nwalkers);
     fixed_partials<<<grid, THREADS, 0, st>>>(
         feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    finish<<<(nwalkers + 127) / 128, 128, 0, st>>>(
-        partial, nchunks, feats, nfeat, 4, nwalkers, out);
+    finish<<<(nwalkers + 127) / 128, 128, 0, st>>>(partial, nchunks,
+                                                   nwalkers, out);
     return (int)cudaGetLastError();
 }
 
@@ -378,7 +386,7 @@ int free_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
                           const float* s_p, const float* s_r,
                           const float* s_lnom0, const float* s_mask,
                           const int* chunks, int nchunks, int fcmin,
-                          float* partial, float* out, void* stream) {
+                          double* partial, double* out, void* stream) {
     const int ncols = 1 + nfeat;
     if (ncols > 1024 || nfeat != 6 + 2 * nfields)
         return (int)cudaErrorInvalidValue;
@@ -398,7 +406,8 @@ int fixed_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
                            const float* g_a, const float* g_p,
                            const float* g_w,
                            const int* chunks, int nchunks,
-                           float* partial, float* out, void* stream) {
+                           double* partial, double* out, void* stream) {
+    if (nfeat != 4) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     dim3 grid(nchunks, nwalkers);
     fixed_vg_partials<<<grid, THREADS, 0, st>>>(

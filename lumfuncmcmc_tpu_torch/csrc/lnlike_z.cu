@@ -14,7 +14,7 @@
 //   per z node:  lq = th3 dz^2 + th4 dz + th5    LN10 (Lstar(z) - lref)
 //                pr = th0 dz^2 + th1 dz + th2    LN10 phistar(z) + ln ln10
 //                t1 = exp(-lq)                   10^(lref - Lstar(z))
-//                base = pr - th6 lq
+//                base = pr - th6 lq              (in double, then hi + lo)
 //   lnl = - sum_cells exp(base + th6 a - P t1) * w
 //         + sum_src   mask ? (pr_s + th6 x - exp(x) + lnOm_s) : 0,
 //                     x = a_s - lq_s at the source's own dz
@@ -40,11 +40,17 @@
 //     threads read neighbouring addresses; bands of ~2048 cells give
 //     105 x W grid blocks at 201 x 201, ~840 at W = 8 for 132 SMs;
 //   - source chunks (<= 2048 sources) take one term per source;
-//   - each thread keeps K sums in registers (K = 1, or 8 for _vg), the
-//     block reduces them with warp shuffles and writes them to a
-//     (W, nchunks, K) scratch buffer; a second small kernel sums each
-//     walker's partials in fixed chunk order in double: no float atomics,
-//     identical results run to run.
+//   - each thread keeps K float32 sums of its few terms in registers (K =
+//     1, or 8 for _vg; a z node's column of up to ~64 cells of ~200 each
+//     at gauss-32 is summed with Kahan's compensation and added to the
+//     value in double), the block reduces them in double with warp
+//     shuffles and writes them to a (W, nchunks, K) double scratch buffer;
+//     a second small kernel sums each walker's partials in fixed chunk
+//     order in double and writes float64: no float atomics, identical
+//     results run to run. The source terms are summed here, beside the
+//     grid integral, from the same features, so the two parts, which
+//     cancel to O(1) out of ~N near the mode, read the same numbers; at
+//     10^5 sources |lnL| ~ 1e6, so the sums and the value are double.
 // Plain expf (no --use_fast_math), matching the plain PyTorch versions in
 // ops/cuda_lnlike.py.
 
@@ -55,15 +61,28 @@
 #define Z_SLOTS 8        // ops/cuda_lnlike.py VG_Z_SLOTS
 #define X_CLAMP 60.0f    // ops/cuda_lnlike.py X_CLAMP
 
+// A z node's hoisted quantities, formed in double from the features and
+// rounded once (ops/cuda_lnlike.py _z_node_rows): lq, t1 = exp(-lq) and
+// base = pr - aA lq as hi + lo, added to a cell's exponent last, so the
+// node's rounding error, which every cell of its column shares, stays at
+// float32's precision of the whole exponent and not of base.
 struct ZNode {
-    float lq, t1, base;
+    float lq, t1, hi, lo;
 };
 
 __device__ __forceinline__ ZNode z_node(const float* th, float dz,
                                         float dz2) {
-    const float lq = th[3] * dz2 + th[4] * dz + th[5];
-    const float pr = th[0] * dz2 + th[1] * dz + th[2];
-    return {lq, expf(-lq), pr - th[6] * lq};
+    const double z1 = dz, z2 = dz2;
+    const double lq = (double)th[3] * z2 + (double)th[4] * z1 + (double)th[5];
+    const double base = (double)th[0] * z2 + (double)th[1] * z1
+        + (double)th[2] - (double)th[6] * lq;
+    const float lqf = (float)lq, hi = (float)base;
+    return {lqf, expf(-lqf), hi, (float)(base - (double)hi)};
+}
+
+__device__ __forceinline__ float z_cell(const ZNode& n, float aA, float a,
+                                        float p) {
+    return expf(n.hi + ((aA * a - p * n.t1) + n.lo));
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -75,38 +94,41 @@ z_partials(const float* __restrict__ feats, int nfeat, int s_l, int s_z,
            const float* __restrict__ s_lnom0,
            const float* __restrict__ s_mask,
            const int4* __restrict__ chunks, int nchunks,
-           float* __restrict__ partial) {
+           double* __restrict__ partial) {
     const int c = blockIdx.x;
     const int w = blockIdx.y;
     const int4 ch = chunks[c];            // (field, start, end, is_source)
     const float* th = feats + (size_t)w * nfeat;
     const float aA = th[6];
-    float acc[1] = {0.0f};
+    double acc = 0.0;
     if (!ch.w) {
         const size_t panel = (size_t)ch.x * s_l * s_z;
         for (int j = threadIdx.x; j < s_z; j += THREADS) {
             const ZNode n = z_node(th, n_dz[ch.x * s_z + j],
                                    n_dz2[ch.x * s_z + j]);
-            float col = 0.0f;
+            float col = 0.0f, comp = 0.0f;
             for (int r = ch.y; r < ch.z; ++r) {
                 const size_t i = panel + (size_t)r * s_z + j;
-                col += expf(n.base + aA * g_a[i] - g_p[i] * n.t1) * g_w[i];
+                kahan_add(col, comp, z_cell(n, aA, g_a[i], g_p[i]) * g_w[i]);
             }
-            acc[0] -= col;
+            acc -= (double)col - (double)comp;
         }
     } else {
+        float src = 0.0f;
         for (int i = ch.y + threadIdx.x; i < ch.z; i += THREADS) {
             if (s_mask[i] > 0.0f) {
                 const float dz = s_dz[i], dz2 = s_dz2[i];
                 const float x = s_a[i]
                     - (th[3] * dz2 + th[4] * dz + th[5]);
-                acc[0] += th[0] * dz2 + th[1] * dz + th[2] + aA * x
+                src += th[0] * dz2 + th[1] * dz + th[2] + aA * x
                     - expf(x) + s_lnom0[i];
             }
         }
+        acc = src;
     }
-    block_sum_k<1>(acc);
-    if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = acc[0];
+    double sum[1] = {acc};
+    block_sum_k<1>(sum);
+    if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = sum[0];
 }
 
 // Grid chunk slots:   [SE, SE dz, SE dz^2, S(Ea - lq E), St1 EP, St1 EP dz,
@@ -124,7 +146,7 @@ z_vg_partials(const float* __restrict__ feats, int nfeat, int s_l, int s_z,
               const float* __restrict__ s_lnom0,
               const float* __restrict__ s_mask,
               const int4* __restrict__ chunks, int nchunks,
-              float* __restrict__ partial) {
+              double* __restrict__ partial) {
     const int c = blockIdx.x;
     const int w = blockIdx.y;
     const int4 ch = chunks[c];            // (field, start, end, is_source)
@@ -133,24 +155,25 @@ z_vg_partials(const float* __restrict__ feats, int nfeat, int s_l, int s_z,
     float acc[Z_SLOTS];
 #pragma unroll
     for (int k = 0; k < Z_SLOTS; ++k) acc[k] = 0.0f;
+    double val = 0.0;       // slot 0 (the value) in double
     if (!ch.w) {
         const size_t panel = (size_t)ch.x * s_l * s_z;
         for (int j = threadIdx.x; j < s_z; j += THREADS) {
             const float dz = n_dz[ch.x * s_z + j];
             const float dz2 = n_dz2[ch.x * s_z + j];
             const ZNode n = z_node(th, dz, dz2);
-            float col_e = 0.0f, col_ep = 0.0f, col_ea = 0.0f;
+            float col_e = 0.0f, comp = 0.0f, col_ep = 0.0f, col_ea = 0.0f;
             for (int r = ch.y; r < ch.z; ++r) {
                 const size_t i = panel + (size_t)r * s_z + j;
                 const float a = g_a[i];
                 const float p = g_p[i];
-                const float e = expf(n.base + aA * a - p * n.t1) * g_w[i];
-                col_e += e;
+                const float e = z_cell(n, aA, a, p) * g_w[i];
+                kahan_add(col_e, comp, e);
                 col_ep += e * p;
                 col_ea += e * a;
             }
             const float tp = n.t1 * col_ep;
-            acc[0] += col_e;
+            val += (double)col_e - (double)comp;
             acc[1] += col_e * dz;
             acc[2] += col_e * dz2;
             acc[3] += col_ea - n.lq * col_e;
@@ -168,7 +191,7 @@ z_vg_partials(const float* __restrict__ feats, int nfeat, int s_l, int s_z,
                 const float ex = expf(x);
                 const float mr = m * (aA - ex);
                 acc[0] += th[0] * dz2 + th[1] * dz + th[2] + aA * x - ex
-                    + s_lnom0[i];
+                    + s_lnom0[i];      // per thread in float
                 acc[1] += m;
                 acc[2] += m * dz;
                 acc[3] += m * dz2;
@@ -179,11 +202,15 @@ z_vg_partials(const float* __restrict__ feats, int nfeat, int s_l, int s_z,
             }
         }
     }
-    block_sum_k<Z_SLOTS>(acc);
-    if (threadIdx.x == 0) {
-        float* out = partial + ((size_t)w * nchunks + c) * Z_SLOTS;
+    double sums[Z_SLOTS];
 #pragma unroll
-        for (int k = 0; k < Z_SLOTS; ++k) out[k] = acc[k];
+    for (int k = 0; k < Z_SLOTS; ++k) sums[k] = acc[k];
+    sums[0] += val;
+    block_sum_k<Z_SLOTS>(sums);
+    if (threadIdx.x == 0) {
+        double* out = partial + ((size_t)w * nchunks + c) * Z_SLOTS;
+#pragma unroll
+        for (int k = 0; k < Z_SLOTS; ++k) out[k] = sums[k];
     }
 }
 
@@ -194,16 +221,16 @@ z_vg_partials(const float* __restrict__ feats, int nfeat, int s_l, int s_z,
 //             -G2 + S3, -G1 + S2, -G0 + S1,
 //             th6 G2 - G6 - S7, th6 G1 - G5 - S6, th6 G0 - G4 - S5,
 //             -G3 + S4].
-__global__ void z_vg_finish(const float* __restrict__ partial,
+__global__ void z_vg_finish(const double* __restrict__ partial,
                             const int4* __restrict__ chunks, int nchunks,
                             const float* __restrict__ feats, int nfeat,
-                            float* __restrict__ out) {
-    __shared__ float tile[FINISH_TILE * Z_SLOTS];
+                            double* __restrict__ out) {
+    __shared__ double tile[FINISH_TILE * Z_SLOTS];
     __shared__ int tile_src[FINISH_TILE];
     __shared__ double gs[Z_SLOTS], ss[Z_SLOTS];
     const int w = blockIdx.x;
     const int k = threadIdx.x;
-    const float* pw = partial + (size_t)w * nchunks * Z_SLOTS;
+    const double* pw = partial + (size_t)w * nchunks * Z_SLOTS;
     double g = 0.0, s = 0.0;
     for (int c0 = 0; c0 < nchunks; c0 += FINISH_TILE) {
         const int n = min(FINISH_TILE, nchunks - c0);
@@ -215,7 +242,7 @@ __global__ void z_vg_finish(const float* __restrict__ partial,
         __syncthreads();
         if (k < Z_SLOTS) {
             for (int c = 0; c < n; ++c) {
-                const double v = (double)tile[c * Z_SLOTS + k];
+                const double v = tile[c * Z_SLOTS + k];
                 if (tile_src[c]) s += v; else g += v;
             }
         }
@@ -227,15 +254,15 @@ __global__ void z_vg_finish(const float* __restrict__ partial,
     __syncthreads();
     if (k == 0) {
         const double aA = (double)feats[(size_t)w * nfeat + 6];
-        float* o = out + (size_t)w * 8;
-        o[0] = (float)(-gs[0] + ss[0]);
-        o[1] = (float)(-gs[2] + ss[3]);
-        o[2] = (float)(-gs[1] + ss[2]);
-        o[3] = (float)(-gs[0] + ss[1]);
-        o[4] = (float)(aA * gs[2] - gs[6] - ss[7]);
-        o[5] = (float)(aA * gs[1] - gs[5] - ss[6]);
-        o[6] = (float)(aA * gs[0] - gs[4] - ss[5]);
-        o[7] = (float)(-gs[3] + ss[4]);
+        double* o = out + (size_t)w * 8;
+        o[0] = -gs[0] + ss[0];
+        o[1] = -gs[2] + ss[3];
+        o[2] = -gs[1] + ss[2];
+        o[3] = -gs[0] + ss[1];
+        o[4] = aA * gs[2] - gs[6] - ss[7];
+        o[5] = aA * gs[1] - gs[5] - ss[6];
+        o[6] = aA * gs[0] - gs[4] - ss[5];
+        o[7] = -gs[3] + ss[4];
     }
 }
 
@@ -243,8 +270,8 @@ extern "C" {
 
 // All pointers are device pointers; the stream is a cudaStream_t. Returns
 // the cudaError_t of the launches (0 = success). Allocates nothing: the
-// caller passes a (W, nchunks, K) partial buffer (K = 1, or Z_SLOTS for
-// _vg) and the output, (W,) or (W, 8).
+// caller passes a (W, nchunks, K) double partial buffer (K = 1, or Z_SLOTS
+// for _vg) and the double output, (W,) or (W, 8).
 int z_lnlike_launch(const float* feats, int nwalkers, int nfeat, int s_l,
                     int s_z,
                     const float* g_a, const float* g_p, const float* g_w,
@@ -252,7 +279,7 @@ int z_lnlike_launch(const float* feats, int nwalkers, int nfeat, int s_l,
                     const float* s_a, const float* s_dz, const float* s_dz2,
                     const float* s_lnom0, const float* s_mask,
                     const int* chunks, int nchunks,
-                    float* partial, float* out, void* stream) {
+                    double* partial, double* out, void* stream) {
     if (nfeat != 7) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     dim3 grid(nchunks, nwalkers);
@@ -261,8 +288,8 @@ int z_lnlike_launch(const float* feats, int nwalkers, int nfeat, int s_l,
         s_lnom0, s_mask, (const int4*)chunks, nchunks, partial);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    finish<<<(nwalkers + 127) / 128, 128, 0, st>>>(
-        partial, nchunks, feats, nfeat, -1, nwalkers, out);
+    finish<<<(nwalkers + 127) / 128, 128, 0, st>>>(partial, nchunks,
+                                                   nwalkers, out);
     return (int)cudaGetLastError();
 }
 
@@ -274,7 +301,7 @@ int z_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat, int s_l,
                        const float* s_dz2,
                        const float* s_lnom0, const float* s_mask,
                        const int* chunks, int nchunks,
-                       float* partial, float* out, void* stream) {
+                       double* partial, double* out, void* stream) {
     if (nfeat != 7) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     dim3 grid(nchunks, nwalkers);

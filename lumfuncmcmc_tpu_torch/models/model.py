@@ -28,6 +28,7 @@ from lumfuncmcmc_tpu_torch.models.likelihood import (
     ThetaLayout, make_lnprob, sample_init)
 from lumfuncmcmc_tpu_torch.models.likelihood_z import (
     ThetaLayoutZ, make_lnprob_z)
+from lumfuncmcmc_tpu_torch.ops.cuda_lnlike import FLOAT32_MAX_SOURCES
 from lumfuncmcmc_tpu_torch.models.veff import (
     binned_lf_bootstrap, log_bin_edges, veff_weights)
 from lumfuncmcmc_tpu_torch.ops.completeness import fleming_root_logf_np
@@ -194,30 +195,35 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
             make = {"single": cuda_lnlike.make_cuda_lnprob,
                     "z": cuda_lnlike.make_cuda_lnprob_z,
                     "hier": cuda_lnlike.make_cuda_lnprob_h}
-            return self._check_stream(make[self.model_kind](self.ctx,
-                                                            self.layout))
+            return self._check_precision(make[self.model_kind](
+                self.ctx, self.layout))
         fn = self._make_scalar_lnprob()
         fn.engine = "eager"
+        self._check_precision(fn)
         return fn
 
-    def _check_stream(self, fn):
+    def _check_precision(self, fn):
         """Log the streaming engine, where ``fn`` takes it (free
         completeness from ``STREAM_MIN_SOURCES`` sources on), and refuse
-        it unless the run is float64: there a float32 lnp cannot resolve
-        the accept step, so the route fixes the sampler's dtype. Returns
-        ``fn``."""
-        if hasattr(fn, "stream"):
-            n, tiles = fn.stream
+        a run that is not float64 where its lnp cannot resolve the
+        accept step: from ``FLOAT32_MAX_SOURCES`` sources on, for every
+        family and engine (the float32 spacing of |lnL| ~ 15 N then
+        passes the 0.05 that the lnp difference of two close thetas can
+        bear), and on the streaming route at any size. Returns ``fn``."""
+        n = int(self.ctx.lum.shape[0])
+        stream = hasattr(fn, "stream")
+        if stream:
             self.log.info("Engine: %s (%d sources, %d tiles)" % (
                 "CUDA streaming kernels" if fn.engine == "cuda-stream"
-                else "plain versions of the streaming kernels", n, tiles))
-            if self.dtype != torch.float64:
-                raise ValueError(
-                    "free completeness at %d sources takes the streaming "
-                    "kernels, which need a float64 lnprob (a %s one "
-                    "cannot resolve the accept step at |lnL| ~ %.0e): set "
-                    "use_x64 (a --config file with {\"use_x64\": true})"
-                    % (n, str(self.dtype).replace("torch.", ""), 15.0 * n))
+                else "plain versions of the streaming kernels", n,
+                fn.stream[1]))
+        if self.dtype != torch.float64 and (stream
+                                            or n >= FLOAT32_MAX_SOURCES):
+            raise ValueError(
+                "%d sources need a float64 lnprob (a %s one cannot "
+                "resolve the accept step at |lnL| ~ %.0e): set use_x64 "
+                "(a --config file with {\"use_x64\": true})"
+                % (n, str(self.dtype).replace("torch.", ""), 15.0 * n))
         return fn
 
     def veff_lf(self, flim=None, alpha=None, generator=None):

@@ -4,7 +4,7 @@ meshless, without checkpoints and without ``min_ess``.
 
 The host class provides ``cfg``/``log``/``layout``/``ctx``/``device``/
 ``dtype``/``model_kind``, ``lnprob_batch``, ``_make_scalar_lnprob``,
-``_initial_positions``, ``_resolve_use_pallas``, ``_check_stream`` and
+``_initial_positions``, ``_resolve_use_pallas``, ``_check_precision`` and
 ``_log_convergence``.
 """
 
@@ -50,9 +50,9 @@ class _NutsDriverMixin:
             self.log.info("NUTS gradient path: %s value+gradient %s"
                           % ("CUDA" if cuda else "plain",
                              "kernel" if cuda else "versions of the kernels"))
-            return self._check_stream(post)
+            return self._check_precision(post)
         self.log.info("NUTS gradient path: autograd of the eager engine")
-        return self._make_scalar_lnprob()
+        return self._check_precision(self._make_scalar_lnprob())
 
     def _theta_lnprob(self, chain):
         """Theta-space lnprob of (S, C, D) thetas through the model's

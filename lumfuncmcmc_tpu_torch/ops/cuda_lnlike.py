@@ -19,6 +19,17 @@ float32, ``a - lA`` of two ~97-sized numbers and ``sum(lum) - N Lstar``
 cancel to ~1e-5 relative, which the theta-gradient of ``sch_al`` feels
 where its two parts cancel near the mode.
 
+Every kernel returns float64 values, and the collapsed ln-terms
+(fixed completeness's ``lnpart``, the hierarchical ``lnrest``, the
+streaming kernels' affine source terms) are added on the host in float64
+from the same rounded features the kernel reads (:func:`_round_st`): at
+10^5 sources |lnL| ~ 1e6, where a float32 value or a float32 feature
+carrying a ~1e6-sized term cannot resolve the 0.05 that the sampler's
+accept step bears in the lnp difference of two close thetas
+(``tests/test_torch_precision.py``). A run that is not float64 is
+refused from ``FLOAT32_MAX_SOURCES`` sources on
+(``models/model.py _check_precision``).
+
 Four kernels of ``csrc/lnlike.cu``, value and value + gradient:
 
 - :func:`free_lnlike` — free completeness; replaces both
@@ -57,29 +68,33 @@ model (fixed completeness; per-field (L*, phi*), :func:`_feat_h_one`):
   and ``_kernel_hier_slab`` (``:734``): the fixed-completeness kernel
   whose blocks read ``(c_f, lA_f, t1_f)`` of their chunk's own field;
 - :func:`hier_lnlike_vg` replaces ``_kernel_hier_vg`` (``:1221``): the
-  lnlike and its derivative with respect to the 2+3F features from
+  lnlike and its derivative with respect to the 1+3F features from
   three sums per field.
 
-Their features keep the TPU's order ``[aA, lnrest, (c_f, lA_f, t1_f) x
-F]`` but, as in the fixed-completeness family, luminosities are relative
-to ``lref`` and ``lnrest`` (the per-field collapsed ln-terms plus the
-Gaussian hyperprior) is formed in float64 from per-field catalog sums
-taken relative to ``lref``.
+Their features keep the TPU's order without its ``lnrest``, ``[aA,
+(c_f, lA_f, t1_f) x F]``; as in the fixed-completeness family,
+luminosities are relative to ``lref``, and ``lnrest`` (the per-field
+collapsed ln-terms plus the Gaussian hyperprior) is formed on the host in
+float64 from per-field catalog sums taken relative to ``lref``
+(:func:`_hier_collapsed`).
 
 Two kernels of ``csrc/lnlike_stream.cu`` for free completeness on mega
 catalogs (at least ``STREAM_MIN_SOURCES`` sources, where
 :func:`_make_lnprob` takes them):
 
 - :func:`free_stream_lnlike` replaces ``_kernel_free_stream``
-  (``:941``, and ``make_stream_shard_batched``, ``:404``): blocks read
-  a piece of one field's sources once and reuse it for a tile of walkers;
+  (``:941``, and ``make_stream_shard_batched``, ``:404``): a block
+  stages a run of one field's source tiles in shared memory by bulk
+  asynchronous copy and runs every walker of its group against it;
 - :func:`free_stream_lnlike_vg` replaces ``_kernel_free_stream_vg``
   (``:1009``, and ``make_stream_shard_vg``, ``:1711``).
 
 Their layout (:func:`prepare_cuda_stream_data`) is per shard, the
 contract of ``prepare_stream_shard_data`` (``:346``): grid weights over
 ``nshards``, each field's sources dealt round-robin to the shards and
-padded to whole tiles, one tile table for all shards. At 10^6 sources
+padded to whole tiles at offsets shared by all shards, and the kernels'
+run table over those tiles, cut for one wave of the card
+(:func:`_run_pieces`). At 10^6 sources
 |lnL| ~ 1.5e7, so float32 alone cannot resolve the accept step's lnp
 differences; three changes from the TPU form keep them to ~0.02
 (``tests/test_torch_stream.py``): the kernels sum and return the value in
@@ -110,6 +125,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -140,14 +156,20 @@ VG_HIER_SLOTS = 3       # csrc/lnlike_h.cu
 MAX_HIER_FIELDS = 64    # csrc/lnlike_h.cu: hier_vg_finish's column sums
 X_CLAMP = 60.0          # z_lnlike_vg clamps a source's x = a - lq here
 # free completeness takes the streaming kernels from this many sources on:
-# where the float32 resident kernel's error in the lnp differences of close
-# thetas reaches 0.05 (0.035 at 17,088 sources, 0.054 at 42,427 on the
-# card; ~3.7e4 interpolated), beyond which only the streaming route's
-# float64 sums resolve the accept step; its W = 50 time is within 12% of
-# the resident kernel's from there to 8.5e4 sources and below it after
+# the streaming kernel's W = 50 time is within 12% of the resident one's
+# from 4.2e4 to 8.5e4 sources and below it beyond, and the resident
+# kernel's float32 features (c_s rounded apart from c_g) cost it ~0.01 in
+# the lnp differences of close thetas at 4.2e4 sources and ~0.04 at 1.7e5
 # (PERF.md, tools/stream_crossover.py)
 STREAM_MIN_SOURCES = 40_000
-VG_STREAM_SLOTS = 6     # partial sums per (walker, piece), lnlike_stream.cu
+# a run that is not float64 is refused from this many sources on: its lnp,
+# cast to float32 at |lnL| ~ 15 N, then errs by up to one float32 spacing
+# (2^-4 from |lnL| = 2^19), past the 0.05 that the lnp difference of close
+# thetas can bear; every family crosses 0.05 between 30,574 and 34,013
+# sources (PERF.md; tools/stream_crossover.py --emulate)
+FLOAT32_MAX_SOURCES = 30_000
+VG_STREAM_SLOTS = 6     # partial sums per (walker, run), lnlike_stream.cu
+STREAM_MAX_RUN = 4      # source tiles one streaming block stages at once
 
 
 def _clamp_flim(theta, layout: ThetaLayout):
@@ -238,15 +260,14 @@ def _concat(per_field, names):
             for nm in names}, off
 
 
-def _chunk_table(grid_off, src_off):
+def _chunk_table(grid_off, src_off, size=CHUNK_CELLS):
     """(field, start, end, is_source) rows cutting every field's cells
-    and sources into pieces of at most CHUNK_CELLS."""
+    and sources into pieces of at most ``size``."""
     rows = []
     for is_src, off in ((0, grid_off), (1, src_off)):
         for f in range(len(off) - 1):
-            for s in range(off[f], off[f + 1], CHUNK_CELLS):
-                rows.append((f, s, min(s + CHUNK_CELLS, off[f + 1]),
-                             is_src))
+            for s in range(off[f], off[f + 1], size):
+                rows.append((f, s, min(s + size, off[f + 1]), is_src))
     return np.asarray(rows, dtype=np.int32).reshape(-1, 4)
 
 
@@ -405,12 +426,17 @@ class CudaStreamData:
     weights divided by ``nshards``; source arrays are (nshards, S): shard
     k holds every ``nshards``-th source of each field, each field padded
     to a whole number of ``CHUNK_CELLS``-source tiles (mask 0 in the
-    padding), at offsets ``src_off`` shared by every shard. ``chunks``
-    is the one (nchunks, 4) int32 launch table ``(field, start, end,
-    is_source)`` of grid chunks and source tiles. ``logf`` is relative
-    to ``_LOGF_REF``. ``sums`` is (nshards, 4) float64: each shard's
-    ``(n, sum a, sum P, sum ln Omega0)`` over its unmasked sources, for
-    the collapsed theta-affine source terms.
+    padding), at offsets ``src_off`` shared by every shard. ``runs`` is
+    the (nruns, 4) int32 launch table ``(field, start, end, is_source)``
+    of one field's grid cells or source tiles, at most ``run_pieces``
+    tiles (or as many cells) a run: one kernel block stages a run's
+    source tiles together and runs every walker of its group against
+    them. ``waves`` is, for the value and the value+gradient kernel, the
+    number of blocks that fill the card once at ``run_pieces`` (0 off
+    the card). ``logf`` is relative to ``_LOGF_REF``. ``sums`` is
+    (nshards, 4) float64: each shard's ``(n, sum(lum - lref), sum P, sum
+    ln Omega0)`` over its unmasked sources, the sums of
+    :func:`_collapsed`, for the theta-affine source terms.
     """
 
     g_logf: torch.Tensor     # log10 flux - _LOGF_REF
@@ -422,13 +448,56 @@ class CudaStreamData:
     s_r: torch.Tensor
     s_mask: torch.Tensor
     sums: torch.Tensor       # (nshards, 4) float64
-    chunks: torch.Tensor
+    runs: torch.Tensor
+    run_pieces: int
+    waves: tuple             # (value, value+gradient) blocks per wave
     grid_off: tuple
     src_off: tuple
     lref: float
     nfields: int
     fcmin: float
     nshards: int
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_blocks_per_sm(index: int, vg: bool, run_pieces: int) -> int:
+    """Blocks of a streaming partial kernel (``vg``: the value+gradient
+    one) that one SM of CUDA device ``index`` holds at once, with runs of
+    ``run_pieces`` tiles staged: the card's own occupancy query, made
+    once per device (a failed query raises and is not kept)."""
+    from lumfuncmcmc_tpu_torch.ops._build import load_library
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = load_library().free_stream_blocks_per_sm(
+            int(vg), run_pieces, ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"streaming kernel occupancy query failed: CUDA "
+                           f"error {rc}, {blocks.value} blocks per SM")
+    return blocks.value
+
+
+def _run_pieces(ntiles: int, wave) -> int:
+    """Source tiles per run of the streaming kernels: the fewest that let
+    the ``ceil(ntiles / run)`` source runs fill at most half of the value
+    kernel's wave, ``wave(run)`` blocks, so that the wave holds two walker
+    groups of every run (one group, with runs cut to fill the whole wave,
+    left a third of the card idle: PERF.md), at most ``STREAM_MAX_RUN``
+    (the shared memory of a block's staged tiles)."""
+    for rp in range(1, STREAM_MAX_RUN):
+        if 2 * -(-ntiles // rp) <= wave(rp):
+            return rp
+    return STREAM_MAX_RUN
+
+
+def _stream_waves(device: torch.device, run_pieces: int) -> tuple:
+    """(value, value+gradient): blocks of each streaming partial kernel
+    that fill ``device`` once at ``run_pieces`` tiles a run; (0, 0) off
+    the card, where nothing launches."""
+    if device.type != "cuda":
+        return (0, 0)
+    nsm = torch.cuda.get_device_properties(device).multi_processor_count
+    return tuple(nsm * _stream_blocks_per_sm(device.index, vg, run_pieces)
+                 for vg in (False, True))
 
 
 def prepare_cuda_stream_data(ctx: LFContext, fcmin: float, nshards: int = 1,
@@ -453,8 +522,7 @@ def prepare_cuda_stream_data(ctx: LFContext, fcmin: float, nshards: int = 1,
     logf = ctx.logf_src.double().cpu().numpy() - _LOGF_REF
     om0 = ctx.omega0_src.double().cpu().numpy() / SQARCSEC_PER_SR
     mask = ctx.src_mask.double().cpu().numpy()
-    a = LN10 * (lum - lref)
-    terms = np.stack([mask, mask * a,
+    terms = np.stack([mask, mask * (lum - lref),
                       mask * 10.0 ** np.clip(lum - lref, -30.0, 25.0),
                       mask * np.log(np.maximum(om0, 1e-300))])
     sel_f = [np.nonzero(fid == f)[0] for f in range(nf)]
@@ -478,12 +546,17 @@ def prepare_cuda_stream_data(ctx: LFContext, fcmin: float, nshards: int = 1,
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
+    # on the CPU (no wave) every run is as long as a block can stage
+    rlen = _run_pieces(src_off[-1] // CHUNK_CELLS,
+                       lambda rp: _stream_waves(device, rp)[0])
     return CudaStreamData(
         g_logf=t(g["logf"]), g_a=t(g["a"]), g_p=t(g["p"]), g_r=t(g["r"]),
         g_w=t(g["w"]), s_logf=t(s_logf), s_r=t(s_r), s_mask=t(s_mask),
         sums=torch.as_tensor(sums, dtype=torch.float64, device=device),
-        chunks=torch.as_tensor(_chunk_table(grid_off, src_off),
-                               device=device),
+        runs=torch.as_tensor(_chunk_table(grid_off, src_off,
+                                          rlen * CHUNK_CELLS),
+                             device=device),
+        run_pieces=rlen, waves=_stream_waves(device, rlen),
         grid_off=grid_off, src_off=src_off, lref=lref, nfields=nf,
         fcmin=float(fcmin) if fcmin else 0.0, nshards=int(nshards))
 
@@ -491,6 +564,22 @@ def prepare_cuda_stream_data(ctx: LFContext, fcmin: float, nshards: int = 1,
 # ---------------------------------------------------------------------------
 # feature maps (theta -> per-walker kernel scalars)
 # ---------------------------------------------------------------------------
+#
+# Every map runs in float64 and returns float64 rows whose values are
+# rounded to the kernels' dtype (:func:`_round_st`): the kernels read
+# exactly these numbers, and so do the float64 terms added on the host
+# (the collapsed ln-terms), so every feature that the grid integral and
+# the source sum share is the same number in both. Near the mode the two
+# parts cancel to O(1) out of ~N: were they to read two different
+# roundings of ``LN10 phistar`` (~1e-6 apart), lnL would move by ~N 1e-6,
+# independently for two close thetas.
+
+def _round_st(f, dtype):
+    """float64 ``f`` rounded to ``dtype`` and held as float64. The
+    rounding is a straight-through one: autograd sees the identity, so
+    the gradient stays float64."""
+    return f + (f.to(dtype).double() - f).detach()
+
 
 def _feat_free_one(theta, layout: ThetaLayout, lref: float, fcmin: float):
     """(W, D) thetas -> (W, 6+2F) free-completeness features::
@@ -521,33 +610,41 @@ def _feat_free_one(theta, layout: ThetaLayout, lref: float, fcmin: float):
     ], dim=1)
 
 
-def _feat_fixed_one(theta, data: CudaGridData, layout: ThetaLayout):
-    """(W, D) thetas -> (W, 5) fixed-completeness features
-    ``[c_grid, aA, lA, t1, lnpart]``; the O(1) collapsed ln-term
-    (``_ln_term_collapsed``) rides along as ``lnpart`` so the kernel
-    emits the complete lnlike. It is computed in float64, with the
-    catalog sum taken relative to ``lref``."""
+def _feat_fixed_one(theta, layout: ThetaLayout, lref: float):
+    """(W, D) thetas -> (W, 4) fixed-completeness features
+    ``[c_grid, aA, lA, t1]`` (``c_grid = LN10*phistar``, the rest as in
+    :func:`_feat_free_one`)."""
     lstar, phistar, sch_al, _, _ = layout.unpack(theta)
-    n, sum_rel, sum_pow, sum_om = data.ln_sums
-    dl = data.lref - lstar.double()
-    lnpart = (n * (_LOG_LN10 + LN10 * phistar.double())
-              + LN10 * (sch_al.double() + 1.0) * (sum_rel + n * dl)
-              - torch.exp(LN10 * dl) * sum_pow + sum_om)
-    return torch.stack([LN10 * phistar, sch_al + 1.0,
-                        LN10 * (lstar - data.lref),
-                        10.0 ** (data.lref - lstar),
-                        lnpart.to(theta.dtype)], dim=1)
+    return torch.stack([LN10 * phistar, sch_al + 1.0, LN10 * (lstar - lref),
+                        10.0 ** (lref - lstar)], dim=1)
+
+
+def _collapsed(n, sum_rel, sum_pow, sum_om, c, aA, lA, t1):
+    """The collapsed ln-term ``sum mask [ln(ln10) + c + aA (a - lA) - P t1
+    + ln Omega]`` of a source set from its float64 catalog sums (count,
+    ``sum(lum - lref)``, ``sum P``, ``sum ln Omega``) and the rounded
+    features."""
+    return (n * (_LOG_LN10 + c) + aA * (LN10 * sum_rel - n * lA)
+            - t1 * sum_pow + sum_om)
+
+
+def _fixed_collapsed(feats, data: CudaGridData):
+    """(W,) float64: fixed completeness's collapsed ln-term
+    (``_ln_term_collapsed``) from the rounded features, added on the
+    host after the kernel's grid integral."""
+    return _collapsed(*data.ln_sums, *feats.unbind(dim=1))
 
 
 def _features(thetas, data: CudaGridData, layout: ThetaLayout, dtype):
-    """(W, D) thetas -> the kernels' contiguous feature rows in ``dtype``:
-    :func:`_clamp_flim`, then the completeness family's feature map."""
-    th = _clamp_flim(thetas, layout)
+    """(W, D) thetas -> the single-epoch kernels' feature rows, rounded
+    to ``dtype`` (:func:`_round_st`): :func:`_clamp_flim`, then the
+    completeness family's feature map."""
+    th = _clamp_flim(thetas.double(), layout)
     if layout.fix_comp:
-        feats = _feat_fixed_one(th, data, layout)
+        feats = _feat_fixed_one(th, layout, data.lref)
     else:
         feats = _feat_free_one(th, layout, data.lref, data.fcmin)
-    return feats.to(dtype).contiguous()
+    return _round_st(feats, dtype)
 
 
 def _feat_z_one(theta, layout: ThetaLayoutZ, lref: float):
@@ -578,87 +675,80 @@ def _feat_z_one(theta, layout: ThetaLayoutZ, lref: float):
 
 
 def _features_z(thetas, data: CudaZData, layout: ThetaLayoutZ, dtype):
-    """(W, D) thetas -> the z kernels' contiguous (W, 7) feature rows in
+    """(W, D) thetas -> the z kernels' (W, 7) feature rows, rounded to
     ``dtype``. The pivot algebra runs in float64 (its differences of
     ~42-sized pivots over ~0.3-sized spacings lose ~1e-5 relative in
     float32). Thetas are clamped to the prior box first: a row the
     caller masks keeps finite features, whatever its theta, so its
-    gradient is an exact 0."""
+    gradient is an exact 0. The source sum is in the kernel, beside the
+    grid integral, so both read the same rounded features."""
     th = torch.clamp(thetas.double(), data.lo, data.hi)
-    return _feat_z_one(th, layout, data.lref).to(dtype).contiguous()
+    return _round_st(_feat_z_one(th, layout, data.lref), dtype)
 
 
 def _feat_h_one(theta, data: CudaGridData, layout: ThetaLayoutH):
-    """(W, D) float64 hierarchical thetas -> (W, 2+3F) features, the
-    column order of the TPU's ``_feat_h_one``::
+    """(W, D) float64 hierarchical thetas -> (W, 1+3F) features, the
+    column order of the TPU's ``_feat_h_one`` without its ``lnrest``::
 
-        0 aA = sch_al + 1        1 lnrest
-        2+3f c_f = LN10*phistar_f    3+3f lA_f = LN10*(Lstar_f - lref)
-        4+3f t1_f = 10^(lref - Lstar_f)
-
-    ``lnrest`` is the sum of the per-field collapsed ln-terms plus the
-    Gaussian population hyperprior; like ``_feat_fixed_one``'s
-    ``lnpart`` it takes the catalog sums relative to ``lref``.
+        0 aA = sch_al + 1
+        1+3f c_f = LN10*phistar_f    2+3f lA_f = LN10*(Lstar_f - lref)
+        3+3f t1_f = 10^(lref - Lstar_f)
     """
-    mu_l, sig_l, mu_p, sig_p, sch_al, lstar_f, phistar_f = \
-        layout.unpack(theta)
-    n, sum_rel, sum_pow, sum_om = data.ln_sums_f
+    _, _, _, _, sch_al, lstar_f, phistar_f = layout.unpack(theta)
     dl = data.lref - lstar_f
-    aA = sch_al + 1.0
-    lnpart_f = (n * (_LOG_LN10 + LN10 * phistar_f)
-                + LN10 * aA[:, None] * (sum_rel + n * dl)
-                - torch.exp(LN10 * dl) * sum_pow + sum_om)
-    hyper = (_ln_normal(lstar_f, mu_l[:, None], sig_l[:, None])
-             + _ln_normal(phistar_f, mu_p[:, None], sig_p[:, None]))
     per_field = torch.stack([LN10 * phistar_f, -LN10 * dl,
                              torch.exp(LN10 * dl)], dim=2)
-    return torch.cat([torch.stack([aA, (lnpart_f + hyper).sum(dim=1)],
-                                  dim=1),
+    return torch.cat([(sch_al + 1.0)[:, None],
                       per_field.reshape(theta.shape[0], -1)], dim=1)
 
 
 def _features_hier(thetas, data: CudaGridData, layout: ThetaLayoutH, dtype):
-    """(W, D) thetas -> the hierarchical kernels' contiguous (W, 2+3F)
-    feature rows in ``dtype``. The map runs in float64: ``lnrest`` sums
-    ~1e4-sized terms of both signs, and the hyperprior's ``-ln sig``
-    and ``((x - mu)/sig)^2`` must keep their O(1) size beside them.
-    Thetas are clamped to the prior box first, so a row the caller
-    masks (``Lstar_f`` far outside, ``sig <= 0``) keeps finite features
-    and its gradient is an exact 0."""
+    """(W, D) thetas -> the hierarchical kernels' (W, 1+3F) feature rows,
+    rounded to ``dtype``. Thetas are clamped to the prior box first, so a
+    row the caller masks (``Lstar_f`` far outside, ``sig <= 0``) keeps
+    finite features and its gradient is an exact 0."""
     th = torch.clamp(thetas.double(), data.lo, data.hi)
-    return _feat_h_one(th, data, layout).to(dtype).contiguous()
+    return _round_st(_feat_h_one(th, data, layout), dtype)
+
+
+def _hier_collapsed(feats, thetas, data: CudaGridData, layout: ThetaLayoutH):
+    """(W,) float64 ``lnrest``: the per-field collapsed ln-terms from
+    the rounded features and the per-field float64 catalog sums, plus
+    the Gaussian population hyperprior. The hyperprior is O(1) and
+    smooth, so it is taken from the float64 (clamped) thetas; its ``-ln
+    sig`` and ``((x - mu)/sig)^2`` keep their size beside the ~1e4-sized
+    terms of both signs only in float64."""
+    th = torch.clamp(thetas.double(), data.lo, data.hi)
+    mu_l, sig_l, mu_p, sig_p, _, lstar_f, phistar_f = layout.unpack(th)
+    pf = feats[:, 1:].reshape(feats.shape[0], -1, 3)
+    lnpart_f = _collapsed(*data.ln_sums_f, pf[..., 0], feats[:, :1],
+                          pf[..., 1], pf[..., 2])
+    hyper = (_ln_normal(lstar_f, mu_l[:, None], sig_l[:, None])
+             + _ln_normal(phistar_f, mu_p[:, None], sig_p[:, None]))
+    return (lnpart_f + hyper).sum(dim=1)
 
 
 def _features_stream(thetas, data: CudaStreamData, layout: ThetaLayout,
                      dtype):
-    """(W, D) thetas -> the streaming kernels' (W, 6+2F) feature rows:
-    :func:`_feat_free_one`'s columns with ``lF50_f - _LOGF_REF`` (formed
-    in float64, where ``lF50 ~ -16`` keeps its digits), each value
-    rounded to ``dtype`` and held as float64. The rounding is a
-    straight-through one: autograd sees the identity, so the gradient
-    stays float64. The kernel and :func:`_stream_collapsed` both read
-    these rounded values, so every feature that the grid integral and
-    the source sum share is the same number in both (near the mode the
-    two parts cancel to O(1) out of ~1e6)."""
+    """(W, D) thetas -> the streaming kernels' (W, 6+2F) feature rows,
+    rounded to ``dtype``: :func:`_feat_free_one`'s columns with ``lF50_f
+    - _LOGF_REF`` (formed in float64, where ``lF50 ~ -16`` keeps its
+    digits)."""
     th = _clamp_flim(thetas.double(), layout)
     f = _feat_free_one(th, layout, data.lref, data.fcmin)
     nf = data.nfields
     f = torch.cat([f[:, :6], f[:, 6:6 + nf] - _LOGF_REF, f[:, 6 + nf:]],
                   dim=1)
-    return f + (f.to(dtype).double() - f).detach()
+    return _round_st(f, dtype)
 
 
 def _stream_collapsed(feats, data: CudaStreamData, shard: int = 0):
-    """(W,) float64: shard ``shard``'s theta-affine source terms, ``sum
-    mask [c_s + aA (a - lA) - P t1 + ln Omega0]``, from its float64
-    catalog sums, with ``c_s = c_g + ln(ln10)`` (the value of
-    ``_feat_free_one``'s column 1, taken from column 0 so that the grid
-    and source parts share one rounding of ``phistar``)."""
-    n, sum_a, sum_p, sum_om = data.sums[shard]
-    return (n * (feats[:, 0] + _LOG_LN10)
-            + feats[:, 2] * (sum_a - n * feats[:, 3])
-            - feats[:, 4] * sum_p + sum_om)
-
+    """(W,) float64: shard ``shard``'s theta-affine source terms,
+    :func:`_collapsed` of its float64 catalog sums, with ``c_s = c_g +
+    ln(ln10)`` (``_feat_free_one``'s column 1 taken from column 0, so
+    that the grid and source parts share one rounding of ``phistar``)."""
+    return _collapsed(*data.sums[shard], feats[:, 0], feats[:, 2],
+                      feats[:, 3], feats[:, 4])
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path and the on-card reference)
@@ -676,12 +766,19 @@ def _ln_fc(logf, r, ac, lf50, t2, fcmin):
     return lf / (1.0 - torch.exp(-(r * t2)))
 
 
+def _s64(x):
+    """Row sums in float64 of terms evaluated in their own dtype (the
+    kernels' float32 terms, double sums)."""
+    return x.double().sum(dim=1)
+
+
 def free_lnlike_reference(feats, data: CudaGridData):
     """Plain version of the free-completeness kernel: the same factored
-    math per field, in the dtype of ``feats``. (W, 6+2F) -> (W,)."""
+    math per field, each term in the dtype of ``feats``, the sums in
+    float64. (W, 6+2F) -> (W,) float64."""
     nf, fcmin = data.nfields, data.fcmin
     c_g, c_s, aA, lA, t1, ac = (feats[:, i:i + 1] for i in range(6))
-    tot = torch.zeros(feats.shape[0], dtype=feats.dtype,
+    tot = torch.zeros(feats.shape[0], dtype=torch.float64,
                       device=feats.device)
     for f in range(nf):
         lf50 = feats[:, 6 + f:7 + f]
@@ -689,22 +786,24 @@ def free_lnlike_reference(feats, data: CudaGridData):
         g = slice(data.grid_off[f], data.grid_off[f + 1])
         e = (c_g + aA * (data.g_a[g] - lA) - data.g_p[g] * t1
              + _ln_fc(data.g_logf[g], data.g_r[g], ac, lf50, t2, fcmin))
-        tot = tot - (torch.exp(e) * data.g_w[g]).sum(dim=1)
+        tot = tot - _s64(torch.exp(e) * data.g_w[g])
         s = slice(data.src_off[f], data.src_off[f + 1])
         contrib = (c_s + aA * (data.s_a[s] - lA) - data.s_p[s] * t1
                    + data.s_lnom0[s]
                    + _ln_fc(data.s_logf[s], data.s_r[s], ac, lf50, t2,
                             fcmin))
-        tot = tot + torch.where(data.s_mask[s] > 0.0, contrib,
-                                torch.zeros_like(contrib)).sum(dim=1)
+        tot = tot + _s64(torch.where(data.s_mask[s] > 0.0, contrib,
+                                     torch.zeros_like(contrib)))
     return tot
 
 
 def fixed_lnlike_reference(feats, data: CudaGridData):
-    """Plain version of the fixed-completeness kernel. (W, 5) -> (W,)."""
-    c, aA, lA, t1, lnpart = (feats[:, i:i + 1] for i in range(5))
+    """Plain version of the fixed-completeness kernel: minus the grid
+    integral (:func:`_fixed_collapsed` completes the lnlike).
+    (W, 4) -> (W,) float64."""
+    c, aA, lA, t1 = (feats[:, i:i + 1] for i in range(4))
     e = c + aA * (data.g_a - lA) - data.g_p * t1
-    return lnpart[:, 0] - (torch.exp(e) * data.g_w).sum(dim=1)
+    return -_s64(torch.exp(e) * data.g_w)
 
 
 def _fc_terms(logf, r, ac, lf50, t2, fcmin):
@@ -728,11 +827,12 @@ def _fc_terms(logf, r, ac, lf50, t2, fcmin):
 def free_lnlike_vg_reference(feats, data: CudaGridData):
     """Plain version of the free-completeness value+gradient kernel:
     (W, 6+2F) features -> (W, 7+2F) rows ``[lnl, d_cg, d_cs, d_aA, d_lA,
-    d_t1, d_ac, d_lf50_0.., d_t2_0..]``, the column order of
+    d_t1, d_ac, d_lf50_0.., d_t2_0..]`` in float64, the column order of
     ``_kernel_free_vg``; ``d_t2`` is 0 when ``fcmin = 0``."""
     nf, fcmin = data.nfields, data.fcmin
     c_g, c_s, aA, lA, t1, ac = (feats[:, i:i + 1] for i in range(6))
-    zero = torch.zeros(feats.shape[0], dtype=feats.dtype,
+    aA1, ac1 = aA[:, 0].double(), ac[:, 0].double()
+    zero = torch.zeros(feats.shape[0], dtype=torch.float64,
                        device=feats.device)
     lnl, d_cg, d_cs, d_aA, d_lA, d_t1, d_ac = (zero,) * 7
     d_lf, d_t2 = [], []
@@ -745,14 +845,14 @@ def free_lnlike_vg_reference(feats, data: CudaGridData):
         am = data.g_a[g] - lA
         p = data.g_p[g]
         e = torch.exp(c_g + aA * am - p * t1 + lnfc) * data.g_w[g]
-        s0 = e.sum(dim=1)
+        s0 = _s64(e)
         lnl, d_cg = lnl - s0, d_cg - s0
-        d_lA = d_lA + aA[:, 0] * s0
-        d_aA = d_aA - (e * am).sum(dim=1)
-        d_t1 = d_t1 + (e * p).sum(dim=1)
-        d_ac = d_ac - (e * dfx * (logf - lf50)).sum(dim=1)
-        lf_f = ac[:, 0] * (e * dfx).sum(dim=1)
-        t2_f = -(e * dft).sum(dim=1)
+        d_lA = d_lA + aA1 * s0
+        d_aA = d_aA - _s64(e * am)
+        d_t1 = d_t1 + _s64(e * p)
+        d_ac = d_ac - _s64(e * dfx * (logf - lf50))
+        lf_f = ac1 * _s64(e * dfx)
+        t2_f = -_s64(e * dft)
 
         s = slice(data.src_off[f], data.src_off[f + 1])
         m = data.s_mask[s]
@@ -761,16 +861,16 @@ def free_lnlike_vg_reference(feats, data: CudaGridData):
         am = data.s_a[s] - lA
         p = data.s_p[s]
         contrib = c_s + aA * am - p * t1 + data.s_lnom0[s] + lnfc
-        lnl = lnl + torch.where(m > 0.0, contrib,
-                                torch.zeros_like(contrib)).sum(dim=1)
-        s0 = m.sum()
+        lnl = lnl + _s64(torch.where(m > 0.0, contrib,
+                                     torch.zeros_like(contrib)))
+        s0 = m.double().sum()
         d_cs = d_cs + s0
-        d_lA = d_lA - aA[:, 0] * s0
-        d_aA = d_aA + (m * am).sum(dim=1)
-        d_t1 = d_t1 - (m * p).sum()
-        d_ac = d_ac + (m * dfx * (logf - lf50)).sum(dim=1)
-        d_lf.append(lf_f - ac[:, 0] * (m * dfx).sum(dim=1))
-        d_t2.append(t2_f + (m * dft).sum(dim=1))
+        d_lA = d_lA - aA1 * s0
+        d_aA = d_aA + _s64(m * am)
+        d_t1 = d_t1 - (m * p).double().sum()
+        d_ac = d_ac + _s64(m * dfx * (logf - lf50))
+        d_lf.append(lf_f - ac1 * _s64(m * dfx))
+        d_t2.append(t2_f + _s64(m * dft))
     return torch.stack([lnl, d_cg, d_cs, d_aA, d_lA, d_t1, d_ac]
                        + d_lf + d_t2, dim=1)
 
@@ -791,12 +891,12 @@ def free_stream_lnlike_reference(feats, data: CudaStreamData, shard=0):
         g = slice(data.grid_off[f], data.grid_off[f + 1])
         e = (c_g + aA * (data.g_a[g] - lA) - data.g_p[g] * t1
              + _ln_fc(data.g_logf[g], data.g_r[g], ac, lf50, t2, fcmin))
-        tot = tot - (torch.exp(e) * data.g_w[g]).double().sum(dim=1)
+        tot = tot - _s64(torch.exp(e) * data.g_w[g])
         s = slice(data.src_off[f], data.src_off[f + 1])
         lnfc = _ln_fc(data.s_logf[shard, s], data.s_r[shard, s], ac, lf50,
                       t2, fcmin)
-        tot = tot + torch.where(data.s_mask[shard, s] > 0.0, lnfc,
-                                torch.zeros_like(lnfc)).double().sum(dim=1)
+        tot = tot + _s64(torch.where(data.s_mask[shard, s] > 0.0, lnfc,
+                                     torch.zeros_like(lnfc)))
     return tot
 
 
@@ -812,10 +912,7 @@ def free_stream_lnlike_vg_reference(feats, data: CudaStreamData, shard=0):
                        device=feats.device)
     lnl, d_cg, d_aA, d_lA, d_t1, d_ac = (zero,) * 6
     d_lf, d_t2 = [], []
-
-    def s64(x):
-        return x.double().sum(dim=1)
-
+    s64 = _s64
     for f in range(nf):
         lf50 = feats[:, 6 + f:7 + f]
         t2 = feats[:, 6 + nf + f:7 + nf + f]
@@ -849,27 +946,48 @@ def free_stream_lnlike_vg_reference(feats, data: CudaStreamData, shard=0):
 
 def fixed_lnlike_vg_reference(feats, data: CudaGridData):
     """Plain version of the fixed-completeness value+gradient kernel:
-    (W, 5) -> (W, 6) rows ``[lnl, d_c, d_aA, d_lA, d_t1, d_lnpart]``."""
-    c, aA, lA, t1, lnpart = (feats[:, i:i + 1] for i in range(5))
+    (W, 4) -> (W, 5) float64 rows ``[lnl, d_c, d_aA, d_lA, d_t1]`` of
+    :func:`fixed_lnlike`'s part of the lnlike."""
+    c, aA, lA, t1 = (feats[:, i:i + 1] for i in range(4))
     am = data.g_a - lA
     e = torch.exp(c + aA * am - data.g_p * t1) * data.g_w
-    s0 = e.sum(dim=1)
-    return torch.stack([lnpart[:, 0] - s0, -s0, -(e * am).sum(dim=1),
-                        aA[:, 0] * s0, (e * data.g_p).sum(dim=1),
-                        torch.ones_like(s0)], dim=1)
+    s0 = _s64(e)
+    return torch.stack([-s0, -s0, -_s64(e * am), aA[:, 0].double() * s0,
+                        _s64(e * data.g_p)], dim=1)
 
 
 def _z_node_rows(th, data: CudaZData, f: int):
     """Per z node of field ``f``, each (W, S_z): ``dz``, ``dz2`` (1, S_z)
     and the hoisted ``lq = LN10 (Lstar(z) - lref)``, ``t1 = exp(-lq) =
     10^(lref - Lstar(z))`` and ``base = pr - aA lq`` with ``pr`` the
-    phistar quadratic."""
+    phistar quadratic, as ``(hi, lo)``: the node quantities are formed in
+    float64 from the features, as the kernels form them, ``lq`` rounded
+    once to the features' dtype and ``base = hi + lo`` split into two
+    numbers of that dtype. A cell adds ``hi`` last (:func:`_z_cells`): an
+    error in a node's ``base`` is shared by every cell of its column of
+    the grid, so it would not average out over the integral: in float32
+    it was the largest error in the lnp differences of close thetas at
+    10^5-10^6 sources."""
     sz = data.shape[2]
     dz = data.n_dz[f * sz:(f + 1) * sz][None, :]
     dz2 = data.n_dz2[f * sz:(f + 1) * sz][None, :]
-    lq = th[3] * dz2 + th[4] * dz + th[5]
-    pr = th[0] * dz2 + th[1] * dz + th[2]
-    return dz, dz2, lq, torch.exp(-lq), pr - th[6] * lq
+    t = [x.double() for x in th]
+    z1, z2 = dz.double(), dz2.double()
+    lq = t[3] * z2 + t[4] * z1 + t[5]
+    base = t[0] * z2 + t[1] * z1 + t[2] - t[6] * lq
+    dt = th[0].dtype
+    lq, hi = lq.to(dt), base.to(dt)
+    return dz, dz2, lq, torch.exp(-lq), (hi, (base - hi.double()).to(dt))
+
+
+def _z_cells(th, data: CudaZData, f: int):
+    """Field ``f``'s (W, S_L, S_z) cell terms ``exp(base + aA a - P t1) w``
+    (with :func:`_z_node_rows`' split ``base``) and its node rows."""
+    dz, dz2, lq, t1, (hi, lo) = _z_node_rows(th, data, f)
+    a, p, w = _z_panel(data, f)
+    e = hi[:, None, :] + ((th[6][:, :, None] * a - p * t1[:, None, :])
+                          + lo[:, None, :])
+    return torch.exp(e) * w, (dz, dz2, lq, t1), (a, p)
 
 
 def _z_panel(data: CudaZData, f: int):
@@ -884,41 +1002,38 @@ def z_lnlike_reference(feats, data: CudaZData):
     """Plain version of the z-model kernel, in its hoisted form: per
     field and z node ``t1`` and ``base`` once, then one exp per cell,
     ``exp(base + aA a - P t1) w``; per source ``ln phi(a_s, z_s) +
-    ln Omega_s`` with no clamp on ``x = a_s - lq``. (W, 7) -> (W,)."""
+    ln Omega_s`` with no clamp on ``x = a_s - lq``; each term in the
+    dtype of ``feats``, the sums in float64. (W, 7) -> (W,) float64."""
     th = [feats[:, i:i + 1] for i in range(7)]
-    tot = torch.zeros(feats.shape[0], dtype=feats.dtype,
+    tot = torch.zeros(feats.shape[0], dtype=torch.float64,
                       device=feats.device)
     for f in range(data.shape[0]):
-        _, _, _, t1, base = _z_node_rows(th, data, f)
-        a, p, w = _z_panel(data, f)
-        e = base[:, None, :] + th[6][:, :, None] * a - p * t1[:, None, :]
-        tot = tot - (torch.exp(e) * w).sum(dim=(1, 2))
+        tot = tot - _z_cells(th, data, f)[0].double().sum(dim=(1, 2))
     lq = th[3] * data.s_dz2 + th[4] * data.s_dz + th[5]
     x = data.s_a - lq
     contrib = (th[0] * data.s_dz2 + th[1] * data.s_dz + th[2] + th[6] * x
                - torch.exp(x) + data.s_lnom0)
-    return tot + torch.where(data.s_mask > 0.0, contrib,
-                             torch.zeros_like(contrib)).sum(dim=1)
+    return tot + _s64(torch.where(data.s_mask > 0.0, contrib,
+                                  torch.zeros_like(contrib)))
 
 
 def z_lnlike_vg_reference(feats, data: CudaZData):
     """Plain version of the z-model value+gradient kernel: (W, 7)
-    features -> (W, 8) rows ``[lnl, d/d(f0..f6)]``. Per z node three
-    column sums over the L rows (``E``, ``E P``, ``E a``) are contracted
-    with ``dz``, ``dz2``, ``t1`` and ``lq``; the source part clamps ``x``
-    at ``X_CLAMP``, as ``_kernel_z_vg`` does."""
+    features -> (W, 8) float64 rows ``[lnl, d/d(f0..f6)]``. Per z node
+    three column sums over the L rows (``E``, ``E P``, ``E a``) are
+    contracted with ``dz``, ``dz2``, ``t1`` and ``lq``; the source part
+    clamps ``x`` at ``X_CLAMP``, as ``_kernel_z_vg`` does. Terms in the
+    dtype of ``feats``, sums and contractions in float64."""
     th = [feats[:, i:i + 1] for i in range(7)]
-    aA = th[6][:, 0]
-    zero = torch.zeros(feats.shape[0], dtype=feats.dtype,
+    aA = th[6][:, 0].double()
+    zero = torch.zeros(feats.shape[0], dtype=torch.float64,
                        device=feats.device)
     lnl, d = zero, [zero] * 7
     for f in range(data.shape[0]):
-        dz, dz2, lq, t1, base = _z_node_rows(th, data, f)
-        a, p, w = _z_panel(data, f)
-        e = torch.exp(base[:, None, :] + th[6][:, :, None] * a
-                      - p * t1[:, None, :]) * w
-        col_e = e.sum(dim=1)                                # (W, S_z)
-        tp = t1 * (e * p).sum(dim=1)
+        e, (dz, dz2, lq, t1), (a, p) = _z_cells(th, data, f)
+        col_e = e.double().sum(dim=1)                       # (W, S_z)
+        tp = t1.double() * (e * p).double().sum(dim=1)
+        dz, dz2, lq = dz.double(), dz2.double(), lq.double()
         s0 = col_e.sum(dim=1)
         cez, cez2 = (col_e * dz).sum(dim=1), (col_e * dz2).sum(dim=1)
         lnl = lnl - s0
@@ -926,39 +1041,41 @@ def z_lnlike_vg_reference(feats, data: CudaZData):
              d[3] + aA * cez2 - (tp * dz2).sum(dim=1),
              d[4] + aA * cez - (tp * dz).sum(dim=1),
              d[5] + aA * s0 - tp.sum(dim=1),
-             d[6] - ((e * a).sum(dim=(1, 2)) - (lq * col_e).sum(dim=1))]
+             d[6] - ((e * a).double().sum(dim=(1, 2))
+                     - (lq * col_e).sum(dim=1))]
     m, dz, dz2 = data.s_mask, data.s_dz, data.s_dz2
     lq = th[3] * dz2 + th[4] * dz + th[5]
     x = torch.clamp(data.s_a - lq, max=X_CLAMP)
     ex = torch.exp(x)
     contrib = (th[0] * dz2 + th[1] * dz + th[2] + th[6] * x - ex
                + data.s_lnom0)
-    lnl = lnl + torch.where(m > 0.0, contrib,
-                            torch.zeros_like(contrib)).sum(dim=1)
+    lnl = lnl + _s64(torch.where(m > 0.0, contrib,
+                                 torch.zeros_like(contrib)))
     mr = m * (th[6] - ex)
-    d = [d[0] + (m * dz2).sum(), d[1] + (m * dz).sum(), d[2] + m.sum(),
-         d[3] - (mr * dz2).sum(dim=1), d[4] - (mr * dz).sum(dim=1),
-         d[5] - mr.sum(dim=1), d[6] + (m * x).sum(dim=1)]
+    d = [d[0] + (m * dz2).double().sum(), d[1] + (m * dz).double().sum(),
+         d[2] + m.double().sum(), d[3] - _s64(mr * dz2),
+         d[4] - _s64(mr * dz), d[5] - _s64(mr), d[6] + _s64(m * x)]
     return torch.stack([lnl] + d, dim=1)
 
 
 def _hier_field_sums(feats, data: CudaGridData, f: int):
-    """Field ``f``'s ``(s0, s1, s2)``, each (W,): the sums over its cells
-    of ``e``, ``e (a - lA_f)`` and ``e P`` with ``e = exp(c_f + aA (a -
-    lA_f) - P t1_f) w``."""
+    """Field ``f``'s ``(s0, s1, s2)``, each (W,) float64: the sums over
+    its cells of ``e``, ``e (a - lA_f)`` and ``e P`` with ``e = exp(c_f +
+    aA (a - lA_f) - P t1_f) w``, each term in the dtype of ``feats``."""
     aA = feats[:, 0:1]
-    c, lA, t1 = (feats[:, 2 + 3 * f + i:3 + 3 * f + i] for i in range(3))
+    c, lA, t1 = (feats[:, 1 + 3 * f + i:2 + 3 * f + i] for i in range(3))
     g = slice(data.grid_off[f], data.grid_off[f + 1])
     am = data.g_a[g] - lA
     e = torch.exp(c + aA * am - data.g_p[g] * t1) * data.g_w[g]
-    return e.sum(dim=1), (e * am).sum(dim=1), (e * data.g_p[g]).sum(dim=1)
+    return _s64(e), _s64(e * am), _s64(e * data.g_p[g])
 
 
 def hier_lnlike_reference(feats, data: CudaGridData):
-    """Plain version of the hierarchical kernel: ``lnrest`` minus every
-    field's integral at its own ``(c_f, lA_f, t1_f)``.
-    (W, 2+3F) -> (W,)."""
-    tot = feats[:, 1]
+    """Plain version of the hierarchical kernel: minus every field's
+    integral at its own ``(c_f, lA_f, t1_f)`` (:func:`_hier_collapsed`
+    completes the lnlike). (W, 1+3F) -> (W,) float64."""
+    tot = torch.zeros(feats.shape[0], dtype=torch.float64,
+                      device=feats.device)
     for f in range(data.nfields):
         tot = tot - _hier_field_sums(feats, data, f)[0]
     return tot
@@ -966,16 +1083,16 @@ def hier_lnlike_reference(feats, data: CudaGridData):
 
 def hier_lnlike_vg_reference(feats, data: CudaGridData):
     """Plain version of the hierarchical value+gradient kernel:
-    (W, 2+3F) -> (W, 3+3F) rows ``[lnl, d_aA, d_lnrest = 1, (d_c_f =
-    -s0_f, d_lA_f = aA s0_f, d_t1_f = s2_f) x F]``, the column order of
-    ``_kernel_hier_vg``."""
-    aA = feats[:, 0]
-    lnl, d_aA, cols = feats[:, 1], torch.zeros_like(aA), []
+    (W, 1+3F) -> (W, 2+3F) float64 rows ``[lnl, d_aA, (d_c_f = -s0_f,
+    d_lA_f = aA s0_f, d_t1_f = s2_f) x F]``, the column order of
+    ``_kernel_hier_vg`` without its ``lnrest`` column."""
+    aA = feats[:, 0].double()
+    lnl, d_aA, cols = torch.zeros_like(aA), torch.zeros_like(aA), []
     for f in range(data.nfields):
         s0, s1, s2 = _hier_field_sums(feats, data, f)
         lnl, d_aA = lnl - s0, d_aA - s1
         cols += [-s0, aA * s0, s2]
-    return torch.stack([lnl, d_aA, torch.ones_like(aA)] + cols, dim=1)
+    return torch.stack([lnl, d_aA] + cols, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -986,7 +1103,7 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _check_cuda_inputs(feats, nfeat, data, arrays):
+def _check_cuda_inputs(feats, nfeat, table, arrays):
     if feats.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32 features, got "
                         f"{feats.dtype}")
@@ -998,7 +1115,7 @@ def _check_cuda_inputs(feats, nfeat, data, arrays):
                          f"the kernel's 1..{MAX_ROWS} launch range")
     if not feats.is_contiguous():
         raise ValueError("features must be contiguous")
-    for a in arrays + (data.chunks,):
+    for a in arrays + (table,):
         if a.device != feats.device:
             raise ValueError(f"grid data on {a.device}, features on "
                              f"{feats.device}")
@@ -1023,9 +1140,9 @@ def _signature(name, data):
     if name.startswith("z"):
         return _Z_ARRAYS, 7, data.shape[1:], ()
     if name.startswith("hier"):
-        return _FIXED_ARRAYS, 2 + 3 * data.nfields, (data.nfields,), ()
+        return _FIXED_ARRAYS, 1 + 3 * data.nfields, (data.nfields,), ()
     if name.startswith("fixed"):
-        return _FIXED_ARRAYS, 5, (), ()
+        return _FIXED_ARRAYS, 4, (), ()
     return (_FREE_ARRAYS, 6 + 2 * data.nfields, (data.nfields,),
             (int(bool(data.fcmin)),))
 
@@ -1033,20 +1150,20 @@ def _signature(name, data):
 def _launch(name, feats, data, slots, out_cols):
     """Check the inputs and launch kernel ``name`` of ``csrc/`` on the
     current stream of ``feats``' device, with a (W, nchunks, ``slots``)
-    scratch buffer; returns the (W,) output, or (W, ``out_cols``) when
-    ``out_cols`` is set. Raises on any failure."""
+    double scratch buffer; returns the float64 (W,) output, or (W,
+    ``out_cols``) when ``out_cols`` is set. Raises on any failure."""
     if feats.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {feats.device}")
     from lumfuncmcmc_tpu_torch.ops._build import load_library
     names, nfeat, head, flags = _signature(name, data)
     arrays = tuple(getattr(data, a) for a in names)
-    _check_cuda_inputs(feats, nfeat, data, arrays)
+    _check_cuda_inputs(feats, nfeat, data.chunks, arrays)
     lib = load_library()
     w, nchunks = feats.shape[0], data.chunks.shape[0]
-    partial = torch.empty((w, nchunks, slots), dtype=torch.float32,
+    partial = torch.empty((w, nchunks, slots), dtype=torch.float64,
                           device=feats.device)
     out = torch.empty((w, out_cols) if out_cols else (w,),
-                      dtype=torch.float32, device=feats.device)
+                      dtype=torch.float64, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     rc = getattr(lib, f"{name}_launch")(
         _ptr(feats), w, nfeat, *head, *(_ptr(a) for a in arrays),
@@ -1074,18 +1191,19 @@ def _launch_stream(name, feats, data: CudaStreamData, shard=0):
     nfeat = 6 + 2 * data.nfields
     arrays = (tuple(getattr(data, a) for a in _STREAM_GRID)
               + tuple(getattr(data, a)[shard] for a in _STREAM_SRC))
-    _check_cuda_inputs(feats, nfeat, data, arrays)
+    _check_cuda_inputs(feats, nfeat, data.runs, arrays)
     lib = load_library()
     grad = name.endswith("_vg")
-    w, nchunks = feats.shape[0], data.chunks.shape[0]
-    partial = torch.empty((w, nchunks, VG_STREAM_SLOTS if grad else 1),
+    w, nruns = feats.shape[0], data.runs.shape[0]
+    partial = torch.empty((w, nruns, VG_STREAM_SLOTS if grad else 1),
                           dtype=torch.float64, device=feats.device)
     out = torch.empty((w, 1 + nfeat) if grad else (w,), dtype=torch.float64,
                       device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     rc = getattr(lib, f"{name}_launch")(
         _ptr(feats), w, nfeat, data.nfields, *(_ptr(a) for a in arrays),
-        _ptr(data.chunks), nchunks, int(bool(data.fcmin)),
+        _ptr(data.runs), nruns, data.run_pieces, data.waves[grad],
+        int(bool(data.fcmin)),
         _ptr(partial), _ptr(out), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
@@ -1125,36 +1243,38 @@ def _wrapper(name, plain, launch, doc):
 
 free_lnlike = _wrapper(
     "free_lnlike", free_lnlike_reference, _resident(1),
-    "Free-completeness lnlike, (W, 6+2F) features -> (W,).")
+    "Free-completeness lnlike, (W, 6+2F) features -> (W,) float64.")
 fixed_lnlike = _wrapper(
     "fixed_lnlike", fixed_lnlike_reference, _resident(1),
-    "Fixed-completeness lnlike, (W, 5) features -> (W,).")
+    "Fixed-completeness lnlike without its collapsed ln-term, (W, 4) "
+    "features -> (W,) float64.")
 free_lnlike_vg = _wrapper(
     "free_lnlike_vg", free_lnlike_vg_reference,
     _resident(VG_FREE_SLOTS, lambda data: 7 + 2 * data.nfields),
     "Free-completeness lnlike and its feature gradient, (W, 6+2F) "
-    "features -> (W, 7+2F) rows.")
+    "features -> (W, 7+2F) float64 rows.")
 fixed_lnlike_vg = _wrapper(
     "fixed_lnlike_vg", fixed_lnlike_vg_reference,
-    _resident(VG_FIXED_SLOTS, lambda data: 6),
-    "Fixed-completeness lnlike and its feature gradient, (W, 5) features "
-    "-> (W, 6) rows.")
+    _resident(VG_FIXED_SLOTS, lambda data: 5),
+    "Fixed-completeness lnlike without its collapsed ln-term and its "
+    "feature gradient, (W, 4) features -> (W, 5) float64 rows.")
 z_lnlike = _wrapper(
     "z_lnlike", z_lnlike_reference, _resident(1),
-    "z-model lnlike, (W, 7) features -> (W,).")
+    "z-model lnlike, (W, 7) features -> (W,) float64.")
 z_lnlike_vg = _wrapper(
     "z_lnlike_vg", z_lnlike_vg_reference,
     _resident(VG_Z_SLOTS, lambda data: 8),
     "z-model lnlike and its feature gradient, (W, 7) features -> (W, 8) "
-    "rows.")
+    "float64 rows.")
 hier_lnlike = _wrapper(
     "hier_lnlike", hier_lnlike_reference, _resident(1),
-    "Hierarchical-model lnlike, (W, 2+3F) features -> (W,).")
+    "Hierarchical-model lnlike without ``lnrest``, (W, 1+3F) features "
+    "-> (W,) float64.")
 hier_lnlike_vg = _wrapper(
     "hier_lnlike_vg", hier_lnlike_vg_reference,
-    _resident(VG_HIER_SLOTS, lambda data: 3 + 3 * data.nfields),
-    "Hierarchical-model lnlike and its feature gradient, (W, 2+3F) "
-    "features -> (W, 3+3F) rows.")
+    _resident(VG_HIER_SLOTS, lambda data: 2 + 3 * data.nfields),
+    "Hierarchical-model lnlike without ``lnrest`` and its feature "
+    "gradient, (W, 1+3F) features -> (W, 2+3F) float64 rows.")
 free_stream_lnlike = _wrapper(
     "free_stream_lnlike", free_stream_lnlike_reference, _launch_stream,
     "Streaming free-completeness lnlike of one shard (``shard``, default "
@@ -1170,10 +1290,10 @@ free_stream_lnlike_vg = _wrapper(
 class _LnlikeOfFeats(torch.autograd.Function):
     """lnlike of (W, nfeat) features through one value+gradient call;
     the backward is one elementwise multiply by the saved gradient
-    columns (``_vg_scalar_from_rows``'s ``custom_vjp``). The features go
-    to the kernel in the data's dtype; the streaming path hands in
-    float64 features that are exact in it, so its value and gradient
-    stay float64."""
+    columns (``_vg_scalar_from_rows``'s ``custom_vjp``). The features
+    arrive as float64 values exact in the data's dtype
+    (:func:`_round_st`) and go to the kernel in that dtype; the kernels
+    return float64 rows, so value and gradient stay float64."""
 
     @staticmethod
     def forward(ctx, feats, data, vg):
@@ -1191,14 +1311,49 @@ class _LnlikeOfFeats(torch.autograd.Function):
 # the public make_* functions
 # ---------------------------------------------------------------------------
 
+def _family(ctx: LFContext, layout, model: str, kdtype):
+    """The kernel data of ``model`` in ``kdtype``, and its ``(features,
+    collapsed, prior test, value kernel, value+gradient kernel)``:
+    ``features(thetas)`` gives the rounded float64 rows,
+    ``collapsed(feats, thetas)`` the float64 terms the host adds (None:
+    the kernel's value is the whole lnlike)."""
+    if model == "z":
+        data = prepare_cuda_z_data(ctx, layout, dtype=kdtype)
+        return data, (_features_z, None, in_box_z, z_lnlike, z_lnlike_vg)
+    if model == "hier":
+        data = prepare_cuda_h_data(ctx, layout, dtype=kdtype)
+        return data, (_features_hier,
+                      lambda f, th: _hier_collapsed(f, th, data, layout),
+                      in_box, hier_lnlike, hier_lnlike_vg)
+    if model != "single":
+        raise NotImplementedError(f"model {model!r} has no kernel yet")
+    if layout.fix_comp:
+        data = prepare_cuda_data(ctx, True, dtype=kdtype)
+        return data, (_features, lambda f, th: _fixed_collapsed(f, data),
+                      in_box, fixed_lnlike, fixed_lnlike_vg)
+    if ctx.lum.shape[0] >= STREAM_MIN_SOURCES:
+        data = prepare_cuda_stream_data(ctx, layout.fcmin, dtype=kdtype)
+        return data, (_features_stream,
+                      lambda f, th: _stream_collapsed(f, data),
+                      in_box, free_stream_lnlike, free_stream_lnlike_vg)
+    data = prepare_cuda_data(ctx, False, layout.fcmin, dtype=kdtype)
+    return data, (_features, None, in_box, free_lnlike, free_lnlike_vg)
+
+
 def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
     """The common body of the ``make_*`` functions. On a CUDA context
     the kernels run in float32 whatever the context's dtype (as the TPU
     kernels do) and the kernel library is built and loaded here, so the
     first lnprob call (inside the sampler's timed window) does not pay
     for it; on the CPU the plain versions run in the context's dtype.
-    The result comes back in the thetas' dtype, -inf outside the
-    prior."""
+    Free completeness from ``STREAM_MIN_SOURCES`` sources on takes the
+    streaming kernels (``batched.stream`` is then ``(sources, source
+    tiles)``).
+
+    The kernel's float64 value plus, where the family has them, the
+    collapsed ln-terms, both from the same rounded float64 features, are
+    summed in float64; then the thetas' dtype and the prior mask: -inf
+    outside the prior."""
     device = ctx.lum.device
     if device.type == "cuda":
         from lumfuncmcmc_tpu_torch.ops._build import load_library
@@ -1206,56 +1361,25 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
     kdtype = torch.float32 if device.type == "cuda" else ctx.lum.dtype
     # bounds made once: a host tensor per call would sync the device
     lo, hi = layout.bounds_arrays(ctx.lum.dtype, device)
-    if model == "z":
-        data = prepare_cuda_z_data(ctx, layout, dtype=kdtype)
-        features, inside = _features_z, in_box_z
-        value, vg = z_lnlike, z_lnlike_vg
-    elif model == "single":
-        if not layout.fix_comp and ctx.lum.shape[0] >= STREAM_MIN_SOURCES:
-            return _make_stream_lnprob(ctx, layout, grad, kdtype, lo, hi)
-        data = prepare_cuda_data(ctx, layout.fix_comp, layout.fcmin,
-                                 dtype=kdtype)
-        features, inside = _features, in_box
-        value, vg = ((fixed_lnlike, fixed_lnlike_vg) if layout.fix_comp
-                     else (free_lnlike, free_lnlike_vg))
-    elif model == "hier":
-        data = prepare_cuda_h_data(ctx, layout, dtype=kdtype)
-        features, inside = _features_hier, in_box
-        value, vg = hier_lnlike, hier_lnlike_vg
-    else:
-        raise NotImplementedError(f"model {model!r} has no kernel yet")
+    data, (features, collapsed, inside, value, vg) = _family(
+        ctx, layout, model, kdtype)
 
     def batched(thetas):
         feats = features(thetas, data, layout, kdtype)
-        lnl = (_LnlikeOfFeats.apply(feats, data, vg) if grad
-               else value(feats, data)).to(thetas.dtype)
+        part = (_LnlikeOfFeats.apply(feats, data, vg) if grad
+                else value(feats.to(kdtype), data))
+        if collapsed is not None:
+            part = part + collapsed(feats, thetas)
+        lnl = part.to(thetas.dtype)
         return torch.where(inside(thetas, lo, hi), lnl,
                            torch.full_like(lnl, -math.inf))
 
-    batched.engine = "cuda" if device.type == "cuda" else "plain"
-    return batched
-
-
-def _make_stream_lnprob(ctx: LFContext, layout: ThetaLayout, grad: bool,
-                        kdtype, lo, hi):
-    """:func:`_make_lnprob`'s body for the streaming kernels: the kernel's
-    float64 part plus :func:`_stream_collapsed`, both from the same
-    rounded features, in float64; then the thetas' dtype and the prior
-    mask. ``batched.stream`` is ``(sources, source tiles)``."""
-    data = prepare_cuda_stream_data(ctx, layout.fcmin, dtype=kdtype)
-
-    def batched(thetas):
-        feats = _features_stream(thetas, data, layout, kdtype)
-        part = (_LnlikeOfFeats.apply(feats, data, free_stream_lnlike_vg)
-                if grad else free_stream_lnlike(feats.to(kdtype), data))
-        lnl = (part + _stream_collapsed(feats, data)).to(thetas.dtype)
-        return torch.where(in_box(thetas, lo, hi), lnl,
-                           torch.full_like(lnl, -math.inf))
-
-    batched.engine = ("cuda-stream" if ctx.lum.device.type == "cuda"
-                      else "plain-stream")
-    batched.stream = (int(ctx.lum.shape[0]),
-                      int((data.chunks[:, 3] == 1).sum()))
+    on_card = device.type == "cuda"
+    batched.engine = "cuda" if on_card else "plain"
+    if isinstance(data, CudaStreamData):
+        batched.engine += "-stream"
+        batched.stream = (int(ctx.lum.shape[0]),
+                          data.src_off[-1] // CHUNK_CELLS)
     return batched
 
 
@@ -1280,8 +1404,8 @@ def make_cuda_lnprob_h(ctx: LFContext, layout: ThetaLayoutH):
     """(W, D) -> (W,) hierarchical-model lnprob through
     :func:`hier_lnlike`, with the semantics of ``make_lnprob_h``: the
     per-field grid integrals run in the kernel, the collapsed ln-terms
-    and the population hyperprior ride along as the ``lnrest`` feature,
-    and the box prior masks outside the kernel (counterpart of
+    and the population hyperprior (``lnrest``) are added on the host in
+    float64, and the box prior masks outside the kernel (counterpart of
     ``make_pallas_lnprob_h``, ``pallas_lnlike.py:1574``, without its
     VMEM gate and its fallback)."""
     return _make_lnprob(ctx, layout, "hier", grad=False)

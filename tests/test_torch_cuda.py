@@ -51,7 +51,7 @@ def test_kernel_matches_plain_version(device, fix_comp, w):
     gen = torch.Generator(device=device).manual_seed(w)
     feats = cl._features(sample_init(gen, layout, w, dtype=torch.float32,
                                      device=device), data, layout,
-                         torch.float32)
+                         torch.float32).float()
     before = (cl.free_lnlike.launches, cl.fixed_lnlike.launches)
     if fix_comp:
         got = cl.fixed_lnlike(feats, data)
@@ -117,7 +117,7 @@ def _vg_feats(cfg, layout, ctx, data, w, device):
     lo, hi = layout.bounds_arrays(torch.float32, device)
     th = sample_init(gen, layout, w, dtype=torch.float32, device=device)
     th = 0.7 * (lo + hi) / 2 + 0.3 * th         # where a chain moves
-    return cl._features(th, data, layout, torch.float32)
+    return cl._features(th, data, layout, torch.float32).float()
 
 
 @pytest.mark.parametrize("fix_comp", [False, True])
@@ -155,7 +155,7 @@ def test_vg_wrapper_rejects_what_the_kernel_cannot_take(device):
     with pytest.raises(ValueError, match="features must be"):
         cl.fixed_lnlike_vg(torch.zeros((4, 6), device=device), fixed)
     with pytest.raises(ValueError, match="launch range"):
-        cl.fixed_lnlike_vg(torch.zeros((65536, 5), device=device), fixed)
+        cl.fixed_lnlike_vg(torch.zeros((65536, 4), device=device), fixed)
     cpu_data = cl.prepare_cuda_data(_context(cfg, "cpu"), False, cfg.fcmin)
     with pytest.raises(ValueError, match="grid data on cpu"):
         cl.free_lnlike_vg(torch.zeros((4, 16), device=device), cpu_data)
@@ -215,7 +215,7 @@ def test_z_kernels_match_plain_versions(device, w, size_ln):
         gen, layout, w, dtype=torch.float32, device=device)
     th[0, 1] = layout.hi[1]
     th[-1, 0] = 1000.0
-    feats = cl._features_z(th, data, layout, torch.float32)
+    feats = cl._features_z(th, data, layout, torch.float32).float()
     for kernel, plain, cols in (
             (cl.z_lnlike, cl.z_lnlike_reference, None),
             (cl.z_lnlike_vg, cl.z_lnlike_vg_reference, 8)):
@@ -297,11 +297,11 @@ def test_hier_kernels_match_plain_versions(device, w, size_ln, fix_sch_al):
         gen, layout, w, dtype=torch.float32, device=device)
     th[0, 1] = 0.0
     th[-1, layout.ndim - 2 * nf] = 1000.0
-    feats = cl._features_hier(th, data, layout, torch.float32)
-    assert feats.shape == (w, 2 + 3 * nf) and torch.isfinite(feats).all()
+    feats = cl._features_hier(th, data, layout, torch.float32).float()
+    assert feats.shape == (w, 1 + 3 * nf) and torch.isfinite(feats).all()
     for kernel, plain, cols in (
             (cl.hier_lnlike, cl.hier_lnlike_reference, None),
-            (cl.hier_lnlike_vg, cl.hier_lnlike_vg_reference, 3 + 3 * nf)):
+            (cl.hier_lnlike_vg, cl.hier_lnlike_vg_reference, 2 + 3 * nf)):
         n0 = kernel.launches
         got = kernel(feats, data).cpu().numpy()
         ref = plain(feats, data).cpu().numpy()
@@ -311,7 +311,6 @@ def test_hier_kernels_match_plain_versions(device, w, size_ln, fix_sch_al):
         if cols:
             np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=1e-4)
             _grad_close(got[:, 1:], ref[:, 1:])
-            np.testing.assert_array_equal(got[:, 2], 1.0)
         else:
             np.testing.assert_allclose(got, ref, rtol=1e-4)
 
@@ -323,14 +322,14 @@ def test_hier_wrappers_reject_what_the_kernels_cannot_take(device):
     cpu_data = cl.prepare_cuda_h_data(_context(cfg, "cpu"), layout)
     for fn in (cl.hier_lnlike, cl.hier_lnlike_vg):
         with pytest.raises(TypeError, match="float32"):
-            fn(torch.zeros((4, 17), device=device, dtype=torch.float64),
+            fn(torch.zeros((4, 16), device=device, dtype=torch.float64),
                data)
         with pytest.raises(ValueError, match="features must be"):
             fn(torch.zeros((4, 5), device=device), data)
         with pytest.raises(ValueError, match="launch range"):
-            fn(torch.zeros((65536, 17), device=device), data)
+            fn(torch.zeros((65536, 16), device=device), data)
         with pytest.raises(ValueError, match="grid data on cpu"):
-            fn(torch.zeros((4, 17), device=device), cpu_data)
+            fn(torch.zeros((4, 16), device=device), cpu_data)
 
 
 def test_hier_step_loop_never_synchronises_and_is_deterministic(device):
@@ -414,6 +413,33 @@ def test_stream_vg_kernel_matches_plain_version(device, w):
     assert (got[:, 2] == 0).all()
     cols = [c for c in range(1, got.shape[1]) if c != 2]
     _grad_close(got[:, cols], ref[:, cols])
+
+
+def test_stream_kernels_match_plain_versions_without_fcmin(device):
+    """The fcmin = 0 branch of both streaming kernels (no faint-end decay
+    term: t2 unused, its gradient columns 0) against their plain versions
+    on the card: values rtol 1e-5, gradient columns by ``_grad_close``."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=41, fcmin=0.0)
+    layout = ThetaLayout.from_config(cfg)
+    ctx = _context(cfg, device, dtype=torch.float64)
+    data = cl.prepare_cuda_stream_data(ctx, cfg.fcmin, dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(13)
+    lo, hi = layout.bounds_arrays(torch.float64, device)
+    th = 0.7 * (lo + hi) / 2 + 0.3 * sample_init(
+        gen, layout, 13, dtype=torch.float64, device=device)
+    feats = cl._features_stream(th, data, layout,
+                                torch.float32).float().contiguous()
+    np.testing.assert_allclose(
+        cl.free_stream_lnlike(feats, data).cpu().numpy(),
+        cl.free_stream_lnlike_reference(feats, data).cpu().numpy(),
+        rtol=1e-5)
+    got = cl.free_stream_lnlike_vg(feats, data).cpu().numpy()
+    ref = cl.free_stream_lnlike_vg_reference(feats, data).cpu().numpy()
+    np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=1e-5)
+    nf = layout.nfields
+    assert (got[:, 7 + nf:] == 0).all() and (got[:, 2] == 0).all()
+    _grad_close(got[:, [1, 3, 4, 5, 6] + list(range(7, 7 + nf))],
+                ref[:, [1, 3, 4, 5, 6] + list(range(7, 7 + nf))])
 
 
 def test_stream_shards_sum_to_the_whole(device):

@@ -33,7 +33,8 @@ from lumfuncmcmc_tpu.config import LFConfig
 from lumfuncmcmc_tpu.models import hierarchical as jh
 from lumfuncmcmc_tpu.models.context import build_context as jax_build
 from lumfuncmcmc_tpu.ops.pallas_lnlike import (
-    make_pallas_lnprob_and_grad, make_pallas_lnprob_h)
+    _features_hier as tpu_features_hier, make_pallas_lnprob_and_grad,
+    make_pallas_lnprob_h, prepare_pallas_data)
 from lumfuncmcmc_tpu.utils.synth import apply_completeness_cut, make_catalog
 from lumfuncmcmc_tpu_torch import LFConfig as PortConfig
 from lumfuncmcmc_tpu_torch.cosmology import COSMO_FIELDS
@@ -258,16 +259,15 @@ def test_h_feature_gradient_columns_match_autograd(fix_sch_al):
     nf = tl.nfields
     feats = cl._features_hier(torch.as_tensor(_central(tl, 7, 3)), data, tl,
                               torch.float64)
-    assert feats.shape == (7, 2 + 3 * nf)
+    assert feats.shape == (7, 1 + 3 * nf)
     rows = cl.hier_lnlike_vg_reference(feats, data).numpy()
-    assert rows.shape == (7, 3 + 3 * nf)
+    assert rows.shape == (7, 2 + 3 * nf)
     f = feats.clone().requires_grad_(True)
     lnl = cl.hier_lnlike_reference(f, data)
     (g,) = torch.autograd.grad(lnl.sum(), f)
     np.testing.assert_allclose(rows[:, 0], lnl.detach().numpy(), rtol=1e-12)
     np.testing.assert_allclose(rows[:, 1:], g.numpy(), rtol=1e-9,
                                atol=1e-9 * np.abs(g.numpy()).max())
-    np.testing.assert_array_equal(rows[:, 2], 1.0)
     # the wrappers take the plain versions for a CPU tensor
     np.testing.assert_array_equal(cl.hier_lnlike_vg(feats, data).numpy(),
                                   rows)
@@ -340,7 +340,7 @@ def test_h_wrappers_never_fall_back_to_the_plain_version():
     tl = th_.ThetaLayoutH.from_config(cfg)
     ctx = context_from_arrays(arrays, "cpu", torch.float32)
     data = cl.prepare_cuda_h_data(ctx, tl)
-    nfeat = 2 + 3 * tl.nfields
+    nfeat = 1 + 3 * tl.nfields
     before = (cl.hier_lnlike.launches, cl.hier_lnlike_vg.launches)
     for fn in (cl.hier_lnlike, cl.hier_lnlike_vg):
         with pytest.raises(ValueError, match="unsupported device"):
@@ -402,6 +402,73 @@ def test_float32_h_gradient_on_the_fit_sized_catalog():
     np.testing.assert_allclose(v, v64, rtol=5e-4)
     _grad_close(g, g64)
     _grad_close(g, g64, rtol=2e-4)     # what the feature layout buys
+
+
+def test_tpu_form_float32_h_features_are_an_order_less_exact():
+    """Why the port's hierarchical features differ from the TPU kernels':
+    on the fit-sized catalog, at 32 prior-shrunk thetas, each form's
+    float32 features against float64. The TPU's (``_features_hier`` on a
+    float32 context, as a TPU run takes it: absolute luminosities, ``LN10
+    logL - LN10 Lstar_f`` of two ~98-sized numbers, and ``lnrest`` summed
+    in float32 as a feature) against the port's
+    (``lref``-relative luminosities; ``lnrest`` in float64 from the
+    rounded features): every field's grid integral taken with the exact
+    exp of each form's float32 exponent, and ``lnrest``. The port's are
+    at least 10x closer to float64 in both."""
+    cfg, cat, _, _ = _fit_sized()
+    jcfg = LFConfig(min_comp_frac=0.5, size_ln=41, fix_comp=True)
+    jctx, jctx32 = (jax_build(jcfg, z=cat["z"], flux=cat["flux"],
+                              flux_e=cat["flux_e"],
+                              field_id=cat["field_id"], dtype=dt)[1]
+                    for dt in (jnp.float64, jnp.float32))
+    jl = jh.ThetaLayoutH.from_config(jcfg)
+    tl = th_.ThetaLayoutH.from_config(cfg)
+    th = _central(tl, 32, 3)
+    tpu = np.asarray(tpu_features_hier(jnp.asarray(th, jnp.float32), jctx32,
+                                       jl, float(jctx32.lref)))
+    assert tpu.dtype == np.float32
+    tpu_grid = prepare_pallas_data(jctx32, fix_comp=True, flat=True)
+    ctx = context_from_arrays(_arrays(jctx), "cpu", torch.float64)
+    data64 = cl.prepare_cuda_h_data(ctx, tl)
+    data = cl.prepare_cuda_h_data(ctx, tl, dtype=torch.float32)
+    t = torch.tensor(th)
+    port = cl._features_hier(t, data, tl, torch.float32)
+    _, _, _, _, sch_al, lstar, phistar = (
+        np.asarray(x) for x in tl.unpack(t))
+    logL = np.asarray(jctx.logL_grid, dtype=np.float64)
+    w = np.asarray(jctx.w_fixed, dtype=np.float64) * np.log(10.0)
+    ln10 = np.log(10.0)
+
+    def integral(e, f):
+        return (np.exp(e.astype(np.float64)) * w[f].ravel()).sum(axis=1)
+
+    pf = port.float().numpy()
+    err_tpu = err_port = 0.0
+    for f in range(tl.nfields):
+        ll = logL[f].ravel()[None, :]
+        want = integral(ln10 * phistar[:, f:f + 1]
+                        + (sch_al[:, None] + 1.0) * ln10
+                        * (ll - lstar[:, f:f + 1])
+                        - 10.0 ** (ll - lstar[:, f:f + 1]), f)
+        at = tpu_grid.grid_rows[f][0]
+        ga = np.asarray(tpu_grid.g_a, np.float32)[:, at:at + ll.size]
+        gp = np.asarray(tpu_grid.g_p, np.float32)[:, at:at + ll.size]
+        c, lA, t1 = (tpu[:, 2 + 3 * f + i:3 + 3 * f + i] for i in range(3))
+        e = c + tpu[:, :1] * (ga - lA) - gp * t1
+        err_tpu = max(err_tpu, float(np.abs(integral(e, f) - want).max()))
+        g = slice(data.grid_off[f], data.grid_off[f + 1])
+        c, lA, t1 = (pf[:, 1 + 3 * f + i:2 + 3 * f + i] for i in range(3))
+        e = (c + pf[:, :1] * (data.g_a[g].numpy()[None, :] - lA)
+             - data.g_p[g].numpy()[None, :] * t1)
+        err_port = max(err_port, float(np.abs(integral(e, f) - want).max()))
+    lnrest = cl._hier_collapsed(cl._features_hier(t, data64, tl,
+                                                  torch.float64),
+                                t, data64, tl).numpy()
+    rest_tpu = float(np.abs(tpu[:, 1].astype(np.float64) - lnrest).max())
+    rest_port = float(np.abs(cl._hier_collapsed(port, t, data, tl).numpy()
+                             - lnrest).max())
+    assert err_port * 10 < err_tpu, (err_port, err_tpu)
+    assert rest_port * 10 < rest_tpu, (rest_port, rest_tpu)
 
 
 def test_h_model_starts_ignore_diff_rand_as_in_jax():

@@ -171,7 +171,7 @@ def test_cuda_tensor_never_falls_back_to_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         cl.free_lnlike(torch.zeros((4, 16), device="meta"), data)
     with pytest.raises(ValueError, match="unsupported device"):
-        cl.fixed_lnlike(torch.zeros((4, 5), device="meta"), fixed)
+        cl.fixed_lnlike(torch.zeros((4, 4), device="meta"), fixed)
     with FakeTensorMode(allow_non_fake_inputs=True):
         feats = torch.zeros((4, 16), device="cuda")
         with pytest.raises(ValueError, match="grid data on cpu"):

@@ -218,11 +218,45 @@ def test_shard_layout_deals_each_field_round_robin():
             m = data.s_mask[k, data.src_off[f]:data.src_off[f + 1]].numpy()
             assert m[:n].all() and not m[n:].any()
     np.testing.assert_allclose(data.sums[:, 0].sum().item(), len(fid))
-    tiles = data.chunks[data.chunks[:, 3] == 1]
-    assert int(tiles[:, 2].max()) == data.src_off[-1]
+    src_runs = data.runs[data.runs[:, 3] == 1]
+    assert int(src_runs[:, 2].max()) == data.src_off[-1]
     one = cl.prepare_cuda_stream_data(c, cfg.fcmin)
     np.testing.assert_allclose(data.g_w.numpy() * 3, one.g_w.numpy(),
                                rtol=1e-15)
+
+
+@pytest.mark.parametrize("nshards", [1, 3])
+def test_run_table_cuts_each_field_into_runs_of_whole_tiles(nshards):
+    """The kernels' run table covers every grid cell and source slot once,
+    each run inside one field and of one kind, a source run a whole number
+    of tiles (at most ``run_pieces``) from a tile boundary, grid runs
+    first, each kind field by field. The run length is the fewest tiles
+    that fit the source runs in half of the value kernel's wave; off the
+    card there is no wave, and runs are as long as a block can stage."""
+    cfg, _, _, ctx = _setup()
+    data = cl.prepare_cuda_stream_data(ctx[torch.float64], cfg.fcmin,
+                                       nshards=nshards)
+    runs = data.runs.numpy()
+    assert runs.dtype == np.int32 and runs.shape[1] == 4
+    assert 1 <= data.run_pieces <= cl.STREAM_MAX_RUN
+    cover = {0: np.zeros(data.g_a.numel(), int),
+             1: np.zeros(data.s_logf.shape[1], int)}
+    for fld, a, b, src in runs:
+        off = data.src_off if src else data.grid_off
+        assert off[fld] <= a < b <= off[fld + 1]
+        assert b - a <= data.run_pieces * cl.CHUNK_CELLS
+        if src:
+            assert (a - off[fld]) % cl.CHUNK_CELLS == 0
+            assert (b - a) % cl.CHUNK_CELLS == 0
+        cover[int(src)][a:b] += 1
+    assert (cover[0] == 1).all() and (cover[1] == 1).all()
+    order = np.lexsort((runs[:, 1], runs[:, 0], runs[:, 3]))
+    np.testing.assert_array_equal(order, np.arange(len(runs)))
+    assert data.run_pieces == cl.STREAM_MAX_RUN and data.waves == (0, 0)
+    assert cl._run_pieces(400, lambda rp: 528) == 2
+    assert cl._run_pieces(10, lambda rp: 528) == 1
+    assert cl._run_pieces(10**6, lambda rp: 528) == cl.STREAM_MAX_RUN
+    assert cl._run_pieces(400, {1: 600, 2: 300, 3: 300, 4: 99}.get) == 3
 
 
 @pytest.mark.parametrize("fcmin", [0.1, 0.0])
@@ -307,7 +341,7 @@ def test_float32_stream_resolves_lnp_differences_that_resident_loses(
     data32 = cl.prepare_cuda_data(c64, False, cfg.fcmin,
                                   dtype=torch.float32)
     res = cl.free_lnlike(cl._features(th.float(), data32, layout,
-                                      torch.float32), data32).double()
+                                      torch.float32).float(), data32)
     monkeypatch.setattr(cl, "STREAM_MIN_SOURCES", 0)
     stream = cl._make_lnprob(c64, layout, "single", False)
     sdata = cl.prepare_cuda_stream_data(c64, cfg.fcmin,

@@ -190,12 +190,12 @@ def test_vg_wrappers_never_fall_back_to_the_plain_version():
     with pytest.raises(ValueError, match="unsupported device"):
         cl.free_lnlike_vg(torch.zeros((4, 16), device="meta"), data)
     with pytest.raises(ValueError, match="unsupported device"):
-        cl.fixed_lnlike_vg(torch.zeros((4, 5), device="meta"), fixed)
+        cl.fixed_lnlike_vg(torch.zeros((4, 4), device="meta"), fixed)
     with FakeTensorMode(allow_non_fake_inputs=True):
         with pytest.raises(ValueError, match="grid data on cpu"):
             cl.free_lnlike_vg(torch.zeros((4, 16), device="cuda"), data)
         with pytest.raises(TypeError, match="float32"):
-            cl.fixed_lnlike_vg(torch.zeros((4, 5), device="cuda",
+            cl.fixed_lnlike_vg(torch.zeros((4, 4), device="cuda",
                                            dtype=torch.float64), fixed)
     assert (cl.free_lnlike_vg.launches,
             cl.fixed_lnlike_vg.launches) == before

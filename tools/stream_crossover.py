@@ -19,6 +19,17 @@ close pairs of thetas (float64 thetas, as under ``use_x64``): the
 precision the gate decides. Then ``transcendental_peak``. Prints one line
 per measurement, the card's name and power limit, and the JSON summary
 last. Imports only the port.
+
+    python3 tools/stream_crossover.py --emulate [--sizes 20000,...]
+
+runs on the CPU instead (no card; the table behind
+``FLOAT32_MAX_SOURCES``): for each family of resident kernels (``fit
+-fc``, ``fitz``, ``fith`` and free completeness) and catalog size, the
+lnp-difference error of the same 32 close pairs against the float64 eager
+lnprob, (a) for a float64 run (float64 context and thetas, the kernels'
+plain float32 versions: float32 features and terms, float64 sums and
+collapsed terms, as the card computes them) and (b) for a float32 run
+(float32 context and thetas, the value cast to float32 at the end).
 """
 
 from __future__ import annotations
@@ -37,8 +48,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from lumfuncmcmc_tpu_torch import LFConfig  # noqa: E402
 from lumfuncmcmc_tpu_torch.models.context import build_context  # noqa: E402
+from lumfuncmcmc_tpu_torch.models.hierarchical import (  # noqa: E402
+    ThetaLayoutH, make_lnprob_h)
 from lumfuncmcmc_tpu_torch.models.likelihood import (  # noqa: E402
     ThetaLayout, make_lnprob)
+from lumfuncmcmc_tpu_torch.models.likelihood_z import (  # noqa: E402
+    ThetaLayoutZ, make_lnprob_z)
 from lumfuncmcmc_tpu_torch.ops import _build  # noqa: E402
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl  # noqa: E402
 from lumfuncmcmc_tpu_torch.ops.roofline import (  # noqa: E402
@@ -134,11 +149,93 @@ def check(name, got, ref, lnl_scale, cols):
     return err_v, err_g
 
 
+def emulate(sizes):
+    """The CPU emulation of the accept step's precision per family of
+    resident kernels (module docstring); one line per catalog size."""
+    base = LFConfig(min_comp_frac=0.5, quadrature="gauss")
+    fams = (("fixed", ThetaLayout, make_lnprob, "single"),
+            ("z", ThetaLayoutZ, make_lnprob_z, "z"),
+            ("hier", ThetaLayoutH, make_lnprob_h, "hier"),
+            ("free", ThetaLayout, make_lnprob, "single"))
+    rows = []
+    for n_target in sizes:
+        cat = apply_completeness_cut(
+            make_catalog(base, n_target=n_target, seed=7), base)
+        tt = cat["theta_true"]
+        vals = {"Lstar": tt["Lstar"], "phistar": tt["phistar"],
+                "sch_al": tt["sch_al"], "alpha": base.alpha,
+                "mu_L": tt["Lstar"], "sig_L": 0.3, "mu_p": tt["phistar"],
+                "sig_p": 0.5}
+        for k in (1, 2, 3):
+            vals[f"L{k}"], vals[f"phi{k}"] = tt["Lstar"], tt["phistar"]
+        for i, flim in enumerate(base.Flim):
+            vals[f"Flim_{i}"] = flim
+        kw = dict(z=cat["z"], flux=cat["flux"], flux_e=cat["flux_e"],
+                  field_id=cat["field_id"])
+        row = {"n_target": n_target, "nsrc": len(cat["z"])}
+        for fam, layout_cls, eager, model in fams:
+            cfg = base.replace(fix_comp=fam != "free")
+            ctx64 = build_context(cfg, dtype=torch.float64, **kw)[1]
+            ctx32 = build_context(cfg, dtype=torch.float32, **kw)[1]
+            layout = layout_cls.from_config(cfg)
+            center = torch.tensor(
+                [vals[n.split("_")[0] if n.split("_")[0] in
+                      ("Lstar", "phistar") else n] for n in layout.names],
+                dtype=torch.float64)
+            lo, hi = layout.bounds_arrays(torch.float64, "cpu")
+            gen = torch.Generator().manual_seed(5)
+            base_th = center + 0.001 * (hi - lo) * torch.randn(
+                (32, center.numel()), generator=gen, dtype=torch.float64)
+            th = torch.cat([base_th, base_th + 6e-5 * (hi - lo) * torch.randn(
+                base_th.shape, generator=gen, dtype=torch.float64)])
+            th = th.float().double()        # exact in both runs
+            want = eager(ctx64, layout)(th)
+            keep = cl.STREAM_MIN_SOURCES
+            cl.STREAM_MIN_SOURCES = 10**12      # the resident kernels
+            try:
+                data, (features, collapsed, _, value, vg) = cl._family(
+                    ctx64, layout, model, torch.float32)
+                f = features(th, data, layout, torch.float32)
+                extra = 0.0 if collapsed is None else collapsed(f, th)
+                f64_run = value(f.float(), data) + extra
+                f64_vg = vg(f.float(), data)[:, 0] + extra
+                f32_run = cl._make_lnprob(ctx32, layout, model, False)(
+                    th.float()).double()
+            finally:
+                cl.STREAM_MIN_SOURCES = keep
+            row[fam] = {
+                "float64_run": float((dlnp(f64_run) - dlnp(want)).abs().max()),
+                "float64_run_vg": float(
+                    (dlnp(f64_vg) - dlnp(want)).abs().max()),
+                "float32_run": float((dlnp(f32_run) - dlnp(want)).abs().max()),
+                "abs_lnl": float(want.abs().max())}
+        print(f"N = {row['nsrc']} sources ({n_target} drawn), |lnL| ~ "
+              f"{row['fixed']['abs_lnl']:.4e}: " + "; ".join(
+                  f"{fam} {row[fam]['float64_run']:.4f} / "
+                  f"{row[fam]['float64_run_vg']:.4f} (vg) / "
+                  f"{row[fam]['float32_run']:.4f} (float32 run)"
+                  for fam, *_ in fams), flush=True)
+        rows.append(row)
+    print(json.dumps({"emulation": rows}))
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--sizes", default="2000,20000,50000,80000,100000,"
-                    "200000,400000,700000,1200000")
+    ap.add_argument("--sizes", default=None,
+                    help="comma-separated n_target values (default: "
+                         "2000,...,1200000 on the card; 20000,...,200000 "
+                         "with --emulate)")
+    ap.add_argument("--emulate", action="store_true",
+                    help="the CPU emulation of the resident kernels' "
+                         "accept-step precision per family (no card)")
     args = ap.parse_args()
+    if args.emulate:
+        torch.set_num_threads(min(4, os.cpu_count() or 1))
+        return emulate([int(s) for s in (
+            args.sizes or "20000,30000,36000,40000,44000,50000,80000,"
+            "200000").split(",")])
+    args.sizes = args.sizes or ("2000,20000,50000,80000,100000,200000,"
+                                "400000,700000,1200000")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda:0")
@@ -170,12 +267,14 @@ def main():
                                          dtype=torch.float32)
         print(f"N = {nsrc} sources ({n_target} drawn), "
               f"{int(res.chunks.shape[0])} resident chunks, "
-              f"{int(st.chunks.shape[0])} stream pieces")
+              f"{int(st.runs.shape[0])} stream runs of up to "
+              f"{st.run_pieces} tiles, waves {st.waves}")
         row = {"n_target": n_target, "nsrc": nsrc}
         gen = torch.Generator(device=dev).manual_seed(n_target)
         for w, vg in ((50, False), (8, True), (256, True)):
             th = central_thetas(cat, cfg, layout, w, gen, dev)
-            fr = cl._features(th.float(), res, layout, torch.float32)
+            fr = cl._features(th.float(), res, layout,
+                              torch.float32).float()
             fs = cl._features_stream(th, st, layout,
                                      torch.float32).float().contiguous()
             kr = cl.free_lnlike_vg if vg else cl.free_lnlike
