@@ -27,7 +27,11 @@ failure ends the run with a nonzero exit:
    (values rtol 1e-4, gradients by the JAX package's ``_grad_close`` rule
    at 2e-3), and the theta-level value+gradient against float64 eager
    autograd (5e-4, 2e-3), the z model under both ``z_param``s, the
-   hierarchical one with and without ``-fsa``;
+   hierarchical one with and without ``-fsa``; the one-launch kernels
+   (``free_lnlike_vg``, ``hier_lnlike_vg``) also two launches on one
+   input bit for bit, and at the NUTS shapes their time at W = 1 too and
+   its split: the kernel's own device time (``torch.profiler``) beside
+   an empty kernel's in the same harness;
 5. the port's ``fit`` CLI end to end (100 walkers x 2000 steps on a
    2000-source synthetic catalog), free and fixed completeness: the JAX
    CLI's artifact set, finite Ln Prob, a sane acceptance fraction, and
@@ -125,6 +129,9 @@ from lumfuncmcmc_tpu_torch.utils.synth import (
 RTOL_KERNEL = 1e-4   # f32 sums of <= 2e5 terms in another order
 RTOL_F64 = 5e-4      # the JAX package's Pallas-vs-f64 bar
 RTOL_GRAD = 2e-3     # the JAX package's gradient bar (_grad_close)
+# value+gradient kernels of one launch a call: held bit for bit over two
+# launches, and their time split in phase 4
+ONE_LAUNCH = ("free_lnlike_vg", "hier_lnlike_vg")
 NSTEPS, NWALKERS, NSYNTH = 2000, 100, 2000
 NUTS_CHAINS, NUTS_WARMUP = 8, 200
 # NUTS samples by kernel family (warmup is the CLI's 200 and holds most of
@@ -239,6 +246,40 @@ def _device_ms(fn, inner=20, reps=15):
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
+
+
+def _kernel_us(fn, calls=50):
+    """Each CUDA kernel's own device time per ``fn()`` call (us), by name,
+    from ``torch.profiler`` over ``calls`` eager calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        name = re.sub(r"^void ", "", evt.key.split("(")[0]).strip()
+        out[name] = out.get(name, 0.0) + us / calls
+    return out
+
+
+def _empty_ms():
+    """One empty kernel's time in the :func:`_device_ms` harness: the
+    floor under every kernel's."""
+    lib = _build.load_library()
+
+    def empty():
+        rc = lib.empty_launch(1, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"empty_launch: CUDA error {rc}")
+    return _device_ms(empty)
 
 
 def _call_ms(fn, inner=50, reps=9):
@@ -545,9 +586,13 @@ def phase_vg_kernels(dev):
     """Value+gradient kernels vs their plain versions, and the
     theta-level value+gradient vs float64 eager autograd, on the card."""
     summary = {}
+    empty_ms = _empty_ms()
+    print(f"an empty kernel: {empty_ms * 1e3:.2f} us (graph replay)")
     for case in _cases(dev, "_vg"):
         kname, grid, layout, data = (case.kname, case.grid, case.layout,
                                      case.data)
+        one = kname in ONE_LAUNCH
+        nuts_shape = grid in ("trapz-101", "trapz-201")
         kernel = getattr(cl, kname)
         plain = getattr(cl, kname + "_reference")
         lo, hi = layout.bounds_arrays(torch.float64, dev)
@@ -566,10 +611,14 @@ def phase_vg_kernels(dev):
                 _spoil(case, th)
             feats = case.features(th.float()).float()
             got = kernel(feats, data)
+            again = kernel(feats, data) if one else got
             ref = plain(feats, data)
             torch.cuda.synchronize()
             if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
                 fail(f"{kname} {grid} W={w}: non-finite raw rows")
+            if not torch.equal(got, again):
+                fail(f"{kname} {grid} W={w}: two launches on one input "
+                     "differ")
             ok = case.inside(th, lo, hi)
             err_v = _rel(got[ok, 0], ref[ok, 0])
             err_g = _grad_rel(got[ok, 1:], ref[ok, 1:])
@@ -587,7 +636,7 @@ def phase_vg_kernels(dev):
             print(f"{kname} {grid} W={w}: kernel vs plain value max rel "
                   f"{err_v:.3e}, gradient {err_g:.3e}; theta-level vs f64 "
                   f"eager autograd value {err_tv:.3e}, gradient "
-                  f"{err_tg:.3e}")
+                  f"{err_tg:.3e}" + "; two launches bit-identical" * one)
             if err_v > RTOL_KERNEL or err_g > RTOL_GRAD:
                 fail(f"{kname} {grid} W={w}: kernel vs plain {err_v:.3e} "
                      f"(value), {err_g:.3e} (gradient)")
@@ -596,7 +645,8 @@ def phase_vg_kernels(dev):
                      f"{err_tv:.3e} (value), {err_tg:.3e} (gradient)")
             rec["max_rel_err"] = max(rec["max_rel_err"], err_v)
             rec["max_grad_err"] = max(rec["max_grad_err"], err_g)
-            if w == 1 or grid.endswith(("natural", "fsa")):
+            if (w == 1 and not (one and nuts_shape)) or grid.endswith(
+                    ("natural", "fsa")):
                 continue    # the same kernel on the same data
             if w == 8:
                 # the absolute error where a fit spends its steps (prior
@@ -623,11 +673,22 @@ def phase_vg_kernels(dev):
                   f"{ms * 1e3:.2f} us, plain {pms * 1e3:.2f} us, bound "
                   f"{bms * 1e3:.4f} us ({by}: {nb} bytes, {nops} f32 "
                   "operations)")
-            if grid in ("trapz-101", "trapz-201"):       # the NUTS shapes
+            if nuts_shape:
                 key = "" if w == 8 else f"_w{w}"
                 rec.update({f"ms{key}": ms, f"plain_ms{key}": pms,
                             f"bound_ms{key}": bms, f"bound_by{key}": by,
                             f"trans{key}": ntr})
+                if one:
+                    kus = _kernel_us(lambda: kernel(f_w, data))
+                    rec[f"split{key}"] = {"call_us": ms * 1e3,
+                                          "kernels_us": kus,
+                                          "empty_kernel_us": empty_ms * 1e3}
+                    print(f"{kname} {grid} W={w} split: one launch; "
+                          f"{ms * 1e3:.2f} us a call (graph replay), the "
+                          f"kernel's own device time "
+                          f"{ {k: round(v, 2) for k, v in kus.items()} } "
+                          f"us (torch.profiler), an empty kernel "
+                          f"{empty_ms * 1e3:.2f} us")
                 if w == 8:
                     rec["call_ms"] = _call_ms(lambda: kernel(f_w, data))
                     rec["shape"] = (f"W=8, {grid}, "
@@ -1448,7 +1509,8 @@ def main():
         if len(REPLACES[name]) > 1:
             row["also_replaces"] = REPLACES[name][1]
         for k in ("max_grad_err", "ms_w256", "plain_ms_w256",
-                  "bound_ms_w256", "resident_ms", "resident_ms_w256",
+                  "bound_ms_w256", "ms_w1", "split", "split_w1",
+                  "split_w256", "resident_ms", "resident_ms_w256",
                   "dlnp_err", "resident_dlnp_err", "lnprob_call_ms",
                   "elements_per_sec",
                   "transcendentals_per_sec"):

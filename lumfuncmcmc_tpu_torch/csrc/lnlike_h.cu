@@ -29,22 +29,41 @@
 // per stretch half-step, W = 8 NUTS chains) a call is 1.6-10 M cell
 // evaluations of 8-12 float32 operations over 2.4 MB of grid arrays that
 // stay in L2 across walkers: launch latency and the dependent exp chain per
-// thread bound it, not bytes. The design is fixed_lnlike's:
+// thread bound it, not bytes. hier_lnlike's design is fixed_lnlike's:
 //   - grid (nchunks, W): block (c, w) reduces chunk c of the host table
 //     (field, start, end, is_source), at most 2048 cells of ONE field, for
 //     walker w, and reads that field's (c_f, lA_f, t1_f) from the feature
 //     row: the per-field lookup costs three loads per block;
-//   - each thread keeps K sums in registers (K = 1, or 3 for _vg), the block
-//     reduces them with warp shuffles and writes them to a (W, nchunks, K)
-//     scratch buffer; a second small kernel sums each walker's partials in
-//     fixed chunk order in double (per field for _vg, from tiles staged in
-//     shared memory): no float atomics, identical results run to run.
+//   - each thread keeps its sum in a register, the block reduces it with
+//     warp shuffles and writes it to a (W, nchunks) scratch buffer; a
+//     second small kernel sums each walker's partials in fixed chunk order
+//     in double: no float atomics, identical results run to run.
+// hier_lnlike_vg was built so too (three sums, a per-field finish); its
+// finish pass alone took 5.6-6.1 us a call whatever W (a block per walker
+// walking its 100 chunk partials serially), more than its partial pass at
+// W = 1 and 8 (2.7-5.0 us), and at W = 256 the partial pass took 81 us,
+// 2.3x the same-mix bound, its blocks reading their chunk from L2 once
+// per walker (PERF.md, H100 80GB HBM3). It is now one launch a call, the
+// same rows, as free_lnlike_vg (lnlike.cu):
+//   - a (piece, walker tile) grid, the piece length and tile (1, 2 or 4
+//     walkers: tiles of 8 held 76 registers, 3 blocks an SM, and ran
+//     slower) picked on the host from W and the SM count
+//     (ops/cuda_lnlike.py _vg_geometry): at W = 1 pieces of 1024 (200
+//     blocks), at W = 8 tiles of 2 walkers on pieces of ~4040 cells (200
+//     blocks), at W = 256 tiles of 4 (3200 blocks), so a cell is read once
+//     per tile and a thread runs up to four independent exp chains;
+//   - each thread loads its next cell before it computes this one;
+//   - the block reduces its T x 3 sums by a reduce-scatter over the lanes
+//     (vg_ticket.cuh vg_block_sums), writes its double partials and draws
+//     its tile's ticket; the tile's last block sums the partials per field
+//     in a fixed order and writes the rows (vg_ticket.cuh).
 // Plain expf (no --use_fast_math), matching the plain PyTorch versions in
 // ops/cuda_lnlike.py.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "vg_ticket.cuh"
 
 #define HIER_SLOTS 3          // ops/cuda_lnlike.py VG_HIER_SLOTS
 #define MAX_HIER_FIELDS 64    // ops/cuda_lnlike.py MAX_HIER_FIELDS
@@ -68,90 +87,122 @@ hier_partials(const float* __restrict__ feats, int nfeat,
     if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = s;
 }
 
-// Slots: [Se, Se*am, Se*P] with am = a - lA_f of the chunk's field.
+// hier_lnlike_vg: one kernel per call, as free_lnlike_vg (lnlike.cu).
+// Block (p, t) runs piece p (cells of one field f) for the T walkers of
+// tile t: each thread takes one cell a loop trip, the next trip's loaded
+// before this one's is computed, against every walker of the tile from
+// registers. Slots, per walker: [Se, Se*am, Se*P] with am = a - lA_f;
+// float32 per thread, the block's reduction and the (W, npieces,
+// HIER_SLOTS) partials double. The tile's last block to draw its ticket
+// sums them per segment (one field's pieces) in a fixed order and writes
+// [lnl, d_aA, (d_c_f, d_lA_f, d_t1_f) x F] = [-sum_f s0_f, -sum_f s1_f,
+// (-s0_f, aA s0_f, s2_f) x F], the fields added in order.
+template <int T>
 __global__ void __launch_bounds__(THREADS)
-hier_vg_partials(const float* __restrict__ feats, int nfeat,
-                 const float* __restrict__ g_a,
-                 const float* __restrict__ g_p,
-                 const float* __restrict__ g_w,
-                 const int4* __restrict__ chunks, int nchunks,
-                 double* __restrict__ partial) {
-    const int c = blockIdx.x;
-    const int w = blockIdx.y;
-    const int4 ch = chunks[c];
-    const float* th = feats + (size_t)w * nfeat;
-    const float* tf = th + 1 + 3 * ch.x;
-    const float aA = th[0], cg = tf[0], lA = tf[1], t1 = tf[2];
-    float acc[HIER_SLOTS] = {0.0f, 0.0f, 0.0f};
-    for (int i = ch.y + threadIdx.x; i < ch.z; i += THREADS) {
-        const float am = g_a[i] - lA;
-        const float p = g_p[i];
-        const float e = expf(cg + aA * am - p * t1) * g_w[i];
-        acc[0] += e;
-        acc[1] += e * am;
-        acc[2] += e * p;
-    }
-    double sums[HIER_SLOTS] = {acc[0], acc[1], acc[2]};
-    block_sum_k<HIER_SLOTS>(sums);
-    if (threadIdx.x == 0) {
-        double* out = partial + ((size_t)w * nchunks + c) * HIER_SLOTS;
+hier_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
+        int nfields,
+        const float* __restrict__ g_a, const float* __restrict__ g_p,
+        const float* __restrict__ g_w,
+        const int4* __restrict__ pieces, const int4* __restrict__ segs,
+        int nseg, double* __restrict__ partial, int* __restrict__ tickets,
+        double* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem[];   // vg_smem
+    int4* seg_sh = (int4*)smem;         // the segment table, for the finish
+    double* segsum = (double*)(smem + (size_t)nseg * sizeof(int4));
+    for (int s = threadIdx.x; s < nseg; s += THREADS) seg_sh[s] = segs[s];
+    const int4 pc = pieces[blockIdx.x];     // (field, start, end, 0)
+    const int w0 = blockIdx.y * T;
+    const int nw = min(T, nwalkers - w0);
+    // the tile's features for the piece's field; rows past the last walker
+    // repeat the first, so only the writes are guarded
+    float aA[T], cg[T], lA[T], t1[T];
+    __shared__ float fin[T];            // aA, for the finish
 #pragma unroll
-        for (int k = 0; k < HIER_SLOTS; ++k) out[k] = sums[k];
+    for (int j = 0; j < T; ++j) {
+        const float* th = feats + (size_t)(w0 + (j < nw ? j : 0)) * nfeat;
+        const float* tf = th + 1 + 3 * pc.x;
+        aA[j] = th[0];
+        cg[j] = tf[0];
+        lA[j] = tf[1];
+        t1[j] = tf[2];
+        if (threadIdx.x == 0) fin[j] = aA[j];
     }
+    float acc[T * HIER_SLOTS];
+#pragma unroll
+    for (int k = 0; k < T * HIER_SLOTS; ++k) acc[k] = 0.0f;
+    // the last trip's prefetch re-reads the piece's last cell
+    int i = pc.y + threadIdx.x;
+    int nx = min(i, pc.z - 1);
+    float a = g_a[nx], p = g_p[nx], wg = g_w[nx];
+    for (; i < pc.z; i += THREADS) {
+        nx = min(i + THREADS, pc.z - 1);
+        const float na = g_a[nx], np = g_p[nx], nwg = g_w[nx];
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+            const float am = a - lA[j];
+            const float e = expf(cg[j] + aA[j] * am - p * t1[j]) * wg;
+            float* g = acc + j * HIER_SLOTS;
+            g[0] += e;
+            g[1] += e * am;
+            g[2] += e * p;
+        }
+        a = na;
+        p = np;
+        wg = nwg;
+    }
+    __shared__ double res[T * HIER_SLOTS];
+    vg_block_sums<T * HIER_SLOTS>(acc, res);
+    const int npieces = gridDim.x;
+    if (threadIdx.x == 0)
+        for (int j = 0; j < nw; ++j) {
+            double* o = partial + ((size_t)(w0 + j) * npieces + blockIdx.x)
+                * HIER_SLOTS;
+#pragma unroll
+            for (int k = 0; k < HIER_SLOTS; ++k)
+                o[k] = res[j * HIER_SLOTS + k];
+        }
+    if (!vg_last_arrival(tickets, blockIdx.y, npieces)) return;
+
+    // the tile's last block: its rows; columns 0 and 1 of walker j are
+    // slots 0 and 1 summed over all segments, negated; column 2 + 3f + k
+    // takes field f's segments: -s0 (k = 0), aA s0 (k = 1), s2 (k = 2)
+    vg_segment_sums<HIER_SLOTS>(partial, npieces, seg_sh, nseg, w0, nw,
+                                segsum);
+    const int ncols = 2 + 3 * nfields;
+    for (int c = threadIdx.x; c < nw * ncols; c += THREADS) {
+        const int j = c / ncols;
+        const int col = c - j * ncols;
+        const int f = col < 2 ? -1 : (col - 2) / HIER_SLOTS;
+        const int k = col < 2 ? col : (col - 2) - f * HIER_SLOTS;
+        const int slot = f >= 0 && k == 1 ? 0 : k;
+        const double m = f < 0 || k == 0 ? -1.0
+            : (k == 1 ? (double)fin[j] : 1.0);
+        const double* ss = segsum + (size_t)j * nseg * HIER_SLOTS;
+        double s = 0.0;
+        for (int q = 0; q < nseg; ++q)
+            if (f < 0 || seg_sh[q].x == f) s += ss[q * HIER_SLOTS + slot];
+        out[(size_t)(w0 + j) * ncols + col] = m * s;
+    }
+    if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
 }
 
-// Block w. Thread t < 3F owns (field f = t / 3, slot k = t % 3) and sums
-// that slot over the field's chunks in order, in double, from tiles of the
-// walker's partials and of the chunk table staged in shared memory with
-// coalesced loads; every thread walks every staged chunk and adds under a
-// predicate, so the warp does not diverge. Then thread t writes its own
-// column (-s0_f, aA s0_f or s2_f) and thread 0 the two leading ones, the
-// fields added in order.
-__global__ void hier_vg_finish(const double* __restrict__ partial,
-                               const int4* __restrict__ chunks, int nchunks,
-                               const float* __restrict__ feats, int nfeat,
-                               int nfields, double* __restrict__ out) {
-    __shared__ double tile[FINISH_TILE * HIER_SLOTS];
-    __shared__ int tile_field[FINISH_TILE];
-    __shared__ double sums[MAX_HIER_FIELDS * HIER_SLOTS];
-    const int w = blockIdx.x;
-    const int t = threadIdx.x;
-    const int f = t / HIER_SLOTS;
-    const int k = t - f * HIER_SLOTS;
-    const bool owner = t < nfields * HIER_SLOTS;
-    const double* pw = partial + (size_t)w * nchunks * HIER_SLOTS;
-    double s = 0.0;
-    for (int c0 = 0; c0 < nchunks; c0 += FINISH_TILE) {
-        const int n = min(FINISH_TILE, nchunks - c0);
-        __syncthreads();
-        for (int i = t; i < n * HIER_SLOTS; i += blockDim.x)
-            tile[i] = pw[(size_t)c0 * HIER_SLOTS + i];
-        for (int i = t; i < n; i += blockDim.x)
-            tile_field[i] = chunks[c0 + i].x;
-        __syncthreads();
-        if (owner)
-            for (int c = 0; c < n; ++c)
-                s += tile_field[c] == f ? tile[c * HIER_SLOTS + k] : 0.0;
+template <int T>
+static int launch_hier_vg(dim3 grid, size_t smem, cudaStream_t st,
+                          const float* feats, int nwalkers, int nfeat,
+                          int nfields, const float* g_a, const float* g_p,
+                          const float* g_w, const int* pieces,
+                          const int* segs, int nseg, double* partial,
+                          int* tickets, double* out) {
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            hier_vg<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
     }
-    if (owner) sums[t] = s;
-    __syncthreads();
-    const float* th = feats + (size_t)w * nfeat;
-    const int ncols = 2 + 3 * nfields;
-    double* o = out + (size_t)w * ncols;
-    if (owner) {
-        const double aA = (double)th[0];
-        const double s0 = sums[f * HIER_SLOTS];
-        o[2 + t] = k == 0 ? -s0 : (k == 1 ? aA * s0 : s);
-    }
-    if (t == 0) {
-        double lnl = 0.0, d_aA = 0.0;
-        for (int g = 0; g < nfields; ++g) {
-            lnl -= sums[g * HIER_SLOTS];
-            d_aA -= sums[g * HIER_SLOTS + 1];
-        }
-        o[0] = lnl;
-        o[1] = d_aA;
-    }
+    hier_vg<T><<<grid, THREADS, smem, st>>>(
+        feats, nwalkers, nfeat, nfields, g_a, g_p, g_w, (const int4*)pieces,
+        (const int4*)segs, nseg, partial, tickets, out);
+    return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -177,25 +228,36 @@ int hier_lnlike_launch(const float* feats, int nwalkers, int nfeat,
     return (int)cudaGetLastError();
 }
 
+// hier_lnlike_vg: pieces is the (npieces, 4) piece table and segs the
+// (nseg, 4) segment table of one piece length (ops/cuda_lnlike.py
+// _vg_tables), tile the walker tile (_vg_geometry: 1, 2 or 4), partial
+// a (W, npieces, HIER_SLOTS) double buffer, tickets the data's zeroed
+// ticket buffer of at least ceil(W / tile) ints, out (W, 2 + 3 nfields)
+// double. One launch.
 int hier_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
                           int nfields,
                           const float* g_a, const float* g_p,
                           const float* g_w,
-                          const int* chunks, int nchunks,
-                          double* partial, double* out, void* stream) {
+                          const int* pieces, int npieces, const int* segs,
+                          int nseg, int tile, double* partial, int* tickets,
+                          double* out, void* stream) {
+    const size_t smem = vg_smem(tile, nseg, HIER_SLOTS);
     if (nfeat != 1 + 3 * nfields || nfields < 1 ||
-        nfields > MAX_HIER_FIELDS)
+        nfields > MAX_HIER_FIELDS || nwalkers < 1 || tile < 1
+        || npieces < 1 || nseg < 1 || nseg > npieces
+        || (nwalkers + tile - 1) / tile > 65535 || smem > 227 * 1024)
         return (int)cudaErrorInvalidValue;
+    const dim3 grid(npieces, (nwalkers + tile - 1) / tile);
     cudaStream_t st = (cudaStream_t)stream;
-    dim3 grid(nchunks, nwalkers);
-    hier_vg_partials<<<grid, THREADS, 0, st>>>(
-        feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const int threads = (nfields * HIER_SLOTS + 31) / 32 * 32;
-    hier_vg_finish<<<nwalkers, threads, 0, st>>>(
-        partial, (const int4*)chunks, nchunks, feats, nfeat, nfields, out);
-    return (int)cudaGetLastError();
+#define HIER_VG_ARGS grid, smem, st, feats, nwalkers, nfeat, nfields, g_a, \
+        g_p, g_w, pieces, segs, nseg, partial, tickets, out
+    switch (tile) {
+        case 1: return launch_hier_vg<1>(HIER_VG_ARGS);
+        case 2: return launch_hier_vg<2>(HIER_VG_ARGS);
+        case 4: return launch_hier_vg<4>(HIER_VG_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef HIER_VG_ARGS
 }
 
 }  // extern "C"

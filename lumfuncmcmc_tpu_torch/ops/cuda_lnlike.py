@@ -38,8 +38,8 @@ Four kernels of ``csrc/lnlike.cu``, value and value + gradient:
 - :func:`fixed_lnlike` — fixed completeness; replaces both
   ``_kernel_fixed_bcast`` (``:751``) and ``_kernel_fixed`` (``:813``);
 - :func:`free_lnlike_vg` — free completeness, the lnlike and its
-  derivative with respect to every feature in one pass; replaces
-  ``_kernel_free_vg`` (``:832``);
+  derivative with respect to every feature in one pass and one launch;
+  replaces ``_kernel_free_vg`` (``:832``);
 - :func:`fixed_lnlike_vg` — the same for fixed completeness; replaces
   ``_kernel_fixed_vg`` (``:1255``).
 
@@ -69,7 +69,7 @@ model (fixed completeness; per-field (L*, phi*), :func:`_feat_h_one`):
   whose blocks read ``(c_f, lA_f, t1_f)`` of their chunk's own field;
 - :func:`hier_lnlike_vg` replaces ``_kernel_hier_vg`` (``:1221``): the
   lnlike and its derivative with respect to the 1+3F features from
-  three sums per field.
+  three sums per field, in one launch.
 
 Their features keep the TPU's order without its ``lnrest``, ``[aA,
 (c_f, lA_f, t1_f) x F]``; as in the fixed-completeness family,
@@ -112,7 +112,12 @@ carry over: one packing serves every catalog size. Cells and sources are
 concatenated field by field (no lane padding) with ``(F+1,)`` field
 offsets, and an int32 chunk table cuts each field's cells and sources
 into pieces of at most ``CHUNK_CELLS`` for the (chunk, walker) launch
-grid.
+grid. The two one-launch value+gradient kernels (``free_lnlike_vg``,
+``hier_lnlike_vg``) take a (piece, walker tile) grid instead, over piece
+tables of several lengths (:func:`_vg_tables`), one chosen per call from
+the batch and the card (:func:`_vg_geometry`); the last block of each
+walker tile to draw its ticket (``vg_tickets``, zeroed once) writes the
+tile's rows.
 
 Dispatch rule: a CPU tensor takes the plain PyTorch version
 (:func:`free_lnlike_reference`, :func:`fixed_lnlike_reference`,
@@ -170,6 +175,12 @@ STREAM_MIN_SOURCES = 40_000
 FLOAT32_MAX_SOURCES = 30_000
 VG_STREAM_SLOTS = 6     # partial sums per (walker, run), lnlike_stream.cu
 STREAM_MAX_RUN = 4      # source tiles one streaming block stages at once
+# the one-launch value+gradient kernels free_lnlike_vg and hier_lnlike_vg
+# (csrc/lnlike.cu, csrc/lnlike_h.cu; _vg_geometry): their piece lengths,
+# longest first, and the walker tiles each is built for (larger ones held
+# too many registers on an H100 and ran slower: PERF.md)
+VG_PIECES = (4096, 2048, 1024, 512)
+VG_TILES = {"free": (1, 2), "hier": (1, 2, 4)}
 
 
 def _clamp_flim(theta, layout: ThetaLayout):
@@ -196,7 +207,9 @@ class CudaGridData:
     (for the plain versions). ``chunks`` is the (nchunks, 4) int32
     launch table ``(field, start, end, is_source)`` on the device, from
     which each kernel block reads its field and cell range. Fixed completeness keeps only
-    ``g_a``, ``g_p`` and ``g_w``.
+    ``g_a``, ``g_p`` and ``g_w``. ``vg_tables`` and ``vg_tickets`` are
+    read by ``free_lnlike_vg`` and ``hier_lnlike_vg`` alone
+    (:func:`_vg_tables`); ``chunks`` serves every other kernel.
     """
 
     g_a: torch.Tensor                  # LN10 * (logL - lref)
@@ -219,6 +232,11 @@ class CudaGridData:
     ln_sums: tuple                     # float64 (nsrc, sum(lum - lref),
                                        #   sum_pow_lum, sum_ln_om) of the
                                        #   collapsed ln-term
+    # --- the one-launch value+gradient kernels only (free_lnlike_vg,
+    # hier_lnlike_vg): _vg_tables, and their arrival tickets, zeroed here
+    # once and left at 0 by every launch ---
+    vg_tables: tuple = ()
+    vg_tickets: Optional[torch.Tensor] = None  # (MAX_ROWS,) int32
     # --- the hierarchical model only (prepare_cuda_h_data) ---
     ln_sums_f: Optional[torch.Tensor] = None   # (4, F) float64: the same
                                                #   four sums per field
@@ -271,6 +289,70 @@ def _chunk_table(grid_off, src_off, size=CHUNK_CELLS):
     return np.asarray(rows, dtype=np.int32).reshape(-1, 4)
 
 
+def _vg_pieces(grid_off, src_off, piece):
+    """``(field, start, end, is_source)`` rows cutting every field's cells,
+    then its sources, into ``ceil(n / piece)`` pieces of near-equal length
+    (at most ``piece``): a launch's blocks each take one."""
+    rows = []
+    for is_src, off in ((0, grid_off), (1, src_off)):
+        for f in range(len(off) - 1):
+            n = off[f + 1] - off[f]
+            k = -(-n // piece)
+            cuts = [off[f] + i * n // k for i in range(k + 1)] if n else []
+            rows += [(f, a, b, is_src) for a, b in zip(cuts, cuts[1:])]
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 4)
+
+
+def _vg_tables(grid_off, src_off, device):
+    """For each piece length of ``VG_PIECES``: ``(piece, pieces,
+    segments)``, the one-launch value+gradient kernels' launch tables.
+    ``pieces`` is :func:`_vg_pieces` at that length (block ``p`` of a
+    launch runs row ``p``); ``segments`` has one row ``(field, first piece,
+    end piece, is_source)`` for each field's run of cell pieces and of
+    source pieces, over which the last block of a walker tile sums the
+    partials."""
+    out = []
+    for piece in VG_PIECES:
+        tab = _vg_pieces(grid_off, src_off, piece)
+        first = np.flatnonzero(np.r_[True, (tab[1:, [0, 3]]
+                                            != tab[:-1, [0, 3]]).any(1)])
+        segs = np.stack([tab[first, 0], first, np.r_[first[1:], len(tab)],
+                         tab[first, 3]], axis=1).astype(np.int32)
+        out.append((piece, torch.as_tensor(tab, device=device),
+                    torch.as_tensor(segs, device=device)))
+    return tuple(out)
+
+
+def _vg_geometry(npieces: dict, nwalkers: int, nsm: int, tiles) -> tuple:
+    """``(tile, piece)`` of a one-launch value+gradient kernel for
+    ``nwalkers`` on a card of ``nsm`` SMs: of the walker tiles ``tiles``
+    no larger than ``nwalkers`` and the piece lengths of
+    ``VG_PIECES``, whose grid is ``npieces[piece]`` pieces by ``ceil(
+    nwalkers / tile)`` tiles, the candidate with the most work a block
+    (tile x piece), the smaller tile first, among those with at least 1.5
+    blocks per SM: every block pays a fixed cost (its piece and feature
+    loads, its reduction and ticket), and fewer blocks than that left SMs
+    idle or unevenly loaded in the sweep of ``tools/vg_turns.py``
+    (PERF.md). Where no grid has that many blocks, tile 1 and the shortest
+    piece."""
+    best = None
+    for tile in tiles:
+        if tile > nwalkers:
+            continue
+        for piece in VG_PIECES:
+            if 2 * -(-nwalkers // tile) * npieces[piece] >= 3 * nsm:
+                key = (tile * piece, -tile)
+                if best is None or key > best[0]:
+                    best = (key, (tile, piece))
+    return best[1] if best else (1, VG_PIECES[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, asked once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def prepare_cuda_data(ctx: LFContext, fix_comp: bool, fcmin: float = 0.0,
                       dtype=None) -> CudaGridData:
     """Pack the context grids and sources into the kernel layout, on the
@@ -320,7 +402,9 @@ def prepare_cuda_data(ctx: LFContext, fix_comp: bool, fcmin: float = 0.0,
         grid_off=grid_off, src_off=src_off, lref=lref, nfields=nf,
         fcmin=float(fcmin) if fcmin else 0.0,
         ln_sums=(float(ctx.nsrc), float((ctx.lum.double() - lref).sum()),
-                 float(ctx.sum_pow_lum), float(ctx.sum_ln_om)))
+                 float(ctx.sum_pow_lum), float(ctx.sum_ln_om)),
+        vg_tables=_vg_tables(grid_off, src_off, device),
+        vg_tickets=torch.zeros(MAX_ROWS, dtype=torch.int32, device=device))
 
 
 def prepare_cuda_h_data(ctx: LFContext, layout: ThetaLayoutH,
@@ -1103,7 +1187,7 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _check_cuda_inputs(feats, nfeat, table, arrays):
+def _check_cuda_inputs(feats, nfeat, tables, arrays):
     if feats.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32 features, got "
                         f"{feats.dtype}")
@@ -1115,7 +1199,7 @@ def _check_cuda_inputs(feats, nfeat, table, arrays):
                          f"the kernel's 1..{MAX_ROWS} launch range")
     if not feats.is_contiguous():
         raise ValueError("features must be contiguous")
-    for a in arrays + (table,):
+    for a in arrays + tables:
         if a.device != feats.device:
             raise ValueError(f"grid data on {a.device}, features on "
                              f"{feats.device}")
@@ -1157,7 +1241,7 @@ def _launch(name, feats, data, slots, out_cols):
     from lumfuncmcmc_tpu_torch.ops._build import load_library
     names, nfeat, head, flags = _signature(name, data)
     arrays = tuple(getattr(data, a) for a in names)
-    _check_cuda_inputs(feats, nfeat, data.chunks, arrays)
+    _check_cuda_inputs(feats, nfeat, (data.chunks,), arrays)
     lib = load_library()
     w, nchunks = feats.shape[0], data.chunks.shape[0]
     partial = torch.empty((w, nchunks, slots), dtype=torch.float64,
@@ -1191,7 +1275,7 @@ def _launch_stream(name, feats, data: CudaStreamData, shard=0):
     nfeat = 6 + 2 * data.nfields
     arrays = (tuple(getattr(data, a) for a in _STREAM_GRID)
               + tuple(getattr(data, a)[shard] for a in _STREAM_SRC))
-    _check_cuda_inputs(feats, nfeat, data.runs, arrays)
+    _check_cuda_inputs(feats, nfeat, (data.runs,), arrays)
     lib = load_library()
     grad = name.endswith("_vg")
     w, nruns = feats.shape[0], data.runs.shape[0]
@@ -1208,6 +1292,50 @@ def _launch_stream(name, feats, data: CudaStreamData, shard=0):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out
+
+
+def _launch_vg(name, feats, data: CudaGridData, slots, out_cols):
+    """Check the inputs and launch one-launch value+gradient kernel
+    ``name`` (``free_lnlike_vg``, ``hier_lnlike_vg``) on the current
+    stream of ``feats``' device, at the geometry of :func:`_vg_geometry`,
+    with a (W, npieces, ``slots``) double scratch buffer and the data's
+    tickets; returns the float64 (W, ``out_cols``) rows. Raises on any
+    failure."""
+    if feats.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {feats.device}")
+    from lumfuncmcmc_tpu_torch.ops._build import load_library
+    names, nfeat, head, flags = _signature(name, data)
+    arrays = tuple(getattr(data, a) for a in names)
+    tables = tuple(t for _, pieces, segs in data.vg_tables
+                   for t in (pieces, segs))
+    _check_cuda_inputs(feats, nfeat, tables + (data.vg_tickets,), arrays)
+    w = feats.shape[0]
+    tile, piece = _vg_geometry(
+        {p: t.shape[0] for p, t, _ in data.vg_tables}, w,
+        _sm_count(feats.device.index), VG_TILES[name.split("_")[0]])
+    _, pieces, segs = next(t for t in data.vg_tables if t[0] == piece)
+    lib = load_library()
+    partial = torch.empty((w, pieces.shape[0], slots), dtype=torch.float64,
+                          device=feats.device)
+    out = torch.empty((w, out_cols), dtype=torch.float64,
+                      device=feats.device)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    rc = getattr(lib, f"{name}_launch")(
+        _ptr(feats), w, nfeat, *head, *(_ptr(a) for a in arrays),
+        _ptr(pieces), pieces.shape[0], _ptr(segs), segs.shape[0], tile,
+        *flags, _ptr(partial), _ptr(data.vg_tickets), _ptr(out),
+        ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
+def _one_launch(slots, out_cols):
+    """The launch of a one-launch value+gradient kernel with ``slots``
+    partial sums and ``out_cols(data)`` output columns."""
+    def launch(name, feats, data):
+        return _launch_vg(name, feats, data, slots, out_cols(data))
+    return launch
 
 
 def _resident(slots, out_cols=None):
@@ -1250,7 +1378,7 @@ fixed_lnlike = _wrapper(
     "features -> (W,) float64.")
 free_lnlike_vg = _wrapper(
     "free_lnlike_vg", free_lnlike_vg_reference,
-    _resident(VG_FREE_SLOTS, lambda data: 7 + 2 * data.nfields),
+    _one_launch(VG_FREE_SLOTS, lambda data: 7 + 2 * data.nfields),
     "Free-completeness lnlike and its feature gradient, (W, 6+2F) "
     "features -> (W, 7+2F) float64 rows.")
 fixed_lnlike_vg = _wrapper(
@@ -1272,7 +1400,7 @@ hier_lnlike = _wrapper(
     "-> (W,) float64.")
 hier_lnlike_vg = _wrapper(
     "hier_lnlike_vg", hier_lnlike_vg_reference,
-    _resident(VG_HIER_SLOTS, lambda data: 2 + 3 * data.nfields),
+    _one_launch(VG_HIER_SLOTS, lambda data: 2 + 3 * data.nfields),
     "Hierarchical-model lnlike without ``lnrest`` and its feature "
     "gradient, (W, 1+3F) features -> (W, 2+3F) float64 rows.")
 free_stream_lnlike = _wrapper(

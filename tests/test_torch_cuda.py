@@ -369,6 +369,92 @@ def test_hier_step_loop_never_synchronises_and_is_deterministic(device):
     assert torch.isfinite(lnps[-1]).all()
 
 
+def _one_launch_case(device, fam, size_ln):
+    """The data of ``free_lnlike_vg`` (free completeness) or
+    ``hier_lnlike_vg`` on a 400-source catalog, its kernel, plain version
+    and a function of W giving W feature rows near the box centre."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=size_ln,
+                   fix_comp=fam == "hier")
+    ctx = _context(cfg, device)
+    if fam == "hier":
+        layout = ThetaLayoutH.from_config(cfg)
+        data, features = (cl.prepare_cuda_h_data(ctx, layout),
+                          cl._features_hier)
+    else:
+        layout = ThetaLayout.from_config(cfg)
+        data, features = (cl.prepare_cuda_data(ctx, False, cfg.fcmin),
+                          cl._features)
+    lo, hi = layout.bounds_arrays(torch.float32, device)
+
+    def feats(w):
+        gen = torch.Generator(device=device).manual_seed(w)
+        th = 0.7 * (lo + hi) / 2 + 0.3 * sample_init(
+            gen, layout, w, dtype=torch.float32, device=device)
+        return features(th, data, layout, torch.float32).float()
+
+    kernel = getattr(cl, f"{fam}_lnlike_vg")
+    return data, kernel, getattr(cl, f"{fam}_lnlike_vg_reference"), feats
+
+
+@pytest.mark.parametrize("size_ln", [12, 41])
+@pytest.mark.parametrize("fam", ["free", "hier"])
+def test_one_launch_vg_kernels_at_every_batch(device, fam, size_ln):
+    """``free_lnlike_vg`` and ``hier_lnlike_vg`` (one launch each, a
+    walker tile's last block finishing its rows through the data's
+    tickets) at W = 1, 8, 13 and 256, back to back on one data object,
+    on grids of 5 pieces a field and of one ragged piece: each equals the
+    plain version (values rtol 1e-4, gradients by ``_grad_close``), two
+    launches on one input are bit-identical, W = 8 again after W = 256
+    gives the first W = 8 rows bit for bit (every launch leaves the
+    tickets at 0), and a CUDA graph of the W = 8 call replayed twice gives
+    those rows too."""
+    data, kernel, plain, feats = _one_launch_case(device, fam, size_ln)
+    rows = {}
+    for w in (1, 8, 13, 256, 8):
+        f = feats(w)
+        n0 = kernel.launches
+        got, again = kernel(f, data), kernel(f, data)
+        assert kernel.launches == n0 + 2
+        assert torch.equal(got, again)
+        assert torch.equal(rows.setdefault(w, got), got)
+        ref = plain(f, data).cpu().numpy()
+        np.testing.assert_allclose(got[:, 0].cpu().numpy(), ref[:, 0],
+                                   rtol=1e-4)
+        _grad_close(got[:, 1:].cpu().numpy(), ref[:, 1:])
+        assert not data.vg_tickets.any()
+    f = feats(8)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel(f, data)
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, rows[8]) and torch.equal(out, rows[8])
+    assert not data.vg_tickets.any()
+
+
+@pytest.mark.parametrize("fam,tile", [("free", 1), ("free", 2),
+                                      ("hier", 1), ("hier", 2),
+                                      ("hier", 4)])
+def test_one_launch_vg_kernels_at_every_walker_tile(device, monkeypatch,
+                                                     fam, tile):
+    """Every walker-tile instance of the two one-launch kernels, whatever
+    the geometry rule would take on this card, at W = 13 (a partial last
+    tile) and pieces of 512 (4 a field): the plain version's rows, two
+    launches bit-identical, the tickets left at 0."""
+    data, kernel, plain, feats = _one_launch_case(device, fam, 41)
+    monkeypatch.setattr(cl, "_vg_geometry", lambda *a: (tile, 512))
+    f = feats(13)
+    got, again = kernel(f, data), kernel(f, data)
+    assert torch.equal(got, again)
+    ref = plain(f, data).cpu().numpy()
+    np.testing.assert_allclose(got[:, 0].cpu().numpy(), ref[:, 0],
+                               rtol=1e-4)
+    _grad_close(got[:, 1:].cpu().numpy(), ref[:, 1:])
+    assert not data.vg_tickets.any()
+
+
 def _stream_case(device, w, nshards=1, seed=0):
     """A 400-source catalog in the streaming layout and ``w`` feature rows
     near the box centre."""
