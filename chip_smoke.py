@@ -27,11 +27,11 @@ failure ends the run with a nonzero exit:
    (values rtol 1e-4, gradients by the JAX package's ``_grad_close`` rule
    at 2e-3), and the theta-level value+gradient against float64 eager
    autograd (5e-4, 2e-3), the z model under both ``z_param``s, the
-   hierarchical one with and without ``-fsa``; the one-launch kernels
-   (``free_lnlike_vg``, ``hier_lnlike_vg``) also two launches on one
-   input bit for bit, and at the NUTS shapes their time at W = 1 too and
-   its split: the kernel's own device time (``torch.profiler``) beside
-   an empty kernel's in the same harness;
+   hierarchical one with and without ``-fsa``; every one of them is one
+   launch a call (``ONE_LAUNCH``), also held to two launches on one input
+   bit for bit and to its tickets back at 0, and at the NUTS shapes timed
+   at W = 1 too, with its split: the kernel's own device time
+   (``torch.profiler``) beside an empty kernel's in the same harness;
 5. the port's ``fit`` CLI end to end (100 walkers x 2000 steps on a
    2000-source synthetic catalog), free and fixed completeness: the JAX
    CLI's artifact set, finite Ln Prob, a sane acceptance fraction, and
@@ -130,8 +130,9 @@ RTOL_KERNEL = 1e-4   # f32 sums of <= 2e5 terms in another order
 RTOL_F64 = 5e-4      # the JAX package's Pallas-vs-f64 bar
 RTOL_GRAD = 2e-3     # the JAX package's gradient bar (_grad_close)
 # value+gradient kernels of one launch a call: held bit for bit over two
-# launches, and their time split in phase 4
-ONE_LAUNCH = ("free_lnlike_vg", "hier_lnlike_vg")
+# launches and to their tickets back at 0, and their time split in phase 4
+ONE_LAUNCH = ("free_lnlike_vg", "fixed_lnlike_vg", "z_lnlike_vg",
+              "hier_lnlike_vg")
 NSTEPS, NWALKERS, NSYNTH = 2000, 100, 2000
 NUTS_CHAINS, NUTS_WARMUP = 8, 200
 # NUTS samples by kernel family (warmup is the CLI's 200 and holds most of
@@ -152,6 +153,7 @@ MEGA_TARGET, MEGA_SEED, MEGA_SOURCES = 1_200_000, 7, 1_019_385
 MEGA_STEPS = 2000       # stretch steps of the mega fit
 DLNP_TOL = 0.05         # lnp difference of close thetas vs float64
 SOURCES = {"z": "lnlike_z.cu", "hier": "lnlike_h.cu",
+           "fixed_lnlike_vg": "lnlike_h.cu",
            "free_stream": "lnlike_stream.cu", "roofline": "roofline.cu"}
 # The card's peaks for the bound (H100 SXM at 700 W): float32 outside the
 # tensor cores, and HBM.
@@ -161,10 +163,11 @@ PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
 # kernels' free grid cell 23 and unmasked source 23 (a masked one 1),
 # fixed grid cell 8; the value+gradient kernels' free grid cell 46 and
 # unmasked source 45, fixed grid cell 12.
-# From csrc/lnlike_z.cu, a third count per (z node, band of L rows) for the
-# hoisted node quantities: z_lnlike grid cell 7, unmasked source 16, node
-# 12; z_lnlike_vg grid cell 11, unmasked source 31, node 25 (the
-# end-of-column contraction included).
+# From csrc/lnlike_z.cu, a third count per (walker, field, z node) for the
+# hoisted node quantities, the least the function needs whatever forms
+# them: z_lnlike grid cell 7, unmasked source 16, node 12; z_lnlike_vg grid
+# cell 11, unmasked source 31, node 25 (the end-of-column contraction
+# included).
 # From csrc/lnlike_h.cu: the fixed-completeness cells, hier_lnlike 8 and
 # hier_lnlike_vg 12 (the per-field lookup is three loads per block).
 # From csrc/lnlike_stream.cu: the grid cells as in lnlike.cu, an unmasked
@@ -328,8 +331,8 @@ def _bound(kname, data, w):
     """Least time the card could take for one call of ``kname`` on these
     inputs: the larger of bytes (each input read once, each output
     written once) over HBM bandwidth and float32 operations (this data's
-    cells, unmasked sources and, for the z kernels, z nodes per band) over
-    the float32 peak. ``w`` is the walker batch (the iteration count for
+    cells, unmasked sources and, for the z kernels, each field's z nodes)
+    over the float32 peak. ``w`` is the walker batch (the iteration count for
     ``roofline_chain``, whose ``data`` is its input).
     Returns ``(bound_ms, bound_by, bytes, ops, transcendentals)``."""
     fam = kname.split("_")[0]
@@ -351,7 +354,7 @@ def _bound(kname, data, w):
         nvalid = 0 if gridonly else int((data.s_mask > 0).sum())
     if fam == "z":
         nfeat, nf, sz = 7, data.shape[0], data.shape[2]
-        nnode = int((data.chunks[:, 3] == 0).sum()) * sz
+        nnode = nf * sz
         ndata = 3 * ncell + 2 * nf * sz + 5 * nsrc
     else:
         nfeat = {"fixed": 4, "hier": 1 + 3 * data.nfields}.get(
@@ -619,6 +622,8 @@ def phase_vg_kernels(dev):
             if not torch.equal(got, again):
                 fail(f"{kname} {grid} W={w}: two launches on one input "
                      "differ")
+            if one and data.vg_tickets.any():
+                fail(f"{kname} {grid} W={w}: tickets not back at 0")
             ok = case.inside(th, lo, hi)
             err_v = _rel(got[ok, 0], ref[ok, 0])
             err_g = _grad_rel(got[ok, 1:], ref[ok, 1:])
@@ -636,7 +641,8 @@ def phase_vg_kernels(dev):
             print(f"{kname} {grid} W={w}: kernel vs plain value max rel "
                   f"{err_v:.3e}, gradient {err_g:.3e}; theta-level vs f64 "
                   f"eager autograd value {err_tv:.3e}, gradient "
-                  f"{err_tg:.3e}" + "; two launches bit-identical" * one)
+                  f"{err_tg:.3e}" + "; two launches bit-identical, tickets "
+                  "at 0" * one)
             if err_v > RTOL_KERNEL or err_g > RTOL_GRAD:
                 fail(f"{kname} {grid} W={w}: kernel vs plain {err_v:.3e} "
                      f"(value), {err_g:.3e} (gradient)")

@@ -15,7 +15,6 @@
 #include <cuda_runtime.h>
 
 #define THREADS 256
-#define FINISH_TILE 256  // chunks a _vg finish kernel stages at a time
 
 // ln Fleming completeness of one cell or source, x = ac (logf - lF50):
 // ln max(0.5 + 0.5 x rsqrt(1 + x^2), 1e-30), over 1 - exp(-R t2) when fcmin

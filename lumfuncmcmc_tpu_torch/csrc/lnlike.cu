@@ -4,15 +4,17 @@
 // common.cuh (block size, block reduction, the ln fc terms, the value
 // kernels' finish pass) and are compiled into one library by ops/_build.py;
 // free_lnlike_vg shares vg_ticket.cuh (the one-launch finish) with
-// hier_lnlike_vg (lnlike_h.cu).
+// hier_lnlike_vg and z_lnlike_vg.
 //
 // free_lnlike replaces the TPU kernels _kernel_free_bcast
 // (lumfuncmcmc_tpu/ops/pallas_lnlike.py:601) and _kernel_free (:761);
 // fixed_lnlike replaces _kernel_fixed_bcast (:751) and _kernel_fixed
 // (:813). The TPU's broadcast/slab variants are two VMEM layouts of one
 // computation; here one layout serves every catalog size.
-// free_lnlike_vg replaces _kernel_free_vg (:832); fixed_lnlike_vg replaces
-// _kernel_fixed_vg (:1255).
+// free_lnlike_vg replaces _kernel_free_vg (:832). fixed_lnlike_vg, which
+// replaces _kernel_fixed_vg (:1255), is hier_lnlike_vg's kernel body with
+// the features shared by every field, in lnlike_h.cu; its rows are
+// described here.
 //
 // What they compute, per walker w (feature row th = feats[w]):
 //   free:  sum over fields f of
@@ -46,16 +48,15 @@
 // (W = 8 chains) a value+gradient call is ~0.4 M cell evaluations of ~50
 // float32 operations each, a fraction of a microsecond at the card's peak
 // rates: launch latency and the dependent transcendental chain per thread
-// bound it; at W = 256 the SFU rate takes over. The value kernels and
-// fixed_lnlike_vg keep the SMs busy at small W and stay deterministic:
+// bound it; at W = 256 the SFU rate takes over. The value kernels keep
+// the SMs busy at small W and stay deterministic:
 //   - grid (nchunks, W): block (c, w) reduces chunk c (<= 2048 cells or
 //     sources of one field, from the host chunk table (field, start, end,
 //     is_source)) for walker w, so W = 50 already gives ~1,500 blocks for
-//     132 SMs and W = 8 ~280;
-//   - each thread accumulates K separate sums of its few terms in float32
-//     registers (K = 1 for the value kernels, 3 for fixed_lnlike_vg), the
-//     block reduces all K in double with warp shuffles and one
-//     shared-memory pass, and writes them to a (W, nchunks, K) double
+//     132 SMs;
+//   - each thread accumulates its few terms in a float32 register, the
+//     block reduces the sums in double with warp shuffles and one
+//     shared-memory pass, and writes them to a (W, nchunks) double
 //     scratch buffer the caller allocates;
 //   - a second small kernel sums each walker's partials in fixed chunk
 //     order (in double) and writes float64: no float atomics, identical
@@ -94,7 +95,6 @@
 #include "vg_ticket.cuh"
 
 #define FREE_SLOTS 7     // ops/cuda_lnlike.py VG_FREE_SLOTS
-#define FIXED_SLOTS 3    // ops/cuda_lnlike.py VG_FIXED_SLOTS
 
 // ---------------------------------------------------------------------------
 // value kernels
@@ -357,80 +357,14 @@ static int launch_free_vg(dim3 grid, size_t smem, cudaStream_t st,
     return (int)cudaGetLastError();
 }
 
-// Slots: [Se, Se*am, Se*P].
-__global__ void __launch_bounds__(THREADS)
-fixed_vg_partials(const float* __restrict__ feats, int nfeat,
-                  const float* __restrict__ g_a,
-                  const float* __restrict__ g_p,
-                  const float* __restrict__ g_w,
-                  const int4* __restrict__ chunks, int nchunks,
-                  double* __restrict__ partial) {
-    const int c = blockIdx.x;
-    const int w = blockIdx.y;
-    const int4 ch = chunks[c];
-    const float* th = feats + (size_t)w * nfeat;
-    const float cg = th[0], aA = th[1], lA = th[2], t1 = th[3];
-    float acc[FIXED_SLOTS] = {0.0f, 0.0f, 0.0f};
-    for (int i = ch.y + threadIdx.x; i < ch.z; i += THREADS) {
-        const float am = g_a[i] - lA;
-        const float p = g_p[i];
-        const float e = expf(cg + aA * am - p * t1) * g_w[i];
-        acc[0] += e;
-        acc[1] += e * am;
-        acc[2] += e * p;
-    }
-    double sums[FIXED_SLOTS] = {acc[0], acc[1], acc[2]};
-    block_sum_k<FIXED_SLOTS>(sums);
-    if (threadIdx.x == 0) {
-        double* out = partial + ((size_t)w * nchunks + c) * FIXED_SLOTS;
-#pragma unroll
-        for (int k = 0; k < FIXED_SLOTS; ++k) out[k] = sums[k];
-    }
-}
-
-// Block w: out[w] = [-S0, -S0, -S1, aA S0, S2]; thread k < 3 sums slot k
-// over the chunks in order, in double, from tiles staged in shared memory.
-__global__ void fixed_vg_finish(const double* __restrict__ partial,
-                                int nchunks,
-                                const float* __restrict__ feats, int nfeat,
-                                double* __restrict__ out) {
-    __shared__ double tile[FINISH_TILE * FIXED_SLOTS];
-    __shared__ double sums[FIXED_SLOTS];
-    const int w = blockIdx.x;
-    const int k = threadIdx.x;
-    const double* pw = partial + (size_t)w * nchunks * FIXED_SLOTS;
-    double s = 0.0;
-    for (int c0 = 0; c0 < nchunks; c0 += FINISH_TILE) {
-        const int n = min(FINISH_TILE, nchunks - c0);
-        __syncthreads();
-        for (int i = threadIdx.x; i < n * FIXED_SLOTS; i += blockDim.x)
-            tile[i] = pw[(size_t)c0 * FIXED_SLOTS + i];
-        __syncthreads();
-        if (k < FIXED_SLOTS)
-            for (int c = 0; c < n; ++c) s += tile[c * FIXED_SLOTS + k];
-    }
-    if (k < FIXED_SLOTS) sums[k] = s;
-    __syncthreads();
-    if (k == 0) {
-        const float* th = feats + (size_t)w * nfeat;
-        double* o = out + (size_t)w * 5;
-        o[0] = -sums[0];
-        o[1] = -sums[0];
-        o[2] = -sums[1];
-        o[3] = (double)th[1] * sums[0];
-        o[4] = sums[2];
-    }
-}
-
 static __global__ void empty_kernel() {}
 
 extern "C" {
 
 // All pointers are device pointers; the stream is a cudaStream_t. Returns
 // the cudaError_t of the launches (0 = success). Allocates nothing: the
-// caller passes a (W, nchunks, K) double partial buffer (K = 1 for the
-// value kernels, FIXED_SLOTS for fixed_lnlike_vg; free_lnlike_vg's below)
-// and the double output, (W,) or (W, 1 + nfeat).
+// caller passes a (W, nchunks) double partial buffer (free_lnlike_vg's
+// below) and the double output, (W,) or (W, 1 + nfeat).
 int free_lnlike_launch(const float* feats, int nwalkers, int nfeat,
                        int nfields,
                        const float* g_logf, const float* g_a,
@@ -501,23 +435,6 @@ int free_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
         default: return (int)cudaErrorInvalidValue;
     }
 #undef FREE_VG_ARGS
-}
-
-int fixed_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
-                           const float* g_a, const float* g_p,
-                           const float* g_w,
-                           const int* chunks, int nchunks,
-                           double* partial, double* out, void* stream) {
-    if (nfeat != 4) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    dim3 grid(nchunks, nwalkers);
-    fixed_vg_partials<<<grid, THREADS, 0, st>>>(
-        feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    fixed_vg_finish<<<nwalkers, 32, 0, st>>>(partial, nchunks, feats, nfeat,
-                                            out);
-    return (int)cudaGetLastError();
 }
 
 // n empty kernels of one warp on the stream: the floor under every

@@ -7,7 +7,9 @@
 // hier_lnlike replaces the TPU kernels _kernel_hier_bcast
 // (lumfuncmcmc_tpu/ops/pallas_lnlike.py:713) and _kernel_hier_slab (:734):
 // two VMEM layouts of one function there, one kernel here. hier_lnlike_vg
-// replaces _kernel_hier_vg (:1221).
+// replaces _kernel_hier_vg (:1221), and the same kernel body, with the
+// features shared by every field, is fixed_lnlike_vg, which replaces
+// _kernel_fixed_vg (:1255): its cells are these cells.
 //
 // What they compute, per walker w (feature row th = feats[w], 1 + 3F floats,
 // see _feat_h_one in ops/cuda_lnlike.py: [aA, (c_f, lA_f, t1_f) x F]):
@@ -23,6 +25,9 @@
 // hier_lnlike_vg emits [lnl, d_aA, (d_c_f, d_lA_f, d_t1_f) x F]
 // from three sums per field, s0 = sum e, s1 = sum e (a - lA_f), s2 = sum e P:
 //   d_aA = -sum_f s1_f,  d_c_f = -s0_f,  d_lA_f = aA s0_f,  d_t1_f = s2_f.
+// fixed_lnlike_vg (feature row [c, aA, lA, t1], the same for every field)
+// emits [lnl, d_c, d_aA, d_lA, d_t1] = [-S0, -S0, -S1, aA S0, S2] from the
+// same three sums S0, S1, S2 over every field's cells.
 //
 // What bounds them on the card: as fixed_lnlike (lnlike.cu), whose cells
 // these are. At the fit's shape (5 fields x 201 x 201 cells, W = 50 walkers
@@ -43,15 +48,19 @@
 // walking its 100 chunk partials serially), more than its partial pass at
 // W = 1 and 8 (2.7-5.0 us), and at W = 256 the partial pass took 81 us,
 // 2.3x the same-mix bound, its blocks reading their chunk from L2 once
-// per walker (PERF.md, H100 80GB HBM3). It is now one launch a call, the
-// same rows, as free_lnlike_vg (lnlike.cu):
+// per walker (PERF.md, H100 80GB HBM3); fixed_lnlike_vg, built the same
+// way in lnlike.cu, took 9.9 us at W = 8 and 88 us at W = 256 on the same
+// cells. Both are now one launch a call of one kernel body, the same rows,
+// as free_lnlike_vg (lnlike.cu):
 //   - a (piece, walker tile) grid, the piece length and tile (1, 2 or 4
 //     walkers: tiles of 8 held 76 registers, 3 blocks an SM, and ran
 //     slower) picked on the host from W and the SM count
 //     (ops/cuda_lnlike.py _vg_geometry): at W = 1 pieces of 1024 (200
 //     blocks), at W = 8 tiles of 2 walkers on pieces of ~4040 cells (200
-//     blocks), at W = 256 tiles of 4 (3200 blocks), so a cell is read once
-//     per tile and a thread runs up to four independent exp chains;
+//     blocks; fixed_lnlike_vg, whose sweep preferred the larger tile,
+//     tiles of 4 on ~2020), at W = 256 tiles of 4 (3200 blocks), so a cell
+//     is read once per tile and a thread runs up to four independent exp
+//     chains;
 //   - each thread loads its next cell before it computes this one;
 //   - the block reduces its T x 3 sums by a reduce-scatter over the lanes
 //     (vg_ticket.cuh vg_block_sums), writes its double partials and draws
@@ -87,17 +96,21 @@ hier_partials(const float* __restrict__ feats, int nfeat,
     if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = s;
 }
 
-// hier_lnlike_vg: one kernel per call, as free_lnlike_vg (lnlike.cu).
-// Block (p, t) runs piece p (cells of one field f) for the T walkers of
-// tile t: each thread takes one cell a loop trip, the next trip's loaded
-// before this one's is computed, against every walker of the tile from
-// registers. Slots, per walker: [Se, Se*am, Se*P] with am = a - lA_f;
-// float32 per thread, the block's reduction and the (W, npieces,
-// HIER_SLOTS) partials double. The tile's last block to draw its ticket
-// sums them per segment (one field's pieces) in a fixed order and writes
-// [lnl, d_aA, (d_c_f, d_lA_f, d_t1_f) x F] = [-sum_f s0_f, -sum_f s1_f,
-// (-s0_f, aA s0_f, s2_f) x F], the fields added in order.
-template <int T>
+// hier_lnlike_vg (SHARED false) and fixed_lnlike_vg (SHARED true): one
+// kernel per call, as free_lnlike_vg (lnlike.cu). Block (p, t) runs piece
+// p (cells of one field f) for the T walkers of tile t: each thread takes
+// one cell a loop trip, the next trip's loaded before this one's is
+// computed, against every walker of the tile from registers. The features
+// (c, lA, t1) are field f's, at 1 + 3 f in the hierarchical row, or the
+// row's own, at 0, 2 and 3, for every field (aA at 0, or 1). Slots, per
+// walker: [Se, Se*am, Se*P] with am = a - lA; float32 per thread, the
+// block's reduction and the (W, npieces, HIER_SLOTS) partials double. The
+// tile's last block to draw its ticket sums them per segment (one field's
+// pieces) in a fixed order and writes [lnl, d_aA, (d_c_f, d_lA_f, d_t1_f)
+// x F] = [-sum_f s0_f, -sum_f s1_f, (-s0_f, aA s0_f, s2_f) x F], or
+// [lnl, d_c, d_aA, d_lA, d_t1] = [-S0, -S0, -S1, aA S0, S2] with S the
+// sums over every segment, the segments added in order.
+template <int T, bool SHARED>
 __global__ void __launch_bounds__(THREADS)
 hier_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
         int nfields,
@@ -120,11 +133,11 @@ hier_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
 #pragma unroll
     for (int j = 0; j < T; ++j) {
         const float* th = feats + (size_t)(w0 + (j < nw ? j : 0)) * nfeat;
-        const float* tf = th + 1 + 3 * pc.x;
-        aA[j] = th[0];
+        const float* tf = SHARED ? th : th + 1 + 3 * pc.x;
+        aA[j] = th[SHARED ? 1 : 0];
         cg[j] = tf[0];
-        lA[j] = tf[1];
-        t1[j] = tf[2];
+        lA[j] = tf[SHARED ? 2 : 1];
+        t1[j] = tf[SHARED ? 3 : 2];
         if (threadIdx.x == 0) fin[j] = aA[j];
     }
     float acc[T * HIER_SLOTS];
@@ -163,20 +176,28 @@ hier_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
         }
     if (!vg_last_arrival(tickets, blockIdx.y, npieces)) return;
 
-    // the tile's last block: its rows; columns 0 and 1 of walker j are
-    // slots 0 and 1 summed over all segments, negated; column 2 + 3f + k
-    // takes field f's segments: -s0 (k = 0), aA s0 (k = 1), s2 (k = 2)
+    // the tile's last block: its rows. Hierarchical: columns 0 and 1 of
+    // walker j are slots 0 and 1 summed over all segments, negated; column
+    // 2 + 3f + k takes field f's segments: -s0 (k = 0), aA s0 (k = 1), s2
+    // (k = 2). Fixed: every column sums all segments, slot and multiplier
+    // as in [-S0, -S0, -S1, aA S0, S2].
     vg_segment_sums<HIER_SLOTS>(partial, npieces, seg_sh, nseg, w0, nw,
                                 segsum);
-    const int ncols = 2 + 3 * nfields;
+    const int ncols = SHARED ? 5 : 2 + 3 * nfields;
     for (int c = threadIdx.x; c < nw * ncols; c += THREADS) {
         const int j = c / ncols;
         const int col = c - j * ncols;
-        const int f = col < 2 ? -1 : (col - 2) / HIER_SLOTS;
-        const int k = col < 2 ? col : (col - 2) - f * HIER_SLOTS;
-        const int slot = f >= 0 && k == 1 ? 0 : k;
-        const double m = f < 0 || k == 0 ? -1.0
-            : (k == 1 ? (double)fin[j] : 1.0);
+        int f = -1, slot;
+        double m;
+        if (SHARED) {
+            slot = col == 2 ? 1 : (col == 4 ? 2 : 0);
+            m = col == 3 ? (double)fin[j] : (col == 4 ? 1.0 : -1.0);
+        } else {
+            f = col < 2 ? -1 : (col - 2) / HIER_SLOTS;
+            const int k = col < 2 ? col : (col - 2) - f * HIER_SLOTS;
+            slot = f >= 0 && k == 1 ? 0 : k;
+            m = f < 0 || k == 0 ? -1.0 : (k == 1 ? (double)fin[j] : 1.0);
+        }
         const double* ss = segsum + (size_t)j * nseg * HIER_SLOTS;
         double s = 0.0;
         for (int q = 0; q < nseg; ++q)
@@ -186,7 +207,7 @@ hier_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
     if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
 }
 
-template <int T>
+template <int T, bool SHARED>
 static int launch_hier_vg(dim3 grid, size_t smem, cudaStream_t st,
                           const float* feats, int nwalkers, int nfeat,
                           int nfields, const float* g_a, const float* g_p,
@@ -195,11 +216,12 @@ static int launch_hier_vg(dim3 grid, size_t smem, cudaStream_t st,
                           int* tickets, double* out) {
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            hier_vg<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            hier_vg<T, SHARED>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    hier_vg<T><<<grid, THREADS, smem, st>>>(
+    hier_vg<T, SHARED><<<grid, THREADS, smem, st>>>(
         feats, nwalkers, nfeat, nfields, g_a, g_p, g_w, (const int4*)pieces,
         (const int4*)segs, nseg, partial, tickets, out);
     return (int)cudaGetLastError();
@@ -209,8 +231,8 @@ extern "C" {
 
 // All pointers are device pointers; the stream is a cudaStream_t. Returns
 // the cudaError_t of the launches (0 = success). Allocates nothing: the
-// caller passes a (W, nchunks, K) double partial buffer (K = 1, or
-// HIER_SLOTS for _vg) and the double output, (W,) or (W, 2 + 3 nfields).
+// caller passes a (W, nchunks) double partial buffer and the double
+// output (W,); the value+gradient kernels' below.
 int hier_lnlike_launch(const float* feats, int nwalkers, int nfeat,
                        int nfields,
                        const float* g_a, const float* g_p, const float* g_w,
@@ -252,12 +274,37 @@ int hier_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
 #define HIER_VG_ARGS grid, smem, st, feats, nwalkers, nfeat, nfields, g_a, \
         g_p, g_w, pieces, segs, nseg, partial, tickets, out
     switch (tile) {
-        case 1: return launch_hier_vg<1>(HIER_VG_ARGS);
-        case 2: return launch_hier_vg<2>(HIER_VG_ARGS);
-        case 4: return launch_hier_vg<4>(HIER_VG_ARGS);
+        case 1: return launch_hier_vg<1, false>(HIER_VG_ARGS);
+        case 2: return launch_hier_vg<2, false>(HIER_VG_ARGS);
+        case 4: return launch_hier_vg<4, false>(HIER_VG_ARGS);
         default: return (int)cudaErrorInvalidValue;
     }
-#undef HIER_VG_ARGS
 }
+
+// fixed_lnlike_vg: as hier_lnlike_vg, over the fixed-completeness data's
+// tables (one segment a field), feature rows [c, aA, lA, t1], out (W, 5)
+// double. One launch.
+int fixed_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
+                           const float* g_a, const float* g_p,
+                           const float* g_w,
+                           const int* pieces, int npieces, const int* segs,
+                           int nseg, int tile, double* partial,
+                           int* tickets, double* out, void* stream) {
+    const size_t smem = vg_smem(tile, nseg, HIER_SLOTS);
+    const int nfields = 0;      // not read: every piece takes the row
+    if (nfeat != 4 || nwalkers < 1 || tile < 1 || npieces < 1 || nseg < 1
+        || nseg > npieces || (nwalkers + tile - 1) / tile > 65535
+        || smem > 227 * 1024)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(npieces, (nwalkers + tile - 1) / tile);
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (tile) {
+        case 1: return launch_hier_vg<1, true>(HIER_VG_ARGS);
+        case 2: return launch_hier_vg<2, true>(HIER_VG_ARGS);
+        case 4: return launch_hier_vg<4, true>(HIER_VG_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+#undef HIER_VG_ARGS
 
 }  // extern "C"

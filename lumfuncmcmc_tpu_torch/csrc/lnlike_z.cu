@@ -32,31 +32,55 @@
 // 1.6-10 M cell evaluations of 7-11 float32 operations, a few microseconds
 // at the card's peak, over 2.4 MB of grid arrays that stay in L2 across
 // walkers: launch latency and the dependent exp chain per thread bound it,
-// not bytes. The design follows lnlike.cu:
+// not bytes. z_lnlike's design follows lnlike.cu's value kernels:
 //   - the grid is (F, S_L, S_z) with z contiguous. A block takes one chunk
 //     of the host table (field, start, end, is_source): a band of L rows
-//     [start, end) of one field for one walker. Thread j owns z node j, forms
-//     the node quantities once and walks down the band, so neighbouring
-//     threads read neighbouring addresses; bands of ~2048 cells give
-//     105 x W grid blocks at 201 x 201, ~840 at W = 8 for 132 SMs;
+//     [start, end) of one field for one walker. Thread j owns z node j,
+//     forms the node quantities once and walks down the band, so
+//     neighbouring threads read neighbouring addresses; bands of ~2048
+//     cells give 105 x W grid blocks at 201 x 201;
 //   - source chunks (<= 2048 sources) take one term per source;
-//   - each thread keeps K float32 sums of its few terms in registers (K =
-//     1, or 8 for _vg; a z node's column of up to ~64 cells of ~200 each
-//     at gauss-32 is summed with Kahan's compensation and added to the
-//     value in double), the block reduces them in double with warp
-//     shuffles and writes them to a (W, nchunks, K) double scratch buffer;
-//     a second small kernel sums each walker's partials in fixed chunk
-//     order in double and writes float64: no float atomics, identical
-//     results run to run. The source terms are summed here, beside the
-//     grid integral, from the same features, so the two parts, which
-//     cancel to O(1) out of ~N near the mode, read the same numbers; at
-//     10^5 sources |lnL| ~ 1e6, so the sums and the value are double.
+//   - each thread sums its few terms in float32 (a z node's column with
+//     Kahan's compensation, added to the value in double), the block
+//     reduces them in double with warp shuffles and writes them to a (W,
+//     nchunks) double scratch buffer; a second small kernel sums each
+//     walker's partials in fixed chunk order in double and writes float64:
+//     no float atomics, identical results run to run. The source terms are
+//     summed beside the grid integral, from the same features, so the two
+//     parts, which cancel to O(1) out of ~N near the mode, read the same
+//     numbers; at 10^5 sources |lnL| ~ 1e6, so the sums and the value are
+//     double.
+// z_lnlike_vg was built so too, with a finish kernel of one 32-thread block
+// per walker walking its 106 chunk partials; at trapz-201 one node a
+// thread left 55 of 256 lanes idle (224 at gauss-32), the node quantities
+// were formed 21 times per (walker, node) and field, and at W = 256 each
+// block re-read its band for one walker: 20.0 us at W = 8 and 220 us at
+// W = 256, 5.6x the same-mix bound (PERF.md, H100 80GB HBM3). It is now one
+// launch a call, the same rows, as hier_lnlike_vg (lnlike_h.cu):
+//   - a (piece, walker tile) grid over bands of L rows and source pieces,
+//     the band length and the walker tile picked on the host from W and
+//     the SM count (ops/cuda_lnlike.py _vg_geometry): at trapz-201 W = 1
+//     bands of 5 rows (207 blocks), W = 8 tiles of 2 walkers on bands of
+//     19 rows (224 blocks), W = 256 tiles of 4 on bands of 67 rows (1024
+//     blocks); the band's node quantities are formed once per (walker,
+//     node) into shared memory: 11 times a field at W = 8 and 3 at W =
+//     256, where one node a thread formed them 21 times;
+//   - the block's threads take (node, row phase) pairs, so the lanes
+//     share a long band's cells about evenly at any S_z (above 256 too:
+//     201 nodes and 67 rows take 5 phases, 4 pairs a thread) and
+//     neighbouring threads still read neighbouring addresses;
+//   - a thread evaluates each cell it loads for every walker of its tile;
+//   - the block reduces its T x 8 sums by vg_ticket.cuh's reduce-scatter,
+//     writes its double partials and draws its tile's ticket; the tile's
+//     last block sums them per segment in a fixed order and does the
+//     end-of-call contraction in double (vg_ticket.cuh).
 // Plain expf (no --use_fast_math), matching the plain PyTorch versions in
 // ops/cuda_lnlike.py.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "vg_ticket.cuh"
 
 #define Z_SLOTS 8        // ops/cuda_lnlike.py VG_Z_SLOTS
 #define X_CLAMP 60.0f    // ops/cuda_lnlike.py X_CLAMP
@@ -131,147 +155,264 @@ z_partials(const float* __restrict__ feats, int nfeat, int s_l, int s_z,
     if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = sum[0];
 }
 
-// Grid chunk slots:   [SE, SE dz, SE dz^2, S(Ea - lq E), St1 EP, St1 EP dz,
-//                      St1 EP dz^2, 0], sums over the band's cells, the
-//                      contraction with the node's dz, lq, t1 done per column.
-// Source chunk slots: [Scontrib, Sm, Sm dz, Sm dz^2, Sm x, Sm r, Sm r dz,
+// z_lnlike_vg: one kernel per call, as hier_lnlike_vg (lnlike_h.cu). Block
+// (p, t) of a (piece, walker tile) grid runs piece p of the host's table
+// (ops/cuda_lnlike.py _z_vg_tables) for the T walkers of tile t.
+//   - A grid piece is a band of L rows [r0, r1) of field f's (S_L, S_z)
+//     panel. The block first forms the band's node quantities, once per
+//     (walker, z node), into shared memory; then its threads take the
+//     band's (node, phase) pairs q = node + S_z phase, q = threadIdx.x,
+//     + THREADS, ... below S_z G, G = phases (picked on the host per band
+//     length, _z_phases, so that the lanes share the band's cells about
+//     evenly at any S_z). A pair runs down its node's column over the rows
+//     r0 + phase, r0 + phase + G, ..., with one Kahan pair per walker for
+//     its part of the column's value, and contracts its column sums with
+//     its node's dz, dz^2, t1 and lq (from shared memory too) at the end:
+//     the contraction is linear in the sums, so the pieces of a column add
+//     up to the column's. A pair loads its next cell before it computes
+//     this one.
+//   - A source piece takes one source a thread a trip.
+// Grid piece slots:   [SE, SE dz, SE dz^2, S(Ea - lq E), St1 EP, St1 EP dz,
+//                      St1 EP dz^2, 0]
+// Source piece slots: [Scontrib, Sm, Sm dz, Sm dz^2, Sm x, Sm r, Sm r dz,
 //                      Sm r dz^2], r = th6 - exp(x), x clamped at X_CLAMP.
-__global__ void __launch_bounds__(THREADS)
-z_vg_partials(const float* __restrict__ feats, int nfeat, int s_l, int s_z,
-              const float* __restrict__ g_a, const float* __restrict__ g_p,
-              const float* __restrict__ g_w, const float* __restrict__ n_dz,
-              const float* __restrict__ n_dz2, const float* __restrict__ s_a,
-              const float* __restrict__ s_dz,
-              const float* __restrict__ s_dz2,
-              const float* __restrict__ s_lnom0,
-              const float* __restrict__ s_mask,
-              const int4* __restrict__ chunks, int nchunks,
-              double* __restrict__ partial) {
-    const int c = blockIdx.x;
-    const int w = blockIdx.y;
-    const int4 ch = chunks[c];            // (field, start, end, is_source)
-    const float* th = feats + (size_t)w * nfeat;
-    const float aA = th[6];
-    float acc[Z_SLOTS];
+// Float32 per thread, the value slot double (a source piece hands a thread
+// ~60 terms of ~13 at 10^6 sources: summed in float32 they cost the lnp
+// differences of close thetas 0.049 where the gate is 0.05, PERF.md), the
+// block's reduction and the (W, npieces, Z_SLOTS) partials double. The
+// tile's last block to draw its ticket sums them over the grid segments
+// (G_k) and the source segments (S_k) in a fixed order and writes
+//   [-G0 + S0, -G2 + S3, -G1 + S2, -G0 + S1, th6 G2 - G6 - S7,
+//    th6 G1 - G5 - S6, th6 G0 - G4 - S5, -G3 + S4].
+// Tiles of 4 are held to 3 blocks an SM (at most 85 registers; 117
+// unbounded, 2 blocks an SM, ran 8% slower at W = 256: PERF.md).
+template <int T>
+__global__ void __launch_bounds__(THREADS, T == 4 ? 3 : 1)
+z_vg(const float* __restrict__ feats, int nwalkers, int nfeat, int s_l,
+     int s_z, const float* __restrict__ g_a, const float* __restrict__ g_p,
+     const float* __restrict__ g_w, const float* __restrict__ n_dz,
+     const float* __restrict__ n_dz2, const float* __restrict__ s_a,
+     const float* __restrict__ s_dz, const float* __restrict__ s_dz2,
+     const float* __restrict__ s_lnom0, const float* __restrict__ s_mask,
+     const int4* __restrict__ pieces, const int4* __restrict__ segs,
+     int nseg, int phases, double* __restrict__ partial,
+     int* __restrict__ tickets, double* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem[];   // z_vg_smem
+    int4* seg_sh = (int4*)smem;         // the segment table, for the finish
+    double* segsum = (double*)(smem + (size_t)nseg * sizeof(int4));
+    // the band's node quantities (lq, t1, hi, lo) of walker j, node n at
+    // j S_z + n, then (dz, dz^2) of node n at n
+    float4* node = (float4*)(smem + vg_smem(T, nseg, Z_SLOTS));
+    float2* ndz = (float2*)(node + T * s_z);
+    for (int s = threadIdx.x; s < nseg; s += THREADS) seg_sh[s] = segs[s];
+    const int4 pc = pieces[blockIdx.x];  // (f, r0, r1, 0) or (0, i0, i1, 1)
+    const int w0 = blockIdx.y * T;
+    const int nw = min(T, nwalkers - w0);
+    // rows past the last walker repeat the first, so only the writes are
+    // guarded
+    __shared__ float fin[T];            // th6, for the finish
+    float aA[T];
 #pragma unroll
-    for (int k = 0; k < Z_SLOTS; ++k) acc[k] = 0.0f;
-    double val = 0.0;       // slot 0 (the value) in double
-    if (!ch.w) {
-        const size_t panel = (size_t)ch.x * s_l * s_z;
-        for (int j = threadIdx.x; j < s_z; j += THREADS) {
-            const float dz = n_dz[ch.x * s_z + j];
-            const float dz2 = n_dz2[ch.x * s_z + j];
-            const ZNode n = z_node(th, dz, dz2);
-            float col_e = 0.0f, comp = 0.0f, col_ep = 0.0f, col_ea = 0.0f;
-            for (int r = ch.y; r < ch.z; ++r) {
-                const size_t i = panel + (size_t)r * s_z + j;
-                const float a = g_a[i];
-                const float p = g_p[i];
-                const float e = z_cell(n, aA, a, p) * g_w[i];
-                kahan_add(col_e, comp, e);
-                col_ep += e * p;
-                col_ea += e * a;
+    for (int j = 0; j < T; ++j) {
+        aA[j] = feats[(size_t)(w0 + (j < nw ? j : 0)) * nfeat + 6];
+        if (threadIdx.x == 0) fin[j] = aA[j];
+    }
+    float acc[T * Z_SLOTS];
+#pragma unroll
+    for (int k = 0; k < T * Z_SLOTS; ++k) acc[k] = 0.0f;
+    double val[T];                      // the value slot, per walker
+#pragma unroll
+    for (int j = 0; j < T; ++j) val[j] = 0.0;
+    if (!pc.w) {
+        const float* dzf = n_dz + (size_t)pc.x * s_z;
+        const float* dz2f = n_dz2 + (size_t)pc.x * s_z;
+        for (int q = threadIdx.x; q < T * s_z; q += THREADS) {
+            const int j = q / s_z;
+            const int n = q - j * s_z;
+            const float dz = dzf[n], dz2 = dz2f[n];
+            const ZNode z = z_node(
+                feats + (size_t)(w0 + (j < nw ? j : 0)) * nfeat, dz, dz2);
+            node[q] = make_float4(z.lq, z.t1, z.hi, z.lo);
+            if (j == 0) ndz[n] = make_float2(dz, dz2);
+        }
+        __syncthreads();
+        const size_t panel = (size_t)pc.x * s_l * s_z;
+        const float* ga = g_a + panel;
+        const float* gp = g_p + panel;
+        const float* gw = g_w + panel;
+        for (int q = threadIdx.x; q < s_z * phases; q += THREADS) {
+            const int ph = q / s_z;
+            const int n = q - ph * s_z;
+            ZNode z[T];
+            float col[T], comp[T], ep[T], ea[T];
+#pragma unroll
+            for (int j = 0; j < T; ++j) {
+                const float4 v = node[j * s_z + n];
+                z[j] = {v.x, v.y, v.z, v.w};
+                col[j] = comp[j] = ep[j] = ea[j] = 0.0f;
             }
-            const float tp = n.t1 * col_ep;
-            val += (double)col_e - (double)comp;
-            acc[1] += col_e * dz;
-            acc[2] += col_e * dz2;
-            acc[3] += col_ea - n.lq * col_e;
-            acc[4] += tp;
-            acc[5] += tp * dz;
-            acc[6] += tp * dz2;
+            // the last trip's prefetch re-reads the column's last cell
+            int r = pc.y + ph;
+            size_t nx = (size_t)min(r, pc.z - 1) * s_z + n;
+            float a = ga[nx], p = gp[nx], wg = gw[nx];
+            for (; r < pc.z; r += phases) {
+                nx = (size_t)min(r + phases, pc.z - 1) * s_z + n;
+                const float na = ga[nx], np = gp[nx], nwg = gw[nx];
+#pragma unroll
+                for (int j = 0; j < T; ++j) {
+                    const float e = z_cell(z[j], aA[j], a, p) * wg;
+                    kahan_add(col[j], comp[j], e);
+                    ep[j] += e * p;
+                    ea[j] += e * a;
+                }
+                a = na;
+                p = np;
+                wg = nwg;
+            }
+            const float2 d = ndz[n];
+#pragma unroll
+            for (int j = 0; j < T; ++j) {
+                float* g = acc + j * Z_SLOTS;
+                const float tp = z[j].t1 * ep[j];
+                val[j] += (double)col[j] - (double)comp[j];
+                g[1] += col[j] * d.x;
+                g[2] += col[j] * d.y;
+                g[3] += ea[j] - z[j].lq * col[j];
+                g[4] += tp;
+                g[5] += tp * d.x;
+                g[6] += tp * d.y;
+            }
         }
     } else {
-        for (int i = ch.y + threadIdx.x; i < ch.z; i += THREADS) {
+        float th[T][6];
+#pragma unroll
+        for (int j = 0; j < T; ++j)
+#pragma unroll
+            for (int k = 0; k < 6; ++k)
+                th[j][k] = feats[(size_t)(w0 + (j < nw ? j : 0)) * nfeat + k];
+        float sm = 0.0f, smz = 0.0f, smz2 = 0.0f;
+        for (int i = pc.y + threadIdx.x; i < pc.z; i += THREADS) {
             const float m = s_mask[i];
             if (m > 0.0f) {
-                const float dz = s_dz[i], dz2 = s_dz2[i];
-                const float x = fminf(
-                    s_a[i] - (th[3] * dz2 + th[4] * dz + th[5]), X_CLAMP);
-                const float ex = expf(x);
-                const float mr = m * (aA - ex);
-                acc[0] += th[0] * dz2 + th[1] * dz + th[2] + aA * x - ex
-                    + s_lnom0[i];      // per thread in float
-                acc[1] += m;
-                acc[2] += m * dz;
-                acc[3] += m * dz2;
-                acc[4] += m * x;
-                acc[5] += mr;
-                acc[6] += mr * dz;
-                acc[7] += mr * dz2;
+                const float dz = s_dz[i], dz2 = s_dz2[i], sa = s_a[i];
+                const float om = s_lnom0[i];
+                sm += m;
+                smz += m * dz;
+                smz2 += m * dz2;
+#pragma unroll
+                for (int j = 0; j < T; ++j) {
+                    const float x = fminf(
+                        sa - (th[j][3] * dz2 + th[j][4] * dz + th[j][5]),
+                        X_CLAMP);
+                    const float ex = expf(x);
+                    const float mr = m * (aA[j] - ex);
+                    float* g = acc + j * Z_SLOTS;
+                    val[j] += th[j][0] * dz2 + th[j][1] * dz + th[j][2]
+                        + aA[j] * x - ex + om;
+                    g[4] += m * x;
+                    g[5] += mr;
+                    g[6] += mr * dz;
+                    g[7] += mr * dz2;
+                }
             }
         }
-    }
-    double sums[Z_SLOTS];
 #pragma unroll
-    for (int k = 0; k < Z_SLOTS; ++k) sums[k] = acc[k];
-    sums[0] += val;
-    block_sum_k<Z_SLOTS>(sums);
-    if (threadIdx.x == 0) {
-        double* out = partial + ((size_t)w * nchunks + c) * Z_SLOTS;
-#pragma unroll
-        for (int k = 0; k < Z_SLOTS; ++k) out[k] = sums[k];
+        for (int j = 0; j < T; ++j) {
+            acc[j * Z_SLOTS + 1] = sm;
+            acc[j * Z_SLOTS + 2] = smz;
+            acc[j * Z_SLOTS + 3] = smz2;
+        }
     }
-}
+    double v[T * Z_SLOTS];
+#pragma unroll
+    for (int k = 0; k < T * Z_SLOTS; ++k) v[k] = acc[k];
+#pragma unroll
+    for (int j = 0; j < T; ++j) v[j * Z_SLOTS] += val[j];
+    __shared__ double res[T * Z_SLOTS];
+    vg_block_sums<T * Z_SLOTS>(v, res);
+    const int npieces = gridDim.x;
+    if (threadIdx.x == 0)
+        for (int j = 0; j < nw; ++j) {
+            double* o = partial + ((size_t)(w0 + j) * npieces + blockIdx.x)
+                * Z_SLOTS;
+#pragma unroll
+            for (int k = 0; k < Z_SLOTS; ++k) o[k] = res[j * Z_SLOTS + k];
+        }
+    if (!vg_last_arrival(tickets, blockIdx.y, npieces)) return;
 
-// Block w: thread k < 8 sums slot k over the grid chunks (G_k) and over the
-// source chunks (S_k) in chunk order, in double, from tiles staged in
-// shared memory as in lnlike.cu's finish kernels; thread 0 then writes
-//   out[w] = [-G0 + S0,
-//             -G2 + S3, -G1 + S2, -G0 + S1,
-//             th6 G2 - G6 - S7, th6 G1 - G5 - S6, th6 G0 - G4 - S5,
-//             -G3 + S4].
-__global__ void z_vg_finish(const double* __restrict__ partial,
-                            const int4* __restrict__ chunks, int nchunks,
-                            const float* __restrict__ feats, int nfeat,
-                            double* __restrict__ out) {
-    __shared__ double tile[FINISH_TILE * Z_SLOTS];
-    __shared__ int tile_src[FINISH_TILE];
-    __shared__ double gs[Z_SLOTS], ss[Z_SLOTS];
-    const int w = blockIdx.x;
-    const int k = threadIdx.x;
-    const double* pw = partial + (size_t)w * nchunks * Z_SLOTS;
-    double g = 0.0, s = 0.0;
-    for (int c0 = 0; c0 < nchunks; c0 += FINISH_TILE) {
-        const int n = min(FINISH_TILE, nchunks - c0);
-        __syncthreads();
-        for (int i = threadIdx.x; i < n * Z_SLOTS; i += blockDim.x)
-            tile[i] = pw[(size_t)c0 * Z_SLOTS + i];
-        for (int i = threadIdx.x; i < n; i += blockDim.x)
-            tile_src[i] = chunks[c0 + i].w;
-        __syncthreads();
-        if (k < Z_SLOTS) {
-            for (int c = 0; c < n; ++c) {
-                const double v = tile[c * Z_SLOTS + k];
-                if (tile_src[c]) s += v; else g += v;
-            }
-        }
-    }
-    if (k < Z_SLOTS) {
-        gs[k] = g;
-        ss[k] = s;
+    // the tile's last block: G_k and S_k of each walker (column c of its
+    // 2 Z_SLOTS sums, the segments of one kind added in order), then its row
+    vg_segment_sums<Z_SLOTS>(partial, npieces, seg_sh, nseg, w0, nw,
+                             segsum);
+    __shared__ double tot[T][2 * Z_SLOTS];
+    const int ncols = 2 * Z_SLOTS;
+    for (int c = threadIdx.x; c < nw * ncols; c += THREADS) {
+        const int j = c / ncols;
+        const int col = c - j * ncols;
+        const int src = col >= Z_SLOTS;
+        const double* ss = segsum + (size_t)j * nseg * Z_SLOTS
+            + (col - src * Z_SLOTS);
+        double s = 0.0;
+        for (int q = 0; q < nseg; ++q)
+            if (seg_sh[q].w == src) s += ss[q * Z_SLOTS];
+        tot[j][col] = s;
     }
     __syncthreads();
-    if (k == 0) {
-        const double aA = (double)feats[(size_t)w * nfeat + 6];
-        double* o = out + (size_t)w * 8;
-        o[0] = -gs[0] + ss[0];
-        o[1] = -gs[2] + ss[3];
-        o[2] = -gs[1] + ss[2];
-        o[3] = -gs[0] + ss[1];
-        o[4] = aA * gs[2] - gs[6] - ss[7];
-        o[5] = aA * gs[1] - gs[5] - ss[6];
-        o[6] = aA * gs[0] - gs[4] - ss[5];
-        o[7] = -gs[3] + ss[4];
+    if (threadIdx.x < nw) {
+        const int j = threadIdx.x;
+        const double* G = tot[j];
+        const double* S = tot[j] + Z_SLOTS;
+        const double th6 = (double)fin[j];
+        double* o = out + (size_t)(w0 + j) * 8;
+        o[0] = -G[0] + S[0];
+        o[1] = -G[2] + S[3];
+        o[2] = -G[1] + S[2];
+        o[3] = -G[0] + S[1];
+        o[4] = th6 * G[2] - G[6] - S[7];
+        o[5] = th6 * G[1] - G[5] - S[6];
+        o[6] = th6 * G[0] - G[4] - S[5];
+        o[7] = -G[3] + S[4];
     }
+    if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
+}
+
+// Dynamic shared memory of a z_vg launch: vg_smem's, then the band's node
+// quantities of T walkers and its nodes' (dz, dz^2).
+static size_t z_vg_smem(int tile, int nseg, int s_z) {
+    return vg_smem(tile, nseg, Z_SLOTS) + (size_t)s_z
+        * (tile * sizeof(float4) + sizeof(float2));
+}
+
+template <int T>
+static int launch_z_vg(dim3 grid, size_t smem, cudaStream_t st,
+                       const float* feats, int nwalkers, int nfeat, int s_l,
+                       int s_z, const float* g_a, const float* g_p,
+                       const float* g_w, const float* n_dz,
+                       const float* n_dz2, const float* s_a,
+                       const float* s_dz, const float* s_dz2,
+                       const float* s_lnom0, const float* s_mask,
+                       const int* pieces, const int* segs, int nseg,
+                       int phases, double* partial, int* tickets,
+                       double* out) {
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            z_vg<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    z_vg<T><<<grid, THREADS, smem, st>>>(
+        feats, nwalkers, nfeat, s_l, s_z, g_a, g_p, g_w, n_dz, n_dz2, s_a,
+        s_dz, s_dz2, s_lnom0, s_mask, (const int4*)pieces,
+        (const int4*)segs, nseg, phases, partial, tickets, out);
+    return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 // All pointers are device pointers; the stream is a cudaStream_t. Returns
 // the cudaError_t of the launches (0 = success). Allocates nothing: the
-// caller passes a (W, nchunks, K) double partial buffer (K = 1, or Z_SLOTS
-// for _vg) and the double output, (W,) or (W, 8).
+// caller passes a (W, nchunks) double partial buffer and the double
+// output (W,); z_lnlike_vg's below.
 int z_lnlike_launch(const float* feats, int nwalkers, int nfeat, int s_l,
                     int s_z,
                     const float* g_a, const float* g_p, const float* g_w,
@@ -293,6 +434,12 @@ int z_lnlike_launch(const float* feats, int nwalkers, int nfeat, int s_l,
     return (int)cudaGetLastError();
 }
 
+// z_lnlike_vg: pieces is the (npieces, 4) band and source piece table and
+// segs the (nseg, 4) segment table of one band length (ops/cuda_lnlike.py
+// _z_vg_tables), tile the walker tile, phases the row phases of its bands
+// (_z_phases), partial a (W, npieces, Z_SLOTS) double buffer, tickets the
+// data's zeroed ticket buffer of at least ceil(W / tile) ints, out (W, 8)
+// double. One launch.
 int z_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat, int s_l,
                        int s_z,
                        const float* g_a, const float* g_p, const float* g_w,
@@ -300,19 +447,26 @@ int z_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat, int s_l,
                        const float* s_a, const float* s_dz,
                        const float* s_dz2,
                        const float* s_lnom0, const float* s_mask,
-                       const int* chunks, int nchunks,
-                       double* partial, double* out, void* stream) {
-    if (nfeat != 7) return (int)cudaErrorInvalidValue;
+                       const int* pieces, int npieces, const int* segs,
+                       int nseg, int tile, int phases, double* partial,
+                       int* tickets, double* out, void* stream) {
+    const size_t smem = z_vg_smem(tile, nseg, s_z);
+    if (nfeat != 7 || nwalkers < 1 || s_l < 1 || s_z < 1 || tile < 1
+        || phases < 1 || npieces < 1 || nseg < 1 || nseg > npieces
+        || (nwalkers + tile - 1) / tile > 65535 || smem > 227 * 1024)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(npieces, (nwalkers + tile - 1) / tile);
     cudaStream_t st = (cudaStream_t)stream;
-    dim3 grid(nchunks, nwalkers);
-    z_vg_partials<<<grid, THREADS, 0, st>>>(
-        feats, nfeat, s_l, s_z, g_a, g_p, g_w, n_dz, n_dz2, s_a, s_dz, s_dz2,
-        s_lnom0, s_mask, (const int4*)chunks, nchunks, partial);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    z_vg_finish<<<nwalkers, 32, 0, st>>>(
-        partial, (const int4*)chunks, nchunks, feats, nfeat, out);
-    return (int)cudaGetLastError();
+#define Z_VG_ARGS grid, smem, st, feats, nwalkers, nfeat, s_l, s_z, g_a, g_p, \
+        g_w, n_dz, n_dz2, s_a, s_dz, s_dz2, s_lnom0, s_mask, pieces, segs, \
+        nseg, phases, partial, tickets, out
+    switch (tile) {
+        case 1: return launch_z_vg<1>(Z_VG_ARGS);
+        case 2: return launch_z_vg<2>(Z_VG_ARGS);
+        case 4: return launch_z_vg<4>(Z_VG_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef Z_VG_ARGS
 }
 
 }  // extern "C"

@@ -1,27 +1,29 @@
 // What the one-launch value + gradient kernels share (lnlike.cu
-// free_lnlike_vg, lnlike_h.cu hier_lnlike_vg): the block's reduction of
-// its walkers' sums, the per-walker-tile arrival ticket that lets the last
-// block of a tile finish it, and the fixed-order segment sums of that
-// finish.
+// free_lnlike_vg; lnlike_h.cu hier_lnlike_vg and fixed_lnlike_vg, one body;
+// lnlike_z.cu z_lnlike_vg): the block's reduction of its walkers' sums, the
+// per-walker-tile arrival ticket that lets the last block of a tile finish
+// it, and the fixed-order segment sums of that finish.
 //
 // A launch is a (piece, walker tile) grid over a piece table of the host
 // (ops/cuda_lnlike.py _vg_tables: each field's cells, or sources, cut into
-// near-equal pieces of at most one length) and its segment table (field,
-// first piece, end piece, is_source): one row for each run of pieces of
-// one field and kind. Block (p, t) writes its K double partials of each
-// walker of tile t to partial[w][p][:], then draws a ticket of tile t. The
-// block that draws the last one sums the tile's partials and writes the
-// float64 rows: the sums run in a fixed order (segment by segment,
+// near-equal pieces of at most one length; _z_vg_tables: bands of L rows of
+// each field's (S_L, S_z) panel, then the sources) and its segment table
+// (field, first piece, end piece, is_source): one row for each run of
+// pieces of one field and kind. Block (p, t) writes its K double partials
+// of each walker of tile t to partial[w][p][:], then draws a ticket of tile
+// t. The block that draws the last one sums the tile's partials and writes
+// the float64 rows: the sums run in a fixed order (segment by segment,
 // lane-strided over the pieces, then a fixed shuffle tree), whichever
 // block arrives last, so two launches on one input give the same bits; no
 // float atomics.
 //
 // The tickets live in one int buffer per data object, zeroed once by the
-// data preparation (ops/cuda_lnlike.py CudaGridData.vg_tickets); each
-// tile's last block sets its ticket back to 0, so the buffer is 0 again
-// when the kernel ends: the next launch, and every replay of a CUDA graph
-// that captured the call, finds it so. One data object is launched on one
-// stream at a time (the kernels of one stream run one after another).
+// data preparation (ops/cuda_lnlike.py CudaGridData.vg_tickets,
+// CudaZData.vg_tickets); each tile's last block sets its ticket back to 0,
+// so the buffer is 0 again when the kernel ends: the next launch, and every
+// replay of a CUDA graph that captured the call, finds it so. One data
+// object is launched on one stream at a time (the kernels of one stream run
+// one after another).
 
 #pragma once
 
@@ -36,19 +38,18 @@ __host__ __device__ constexpr int vg_log2_ceil(int v) {
     return s;
 }
 
-// The block's sums of v[0..V) (V <= 32 float32 per-thread sums), in
-// double, into res[0..V) in shared memory, valid in every thread on
-// return. Each warp reduces and scatters at once: at the step of lane
-// offset o (16, 8, ...) every lane keeps half of its values and adds the
-// partner's other half, so after log2(V) steps (V padded to a power of
+// The block's sums of v[0..V) (V <= 32 per-thread sums, float32 or
+// double), in double, into res[0..V) in shared memory, valid in every
+// thread on return. Each warp reduces and scatters at once: at the step of
+// lane offset o (16, 8, ...) every lane keeps half of its values and adds
+// the partner's other half, so after log2(V) steps (V padded to a power of
 // two) each lane holds one value index and the remaining offsets add it
 // across the lanes that share it: ~V double shuffles a warp where a
 // shuffle tree per value takes 5 V. Then thread i < V adds value i of the
 // eight warps in warp order. A fixed order of additions: the same inputs
 // give the same bits.
-template <int V>
-__device__ __forceinline__ void vg_block_sums(const float (&v)[V],
-                                              double* res) {
+template <int V, typename F>
+__device__ __forceinline__ void vg_block_sums(const F (&v)[V], double* res) {
     static_assert(V >= 1 && V <= 32, "one value per lane at most");
     constexpr int S = vg_log2_ceil(V);      // halving steps
     constexpr int VP = 1 << S;
@@ -137,12 +138,13 @@ __device__ __forceinline__ void vg_segment_sums(
                 for (int k = 0; k < K; ++k)
                     acc[k] += __ldcg(pw + (size_t)p * K + k);
         }
+        for (int o = g / 2; o > 0; o >>= 1)
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-            for (int o = g / 2; o > 0; o >>= 1)
+            for (int k = 0; k < K; ++k)
                 acc[k] += __shfl_down_sync(0xffffffffu, acc[k], o);
-            if (q < npairs && lane == 0) segsum[q * K + k] = acc[k];
-        }
+        if (q < npairs && lane == 0)
+#pragma unroll
+            for (int k = 0; k < K; ++k) segsum[q * K + k] = acc[k];
     }
     __syncthreads();
 }

@@ -111,13 +111,14 @@ The TPU's broadcast/slab split exists only because of VMEM and does not
 carry over: one packing serves every catalog size. Cells and sources are
 concatenated field by field (no lane padding) with ``(F+1,)`` field
 offsets, and an int32 chunk table cuts each field's cells and sources
-into pieces of at most ``CHUNK_CELLS`` for the (chunk, walker) launch
-grid. The two one-launch value+gradient kernels (``free_lnlike_vg``,
-``hier_lnlike_vg``) take a (piece, walker tile) grid instead, over piece
-tables of several lengths (:func:`_vg_tables`), one chosen per call from
-the batch and the card (:func:`_vg_geometry`); the last block of each
-walker tile to draw its ticket (``vg_tickets``, zeroed once) writes the
-tile's rows.
+into pieces of at most ``CHUNK_CELLS`` for the value kernels' (chunk,
+walker) launch grid. The four value+gradient kernels of the resident
+layout (``free_lnlike_vg``, ``fixed_lnlike_vg``, ``z_lnlike_vg``,
+``hier_lnlike_vg``) are one launch a call: a (piece, walker tile) grid
+over piece tables of several lengths (:func:`_vg_tables`; bands of L rows
+for the z model, :func:`_z_vg_tables`), one chosen per call from the batch
+and the card (:func:`_vg_geometry`); the last block of each walker tile to
+draw its ticket (``vg_tickets``, zeroed once) writes the tile's rows.
 
 Dispatch rule: a CPU tensor takes the plain PyTorch version
 (:func:`free_lnlike_reference`, :func:`fixed_lnlike_reference`,
@@ -154,11 +155,11 @@ _LOG_LN10 = math.log(LN10)
 _LOGF_REF = -16.0       # reference log10-flux for the R factorization
 CHUNK_CELLS = 2048      # cells (or sources) one CUDA block reduces
 MAX_ROWS = 65535        # walkers one launch takes (grid.y limit)
-VG_FREE_SLOTS = 7       # partial sums per (walker, chunk), csrc/lnlike.cu
-VG_FIXED_SLOTS = 3
+VG_FREE_SLOTS = 7       # partial sums per (walker, piece), csrc/lnlike.cu
 VG_Z_SLOTS = 8          # csrc/lnlike_z.cu
-VG_HIER_SLOTS = 3       # csrc/lnlike_h.cu
-MAX_HIER_FIELDS = 64    # csrc/lnlike_h.cu: hier_vg_finish's column sums
+VG_HIER_SLOTS = 3       # csrc/lnlike_h.cu (hier_lnlike_vg, fixed_lnlike_vg)
+MAX_HIER_FIELDS = 64    # csrc/lnlike_h.cu
+THREADS = 256           # csrc/common.cuh: threads of a block
 X_CLAMP = 60.0          # z_lnlike_vg clamps a source's x = a - lq here
 # free completeness takes the streaming kernels from this many sources on:
 # the streaming kernel's W = 50 time is within 12% of the resident one's
@@ -175,12 +176,16 @@ STREAM_MIN_SOURCES = 40_000
 FLOAT32_MAX_SOURCES = 30_000
 VG_STREAM_SLOTS = 6     # partial sums per (walker, run), lnlike_stream.cu
 STREAM_MAX_RUN = 4      # source tiles one streaming block stages at once
-# the one-launch value+gradient kernels free_lnlike_vg and hier_lnlike_vg
-# (csrc/lnlike.cu, csrc/lnlike_h.cu; _vg_geometry): their piece lengths,
-# longest first, and the walker tiles each is built for (larger ones held
-# too many registers on an H100 and ran slower: PERF.md)
+# the one-launch value+gradient kernels (csrc/lnlike.cu, csrc/lnlike_h.cu,
+# csrc/lnlike_z.cu; _vg_geometry): their piece lengths in cells, longest
+# first (the z model's bands hold about as many cells: _z_vg_tables), and
+# the walker tiles each is built for (larger ones held too many registers
+# on an H100 and ran slower), in the order _vg_geometry prefers them at
+# equal work a block (each family's own sweep at W = 8: PERF.md)
 VG_PIECES = (4096, 2048, 1024, 512)
-VG_TILES = {"free": (1, 2), "hier": (1, 2, 4)}
+VG_Z_PIECES = (16384, 8192, 4096, 2048, 1024)
+VG_TILES = {"free": (1, 2), "fixed": (4, 2, 1), "z": (2, 4, 1),
+            "hier": (1, 2, 4)}
 
 
 def _clamp_flim(theta, layout: ThetaLayout):
@@ -206,10 +211,11 @@ class CudaGridData:
     ``grid_off``/``src_off`` hold the (F+1,) field offsets on the host
     (for the plain versions). ``chunks`` is the (nchunks, 4) int32
     launch table ``(field, start, end, is_source)`` on the device, from
-    which each kernel block reads its field and cell range. Fixed completeness keeps only
-    ``g_a``, ``g_p`` and ``g_w``. ``vg_tables`` and ``vg_tickets`` are
-    read by ``free_lnlike_vg`` and ``hier_lnlike_vg`` alone
-    (:func:`_vg_tables`); ``chunks`` serves every other kernel.
+    which each value kernel's block reads its field and cell range. Fixed
+    completeness keeps only ``g_a``, ``g_p`` and ``g_w``. ``vg_tables``
+    and ``vg_tickets`` are read by the value+gradient kernels alone
+    (``free_lnlike_vg``, ``fixed_lnlike_vg``, ``hier_lnlike_vg``;
+    :func:`_vg_tables`); ``chunks`` serves the value kernels.
     """
 
     g_a: torch.Tensor                  # LN10 * (logL - lref)
@@ -232,9 +238,8 @@ class CudaGridData:
     ln_sums: tuple                     # float64 (nsrc, sum(lum - lref),
                                        #   sum_pow_lum, sum_ln_om) of the
                                        #   collapsed ln-term
-    # --- the one-launch value+gradient kernels only (free_lnlike_vg,
-    # hier_lnlike_vg): _vg_tables, and their arrival tickets, zeroed here
-    # once and left at 0 by every launch ---
+    # --- the value+gradient kernels only: _vg_tables, and their arrival
+    # tickets, zeroed here once and left at 0 by every launch ---
     vg_tables: tuple = ()
     vg_tickets: Optional[torch.Tensor] = None  # (MAX_ROWS,) int32
     # --- the hierarchical model only (prepare_cuda_h_data) ---
@@ -298,53 +303,106 @@ def _vg_pieces(grid_off, src_off, piece):
         for f in range(len(off) - 1):
             n = off[f + 1] - off[f]
             k = -(-n // piece)
-            cuts = [off[f] + i * n // k for i in range(k + 1)] if n else []
+            cuts = [off[f] + c for c in _near_equal(n, k)] if n else []
             rows += [(f, a, b, is_src) for a, b in zip(cuts, cuts[1:])]
     return np.asarray(rows, dtype=np.int32).reshape(-1, 4)
 
 
+def _vg_table(tab, piece, device):
+    """``(piece, pieces, segments)`` on ``device`` for the piece table
+    ``tab``: ``segments`` has one row ``(field, first piece, end piece,
+    is_source)`` for each run of pieces of one field and kind, over which
+    the last block of a walker tile sums the partials."""
+    first = np.flatnonzero(np.r_[True, (tab[1:, [0, 3]]
+                                        != tab[:-1, [0, 3]]).any(1)])
+    segs = np.stack([tab[first, 0], first, np.r_[first[1:], len(tab)],
+                     tab[first, 3]], axis=1).astype(np.int32)
+    return (piece, torch.as_tensor(tab, device=device),
+            torch.as_tensor(segs, device=device))
+
+
 def _vg_tables(grid_off, src_off, device):
     """For each piece length of ``VG_PIECES``: ``(piece, pieces,
-    segments)``, the one-launch value+gradient kernels' launch tables.
-    ``pieces`` is :func:`_vg_pieces` at that length (block ``p`` of a
-    launch runs row ``p``); ``segments`` has one row ``(field, first piece,
-    end piece, is_source)`` for each field's run of cell pieces and of
-    source pieces, over which the last block of a walker tile sums the
-    partials."""
+    segments)``, the value+gradient kernels' launch tables. ``pieces`` is
+    :func:`_vg_pieces` at that length (block ``p`` of a launch runs row
+    ``p``); ``segments`` as :func:`_vg_table` makes them."""
+    return tuple(_vg_table(_vg_pieces(grid_off, src_off, piece), piece,
+                           device) for piece in VG_PIECES)
+
+
+def _near_equal(n, k):
+    """``k + 1`` cuts of ``range(n)`` into ``k`` near-equal runs."""
+    return [i * n // k for i in range(k + 1)]
+
+
+def _z_band_rows(shape, piece):
+    """The most L rows a band of the z tables' length ``piece`` holds:
+    each field's ``S_L`` rows cut into near-equal bands of about ``piece
+    // S_z`` rows (at least one)."""
+    _, sl, sz = shape
+    k = -(-sl // min(sl, max(1, piece // sz)))
+    return -(-sl // k)
+
+
+def _z_vg_tables(shape, nsrc, device):
+    """The z model's ``(piece, pieces, segments)`` for each length of
+    ``VG_Z_PIECES`` (cells): ``pieces`` holds ``(field, first row, end
+    row, 0)`` for each band of :func:`_z_band_rows` rows of each field's
+    (S_L, S_z) panel, then ``(0, first source, end source, 1)`` for the
+    sources cut into near-equal pieces of at most ``piece``; segments as
+    :func:`_vg_table` makes them (one for each field's bands, one for the
+    sources)."""
+    nf, sl, _ = shape
     out = []
-    for piece in VG_PIECES:
-        tab = _vg_pieces(grid_off, src_off, piece)
-        first = np.flatnonzero(np.r_[True, (tab[1:, [0, 3]]
-                                            != tab[:-1, [0, 3]]).any(1)])
-        segs = np.stack([tab[first, 0], first, np.r_[first[1:], len(tab)],
-                         tab[first, 3]], axis=1).astype(np.int32)
-        out.append((piece, torch.as_tensor(tab, device=device),
-                    torch.as_tensor(segs, device=device)))
+    for piece in VG_Z_PIECES:
+        cuts = _near_equal(sl, -(-sl // _z_band_rows(shape, piece)))
+        rows = [(f, a, b, 0) for f in range(nf)
+                for a, b in zip(cuts, cuts[1:])]
+        cuts = _near_equal(nsrc, -(-nsrc // piece)) if nsrc else []
+        rows += [(0, a, b, 1) for a, b in zip(cuts, cuts[1:])]
+        out.append(_vg_table(np.asarray(rows, dtype=np.int32), piece,
+                             device))
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _z_phases(s_z: int, rows: int) -> int:
+    """The row phases ``G`` of ``z_lnlike_vg``'s bands of at most
+    ``rows`` rows at ``S_z`` nodes: the kernel's ``THREADS`` threads take
+    the band's ``S_z G`` (node, phase) pairs in turn, a pair the rows
+    ``phase, phase + G, ...`` of its node's column, and pay about one
+    cell's work a pair to start it and to contract its sums. ``G`` is the
+    smallest that minimises a thread's work, ``ceil(S_z G / THREADS) x
+    (ceil(rows / G) + 1)`` cells: at 201 nodes and 34 rows 5 (4 pairs of
+    7 rows a thread, where one node a thread leaves 55 lanes idle), at 32
+    nodes 8 (every lane one pair)."""
+    def work(g):
+        return -(-s_z * g // THREADS) * (-(-rows // g) + 1)
+    return min(range(1, rows + 1), key=lambda g: (work(g), g))
 
 
 def _vg_geometry(npieces: dict, nwalkers: int, nsm: int, tiles) -> tuple:
     """``(tile, piece)`` of a one-launch value+gradient kernel for
     ``nwalkers`` on a card of ``nsm`` SMs: of the walker tiles ``tiles``
-    no larger than ``nwalkers`` and the piece lengths of
-    ``VG_PIECES``, whose grid is ``npieces[piece]`` pieces by ``ceil(
-    nwalkers / tile)`` tiles, the candidate with the most work a block
-    (tile x piece), the smaller tile first, among those with at least 1.5
-    blocks per SM: every block pays a fixed cost (its piece and feature
-    loads, its reduction and ticket), and fewer blocks than that left SMs
-    idle or unevenly loaded in the sweep of ``tools/vg_turns.py``
-    (PERF.md). Where no grid has that many blocks, tile 1 and the shortest
-    piece."""
+    no larger than ``nwalkers`` and the piece lengths of its tables,
+    whose grid is ``npieces[piece]`` pieces by ``ceil(nwalkers / tile)``
+    tiles, the candidate with the most work a block (tile x piece), the
+    tile listed first in ``tiles`` at equal work, among those with at
+    least 1.5 blocks per SM: every block pays a fixed cost (its piece and
+    feature loads, its reduction and ticket), and fewer blocks than that
+    left SMs idle or unevenly loaded in the sweep of
+    ``tools/vg_turns.py`` (PERF.md). Where no grid has that many blocks,
+    tile 1 and the shortest piece."""
     best = None
     for tile in tiles:
         if tile > nwalkers:
             continue
-        for piece in VG_PIECES:
+        for piece in npieces:
             if 2 * -(-nwalkers // tile) * npieces[piece] >= 3 * nsm:
-                key = (tile * piece, -tile)
+                key = (tile * piece, -tiles.index(tile))
                 if best is None or key > best[0]:
                     best = (key, (tile, piece))
-    return best[1] if best else (1, VG_PIECES[-1])
+    return best[1] if best else (1, min(npieces))
 
 
 @functools.lru_cache(maxsize=None)
@@ -436,10 +494,11 @@ class CudaZData:
     Grid arrays are (C,) in the context's (F, S_L, S_z) order, z
     contiguous, so the z nodes of a field, ``n_dz``/``n_dz2`` (F * S_z,),
     index a cell's last axis; source arrays are (N,). ``chunks`` is the
-    (nchunks, 4) int32 launch table ``(field, start, end, is_source)``:
-    a band of L rows ``[start, end)`` of one field's (S_L, S_z) panel, or
-    a source range. ``lo``/``hi`` are the prior box in float64, for the
-    feature map's clamp.
+    (nchunks, 4) int32 launch table ``(field, start, end, is_source)``
+    of ``z_lnlike``: a band of L rows ``[start, end)`` of one field's (S_L,
+    S_z) panel, or a source range. ``vg_tables`` and ``vg_tickets`` are
+    read by ``z_lnlike_vg`` alone (:func:`_z_vg_tables`). ``lo``/``hi``
+    are the prior box in float64, for the feature map's clamp.
     """
 
     g_a: torch.Tensor       # LN10 * (logL - lref)
@@ -457,6 +516,8 @@ class CudaZData:
     lref: float
     lo: torch.Tensor
     hi: torch.Tensor
+    vg_tables: tuple = ()
+    vg_tickets: Optional[torch.Tensor] = None  # (MAX_ROWS,) int32
 
 
 def _z_chunk_table(shape, nsrc):
@@ -499,7 +560,9 @@ def prepare_cuda_z_data(ctx: LFContext, layout: ThetaLayoutZ,
         s_mask=t(ctx.src_mask.double().cpu().numpy()),
         chunks=torch.as_tensor(_z_chunk_table(logL.shape, len(lum)),
                                device=device),
-        shape=tuple(int(n) for n in logL.shape), lref=lref, lo=lo, hi=hi)
+        shape=tuple(int(n) for n in logL.shape), lref=lref, lo=lo, hi=hi,
+        vg_tables=_z_vg_tables(logL.shape, len(lum), device),
+        vg_tickets=torch.zeros(MAX_ROWS, dtype=torch.int32, device=device))
 
 
 @dataclass(frozen=True)
@@ -1231,11 +1294,11 @@ def _signature(name, data):
             (int(bool(data.fcmin)),))
 
 
-def _launch(name, feats, data, slots, out_cols):
-    """Check the inputs and launch kernel ``name`` of ``csrc/`` on the
-    current stream of ``feats``' device, with a (W, nchunks, ``slots``)
-    double scratch buffer; returns the float64 (W,) output, or (W,
-    ``out_cols``) when ``out_cols`` is set. Raises on any failure."""
+def _launch(name, feats, data):
+    """Check the inputs and launch value kernel ``name`` of ``csrc/`` on
+    the current stream of ``feats``' device, with a (W, nchunks) double
+    scratch buffer; returns the float64 (W,) output. Raises on any
+    failure."""
     if feats.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {feats.device}")
     from lumfuncmcmc_tpu_torch.ops._build import load_library
@@ -1244,10 +1307,9 @@ def _launch(name, feats, data, slots, out_cols):
     _check_cuda_inputs(feats, nfeat, (data.chunks,), arrays)
     lib = load_library()
     w, nchunks = feats.shape[0], data.chunks.shape[0]
-    partial = torch.empty((w, nchunks, slots), dtype=torch.float64,
+    partial = torch.empty((w, nchunks), dtype=torch.float64,
                           device=feats.device)
-    out = torch.empty((w, out_cols) if out_cols else (w,),
-                      dtype=torch.float64, device=feats.device)
+    out = torch.empty((w,), dtype=torch.float64, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     rc = getattr(lib, f"{name}_launch")(
         _ptr(feats), w, nfeat, *head, *(_ptr(a) for a in arrays),
@@ -1294,13 +1356,14 @@ def _launch_stream(name, feats, data: CudaStreamData, shard=0):
     return out
 
 
-def _launch_vg(name, feats, data: CudaGridData, slots, out_cols):
-    """Check the inputs and launch one-launch value+gradient kernel
-    ``name`` (``free_lnlike_vg``, ``hier_lnlike_vg``) on the current
-    stream of ``feats``' device, at the geometry of :func:`_vg_geometry`,
-    with a (W, npieces, ``slots``) double scratch buffer and the data's
-    tickets; returns the float64 (W, ``out_cols``) rows. Raises on any
-    failure."""
+def _launch_vg(name, feats, data, slots, out_cols):
+    """Check the inputs and launch value+gradient kernel ``name`` on the
+    current stream of ``feats``' device, at the geometry of
+    :func:`_vg_geometry`, with a (W, npieces, ``slots``) double scratch
+    buffer and the data's tickets (``data`` a :class:`CudaGridData`, or a
+    :class:`CudaZData` for ``z_lnlike_vg``, whose bands also take their
+    row phases, :func:`_z_phases`); returns the float64 (W, ``out_cols``)
+    rows. Raises on any failure."""
     if feats.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {feats.device}")
     from lumfuncmcmc_tpu_torch.ops._build import load_library
@@ -1314,6 +1377,8 @@ def _launch_vg(name, feats, data: CudaGridData, slots, out_cols):
         {p: t.shape[0] for p, t, _ in data.vg_tables}, w,
         _sm_count(feats.device.index), VG_TILES[name.split("_")[0]])
     _, pieces, segs = next(t for t in data.vg_tables if t[0] == piece)
+    if name.startswith("z"):
+        flags = (_z_phases(data.shape[2], _z_band_rows(data.shape, piece)),)
     lib = load_library()
     partial = torch.empty((w, pieces.shape[0], slots), dtype=torch.float64,
                           device=feats.device)
@@ -1335,16 +1400,6 @@ def _one_launch(slots, out_cols):
     partial sums and ``out_cols(data)`` output columns."""
     def launch(name, feats, data):
         return _launch_vg(name, feats, data, slots, out_cols(data))
-    return launch
-
-
-def _resident(slots, out_cols=None):
-    """The launch of a resident-layout kernel with ``slots`` partial sums;
-    ``out_cols`` maps the data to the output's column count (None: a
-    (W,) output)."""
-    def launch(name, feats, data):
-        return _launch(name, feats, data, slots,
-                       out_cols(data) if out_cols else 0)
     return launch
 
 
@@ -1370,10 +1425,10 @@ def _wrapper(name, plain, launch, doc):
 
 
 free_lnlike = _wrapper(
-    "free_lnlike", free_lnlike_reference, _resident(1),
+    "free_lnlike", free_lnlike_reference, _launch,
     "Free-completeness lnlike, (W, 6+2F) features -> (W,) float64.")
 fixed_lnlike = _wrapper(
-    "fixed_lnlike", fixed_lnlike_reference, _resident(1),
+    "fixed_lnlike", fixed_lnlike_reference, _launch,
     "Fixed-completeness lnlike without its collapsed ln-term, (W, 4) "
     "features -> (W,) float64.")
 free_lnlike_vg = _wrapper(
@@ -1383,19 +1438,19 @@ free_lnlike_vg = _wrapper(
     "features -> (W, 7+2F) float64 rows.")
 fixed_lnlike_vg = _wrapper(
     "fixed_lnlike_vg", fixed_lnlike_vg_reference,
-    _resident(VG_FIXED_SLOTS, lambda data: 5),
+    _one_launch(VG_HIER_SLOTS, lambda data: 5),
     "Fixed-completeness lnlike without its collapsed ln-term and its "
     "feature gradient, (W, 4) features -> (W, 5) float64 rows.")
 z_lnlike = _wrapper(
-    "z_lnlike", z_lnlike_reference, _resident(1),
+    "z_lnlike", z_lnlike_reference, _launch,
     "z-model lnlike, (W, 7) features -> (W,) float64.")
 z_lnlike_vg = _wrapper(
     "z_lnlike_vg", z_lnlike_vg_reference,
-    _resident(VG_Z_SLOTS, lambda data: 8),
+    _one_launch(VG_Z_SLOTS, lambda data: 8),
     "z-model lnlike and its feature gradient, (W, 7) features -> (W, 8) "
     "float64 rows.")
 hier_lnlike = _wrapper(
-    "hier_lnlike", hier_lnlike_reference, _resident(1),
+    "hier_lnlike", hier_lnlike_reference, _launch,
     "Hierarchical-model lnlike without ``lnrest``, (W, 1+3F) features "
     "-> (W,) float64.")
 hier_lnlike_vg = _wrapper(

@@ -370,16 +370,24 @@ def test_hier_step_loop_never_synchronises_and_is_deterministic(device):
 
 
 def _one_launch_case(device, fam, size_ln):
-    """The data of ``free_lnlike_vg`` (free completeness) or
-    ``hier_lnlike_vg`` on a 400-source catalog, its kernel, plain version
-    and a function of W giving W feature rows near the box centre."""
+    """The data of ``free_lnlike_vg`` (free completeness),
+    ``fixed_lnlike_vg``, ``hier_lnlike_vg`` or ``z_lnlike_vg`` on a
+    400-source catalog, its kernel, plain version and a function of W
+    giving W feature rows near the box centre."""
     cfg = LFConfig(min_comp_frac=0.5, size_ln=size_ln,
-                   fix_comp=fam == "hier")
+                   fix_comp=fam != "free")
     ctx = _context(cfg, device)
     if fam == "hier":
         layout = ThetaLayoutH.from_config(cfg)
         data, features = (cl.prepare_cuda_h_data(ctx, layout),
                           cl._features_hier)
+    elif fam == "z":
+        layout = ThetaLayoutZ.from_config(cfg)
+        data, features = (cl.prepare_cuda_z_data(ctx, layout),
+                          cl._features_z)
+    elif fam == "fixed":
+        layout = ThetaLayout.from_config(cfg)
+        data, features = cl.prepare_cuda_data(ctx, True), cl._features
     else:
         layout = ThetaLayout.from_config(cfg)
         data, features = (cl.prepare_cuda_data(ctx, False, cfg.fcmin),
@@ -396,18 +404,19 @@ def _one_launch_case(device, fam, size_ln):
     return data, kernel, getattr(cl, f"{fam}_lnlike_vg_reference"), feats
 
 
-@pytest.mark.parametrize("size_ln", [12, 41])
-@pytest.mark.parametrize("fam", ["free", "hier"])
+@pytest.mark.parametrize("fam,size_ln", [
+    ("free", 12), ("free", 41), ("hier", 12), ("hier", 41), ("fixed", 12),
+    ("fixed", 41), ("z", 12), ("z", 41), ("z", 300)])
 def test_one_launch_vg_kernels_at_every_batch(device, fam, size_ln):
-    """``free_lnlike_vg`` and ``hier_lnlike_vg`` (one launch each, a
-    walker tile's last block finishing its rows through the data's
-    tickets) at W = 1, 8, 13 and 256, back to back on one data object,
-    on grids of 5 pieces a field and of one ragged piece: each equals the
-    plain version (values rtol 1e-4, gradients by ``_grad_close``), two
-    launches on one input are bit-identical, W = 8 again after W = 256
-    gives the first W = 8 rows bit for bit (every launch leaves the
-    tickets at 0), and a CUDA graph of the W = 8 call replayed twice gives
-    those rows too."""
+    """The value+gradient kernels (one launch each, a walker tile's last
+    block finishing its rows through the data's tickets) at W = 1, 8, 13
+    and 256, back to back on one data object, on grids of several pieces a
+    field and of one ragged piece (the z model's also on one of 300 z
+    nodes, more than a block's threads): each equals the plain version
+    (values rtol 1e-4, gradients by ``_grad_close``), two launches on one
+    input are bit-identical, W = 8 again after W = 256 gives the first W =
+    8 rows bit for bit (every launch leaves the tickets at 0), and a CUDA
+    graph of the W = 8 call replayed twice gives those rows too."""
     data, kernel, plain, feats = _one_launch_case(device, fam, size_ln)
     rows = {}
     for w in (1, 8, 13, 256, 8):
@@ -434,17 +443,21 @@ def test_one_launch_vg_kernels_at_every_batch(device, fam, size_ln):
     assert not data.vg_tickets.any()
 
 
-@pytest.mark.parametrize("fam,tile", [("free", 1), ("free", 2),
-                                      ("hier", 1), ("hier", 2),
-                                      ("hier", 4)])
+@pytest.mark.parametrize("fam,tile,size_ln", [
+    (fam, tile, size_ln) for fam in ("free", "hier", "fixed", "z")
+    for tile in cl.VG_TILES[fam]
+    for size_ln in ((12, 41, 300) if fam == "z" else (41,))])
 def test_one_launch_vg_kernels_at_every_walker_tile(device, monkeypatch,
-                                                     fam, tile):
-    """Every walker-tile instance of the two one-launch kernels, whatever
+                                                     fam, tile, size_ln):
+    """Every walker-tile instance of the value+gradient kernels, whatever
     the geometry rule would take on this card, at W = 13 (a partial last
-    tile) and pieces of 512 (4 a field): the plain version's rows, two
-    launches bit-identical, the tickets left at 0."""
-    data, kernel, plain, feats = _one_launch_case(device, fam, 41)
-    monkeypatch.setattr(cl, "_vg_geometry", lambda *a: (tile, 512))
+    tile) and the shortest pieces (4 a field at 41 cells a side; the z
+    model's bands also at 12 and 300 z nodes, where its lanes map
+    otherwise): the plain version's rows, two launches bit-identical, the
+    tickets left at 0."""
+    data, kernel, plain, feats = _one_launch_case(device, fam, size_ln)
+    piece = min(p for p, _, _ in data.vg_tables)
+    monkeypatch.setattr(cl, "_vg_geometry", lambda *a: (tile, piece))
     f = feats(13)
     got, again = kernel(f, data), kernel(f, data)
     assert torch.equal(got, again)

@@ -64,7 +64,7 @@ MEGA_TARGET, MEGA_SEED = 1_200_000, 7
 MODELS = {"single": LumFuncModel, "z": LumFuncModelZ, "hier": LumFuncModelH}
 # the device kernels of each family's main and value+gradient paths
 KERNELS = {"single": ("free_partials", "free_vg"),
-           "z": ("z_partials", "z_vg_partials", "z_vg_finish"),
+           "z": ("z_partials", "z_vg"),
            "hier": ("hier_partials", "hier_vg"),
            "stream": ("stream_partials", "stream_vg_partials",
                       "stream_vg_finish", "stream_finish")}

@@ -1,29 +1,34 @@
-"""The value+gradient kernels of ``fit --sampler nuts`` and ``fith --sampler
-nuts`` (``free_lnlike_vg``, ``hier_lnlike_vg``) against an earlier design
-of the same kernels, in turns on one card.
+"""The NUTS paths' value+gradient kernels (``free_lnlike_vg`` of ``fit
+--sampler nuts``, ``fixed_lnlike_vg`` of ``fit -fc --sampler nuts``,
+``z_lnlike_vg`` of ``fitz --sampler nuts``, ``hier_lnlike_vg`` of ``fith
+--sampler nuts``) against an earlier two-pass design of the same kernels,
+in turns on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 tools/vg_turns.py --old DIR [--widths 1,8,256] [--sweep] [--ablate]
+    python3 tools/vg_turns.py --old DIR [--widths 1,8,256] [--families F,..]
+                              [--sweep] [--ablate]
 
 ``DIR`` holds the earlier design's ``csrc/`` (for instance a ``git
 archive`` of an earlier commit unpacked under ``_archive/``, which
-``.gitignore`` lists). Its sources are built into a library of their own
-under ``lumfuncmcmc_tpu_torch/_build/``, with three C entry points appended
-to their copies: each old kernel's partial pass alone, its finish pass
-alone, and a pair of empty kernels. On the fits' own catalog (``fit
---synthetic 2000``'s: ``free_lnlike_vg`` at trapz-101, ``hier_lnlike_vg``
-at trapz-201) and at each walker batch it checks the old call and the
-current wrapper against the plain version and each other (values rtol
-1e-4, gradients 2e-3 by ``_grad_close``) and two launches of each on one
-input bit for bit; then times, in ``chip_smoke.py``'s ``_device_ms``
-harness (a CUDA graph of 20 calls replayed between CUDA events): the old
-call and the current one in turns (old, new, new, old), the old partial
-and finish passes alone, one and two empty kernels; and, under
-``torch.profiler``, each kernel's own device time per call. With
-``--sweep`` it also times the current kernels at every (walker tile,
-piece) they are built for, and with ``--ablate`` builds of them with
-parts of their tail left out (``ABLATIONS``). Prints one line per
+``.gitignore`` lists). Each family whose two-pass kernels
+(``*_vg_partials`` and ``*_vg_finish``) it holds is compared (or those of
+``--families``); its sources are built into a library of their own under
+``lumfuncmcmc_tpu_torch/_build/``, with C entry points appended to their
+copies: each old kernel's partial pass alone, its finish pass alone, and a
+pair of empty kernels. On the fits' own catalog
+(``fit --synthetic 2000``'s: ``free_lnlike_vg`` at trapz-101, the others at
+trapz-201) and at each walker batch it checks the old call and the current
+wrapper against the plain version and each other (values rtol 1e-4,
+gradients 2e-3 by ``_grad_close``) and two launches of each on one input
+bit for bit; then times, in ``chip_smoke.py``'s ``_device_ms`` harness (a
+CUDA graph of 20 calls replayed between CUDA events): the old call and
+the current one in turns (old, new, new, old), the old partial and finish
+passes alone, one and two empty kernels; and, under ``torch.profiler``,
+each kernel's own device time per call. With ``--sweep`` it also times
+the current kernels at every (walker tile, piece) they are built for (the
+z model's at its rule's row phases and at one), and with ``--ablate``
+builds of them with parts left out (``ABLATIONS``). Prints one line per
 measurement, the card's name and power limit, and writes the JSON
 summary to ``chiprun_out/vg_turns.json``. Imports only the port.
 """
@@ -50,8 +55,9 @@ from lumfuncmcmc_tpu_torch.models.likelihood import sample_init  # noqa: E402
 from lumfuncmcmc_tpu_torch.ops import _build  # noqa: E402
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl  # noqa: E402
 
-# appended to the earlier design's lnlike.cu and lnlike_h.cu (their
-# kernels' own names and launch shapes)
+# appended to the earlier design's sources (its kernels' own names and
+# launch shapes): each family's partial and finish passes alone, with one C
+# signature for every finish
 SPLIT_FREE = r"""
 extern "C" int split_free_vg_partials(
         const float* feats, int nwalkers, int nfeat, int nfields,
@@ -75,12 +81,6 @@ extern "C" int split_free_vg_finish(
         partial, (const int4*)chunks, nchunks, feats, nfeat, nfields, out);
     return (int)cudaGetLastError();
 }
-static __global__ void split_empty() {}
-extern "C" int split_empty_launch(int n, void* stream) {
-    for (int i = 0; i < n; ++i)
-        split_empty<<<1, 32, 0, (cudaStream_t)stream>>>();
-    return (int)cudaGetLastError();
-}
 """
 SPLIT_HIER = r"""
 extern "C" int split_hier_vg_partials(
@@ -102,23 +102,76 @@ extern "C" int split_hier_vg_finish(
     return (int)cudaGetLastError();
 }
 """
-_p, _i = ctypes.c_void_p, ctypes.c_int
-# the earlier design's entry points (its ops/_build.py), and the appended ones
-OLD_ENTRY = {
-    "free_lnlike_vg_launch": [_p, _i, _i, _i] + [_p] * 11
-    + [_p, _i, _i, _p, _p, _p],
-    "hier_lnlike_vg_launch": [_p, _i, _i, _i] + [_p] * 3
-    + [_p, _i, _p, _p, _p],
-    "split_free_vg_partials": [_p, _i, _i, _i] + [_p] * 11
-    + [_p, _i, _i, _p, _p],
-    "split_free_vg_finish": [_p, _p, _i, _p, _i, _i, _i, _p, _p],
-    "split_hier_vg_partials": [_p, _i, _i, _i] + [_p] * 3
-    + [_p, _i, _p, _p],
-    "split_hier_vg_finish": [_p, _p, _i, _p, _i, _i, _i, _p, _p],
-    "split_empty_launch": [_i, _p],
+SPLIT_FIXED = r"""
+extern "C" int split_fixed_vg_partials(
+        const float* feats, int nwalkers, int nfeat, const float* g_a,
+        const float* g_p, const float* g_w, const int* chunks, int nchunks,
+        double* partial, void* stream) {
+    fixed_vg_partials<<<dim3(nchunks, nwalkers), THREADS, 0,
+                        (cudaStream_t)stream>>>(
+        feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
+    return (int)cudaGetLastError();
 }
-SLOTS = {"free": cl.VG_FREE_SLOTS, "hier": cl.VG_HIER_SLOTS}
-ARRAYS = {"free": cl._FREE_ARRAYS, "hier": cl._FIXED_ARRAYS}
+extern "C" int split_fixed_vg_finish(
+        const double* partial, const int* chunks, int nchunks,
+        const float* feats, int nwalkers, int nfeat, int nfields,
+        double* out, void* stream) {
+    fixed_vg_finish<<<nwalkers, 32, 0, (cudaStream_t)stream>>>(
+        partial, nchunks, feats, nfeat, out);
+    return (int)cudaGetLastError();
+}
+"""
+SPLIT_Z = r"""
+extern "C" int split_z_vg_partials(
+        const float* feats, int nwalkers, int nfeat, int s_l, int s_z,
+        const float* g_a, const float* g_p, const float* g_w,
+        const float* n_dz, const float* n_dz2, const float* s_a,
+        const float* s_dz, const float* s_dz2, const float* s_lnom0,
+        const float* s_mask, const int* chunks, int nchunks,
+        double* partial, void* stream) {
+    z_vg_partials<<<dim3(nchunks, nwalkers), THREADS, 0,
+                    (cudaStream_t)stream>>>(
+        feats, nfeat, s_l, s_z, g_a, g_p, g_w, n_dz, n_dz2, s_a, s_dz, s_dz2,
+        s_lnom0, s_mask, (const int4*)chunks, nchunks, partial);
+    return (int)cudaGetLastError();
+}
+extern "C" int split_z_vg_finish(
+        const double* partial, const int* chunks, int nchunks,
+        const float* feats, int nwalkers, int nfeat, int nfields,
+        double* out, void* stream) {
+    z_vg_finish<<<nwalkers, 32, 0, (cudaStream_t)stream>>>(
+        partial, (const int4*)chunks, nchunks, feats, nfeat, out);
+    return (int)cudaGetLastError();
+}
+"""
+SPLIT_EMPTY = r"""
+static __global__ void split_empty() {}
+extern "C" int split_empty_launch(int n, void* stream) {
+    for (int i = 0; i < n; ++i)
+        split_empty<<<1, 32, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+"""
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# family -> (its old source, the split passes appended to it, the grid of
+# its case, its old whole call's argument types (its ops/_build.py), its
+# data arrays, its partial sums, the ints after (W, nfeat))
+FAMILIES = {
+    "free": ("lnlike.cu", SPLIT_FREE, "trapz-101",
+             [_p, _i, _i, _i] + [_p] * 11 + [_p, _i, _i, _p, _p, _p],
+             cl._FREE_ARRAYS, cl.VG_FREE_SLOTS,
+             lambda d: (d.nfields,)),
+    "fixed": ("lnlike.cu", SPLIT_FIXED, "trapz-201",
+              [_p, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p],
+              cl._FIXED_ARRAYS, cl.VG_HIER_SLOTS, lambda d: ()),
+    "z": ("lnlike_z.cu", SPLIT_Z, "trapz-201",
+          [_p, _i, _i, _i, _i] + [_p] * 10 + [_p, _i, _p, _p, _p],
+          cl._Z_ARRAYS, cl.VG_Z_SLOTS, lambda d: d.shape[1:]),
+    "hier": ("lnlike_h.cu", SPLIT_HIER, "trapz-201",
+             [_p, _i, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p],
+             cl._FIXED_ARRAYS, cl.VG_HIER_SLOTS, lambda d: (d.nfields,)),
+}
+_FINISH_ARGS = [_p, _p, _i, _p, _i, _i, _i, _p, _p]
 
 
 def build_copy(src_dir, edits, tag, entry):
@@ -157,19 +210,39 @@ def build_copy(src_dir, edits, tag, entry):
 
 
 def build_old(src_dir):
-    """The earlier design's sources with the split entry points appended."""
-    if not os.path.exists(os.path.join(src_dir, "lnlike_h.cu")):
-        raise SystemExit(f"{src_dir} holds no lnlike_h.cu")
-    return build_copy(src_dir, {"lnlike.cu": lambda t: t + SPLIT_FREE,
-                                "lnlike_h.cu": lambda t: t + SPLIT_HIER},
-                      "old", OLD_ENTRY)
+    """The earlier design's sources with the split entry points of each
+    family whose two-pass kernels they hold appended; returns (the
+    library, those families)."""
+    text = {}
+    for name in {f[0] for f in FAMILIES.values()}:
+        path = os.path.join(src_dir, name)
+        if not os.path.exists(path):
+            raise SystemExit(f"{src_dir} holds no {name}")
+        with open(path) as fh:
+            text[name] = fh.read()
+    fams = [f for f, (src, *_) in FAMILIES.items()
+            if f"{f}_vg_partials" in text[src]]
+    if not fams:
+        raise SystemExit(f"{src_dir} holds no two-pass vg kernels")
+    add = {"lnlike.cu": SPLIT_EMPTY}
+    entry = {"split_empty_launch": [_i, _p]}
+    for f in fams:
+        src, split, _, whole = FAMILIES[f][:4]
+        add[src] = add.get(src, "") + split
+        entry[f"{f}_lnlike_vg_launch"] = whole
+        entry[f"split_{f}_vg_partials"] = whole[:-2] + [_p]
+        entry[f"split_{f}_vg_finish"] = _FINISH_ARGS
+    edits = {n: lambda t, a=a: t + a for n, a in add.items()}
+    return build_copy(src_dir, edits, "old", entry), fams
 
 
 # the current kernels with their tail cut short, to split a call's time
 # (file -> edit): "no tickets" leaves out the tickets and the finish (each
 # block writes its partials and ends), "no finish" draws the tickets (and
 # resets them) but leaves out the last block's finish, the last two leave
-# out the finish's reads of the partials, or its column pass
+# out the finish's reads of the partials, or its column pass; the z ones
+# leave out the z kernel's node quantities (constants in their place) or its
+# grid cells, or let its tiles of 4 take as many registers as they would
 _COLS = "for (int c = threadIdx.x; c < nw * ncols; c += THREADS) {"
 ABLATIONS = {
     "no tickets": {"vg_ticket.cuh": lambda t: t.replace(
@@ -183,18 +256,28 @@ ABLATIONS = {
         "acc[k] += __ldcg(pw + (size_t)p * K + k);", "acc[k] += 1.0;", 1)},
     "finish without columns": {
         n: lambda t: t.replace(_COLS, _COLS.replace("nw * ncols", "1"), 1)
-        for n in ("lnlike.cu", "lnlike_h.cu")},
+        for n in ("lnlike.cu", "lnlike_h.cu", "lnlike_z.cu")},
     "finish built, never run": {"vg_ticket.cuh": lambda t: t.replace(
         "    __syncthreads();\n    return last;\n",
         "    __syncthreads();\n    if (last && threadIdx.x == 0) "
         "tickets[tile] = 0;\n    return last && nblocks < 0;\n", 1)},
+    "z node quantities not formed": {"lnlike_z.cu": lambda t: t.replace(
+        "const ZNode z = z_node(\n"
+        "                feats + (size_t)(w0 + (j < nw ? j : 0)) * nfeat, dz, "
+        "dz2);", "const ZNode z = {dz, 1.0f, dz2, 0.0f};", 1)},
+    "z cell loop left out": {"lnlike_z.cu": lambda t: t.replace(
+        "for (; r < pc.z; r += phases) {",
+        "for (; r < pc.z && r < 0; r += phases) {", 1)},
+    "z tiles of 4 unbounded": {"lnlike_z.cu": lambda t: t.replace(
+        "__global__ void __launch_bounds__(THREADS, T == 4 ? 3 : 1)\nz_vg(",
+        "__global__ void __launch_bounds__(THREADS)\nz_vg(", 1)},
     "finish run twice": {n: lambda t: t.replace(
         "    vg_segment_sums<", "    for (int rep = 0; rep < 2; ++rep) {\n"
         "    vg_segment_sums<", 1).replace(
         "    if (threadIdx.x == 0) tickets[blockIdx.y] = 0;\n",
         "    __syncthreads();\n    }\n"
         "    if (threadIdx.x == 0) tickets[blockIdx.y] = 0;\n", 1)
-        for n in ("lnlike.cu", "lnlike_h.cu")},
+        for n in ("lnlike.cu", "lnlike_h.cu", "lnlike_z.cu")},
 }
 
 
@@ -215,10 +298,14 @@ def old_calls(lib, fam, data):
     """(whole call, partial pass alone, finish pass alone) of the earlier
     design for ``data``: functions of the features; the passes alone
     share one partial buffer per batch."""
-    arrays = tuple(getattr(data, a) for a in ARRAYS[fam])
-    nf, nchunks, k = data.nfields, data.chunks.shape[0], SLOTS[fam]
+    _, _, _, _, names, k, head = FAMILIES[fam]
+    arrays = tuple(getattr(data, a) for a in names)
+    head = tuple(head(data))
+    nf = data.shape[0] if fam == "z" else data.nfields
+    nchunks = data.chunks.shape[0]
     flags = (int(bool(data.fcmin)),) if fam == "free" else ()
-    head = (nf,)
+    cols = {"free": lambda f: 1 + f.shape[1], "fixed": lambda f: 5,
+            "z": lambda f: 8, "hier": lambda f: 2 + 3 * nf}[fam]
     bufs = {}
 
     def buffers(f):
@@ -226,18 +313,15 @@ def old_calls(lib, fam, data):
         if w not in bufs:
             bufs[w] = (torch.empty((w, nchunks, k), dtype=torch.float64,
                                    device=f.device),
-                       torch.empty((w, 1 + f.shape[1]) if fam == "free"
-                                   else (w, 2 + 3 * nf),
-                                   dtype=torch.float64, device=f.device))
+                       torch.empty((w, cols(f)), dtype=torch.float64,
+                                   device=f.device))
         return bufs[w]
 
     def whole(f):
         w = f.shape[0]
         partial = torch.empty((w, nchunks, k), dtype=torch.float64,
                               device=f.device)
-        out = torch.empty((w, 1 + f.shape[1]) if fam == "free"
-                          else (w, 2 + 3 * nf), dtype=torch.float64,
-                          device=f.device)
+        out = torch.empty((w, cols(f)), dtype=torch.float64, device=f.device)
         _check(getattr(lib, f"{fam}_lnlike_vg_launch")(
             _ptr(f), w, f.shape[1], *head, *(_ptr(a) for a in arrays),
             _ptr(data.chunks), nchunks, *flags, _ptr(partial), _ptr(out),
@@ -263,37 +347,48 @@ def old_calls(lib, fam, data):
 
 
 def sweep(case, f, ref):
-    """The current kernel at every (walker tile, piece) it is built for,
-    each checked against the plain version and over two launches, then
-    timed: {"tile piece [blocks]": ms}, the rule's own choice marked by
+    """The current kernel at every (walker tile, piece) it is built for
+    (the z model's at its rule's row phases and at one phase), each
+    checked against the plain version and over two launches, then timed:
+    {"tile piece [blocks] (phases)": ms}, the rule's own choice marked by
     ``*``."""
     kernel = getattr(cl, case.kname)
-    rule = cl._vg_geometry
+    rule, phase_rule = cl._vg_geometry, cl._z_phases
     npieces = {p: t.shape[0] for p, t, _ in case.data.vg_tables}
     chosen = rule(npieces, f.shape[0], cl._sm_count(f.device.index),
                   cl.VG_TILES[case.fam])
     out = {}
     try:
         for tile in cl.VG_TILES[case.fam]:
-            for piece in cl.VG_PIECES:
+            for piece in npieces:
                 geom = (tile, piece)
                 cl._vg_geometry = lambda *a, g=geom: g
-                got, again = kernel(f, case.data), kernel(f, case.data)
-                torch.cuda.synchronize()
-                err = (cs._rel(got[:, 0], ref[:, 0]),
-                       cs._grad_rel(got[:, 1:], ref[:, 1:]))
-                if not (torch.equal(got, again) and err[0] <= cs.RTOL_KERNEL
-                        and err[1] <= cs.RTOL_GRAD):
-                    raise SystemExit(f"{case.kname} at {geom}: errors {err}"
-                                     f", bit-identical "
-                                     f"{torch.equal(got, again)}")
-                blocks = -(-f.shape[0] // tile) * npieces[piece]
-                key = (f"{tile} {piece} [{blocks}]"
-                       + " *" * (geom == chosen))
-                out[key] = cs._device_ms(lambda: kernel(f, case.data))
+                rule_ph, phases = None, [None]
+                if case.fam == "z":
+                    rule_ph = phase_rule(case.data.shape[2], cl._z_band_rows(
+                        case.data.shape, piece))
+                    phases = sorted({rule_ph, 1})
+                for ph in phases:
+                    if ph is not None:
+                        cl._z_phases = lambda *a, g=ph: g
+                    got, again = kernel(f, case.data), kernel(f, case.data)
+                    torch.cuda.synchronize()
+                    err = (cs._rel(got[:, 0], ref[:, 0]),
+                           cs._grad_rel(got[:, 1:], ref[:, 1:]))
+                    if not (torch.equal(got, again)
+                            and err[0] <= cs.RTOL_KERNEL
+                            and err[1] <= cs.RTOL_GRAD):
+                        raise SystemExit(
+                            f"{case.kname} at {geom}, phases {ph}: errors "
+                            f"{err}, bit-identical {torch.equal(got, again)}")
+                    blocks = -(-f.shape[0] // tile) * npieces[piece]
+                    key = (f"{tile} {piece} [{blocks}]"
+                           + f" ({ph})" * (ph is not None)
+                           + " *" * (geom == chosen and ph == rule_ph))
+                    out[key] = cs._device_ms(lambda: kernel(f, case.data))
     finally:
-        cl._vg_geometry = rule
-    print("  sweep (tile piece [blocks]: us): " + ", ".join(
+        cl._vg_geometry, cl._z_phases = rule, phase_rule
+    print("  sweep (tile piece [blocks] (phases): us): " + ", ".join(
         f"{k}: {v * 1e3:.2f}" for k, v in sorted(out.items(),
                                                  key=lambda kv: kv[1])))
     return out
@@ -320,6 +415,9 @@ def main():
     ap.add_argument("--old", required=True,
                     help="the earlier design's csrc/ directory")
     ap.add_argument("--widths", default="1,8,256")
+    ap.add_argument("--families", default="",
+                    help="compare only these (comma-separated) of the "
+                         "families the old sources hold")
     ap.add_argument("--ablate", action="store_true",
                     help="also time the current kernels with parts of "
                          "their tail left out (ABLATIONS)")
@@ -331,7 +429,7 @@ def main():
         raise SystemExit("needs a CUDA device")
     cs.phase_device()
     cs.phase_build()
-    old = build_old(args.old)
+    old, fams = build_old(args.old)
     ablated = {k: build_copy(_build.SRC_DIR, edits, f"ablate{i}",
                              _build.ENTRY_POINTS)
                for i, (k, edits) in enumerate(ABLATIONS.items())
@@ -347,8 +445,8 @@ def main():
     print(f"empty kernel {res['empty_ms'] * 1e3:.2f} us, empty pair "
           f"{res['empty_pair_ms'] * 1e3:.2f} us (graph replay)")
     for case in cs._cases(dev, "_vg"):
-        if (case.kname, case.grid) not in (("free_lnlike_vg", "trapz-101"),
-                                           ("hier_lnlike_vg", "trapz-201")):
+        if case.fam not in fams or case.grid != FAMILIES[case.fam][2] or (
+                args.families and case.fam not in args.families.split(",")):
             continue
         fam, data = case.fam, case.data
         new = getattr(cl, case.kname)
