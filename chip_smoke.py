@@ -21,7 +21,10 @@ failure ends the run with a nonzero exit:
    samples x 8 rows for its Ln Prob recompute) and 13, with out-of-box
    thetas, a negative Flim (free), a row on the ``sch_al`` bound (z) and a
    ``sig_L = 0`` row (hier, in both ``fix_sch_al`` layouts); kernel and
-   plain times;
+   plain times; the one-launch value kernels (``z_lnlike``,
+   ``hier_lnlike``: ``ONE_LAUNCH``) also held to two launches on one input
+   bit for bit, to their tickets back at 0, and at W = 50 to one kernel
+   node a call (``torch.profiler``);
 4. each value+gradient kernel (``free_lnlike_vg``, ``fixed_lnlike_vg``,
    ``z_lnlike_vg``, ``hier_lnlike_vg``) the same way at W = 1, 8 and 256
    (values rtol 1e-4, gradients by the JAX package's ``_grad_close`` rule
@@ -129,10 +132,11 @@ from lumfuncmcmc_tpu_torch.utils.synth import (
 RTOL_KERNEL = 1e-4   # f32 sums of <= 2e5 terms in another order
 RTOL_F64 = 5e-4      # the JAX package's Pallas-vs-f64 bar
 RTOL_GRAD = 2e-3     # the JAX package's gradient bar (_grad_close)
-# value+gradient kernels of one launch a call: held bit for bit over two
-# launches and to their tickets back at 0, and their time split in phase 4
-ONE_LAUNCH = ("free_lnlike_vg", "fixed_lnlike_vg", "z_lnlike_vg",
-              "hier_lnlike_vg")
+# kernels of one launch a call: held bit for bit over two launches, to
+# their tickets back at 0 and to one kernel node a call, their time split
+# in phases 3 and 4
+ONE_LAUNCH = ("z_lnlike", "hier_lnlike", "free_lnlike_vg",
+              "fixed_lnlike_vg", "z_lnlike_vg", "hier_lnlike_vg")
 NSTEPS, NWALKERS, NSYNTH = 2000, 100, 2000
 NUTS_CHAINS, NUTS_WARMUP = 8, 200
 # NUTS samples by kernel family (warmup is the CLI's 200 and holds most of
@@ -363,8 +367,7 @@ def _bound(kname, data, w):
         ndata = (3 if gridonly else 5) * ncell + (3 if stream else 6) * nsrc
     out_cols = (1 + nfeat) if kname.endswith("_vg") else 1
     out_bytes = 8 * w * out_cols
-    table = data.runs if stream else data.chunks
-    nbytes = 4 * (w * nfeat + ndata + table.numel()) + out_bytes
+    nbytes = 4 * (w * nfeat + ndata + _table_ints(kname, data, w)) + out_bytes
     ops = w * (ncell * per_cell + nvalid * per_src + (nsrc - nvalid)
                + nnode * per_node)
     tc, ts, tn = TRANS[fam]
@@ -373,6 +376,32 @@ def _bound(kname, data, w):
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops,
             trans)
+
+
+def _table_ints(kname, data, w):
+    """The ints of the launch tables one call of ``kname`` at ``w`` walkers
+    reads: a one-launch kernel's pieces and segments at its geometry, else
+    the data's chunk or run table."""
+    if kname not in ONE_LAUNCH:
+        return (data.runs if "stream" in kname else data.chunks).numel()
+    _, piece = cl._vg_geometry(
+        {p: t.shape[0] for p, t, _ in data.vg_tables}, w,
+        cl._sm_count(data.g_a.device.index or 0), cl._tiles(kname))
+    _, pieces, segs = next(t for t in data.vg_tables if t[0] == piece)
+    return pieces.numel() + segs.numel()
+
+
+def _one_node(kname, grid, w, fn, empty_ms):
+    """The split of a one-launch kernel's call: its kernels' own device
+    times (``torch.profiler``), which must be one node; fails otherwise."""
+    kus = _kernel_us(fn)
+    print(f"{kname} {grid} W={w} split: one launch; the kernel's own "
+          f"device time { {k: round(v, 2) for k, v in kus.items()} } us "
+          f"(torch.profiler), an empty kernel {empty_ms * 1e3:.2f} us")
+    if len(kus) != 1:
+        fail(f"{kname} {grid} W={w}: {len(kus)} kernel nodes a call, "
+             f"expected one: {sorted(kus)}")
+    return kus
 
 
 def _central_thetas(cfg, layout, w, gen, dev):
@@ -481,9 +510,11 @@ def _spoil(case, th):
 def phase_kernels(dev):
     """Kernel vs plain version vs float64 eager engine on the card."""
     summary = {}
+    empty_ms = _empty_ms()
     for case in _cases(dev, ""):
         kname, grid, layout, data = (case.kname, case.grid, case.layout,
                                      case.data)
+        one = kname in ONE_LAUNCH
         lo, hi = layout.bounds_arrays(torch.float64, dev)
         kernel = getattr(cl, kname)
         plain = getattr(cl, kname + "_reference")
@@ -508,10 +539,16 @@ def phase_kernels(dev):
             feats = features(th)
             f32 = feats.float()
             got = kernel(f32, data)
+            again = kernel(f32, data) if one else got
             ref = plain(f32, data)
             torch.cuda.synchronize()
             if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
                 fail(f"{kname} {grid} W={w}: non-finite raw lnlike")
+            if not torch.equal(got, again):
+                fail(f"{kname} {grid} W={w}: two launches on one input "
+                     "differ")
+            if one and data.vg_tickets.any():
+                fail(f"{kname} {grid} W={w}: tickets not back at 0")
             err_k = _rel(got, ref)
             ok = case.inside(th, lo, hi)
             if int((~ok).sum()) != (1 if case.fam == "z" else 2):
@@ -527,7 +564,8 @@ def phase_kernels(dev):
             print(f"{kname} {grid} W={w}: kernel vs plain max rel "
                   f"{err_k:.3e}; kernel vs f64 eager {err_kf:.3e}; plain "
                   f"vs f64 eager {err_pf:.3e}; -inf rows "
-                  f"{int((~fin).sum())}")
+                  f"{int((~fin).sum())}" + "; two launches bit-identical, "
+                  "tickets at 0" * one)
             if err_k > RTOL_KERNEL:
                 fail(f"{kname} {grid} W={w}: kernel vs plain {err_k:.3e} "
                      f"> {RTOL_KERNEL}")
@@ -571,6 +609,12 @@ def phase_kernels(dev):
                                bound_ms=bms, bound_by=by, trans=ntr,
                                shape=f"W=50, {grid}, "
                                      f"{data.g_a.shape[0]} cells")
+                    if one:
+                        kus = _one_node(kname, grid, w,
+                                        lambda: kernel(f32, data), empty_ms)
+                        rec["split"] = {"call_us": ms * 1e3,
+                                        "kernels_us": kus,
+                                        "empty_kernel_us": empty_ms * 1e3}
     return summary
 
 
@@ -685,16 +729,11 @@ def phase_vg_kernels(dev):
                             f"bound_ms{key}": bms, f"bound_by{key}": by,
                             f"trans{key}": ntr})
                 if one:
-                    kus = _kernel_us(lambda: kernel(f_w, data))
+                    kus = _one_node(kname, grid, w,
+                                    lambda: kernel(f_w, data), empty_ms)
                     rec[f"split{key}"] = {"call_us": ms * 1e3,
                                           "kernels_us": kus,
                                           "empty_kernel_us": empty_ms * 1e3}
-                    print(f"{kname} {grid} W={w} split: one launch; "
-                          f"{ms * 1e3:.2f} us a call (graph replay), the "
-                          f"kernel's own device time "
-                          f"{ {k: round(v, 2) for k, v in kus.items()} } "
-                          f"us (torch.profiler), an empty kernel "
-                          f"{empty_ms * 1e3:.2f} us")
                 if w == 8:
                     rec["call_ms"] = _call_ms(lambda: kernel(f_w, data))
                     rec["shape"] = (f"W=8, {grid}, "

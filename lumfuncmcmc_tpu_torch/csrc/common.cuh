@@ -1,5 +1,6 @@
 // What the kernel sources of this directory share: the block size, the
-// block reduction, the value kernels' finish pass and the free-completeness
+// block reduction, the finish pass of the two-pass value kernels
+// (lnlike.cu's free_lnlike and fixed_lnlike) and the free-completeness
 // ln fc terms (lnlike.cu and lnlike_stream.cu). Each .cu file is its
 // own translation unit of the one library (ops/_build.py), so the finish
 // kernel is static.

@@ -32,48 +32,40 @@
 // 1.6-10 M cell evaluations of 7-11 float32 operations, a few microseconds
 // at the card's peak, over 2.4 MB of grid arrays that stay in L2 across
 // walkers: launch latency and the dependent exp chain per thread bound it,
-// not bytes. z_lnlike's design follows lnlike.cu's value kernels:
-//   - the grid is (F, S_L, S_z) with z contiguous. A block takes one chunk
-//     of the host table (field, start, end, is_source): a band of L rows
-//     [start, end) of one field for one walker. Thread j owns z node j,
-//     forms the node quantities once and walks down the band, so
-//     neighbouring threads read neighbouring addresses; bands of ~2048
-//     cells give 105 x W grid blocks at 201 x 201;
-//   - source chunks (<= 2048 sources) take one term per source;
-//   - each thread sums its few terms in float32 (a z node's column with
-//     Kahan's compensation, added to the value in double), the block
-//     reduces them in double with warp shuffles and writes them to a (W,
-//     nchunks) double scratch buffer; a second small kernel sums each
-//     walker's partials in fixed chunk order in double and writes float64:
-//     no float atomics, identical results run to run. The source terms are
-//     summed beside the grid integral, from the same features, so the two
-//     parts, which cancel to O(1) out of ~N near the mode, read the same
-//     numbers; at 10^5 sources |lnL| ~ 1e6, so the sums and the value are
-//     double.
-// z_lnlike_vg was built so too, with a finish kernel of one 32-thread block
-// per walker walking its 106 chunk partials; at trapz-201 one node a
-// thread left 55 of 256 lanes idle (224 at gauss-32), the node quantities
-// were formed 21 times per (walker, node) and field, and at W = 256 each
-// block re-read its band for one walker: 20.0 us at W = 8 and 220 us at
-// W = 256, 5.6x the same-mix bound (PERF.md, H100 80GB HBM3). It is now one
-// launch a call, the same rows, as hier_lnlike_vg (lnlike_h.cu):
+// not bytes. Both were first built in two passes: a (nchunks, W) grid,
+// block (c, w) taking a band of ~2048 cells of one field for one walker,
+// thread j owning z node j, then a small kernel summing each walker's
+// (W, nchunks) partials in chunk order. At trapz-201 one node a thread
+// left 55 of 256 lanes idle (224 at gauss-32), the node quantities were
+// formed 21 times per (walker, node) and field, each block read its band
+// for one walker, and the finish was a second launch: z_lnlike took 34.2
+// us at W = 50, z_lnlike_vg 20.0 us at W = 8 and 220 us at W = 256, 5.6x
+// the same-mix bound (PERF.md, H100 80GB HBM3). Both are now one launch a
+// call, as hier_lnlike_vg (lnlike_h.cu):
 //   - a (piece, walker tile) grid over bands of L rows and source pieces,
 //     the band length and the walker tile picked on the host from W and
-//     the SM count (ops/cuda_lnlike.py _vg_geometry): at trapz-201 W = 1
-//     bands of 5 rows (207 blocks), W = 8 tiles of 2 walkers on bands of
-//     19 rows (224 blocks), W = 256 tiles of 4 on bands of 67 rows (1024
-//     blocks); the band's node quantities are formed once per (walker,
-//     node) into shared memory: 11 times a field at W = 8 and 3 at W =
-//     256, where one node a thread formed them 21 times;
+//     the SM count (ops/cuda_lnlike.py _vg_geometry, each kernel its own
+//     tiles, VG_TILES): z_lnlike, one sum a walker, takes tiles of up to
+//     8 walkers, z_lnlike_vg, eight, 1, 2 or 4; at trapz-201 z_lnlike_vg
+//     takes at W = 1 bands of 5 rows (207 blocks), W = 8 tiles of 2
+//     walkers on bands of 19 rows (224 blocks), W = 256 tiles of 4 on
+//     bands of 67 rows (1024 blocks); the band's node quantities are
+//     formed once per (walker, node) into shared memory;
 //   - the block's threads take (node, row phase) pairs, so the lanes
 //     share a long band's cells about evenly at any S_z (above 256 too:
 //     201 nodes and 67 rows take 5 phases, 4 pairs a thread) and
 //     neighbouring threads still read neighbouring addresses;
-//   - a thread evaluates each cell it loads for every walker of its tile;
-//   - the block reduces its T x 8 sums by vg_ticket.cuh's reduce-scatter,
+//   - a thread evaluates each cell it loads for every walker of its tile,
+//     the next cell loaded before this one is computed;
+//   - each column's sums are Kahan pairs in float32, the value is added up
+//     per thread in double, and the source terms too: the grid integral and
+//     the source sum cancel to O(1) out of ~N near the mode, and at 10^5
+//     sources |lnL| ~ 1e6;
+//   - the block reduces its T x K sums by vg_ticket.cuh's reduce-scatter,
 //     writes its double partials and draws its tile's ticket; the tile's
-//     last block sums them per segment in a fixed order and does the
-//     end-of-call contraction in double (vg_ticket.cuh).
+//     last block sums them per segment in a fixed order (and for
+//     z_lnlike_vg does the end-of-call contraction) in double: no finish
+//     kernel, no float atomics, the same bits run to run (vg_ticket.cuh).
 // Plain expf (no --use_fast_math), matching the plain PyTorch versions in
 // ops/cuda_lnlike.py.
 
@@ -109,50 +101,136 @@ __device__ __forceinline__ float z_cell(const ZNode& n, float aA, float a,
     return expf(n.hi + ((aA * a - p * n.t1) + n.lo));
 }
 
+// z_lnlike: one kernel per call, z_vg's structure (below) with the value
+// alone. Block (p, t) of a (piece, walker tile) grid runs piece p of the
+// host's table (ops/cuda_lnlike.py _z_vg_tables) for the T walkers of tile
+// t.
+//   - A grid piece is a band of L rows [r0, r1) of field f's (S_L, S_z)
+//     panel: the block forms the band's node quantities once per (walker,
+//     node) into shared memory, then its threads take the band's (node,
+//     phase) pairs (_z_phases) and run down their columns with one Kahan
+//     pair per walker, loading the next cell before computing this one;
+//     each column's sum goes into the thread's double value, negated.
+//   - A source piece takes one source a thread a trip: ln phi + ln Omega,
+//     x not clamped (z_lnlike_reference), each term float32, summed per
+//     thread in double (a source piece hands a thread up to ~64 sources at
+//     10^6: summed in float32 they cost the accept step's lnp differences
+//     0.049 of the 0.05 it bears, PERF.md).
+// The block's sums and the (W, npieces) partials are double; the tile's
+// last block to draw its ticket adds each walker's partials segment by
+// segment in a fixed order and writes its float64 value.
+template <int T>
 __global__ void __launch_bounds__(THREADS)
-z_partials(const float* __restrict__ feats, int nfeat, int s_l, int s_z,
-           const float* __restrict__ g_a, const float* __restrict__ g_p,
-           const float* __restrict__ g_w, const float* __restrict__ n_dz,
-           const float* __restrict__ n_dz2, const float* __restrict__ s_a,
-           const float* __restrict__ s_dz, const float* __restrict__ s_dz2,
-           const float* __restrict__ s_lnom0,
-           const float* __restrict__ s_mask,
-           const int4* __restrict__ chunks, int nchunks,
-           double* __restrict__ partial) {
-    const int c = blockIdx.x;
-    const int w = blockIdx.y;
-    const int4 ch = chunks[c];            // (field, start, end, is_source)
-    const float* th = feats + (size_t)w * nfeat;
-    const float aA = th[6];
-    double acc = 0.0;
-    if (!ch.w) {
-        const size_t panel = (size_t)ch.x * s_l * s_z;
-        for (int j = threadIdx.x; j < s_z; j += THREADS) {
-            const ZNode n = z_node(th, n_dz[ch.x * s_z + j],
-                                   n_dz2[ch.x * s_z + j]);
-            float col = 0.0f, comp = 0.0f;
-            for (int r = ch.y; r < ch.z; ++r) {
-                const size_t i = panel + (size_t)r * s_z + j;
-                kahan_add(col, comp, z_cell(n, aA, g_a[i], g_p[i]) * g_w[i]);
+z_value(const float* __restrict__ feats, int nwalkers, int nfeat, int s_l,
+        int s_z, const float* __restrict__ g_a, const float* __restrict__ g_p,
+        const float* __restrict__ g_w, const float* __restrict__ n_dz,
+        const float* __restrict__ n_dz2, const float* __restrict__ s_a,
+        const float* __restrict__ s_dz, const float* __restrict__ s_dz2,
+        const float* __restrict__ s_lnom0, const float* __restrict__ s_mask,
+        const int4* __restrict__ pieces, const int4* __restrict__ segs,
+        int nseg, int phases, double* __restrict__ partial,
+        int* __restrict__ tickets, double* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem[];   // z_smem
+    int4* seg_sh = (int4*)smem;         // the segment table, for the finish
+    double* segsum = (double*)(smem + (size_t)nseg * sizeof(int4));
+    float4* node = (float4*)(smem + vg_smem(T, nseg, 1));
+    for (int s = threadIdx.x; s < nseg; s += THREADS) seg_sh[s] = segs[s];
+    const int4 pc = pieces[blockIdx.x];  // (f, r0, r1, 0) or (0, i0, i1, 1)
+    const int w0 = blockIdx.y * T;
+    const int nw = min(T, nwalkers - w0);
+    // rows past the last walker repeat the first, so only the writes are
+    // guarded
+    float aA[T];
+#pragma unroll
+    for (int j = 0; j < T; ++j)
+        aA[j] = feats[(size_t)(w0 + (j < nw ? j : 0)) * nfeat + 6];
+    double val[T];
+#pragma unroll
+    for (int j = 0; j < T; ++j) val[j] = 0.0;
+    if (!pc.w) {
+        // the band's node quantities of walker j, node n at j S_z + n
+        const float* dzf = n_dz + (size_t)pc.x * s_z;
+        const float* dz2f = n_dz2 + (size_t)pc.x * s_z;
+        for (int q = threadIdx.x; q < T * s_z; q += THREADS) {
+            const int j = q / s_z;
+            const int n = q - j * s_z;
+            const float dz = dzf[n], dz2 = dz2f[n];
+            const ZNode z = z_node(
+                feats + (size_t)(w0 + (j < nw ? j : 0)) * nfeat, dz, dz2);
+            node[q] = make_float4(z.lq, z.t1, z.hi, z.lo);
+        }
+        __syncthreads();
+        const size_t panel = (size_t)pc.x * s_l * s_z;
+        const float* ga = g_a + panel;
+        const float* gp = g_p + panel;
+        const float* gw = g_w + panel;
+        for (int q = threadIdx.x; q < s_z * phases; q += THREADS) {
+            const int ph = q / s_z;
+            const int n = q - ph * s_z;
+            ZNode z[T];
+            float col[T], comp[T];
+#pragma unroll
+            for (int j = 0; j < T; ++j) {
+                const float4 v = node[j * s_z + n];
+                z[j] = {v.x, v.y, v.z, v.w};
+                col[j] = comp[j] = 0.0f;
             }
-            acc -= (double)col - (double)comp;
+            // the last trip's prefetch re-reads the column's last cell
+            int r = pc.y + ph;
+            size_t nx = (size_t)min(r, pc.z - 1) * s_z + n;
+            float a = ga[nx], p = gp[nx], wg = gw[nx];
+            for (; r < pc.z; r += phases) {
+                nx = (size_t)min(r + phases, pc.z - 1) * s_z + n;
+                const float na = ga[nx], np = gp[nx], nwg = gw[nx];
+#pragma unroll
+                for (int j = 0; j < T; ++j)
+                    kahan_add(col[j], comp[j],
+                              z_cell(z[j], aA[j], a, p) * wg);
+                a = na;
+                p = np;
+                wg = nwg;
+            }
+#pragma unroll
+            for (int j = 0; j < T; ++j)
+                val[j] -= (double)col[j] - (double)comp[j];
         }
     } else {
-        float src = 0.0f;
-        for (int i = ch.y + threadIdx.x; i < ch.z; i += THREADS) {
+        float th[T][6];
+#pragma unroll
+        for (int j = 0; j < T; ++j)
+#pragma unroll
+            for (int k = 0; k < 6; ++k)
+                th[j][k] = feats[(size_t)(w0 + (j < nw ? j : 0)) * nfeat + k];
+        for (int i = pc.y + threadIdx.x; i < pc.z; i += THREADS) {
             if (s_mask[i] > 0.0f) {
-                const float dz = s_dz[i], dz2 = s_dz2[i];
-                const float x = s_a[i]
-                    - (th[3] * dz2 + th[4] * dz + th[5]);
-                src += th[0] * dz2 + th[1] * dz + th[2] + aA * x
-                    - expf(x) + s_lnom0[i];
+                const float dz = s_dz[i], dz2 = s_dz2[i], sa = s_a[i];
+                const float om = s_lnom0[i];
+#pragma unroll
+                for (int j = 0; j < T; ++j) {
+                    const float x = sa
+                        - (th[j][3] * dz2 + th[j][4] * dz + th[j][5]);
+                    val[j] += th[j][0] * dz2 + th[j][1] * dz + th[j][2]
+                        + aA[j] * x - expf(x) + om;
+                }
             }
         }
-        acc = src;
     }
-    double sum[1] = {acc};
-    block_sum_k<1>(sum);
-    if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = sum[0];
+    __shared__ double res[T];
+    vg_block_sums<T>(val, res);
+    const int npieces = gridDim.x;
+    if (threadIdx.x == 0)
+        for (int j = 0; j < nw; ++j)
+            partial[(size_t)(w0 + j) * npieces + blockIdx.x] = res[j];
+    if (!vg_last_arrival(tickets, blockIdx.y, npieces)) return;
+
+    // the tile's last block: each walker's segment sums, added in order
+    vg_segment_sums<1>(partial, npieces, seg_sh, nseg, w0, nw, segsum);
+    for (int j = threadIdx.x; j < nw; j += THREADS) {
+        double s = 0.0;
+        for (int q = 0; q < nseg; ++q) s += segsum[(size_t)j * nseg + q];
+        out[w0 + j] = s;
+    }
+    if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
 }
 
 // z_lnlike_vg: one kernel per call, as hier_lnlike_vg (lnlike_h.cu). Block
@@ -197,7 +275,7 @@ z_vg(const float* __restrict__ feats, int nwalkers, int nfeat, int s_l,
      const int4* __restrict__ pieces, const int4* __restrict__ segs,
      int nseg, int phases, double* __restrict__ partial,
      int* __restrict__ tickets, double* __restrict__ out) {
-    extern __shared__ __align__(16) unsigned char smem[];   // z_vg_smem
+    extern __shared__ __align__(16) unsigned char smem[];   // z_smem
     int4* seg_sh = (int4*)smem;         // the segment table, for the finish
     double* segsum = (double*)(smem + (size_t)nseg * sizeof(int4));
     // the band's node quantities (lq, t1, hi, lo) of walker j, node n at
@@ -376,70 +454,83 @@ z_vg(const float* __restrict__ feats, int nwalkers, int nfeat, int s_l,
     if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
 }
 
-// Dynamic shared memory of a z_vg launch: vg_smem's, then the band's node
-// quantities of T walkers and its nodes' (dz, dz^2).
-static size_t z_vg_smem(int tile, int nseg, int s_z) {
-    return vg_smem(tile, nseg, Z_SLOTS) + (size_t)s_z
-        * (tile * sizeof(float4) + sizeof(float2));
+// Dynamic shared memory of a launch of K slots: vg_smem's, then the band's
+// node quantities of T walkers, and for z_vg (K Z_SLOTS) its nodes' (dz,
+// dz^2).
+static size_t z_smem(int tile, int nseg, int s_z, int k) {
+    return vg_smem(tile, nseg, k) + (size_t)s_z
+        * (tile * sizeof(float4) + (k > 1 ? sizeof(float2) : 0));
 }
 
-template <int T>
-static int launch_z_vg(dim3 grid, size_t smem, cudaStream_t st,
-                       const float* feats, int nwalkers, int nfeat, int s_l,
-                       int s_z, const float* g_a, const float* g_p,
-                       const float* g_w, const float* n_dz,
-                       const float* n_dz2, const float* s_a,
-                       const float* s_dz, const float* s_dz2,
-                       const float* s_lnom0, const float* s_mask,
-                       const int* pieces, const int* segs, int nseg,
-                       int phases, double* partial, int* tickets,
-                       double* out) {
+// Launch z_value<T> or z_vg<T> (kernel, one argument list).
+template <typename Kernel>
+static int launch_z(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
+                    const float* feats, int nwalkers, int nfeat, int s_l,
+                    int s_z, const float* g_a, const float* g_p,
+                    const float* g_w, const float* n_dz, const float* n_dz2,
+                    const float* s_a, const float* s_dz, const float* s_dz2,
+                    const float* s_lnom0, const float* s_mask,
+                    const int* pieces, const int* segs, int nseg, int phases,
+                    double* partial, int* tickets, double* out) {
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            z_vg<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    z_vg<T><<<grid, THREADS, smem, st>>>(
+    kernel<<<grid, THREADS, smem, st>>>(
         feats, nwalkers, nfeat, s_l, s_z, g_a, g_p, g_w, n_dz, n_dz2, s_a,
         s_dz, s_dz2, s_lnom0, s_mask, (const int4*)pieces,
         (const int4*)segs, nseg, phases, partial, tickets, out);
     return (int)cudaGetLastError();
 }
 
+// The checks of every launch of either kernel.
+static bool z_bad(int nfeat, int nwalkers, int s_l, int s_z, int tile,
+                  int phases, int npieces, int nseg, size_t smem) {
+    return nfeat != 7 || nwalkers < 1 || s_l < 1 || s_z < 1 || tile < 1
+        || phases < 1 || npieces < 1 || nseg < 1 || nseg > npieces
+        || (nwalkers + tile - 1) / tile > 65535 || smem > 227 * 1024;
+}
+
 extern "C" {
 
 // All pointers are device pointers; the stream is a cudaStream_t. Returns
-// the cudaError_t of the launches (0 = success). Allocates nothing: the
-// caller passes a (W, nchunks) double partial buffer and the double
-// output (W,); z_lnlike_vg's below.
+// the cudaError_t of the launch (0 = success). Allocates nothing.
+//
+// z_lnlike: pieces is the (npieces, 4) band and source piece table and segs
+// the (nseg, 4) segment table of one band length (ops/cuda_lnlike.py
+// _z_vg_tables), tile the walker tile (_vg_geometry: 1, 2, 4 or 8), phases
+// the row phases of its bands (_z_phases), partial a (W, npieces) double
+// buffer, tickets the data's zeroed ticket buffer of at least ceil(W /
+// tile) ints, out (W,) double. One launch.
 int z_lnlike_launch(const float* feats, int nwalkers, int nfeat, int s_l,
                     int s_z,
                     const float* g_a, const float* g_p, const float* g_w,
                     const float* n_dz, const float* n_dz2,
                     const float* s_a, const float* s_dz, const float* s_dz2,
                     const float* s_lnom0, const float* s_mask,
-                    const int* chunks, int nchunks,
-                    double* partial, double* out, void* stream) {
-    if (nfeat != 7) return (int)cudaErrorInvalidValue;
+                    const int* pieces, int npieces, const int* segs,
+                    int nseg, int tile, int phases, double* partial,
+                    int* tickets, double* out, void* stream) {
+    const size_t smem = z_smem(tile, nseg, s_z, 1);
+    if (z_bad(nfeat, nwalkers, s_l, s_z, tile, phases, npieces, nseg, smem))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(npieces, (nwalkers + tile - 1) / tile);
     cudaStream_t st = (cudaStream_t)stream;
-    dim3 grid(nchunks, nwalkers);
-    z_partials<<<grid, THREADS, 0, st>>>(
-        feats, nfeat, s_l, s_z, g_a, g_p, g_w, n_dz, n_dz2, s_a, s_dz, s_dz2,
-        s_lnom0, s_mask, (const int4*)chunks, nchunks, partial);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    finish<<<(nwalkers + 127) / 128, 128, 0, st>>>(partial, nchunks,
-                                                   nwalkers, out);
-    return (int)cudaGetLastError();
+#define Z_ARGS grid, smem, st, feats, nwalkers, nfeat, s_l, s_z, g_a, g_p, \
+        g_w, n_dz, n_dz2, s_a, s_dz, s_dz2, s_lnom0, s_mask, pieces, segs, \
+        nseg, phases, partial, tickets, out
+    switch (tile) {
+        case 1: return launch_z(z_value<1>, Z_ARGS);
+        case 2: return launch_z(z_value<2>, Z_ARGS);
+        case 4: return launch_z(z_value<4>, Z_ARGS);
+        case 8: return launch_z(z_value<8>, Z_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
-// z_lnlike_vg: pieces is the (npieces, 4) band and source piece table and
-// segs the (nseg, 4) segment table of one band length (ops/cuda_lnlike.py
-// _z_vg_tables), tile the walker tile, phases the row phases of its bands
-// (_z_phases), partial a (W, npieces, Z_SLOTS) double buffer, tickets the
-// data's zeroed ticket buffer of at least ceil(W / tile) ints, out (W, 8)
-// double. One launch.
+// z_lnlike_vg: as z_lnlike, tiles of 1, 2 or 4, partial a (W, npieces,
+// Z_SLOTS) double buffer, out (W, 8) double. One launch.
 int z_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat, int s_l,
                        int s_z,
                        const float* g_a, const float* g_p, const float* g_w,
@@ -450,23 +541,18 @@ int z_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat, int s_l,
                        const int* pieces, int npieces, const int* segs,
                        int nseg, int tile, int phases, double* partial,
                        int* tickets, double* out, void* stream) {
-    const size_t smem = z_vg_smem(tile, nseg, s_z);
-    if (nfeat != 7 || nwalkers < 1 || s_l < 1 || s_z < 1 || tile < 1
-        || phases < 1 || npieces < 1 || nseg < 1 || nseg > npieces
-        || (nwalkers + tile - 1) / tile > 65535 || smem > 227 * 1024)
+    const size_t smem = z_smem(tile, nseg, s_z, Z_SLOTS);
+    if (z_bad(nfeat, nwalkers, s_l, s_z, tile, phases, npieces, nseg, smem))
         return (int)cudaErrorInvalidValue;
     const dim3 grid(npieces, (nwalkers + tile - 1) / tile);
     cudaStream_t st = (cudaStream_t)stream;
-#define Z_VG_ARGS grid, smem, st, feats, nwalkers, nfeat, s_l, s_z, g_a, g_p, \
-        g_w, n_dz, n_dz2, s_a, s_dz, s_dz2, s_lnom0, s_mask, pieces, segs, \
-        nseg, phases, partial, tickets, out
     switch (tile) {
-        case 1: return launch_z_vg<1>(Z_VG_ARGS);
-        case 2: return launch_z_vg<2>(Z_VG_ARGS);
-        case 4: return launch_z_vg<4>(Z_VG_ARGS);
+        case 1: return launch_z(z_vg<1>, Z_ARGS);
+        case 2: return launch_z(z_vg<2>, Z_ARGS);
+        case 4: return launch_z(z_vg<4>, Z_ARGS);
         default: return (int)cudaErrorInvalidValue;
     }
-#undef Z_VG_ARGS
 }
+#undef Z_ARGS
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-// What the one-launch value + gradient kernels share (lnlike.cu
-// free_lnlike_vg; lnlike_h.cu hier_lnlike_vg and fixed_lnlike_vg, one body;
-// lnlike_z.cu z_lnlike_vg): the block's reduction of its walkers' sums, the
+// What the one-launch kernels share (lnlike.cu free_lnlike_vg; lnlike_h.cu
+// hier_lnlike, hier_lnlike_vg and fixed_lnlike_vg, one body; lnlike_z.cu
+// z_lnlike and z_lnlike_vg): the block's reduction of its walkers' sums, the
 // per-walker-tile arrival ticket that lets the last block of a tile finish
 // it, and the fixed-order segment sums of that finish.
 //

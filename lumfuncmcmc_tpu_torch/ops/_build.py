@@ -29,26 +29,24 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes; each returns the cudaError_t of its launches
 # (or, for the occupancy query, of the query)
 _FREE_ARGS = [_p, _i, _i, _i] + [_p] * 11 + [_p, _i, _i, _p, _p, _p]
-# the value+gradient kernels: piece and segment tables, walker tile (then
-# fcmin, or the z bands' row phases), then the partials, the tickets and
-# the rows
+# the one-launch kernels (z_lnlike and hier_lnlike take their value+gradient
+# twins' arguments): piece and segment tables, walker tile (then fcmin, or
+# the z bands' row phases), then the partials, the tickets and the rows
 _VG_TAIL = [_p, _i, _p, _i, _i]
 _FREE_VG_ARGS = [_p, _i, _i, _i] + [_p] * 11 + _VG_TAIL + [_i, _p, _p, _p, _p]
 _FIXED_VG_ARGS = [_p, _i, _i] + [_p] * 3 + _VG_TAIL + [_p, _p, _p, _p]
 _Z_VG_ARGS = [_p, _i, _i, _i, _i] + [_p] * 10 + _VG_TAIL + [_i, _p, _p, _p, _p]
 _HIER_VG_ARGS = [_p, _i, _i, _i] + [_p] * 3 + _VG_TAIL + [_p, _p, _p, _p]
 _FIXED_ARGS = [_p, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p]
-_Z_ARGS = [_p, _i, _i, _i, _i] + [_p] * 10 + [_p, _i, _p, _p, _p]
-_HIER_ARGS = [_p, _i, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p]
 _STREAM_ARGS = ([_p, _i, _i, _i] + [_p] * 8
                 + [_p, _i, _i, _i, _i, _p, _p, _p])
 ENTRY_POINTS = {"free_lnlike_launch": _FREE_ARGS,
                 "fixed_lnlike_launch": _FIXED_ARGS,
                 "free_lnlike_vg_launch": _FREE_VG_ARGS,
                 "fixed_lnlike_vg_launch": _FIXED_VG_ARGS,
-                "z_lnlike_launch": _Z_ARGS,
+                "z_lnlike_launch": _Z_VG_ARGS,
                 "z_lnlike_vg_launch": _Z_VG_ARGS,
-                "hier_lnlike_launch": _HIER_ARGS,
+                "hier_lnlike_launch": _HIER_VG_ARGS,
                 "hier_lnlike_vg_launch": _HIER_VG_ARGS,
                 "free_stream_lnlike_launch": _STREAM_ARGS,
                 "free_stream_lnlike_vg_launch": _STREAM_ARGS,

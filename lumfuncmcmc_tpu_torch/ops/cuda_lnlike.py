@@ -48,8 +48,8 @@ Two kernels of ``csrc/lnlike_z.cu`` for the redshift-evolving model
 
 - :func:`z_lnlike` replaces both ``_kernel_z_bcast`` (``:659``) and
   ``_kernel_z2_slab`` (``:677``), in the latter's factoring: the
-  quadratics and the cutoff scale ``t1(z)`` are formed once per z node,
-  so a cell costs one exp;
+  quadratics and the cutoff scale ``t1(z)`` are formed once per z node
+  and band of L rows, so a cell costs one exp; one launch a call;
 - :func:`z_lnlike_vg` replaces ``_kernel_z_vg`` (``:1142``): the lnlike
   and its derivative with respect to the 7 features from three column
   sums per z node.
@@ -66,7 +66,9 @@ model (fixed completeness; per-field (L*, phi*), :func:`_feat_h_one`):
 
 - :func:`hier_lnlike` replaces both ``_kernel_hier_bcast`` (``:713``)
   and ``_kernel_hier_slab`` (``:734``): the fixed-completeness kernel
-  whose blocks read ``(c_f, lA_f, t1_f)`` of their chunk's own field;
+  whose blocks read ``(c_f, lA_f, t1_f)`` of their piece's own field, in
+  one launch (the kernel body of :func:`hier_lnlike_vg`, one sum a
+  walker);
 - :func:`hier_lnlike_vg` replaces ``_kernel_hier_vg`` (``:1221``): the
   lnlike and its derivative with respect to the 1+3F features from
   three sums per field, in one launch.
@@ -111,9 +113,10 @@ The TPU's broadcast/slab split exists only because of VMEM and does not
 carry over: one packing serves every catalog size. Cells and sources are
 concatenated field by field (no lane padding) with ``(F+1,)`` field
 offsets, and an int32 chunk table cuts each field's cells and sources
-into pieces of at most ``CHUNK_CELLS`` for the value kernels' (chunk,
-walker) launch grid. The four value+gradient kernels of the resident
-layout (``free_lnlike_vg``, ``fixed_lnlike_vg``, ``z_lnlike_vg``,
+into pieces of at most ``CHUNK_CELLS`` for the (chunk, walker) launch
+grid of the two-pass value kernels ``free_lnlike`` and ``fixed_lnlike``.
+The other six kernels of the resident layout (``free_lnlike_vg``,
+``fixed_lnlike_vg``, ``z_lnlike``, ``z_lnlike_vg``, ``hier_lnlike``,
 ``hier_lnlike_vg``) are one launch a call: a (piece, walker tile) grid
 over piece tables of several lengths (:func:`_vg_tables`; bands of L rows
 for the z model, :func:`_z_vg_tables`), one chosen per call from the batch
@@ -176,16 +179,19 @@ STREAM_MIN_SOURCES = 40_000
 FLOAT32_MAX_SOURCES = 30_000
 VG_STREAM_SLOTS = 6     # partial sums per (walker, run), lnlike_stream.cu
 STREAM_MAX_RUN = 4      # source tiles one streaming block stages at once
-# the one-launch value+gradient kernels (csrc/lnlike.cu, csrc/lnlike_h.cu,
-# csrc/lnlike_z.cu; _vg_geometry): their piece lengths in cells, longest
-# first (the z model's bands hold about as many cells: _z_vg_tables), and
-# the walker tiles each is built for (larger ones held too many registers
-# on an H100 and ran slower), in the order _vg_geometry prefers them at
-# equal work a block (each family's own sweep at W = 8: PERF.md)
+# the one-launch kernels (the value+gradient kernels of csrc/lnlike.cu,
+# csrc/lnlike_h.cu and csrc/lnlike_z.cu, and the value kernels z_lnlike and
+# hier_lnlike; _vg_geometry): their piece lengths in cells, longest first
+# (the z model's bands hold about as many cells: _z_vg_tables), and the
+# walker tiles each is built for, by family for the value+gradient kernels
+# and family + "_value" for the value kernels (_tiles), in the order
+# _vg_geometry prefers them at equal work a block (each kernel's own sweep:
+# PERF.md; larger tiles held too many registers on an H100 and ran slower)
 VG_PIECES = (4096, 2048, 1024, 512)
 VG_Z_PIECES = (16384, 8192, 4096, 2048, 1024)
 VG_TILES = {"free": (1, 2), "fixed": (4, 2, 1), "z": (2, 4, 1),
-            "hier": (1, 2, 4)}
+            "hier": (1, 2, 4), "z_value": (2, 8, 4, 1),
+            "hier_value": (4, 8, 2, 1)}
 
 
 def _clamp_flim(theta, layout: ThetaLayout):
@@ -211,11 +217,12 @@ class CudaGridData:
     ``grid_off``/``src_off`` hold the (F+1,) field offsets on the host
     (for the plain versions). ``chunks`` is the (nchunks, 4) int32
     launch table ``(field, start, end, is_source)`` on the device, from
-    which each value kernel's block reads its field and cell range. Fixed
-    completeness keeps only ``g_a``, ``g_p`` and ``g_w``. ``vg_tables``
-    and ``vg_tickets`` are read by the value+gradient kernels alone
-    (``free_lnlike_vg``, ``fixed_lnlike_vg``, ``hier_lnlike_vg``;
-    :func:`_vg_tables`); ``chunks`` serves the value kernels.
+    which each block of the two-pass value kernels (``free_lnlike``,
+    ``fixed_lnlike``) reads its field and cell range. Fixed completeness
+    keeps only ``g_a``, ``g_p`` and ``g_w``. ``vg_tables`` and
+    ``vg_tickets`` are read by the one-launch kernels (``free_lnlike_vg``,
+    ``fixed_lnlike_vg``, ``hier_lnlike``, ``hier_lnlike_vg``;
+    :func:`_vg_tables`).
     """
 
     g_a: torch.Tensor                  # LN10 * (logL - lref)
@@ -382,11 +389,11 @@ def _z_phases(s_z: int, rows: int) -> int:
 
 
 def _vg_geometry(npieces: dict, nwalkers: int, nsm: int, tiles) -> tuple:
-    """``(tile, piece)`` of a one-launch value+gradient kernel for
-    ``nwalkers`` on a card of ``nsm`` SMs: of the walker tiles ``tiles``
-    no larger than ``nwalkers`` and the piece lengths of its tables,
-    whose grid is ``npieces[piece]`` pieces by ``ceil(nwalkers / tile)``
-    tiles, the candidate with the most work a block (tile x piece), the
+    """``(tile, piece)`` of a one-launch kernel for ``nwalkers`` on a
+    card of ``nsm`` SMs: of the walker tiles ``tiles`` no larger than
+    ``nwalkers`` and the piece lengths of its tables, whose grid is
+    ``npieces[piece]`` pieces by ``ceil(nwalkers / tile)`` tiles, the
+    candidate with the most work a block (tile x piece), the
     tile listed first in ``tiles`` at equal work, among those with at
     least 1.5 blocks per SM: every block pays a fixed cost (its piece and
     feature loads, its reduction and ticket), and fewer blocks than that
@@ -493,11 +500,9 @@ class CudaZData:
 
     Grid arrays are (C,) in the context's (F, S_L, S_z) order, z
     contiguous, so the z nodes of a field, ``n_dz``/``n_dz2`` (F * S_z,),
-    index a cell's last axis; source arrays are (N,). ``chunks`` is the
-    (nchunks, 4) int32 launch table ``(field, start, end, is_source)``
-    of ``z_lnlike``: a band of L rows ``[start, end)`` of one field's (S_L,
-    S_z) panel, or a source range. ``vg_tables`` and ``vg_tickets`` are
-    read by ``z_lnlike_vg`` alone (:func:`_z_vg_tables`). ``lo``/``hi``
+    index a cell's last axis; source arrays are (N,). ``vg_tables`` and
+    ``vg_tickets`` are the launch tables and tickets of both kernels,
+    ``z_lnlike`` and ``z_lnlike_vg`` (:func:`_z_vg_tables`). ``lo``/``hi``
     are the prior box in float64, for the feature map's clamp.
     """
 
@@ -511,7 +516,6 @@ class CudaZData:
     s_dz2: torch.Tensor
     s_lnom0: torch.Tensor   # ln Omega_src (frozen)
     s_mask: torch.Tensor
-    chunks: torch.Tensor
     shape: tuple            # (F, S_L, S_z)
     lref: float
     lo: torch.Tensor
@@ -522,7 +526,9 @@ class CudaZData:
 
 def _z_chunk_table(shape, nsrc):
     """Bands of L rows holding about CHUNK_CELLS cells for every field,
-    then the sources in pieces of at most CHUNK_CELLS."""
+    then the sources in pieces of at most CHUNK_CELLS: the launch table of
+    the earlier two-pass ``z_lnlike``, which ``tools/vg_turns.py --value``
+    times against the current kernel."""
     nf, sl, sz = shape
     band = max(1, CHUNK_CELLS // sz)
     rows = [(f, r, min(r + band, sl), 0)
@@ -558,8 +564,6 @@ def prepare_cuda_z_data(ctx: LFContext, layout: ThetaLayoutZ,
         s_a=t(LN10 * (lum - lref)), s_dz=t(dzs), s_dz2=t(dzs * dzs),
         s_lnom0=t(ctx.ln_om_src.double().cpu().numpy()),
         s_mask=t(ctx.src_mask.double().cpu().numpy()),
-        chunks=torch.as_tensor(_z_chunk_table(logL.shape, len(lum)),
-                               device=device),
         shape=tuple(int(n) for n in logL.shape), lref=lref, lo=lo, hi=hi,
         vg_tables=_z_vg_tables(logL.shape, len(lum), device),
         vg_tickets=torch.zeros(MAX_ROWS, dtype=torch.int32, device=device))
@@ -1283,7 +1287,7 @@ _Z_ARRAYS = ("g_a", "g_p", "g_w", "n_dz", "n_dz2", "s_a", "s_dz", "s_dz2",
 def _signature(name, data):
     """What kernel ``name``'s C entry point takes for ``data``: (data
     array names, feature count, the ints after ``(W, nfeat)``, the ints
-    after ``nchunks``)."""
+    after the launch table)."""
     if name.startswith("z"):
         return _Z_ARRAYS, 7, data.shape[1:], ()
     if name.startswith("hier"):
@@ -1295,7 +1299,8 @@ def _signature(name, data):
 
 
 def _launch(name, feats, data):
-    """Check the inputs and launch value kernel ``name`` of ``csrc/`` on
+    """Check the inputs and launch two-pass value kernel ``name`` of
+    ``csrc/`` (``free_lnlike``, ``fixed_lnlike``) on
     the current stream of ``feats``' device, with a (W, nchunks) double
     scratch buffer; returns the float64 (W,) output. Raises on any
     failure."""
@@ -1356,14 +1361,21 @@ def _launch_stream(name, feats, data: CudaStreamData, shard=0):
     return out
 
 
+def _tiles(name):
+    """The walker tiles of one-launch kernel ``name`` (``VG_TILES``)."""
+    fam = name.split("_")[0]
+    return VG_TILES[fam if name.endswith("_vg") else f"{fam}_value"]
+
+
 def _launch_vg(name, feats, data, slots, out_cols):
-    """Check the inputs and launch value+gradient kernel ``name`` on the
+    """Check the inputs and launch one-launch kernel ``name`` on the
     current stream of ``feats``' device, at the geometry of
     :func:`_vg_geometry`, with a (W, npieces, ``slots``) double scratch
     buffer and the data's tickets (``data`` a :class:`CudaGridData`, or a
-    :class:`CudaZData` for ``z_lnlike_vg``, whose bands also take their
-    row phases, :func:`_z_phases`); returns the float64 (W, ``out_cols``)
-    rows. Raises on any failure."""
+    :class:`CudaZData` for the z kernels, whose bands also take their row
+    phases, :func:`_z_phases`); returns the float64 (W, ``out_cols``)
+    rows, or the (W,) values where ``out_cols`` is None. Raises on any
+    failure."""
     if feats.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {feats.device}")
     from lumfuncmcmc_tpu_torch.ops._build import load_library
@@ -1375,15 +1387,15 @@ def _launch_vg(name, feats, data, slots, out_cols):
     w = feats.shape[0]
     tile, piece = _vg_geometry(
         {p: t.shape[0] for p, t, _ in data.vg_tables}, w,
-        _sm_count(feats.device.index), VG_TILES[name.split("_")[0]])
+        _sm_count(feats.device.index), _tiles(name))
     _, pieces, segs = next(t for t in data.vg_tables if t[0] == piece)
     if name.startswith("z"):
         flags = (_z_phases(data.shape[2], _z_band_rows(data.shape, piece)),)
     lib = load_library()
     partial = torch.empty((w, pieces.shape[0], slots), dtype=torch.float64,
                           device=feats.device)
-    out = torch.empty((w, out_cols), dtype=torch.float64,
-                      device=feats.device)
+    out = torch.empty((w,) if out_cols is None else (w, out_cols),
+                      dtype=torch.float64, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     rc = getattr(lib, f"{name}_launch")(
         _ptr(feats), w, nfeat, *head, *(_ptr(a) for a in arrays),
@@ -1395,11 +1407,12 @@ def _launch_vg(name, feats, data, slots, out_cols):
     return out
 
 
-def _one_launch(slots, out_cols):
-    """The launch of a one-launch value+gradient kernel with ``slots``
-    partial sums and ``out_cols(data)`` output columns."""
+def _one_launch(slots, out_cols=None):
+    """The launch of a one-launch kernel with ``slots`` partial sums and
+    ``out_cols(data)`` output columns (a value kernel: none, (W,) out)."""
     def launch(name, feats, data):
-        return _launch_vg(name, feats, data, slots, out_cols(data))
+        return _launch_vg(name, feats, data, slots,
+                          out_cols and out_cols(data))
     return launch
 
 
@@ -1442,7 +1455,7 @@ fixed_lnlike_vg = _wrapper(
     "Fixed-completeness lnlike without its collapsed ln-term and its "
     "feature gradient, (W, 4) features -> (W, 5) float64 rows.")
 z_lnlike = _wrapper(
-    "z_lnlike", z_lnlike_reference, _launch,
+    "z_lnlike", z_lnlike_reference, _one_launch(1),
     "z-model lnlike, (W, 7) features -> (W,) float64.")
 z_lnlike_vg = _wrapper(
     "z_lnlike_vg", z_lnlike_vg_reference,
@@ -1450,7 +1463,7 @@ z_lnlike_vg = _wrapper(
     "z-model lnlike and its feature gradient, (W, 7) features -> (W, 8) "
     "float64 rows.")
 hier_lnlike = _wrapper(
-    "hier_lnlike", hier_lnlike_reference, _launch,
+    "hier_lnlike", hier_lnlike_reference, _one_launch(1),
     "Hierarchical-model lnlike without ``lnrest``, (W, 1+3F) features "
     "-> (W,) float64.")
 hier_lnlike_vg = _wrapper(

@@ -369,9 +369,10 @@ def test_hier_step_loop_never_synchronises_and_is_deterministic(device):
     assert torch.isfinite(lnps[-1]).all()
 
 
-def _one_launch_case(device, fam, size_ln):
+def _one_launch_case(device, fam, size_ln, suffix="_vg"):
     """The data of ``free_lnlike_vg`` (free completeness),
-    ``fixed_lnlike_vg``, ``hier_lnlike_vg`` or ``z_lnlike_vg`` on a
+    ``fixed_lnlike_vg``, ``hier_lnlike_vg`` or ``z_lnlike_vg`` (with
+    ``suffix`` "": the value kernels ``hier_lnlike``, ``z_lnlike``) on a
     400-source catalog, its kernel, plain version and a function of W
     giving W feature rows near the box centre."""
     cfg = LFConfig(min_comp_frac=0.5, size_ln=size_ln,
@@ -400,8 +401,9 @@ def _one_launch_case(device, fam, size_ln):
             gen, layout, w, dtype=torch.float32, device=device)
         return features(th, data, layout, torch.float32).float()
 
-    kernel = getattr(cl, f"{fam}_lnlike_vg")
-    return data, kernel, getattr(cl, f"{fam}_lnlike_vg_reference"), feats
+    kernel = getattr(cl, f"{fam}_lnlike{suffix}")
+    return (data, kernel, getattr(cl, f"{fam}_lnlike{suffix}_reference"),
+            feats)
 
 
 @pytest.mark.parametrize("fam,size_ln", [
@@ -466,6 +468,68 @@ def test_one_launch_vg_kernels_at_every_walker_tile(device, monkeypatch,
                                rtol=1e-4)
     _grad_close(got[:, 1:].cpu().numpy(), ref[:, 1:])
     assert not data.vg_tickets.any()
+
+
+@pytest.mark.parametrize("fam,size_ln", [
+    ("hier", 12), ("hier", 41), ("z", 12), ("z", 41), ("z", 300)])
+def test_one_launch_value_kernels_at_every_batch(device, fam, size_ln):
+    """The value kernels of the stretch paths (one launch each, a walker
+    tile's last block finishing its values through the data's tickets) at
+    W = 1, 13, 50, 100 and 2400 (the NUTS recompute's 300 samples x 8
+    chains), back to back on one data object: each equals the plain
+    version (rtol 1e-4), two launches on one input are bit-identical, W =
+    50 again after W = 2400 gives the first W = 50 values bit for bit, and
+    a CUDA graph of the W = 50 call replayed twice gives them too; the
+    tickets are left at 0."""
+    data, kernel, plain, feats = _one_launch_case(device, fam, size_ln, "")
+    vals = {}
+    for w in (1, 13, 50, 100, 2400, 50):
+        f = feats(w)
+        n0 = kernel.launches
+        got, again = kernel(f, data), kernel(f, data)
+        assert kernel.launches == n0 + 2
+        assert got.shape == (w,) and got.dtype == torch.float64
+        assert torch.equal(got, again)
+        assert torch.equal(vals.setdefault(w, got), got)
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   plain(f, data).cpu().numpy(), rtol=1e-4)
+        assert not data.vg_tickets.any()
+    f = feats(50)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel(f, data)
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, vals[50]) and torch.equal(out, vals[50])
+    assert not data.vg_tickets.any()
+
+
+@pytest.mark.parametrize("fam,tile,size_ln", [
+    (fam, tile, size_ln) for fam in ("hier", "z")
+    for tile in cl.VG_TILES[f"{fam}_value"]
+    for size_ln in ((12, 41, 300) if fam == "z" else (41,))])
+def test_one_launch_value_kernels_at_every_walker_tile(device, monkeypatch,
+                                                        fam, tile, size_ln):
+    """Every walker-tile instance of the value kernels, whatever the
+    geometry rule would take on this card, at W = 13 (a partial last tile
+    at every tile but 1) and 2400 on the shortest and the longest pieces (the
+    z model's bands also at 12 and 300 z nodes): the plain version's
+    values, two launches bit-identical, the tickets left at 0."""
+    data, kernel, plain, feats = _one_launch_case(device, fam, size_ln, "")
+    lengths = [p for p, _, _ in data.vg_tables]
+    for piece in (min(lengths), max(lengths)):
+        monkeypatch.setattr(cl, "_vg_geometry",
+                            lambda *a, g=(tile, piece): g)
+        for w in (13, 2400):
+            f = feats(w)
+            got, again = kernel(f, data), kernel(f, data)
+            assert torch.equal(got, again)
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       plain(f, data).cpu().numpy(),
+                                       rtol=1e-4)
+            assert not data.vg_tickets.any()
 
 
 def _stream_case(device, w, nshards=1, seed=0):

@@ -63,9 +63,10 @@ MEGA_TARGET, MEGA_SEED = 1_200_000, 7
 
 MODELS = {"single": LumFuncModel, "z": LumFuncModelZ, "hier": LumFuncModelH}
 # the device kernels of each family's main and value+gradient paths
+# (hier_lnlike and hier_lnlike_vg are instances of one template, hier_vg)
 KERNELS = {"single": ("free_partials", "free_vg"),
-           "z": ("z_partials", "z_vg"),
-           "hier": ("hier_partials", "hier_vg"),
+           "z": ("z_value", "z_vg"),
+           "hier": ("hier_vg", "hier_vg"),
            "stream": ("stream_partials", "stream_vg_partials",
                       "stream_vg_finish", "stream_finish")}
 
@@ -107,7 +108,8 @@ def _device_us(prof, names=()):
             continue            # host ops also carry their kernels' time
         self_dev = _attr(evt, "self_device_time_total", "self_cuda_time_total")
         dev_us += self_dev
-        name = evt.key.split("(")[0].split()[-1].split("<")[0]
+        # "void hier_vg<8, false, 1>(float const*, ...)" -> "hier_vg"
+        name = evt.key.split("(")[0].split("<")[0].split()[-1]
         if name in names:
             k = kern.setdefault(name, {"calls": 0, "device_us": 0.0})
             k["calls"] += evt.count

@@ -1,35 +1,44 @@
-"""The NUTS paths' value+gradient kernels (``free_lnlike_vg`` of ``fit
---sampler nuts``, ``fixed_lnlike_vg`` of ``fit -fc --sampler nuts``,
-``z_lnlike_vg`` of ``fitz --sampler nuts``, ``hier_lnlike_vg`` of ``fith
---sampler nuts``) against an earlier two-pass design of the same kernels,
-in turns on one card.
+"""The one-launch kernels against an earlier two-pass design of the same
+kernels, in turns on one card: the NUTS paths' value+gradient kernels
+(``free_lnlike_vg`` of ``fit --sampler nuts``, ``fixed_lnlike_vg`` of
+``fit -fc --sampler nuts``, ``z_lnlike_vg`` of ``fitz --sampler nuts``,
+``hier_lnlike_vg`` of ``fith --sampler nuts``), or with ``--value`` the
+stretch paths' value kernels (``z_lnlike`` of ``fitz``, ``hier_lnlike`` of
+``fith``).
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 tools/vg_turns.py --old DIR [--widths 1,8,256] [--families F,..]
-                              [--sweep] [--ablate]
+    python3 tools/vg_turns.py --old DIR [--value] [--widths 1,8,256]
+                              [--families F,..] [--sweep] [--ablate]
+    python3 tools/vg_turns.py --old DIR --parent [--widths 1,8,256]
 
 ``DIR`` holds the earlier design's ``csrc/`` (for instance a ``git
 archive`` of an earlier commit unpacked under ``_archive/``, which
-``.gitignore`` lists). Each family whose two-pass kernels
-(``*_vg_partials`` and ``*_vg_finish``) it holds is compared (or those of
+``.gitignore`` lists). Each family whose two-pass kernels it holds
+(``*_vg_partials`` and ``*_vg_finish``; with ``--value``, ``z_partials``
+or ``hier_partials`` and the shared ``finish``) is compared (or those of
 ``--families``); its sources are built into a library of their own under
 ``lumfuncmcmc_tpu_torch/_build/``, with C entry points appended to their
 copies: each old kernel's partial pass alone, its finish pass alone, and a
 pair of empty kernels. On the fits' own catalog
 (``fit --synthetic 2000``'s: ``free_lnlike_vg`` at trapz-101, the others at
-trapz-201) and at each walker batch it checks the old call and the current
-wrapper against the plain version and each other (values rtol 1e-4,
-gradients 2e-3 by ``_grad_close``) and two launches of each on one input
-bit for bit; then times, in ``chip_smoke.py``'s ``_device_ms`` harness (a
-CUDA graph of 20 calls replayed between CUDA events): the old call and
-the current one in turns (old, new, new, old), the old partial and finish
-passes alone, one and two empty kernels; and, under ``torch.profiler``,
-each kernel's own device time per call. With ``--sweep`` it also times
-the current kernels at every (walker tile, piece) they are built for (the
-z model's at its rule's row phases and at one), and with ``--ablate``
-builds of them with parts left out (``ABLATIONS``). Prints one line per
-measurement, the card's name and power limit, and writes the JSON
+trapz-201) and at each walker batch (default 1, 8, 256; with ``--value``
+13, 50, 100, 2400) it checks the old call and the current wrapper against
+the plain version and each other (values rtol 1e-4, gradients 2e-3 by
+``_grad_close``) and two launches of each on one input bit for bit; then
+times, in ``chip_smoke.py``'s ``_device_ms`` harness (a CUDA graph of 20
+calls replayed between CUDA events): the old call and the current one in
+turns (old, new, new, old), the old partial and finish passes alone, one
+and two empty kernels; and, under ``torch.profiler``, each kernel's own
+device time per call. With ``--sweep`` it also times the current kernels
+at every (walker tile, piece) they are built for (the z model's at its
+rule's row phases and at one), and with ``--ablate`` builds of them with
+parts left out (``ABLATIONS``). With ``--parent`` the old sources are
+instead an earlier build of the same one-launch value+gradient kernels,
+whose C entry points are the current ones (for instance the parent
+commit's ``csrc/``): each kernel runs through that library and through
+the current one, held to the same bits, and is timed in turns. Prints one
+line per measurement, the card's name and power limit, and writes the JSON
 summary to ``chiprun_out/vg_turns.json``. Imports only the port.
 """
 
@@ -144,6 +153,44 @@ extern "C" int split_z_vg_finish(
     return (int)cudaGetLastError();
 }
 """
+SPLIT_Z_VALUE = r"""
+extern "C" int split_z_partials(
+        const float* feats, int nwalkers, int nfeat, int s_l, int s_z,
+        const float* g_a, const float* g_p, const float* g_w,
+        const float* n_dz, const float* n_dz2, const float* s_a,
+        const float* s_dz, const float* s_dz2, const float* s_lnom0,
+        const float* s_mask, const int* chunks, int nchunks,
+        double* partial, void* stream) {
+    z_partials<<<dim3(nchunks, nwalkers), THREADS, 0,
+                 (cudaStream_t)stream>>>(
+        feats, nfeat, s_l, s_z, g_a, g_p, g_w, n_dz, n_dz2, s_a, s_dz, s_dz2,
+        s_lnom0, s_mask, (const int4*)chunks, nchunks, partial);
+    return (int)cudaGetLastError();
+}
+extern "C" int split_z_finish(const double* partial, int nchunks,
+                              int nwalkers, double* out, void* stream) {
+    finish<<<(nwalkers + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        partial, nchunks, nwalkers, out);
+    return (int)cudaGetLastError();
+}
+"""
+SPLIT_HIER_VALUE = r"""
+extern "C" int split_hier_partials(
+        const float* feats, int nwalkers, int nfeat, int nfields,
+        const float* g_a, const float* g_p, const float* g_w,
+        const int* chunks, int nchunks, double* partial, void* stream) {
+    hier_partials<<<dim3(nchunks, nwalkers), THREADS, 0,
+                    (cudaStream_t)stream>>>(
+        feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
+    return (int)cudaGetLastError();
+}
+extern "C" int split_hier_finish(const double* partial, int nchunks,
+                                 int nwalkers, double* out, void* stream) {
+    finish<<<(nwalkers + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        partial, nchunks, nwalkers, out);
+    return (int)cudaGetLastError();
+}
+"""
 SPLIT_EMPTY = r"""
 static __global__ void split_empty() {}
 extern "C" int split_empty_launch(int n, void* stream) {
@@ -155,23 +202,39 @@ extern "C" int split_empty_launch(int n, void* stream) {
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # family -> (its old source, the split passes appended to it, the grid of
 # its case, its old whole call's argument types (its ops/_build.py), its
-# data arrays, its partial sums, the ints after (W, nfeat))
+# data arrays, its partial sums, the ints after (W, nfeat), the definition
+# of its old partial pass)
 FAMILIES = {
     "free": ("lnlike.cu", SPLIT_FREE, "trapz-101",
              [_p, _i, _i, _i] + [_p] * 11 + [_p, _i, _i, _p, _p, _p],
              cl._FREE_ARRAYS, cl.VG_FREE_SLOTS,
-             lambda d: (d.nfields,)),
+             lambda d: (d.nfields,), "free_vg_partials("),
     "fixed": ("lnlike.cu", SPLIT_FIXED, "trapz-201",
               [_p, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p],
-              cl._FIXED_ARRAYS, cl.VG_HIER_SLOTS, lambda d: ()),
+              cl._FIXED_ARRAYS, cl.VG_HIER_SLOTS, lambda d: (),
+              "fixed_vg_partials("),
     "z": ("lnlike_z.cu", SPLIT_Z, "trapz-201",
           [_p, _i, _i, _i, _i] + [_p] * 10 + [_p, _i, _p, _p, _p],
-          cl._Z_ARRAYS, cl.VG_Z_SLOTS, lambda d: d.shape[1:]),
+          cl._Z_ARRAYS, cl.VG_Z_SLOTS, lambda d: d.shape[1:],
+          "z_vg_partials("),
     "hier": ("lnlike_h.cu", SPLIT_HIER, "trapz-201",
              [_p, _i, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p],
-             cl._FIXED_ARRAYS, cl.VG_HIER_SLOTS, lambda d: (d.nfields,)),
+             cl._FIXED_ARRAYS, cl.VG_HIER_SLOTS, lambda d: (d.nfields,),
+             "hier_vg_partials("),
+}
+# the same for the value kernels' two-pass design (--value): one partial a
+# (walker, chunk), the finish common.cuh's
+VALUE_FAMILIES = {
+    "z": ("lnlike_z.cu", SPLIT_Z_VALUE, "trapz-201",
+          [_p, _i, _i, _i, _i] + [_p] * 10 + [_p, _i, _p, _p, _p],
+          cl._Z_ARRAYS, 1, lambda d: d.shape[1:], "\nz_partials("),
+    "hier": ("lnlike_h.cu", SPLIT_HIER_VALUE, "trapz-201",
+             [_p, _i, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p],
+             cl._FIXED_ARRAYS, 1, lambda d: (d.nfields,),
+             "\nhier_partials("),
 }
 _FINISH_ARGS = [_p, _p, _i, _p, _i, _i, _i, _p, _p]
+_VALUE_FINISH_ARGS = [_p, _i, _i, _p, _p]
 
 
 def build_copy(src_dir, edits, tag, entry):
@@ -209,41 +272,51 @@ def build_copy(src_dir, edits, tag, entry):
     return lib
 
 
-def build_old(src_dir):
+def build_old(src_dir, value=False):
     """The earlier design's sources with the split entry points of each
-    family whose two-pass kernels they hold appended; returns (the
-    library, those families)."""
+    family whose two-pass kernels they hold appended (the value kernels'
+    with ``value``); returns (the library, those families)."""
+    families = VALUE_FAMILIES if value else FAMILIES
     text = {}
-    for name in {f[0] for f in FAMILIES.values()}:
+    for name in {f[0] for f in families.values()} | {"lnlike.cu"}:
         path = os.path.join(src_dir, name)
         if not os.path.exists(path):
             raise SystemExit(f"{src_dir} holds no {name}")
         with open(path) as fh:
             text[name] = fh.read()
-    fams = [f for f, (src, *_) in FAMILIES.items()
-            if f"{f}_vg_partials" in text[src]]
+    fams = [f for f, (src, *_, mark) in families.items()
+            if mark in text[src]]
     if not fams:
-        raise SystemExit(f"{src_dir} holds no two-pass vg kernels")
+        raise SystemExit(f"{src_dir} holds no two-pass "
+                         f"{'value' if value else 'vg'} kernels")
     add = {"lnlike.cu": SPLIT_EMPTY}
     entry = {"split_empty_launch": [_i, _p]}
     for f in fams:
-        src, split, _, whole = FAMILIES[f][:4]
+        src, split, _, whole = families[f][:4]
         add[src] = add.get(src, "") + split
-        entry[f"{f}_lnlike_vg_launch"] = whole
-        entry[f"split_{f}_vg_partials"] = whole[:-2] + [_p]
-        entry[f"split_{f}_vg_finish"] = _FINISH_ARGS
+        if value:
+            entry[f"{f}_lnlike_launch"] = whole
+            entry[f"split_{f}_partials"] = whole[:-3] + [_p, _p]
+            entry[f"split_{f}_finish"] = _VALUE_FINISH_ARGS
+        else:
+            entry[f"{f}_lnlike_vg_launch"] = whole
+            entry[f"split_{f}_vg_partials"] = whole[:-2] + [_p]
+            entry[f"split_{f}_vg_finish"] = _FINISH_ARGS
     edits = {n: lambda t, a=a: t + a for n, a in add.items()}
-    return build_copy(src_dir, edits, "old", entry), fams
+    return build_copy(src_dir, edits, "old_value" if value else "old",
+                      entry), fams
 
 
 # the current kernels with their tail cut short, to split a call's time
 # (file -> edit): "no tickets" leaves out the tickets and the finish (each
 # block writes its partials and ends), "no finish" draws the tickets (and
-# resets them) but leaves out the last block's finish, the last two leave
-# out the finish's reads of the partials, or its column pass; the z ones
-# leave out the z kernel's node quantities (constants in their place) or its
-# grid cells, or let its tiles of 4 take as many registers as they would
+# resets them) but leaves out the last block's finish, the next two leave
+# out the finish's reads of the partials, or its column pass (z_lnlike's:
+# its rows); the z ones leave out the z kernels' node quantities (constants
+# in their place) or their grid cells, or let z_lnlike_vg's tiles of 4 take
+# as many registers as they would
 _COLS = "for (int c = threadIdx.x; c < nw * ncols; c += THREADS) {"
+_ROWS = "for (int j = threadIdx.x; j < nw; j += THREADS) {"
 ABLATIONS = {
     "no tickets": {"vg_ticket.cuh": lambda t: t.replace(
         "    __shared__ int last;\n",
@@ -255,7 +328,8 @@ ABLATIONS = {
     "finish without partial loads": {"vg_ticket.cuh": lambda t: t.replace(
         "acc[k] += __ldcg(pw + (size_t)p * K + k);", "acc[k] += 1.0;", 1)},
     "finish without columns": {
-        n: lambda t: t.replace(_COLS, _COLS.replace("nw * ncols", "1"), 1)
+        n: lambda t: t.replace(_COLS, _COLS.replace("nw * ncols", "1")
+                               ).replace(_ROWS, _ROWS.replace("< nw", "< 1"))
         for n in ("lnlike.cu", "lnlike_h.cu", "lnlike_z.cu")},
     "finish built, never run": {"vg_ticket.cuh": lambda t: t.replace(
         "    __syncthreads();\n    return last;\n",
@@ -264,19 +338,19 @@ ABLATIONS = {
     "z node quantities not formed": {"lnlike_z.cu": lambda t: t.replace(
         "const ZNode z = z_node(\n"
         "                feats + (size_t)(w0 + (j < nw ? j : 0)) * nfeat, dz, "
-        "dz2);", "const ZNode z = {dz, 1.0f, dz2, 0.0f};", 1)},
+        "dz2);", "const ZNode z = {dz, 1.0f, dz2, 0.0f};")},
     "z cell loop left out": {"lnlike_z.cu": lambda t: t.replace(
         "for (; r < pc.z; r += phases) {",
-        "for (; r < pc.z && r < 0; r += phases) {", 1)},
+        "for (; r < pc.z && r < 0; r += phases) {")},
     "z tiles of 4 unbounded": {"lnlike_z.cu": lambda t: t.replace(
         "__global__ void __launch_bounds__(THREADS, T == 4 ? 3 : 1)\nz_vg(",
         "__global__ void __launch_bounds__(THREADS)\nz_vg(", 1)},
     "finish run twice": {n: lambda t: t.replace(
         "    vg_segment_sums<", "    for (int rep = 0; rep < 2; ++rep) {\n"
-        "    vg_segment_sums<", 1).replace(
+        "    vg_segment_sums<").replace(
         "    if (threadIdx.x == 0) tickets[blockIdx.y] = 0;\n",
         "    __syncthreads();\n    }\n"
-        "    if (threadIdx.x == 0) tickets[blockIdx.y] = 0;\n", 1)
+        "    if (threadIdx.x == 0) tickets[blockIdx.y] = 0;\n")
         for n in ("lnlike.cu", "lnlike_h.cu", "lnlike_z.cu")},
 }
 
@@ -294,15 +368,75 @@ def _check(rc, what):
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def old_calls(lib, fam, data):
+def _old_chunks(fam, data):
+    """The two-pass design's chunk table of ``data``: the z model's bands
+    (``_z_chunk_table``; its data keeps no chunk table now), else the data's
+    own."""
+    if fam != "z":
+        return data.chunks
+    return torch.as_tensor(cl._z_chunk_table(data.shape, data.s_a.numel()),
+                           device=data.g_a.device)
+
+
+def old_value_calls(lib, fam, data):
     """(whole call, partial pass alone, finish pass alone) of the earlier
-    design for ``data``: functions of the features; the passes alone
-    share one partial buffer per batch."""
-    _, _, _, _, names, k, head = FAMILIES[fam]
+    two-pass value kernel for ``data``: functions of the features; the
+    passes alone share one partial buffer per batch."""
+    names, head = VALUE_FAMILIES[fam][4], VALUE_FAMILIES[fam][6]
+    arrays = tuple(getattr(data, a) for a in names)
+    head = tuple(head(data))
+    chunks = _old_chunks(fam, data)
+    nchunks = chunks.shape[0]
+    bufs = {}
+
+    def buffers(f):
+        w = f.shape[0]
+        if w not in bufs:
+            bufs[w] = (torch.empty((w, nchunks), dtype=torch.float64,
+                                   device=f.device),
+                       torch.empty((w,), dtype=torch.float64,
+                                   device=f.device))
+        return bufs[w]
+
+    def whole(f):
+        w = f.shape[0]
+        partial = torch.empty((w, nchunks), dtype=torch.float64,
+                              device=f.device)
+        out = torch.empty((w,), dtype=torch.float64, device=f.device)
+        _check(getattr(lib, f"{fam}_lnlike_launch")(
+            _ptr(f), w, f.shape[1], *head, *(_ptr(a) for a in arrays),
+            _ptr(chunks), nchunks, _ptr(partial), _ptr(out), _stream()),
+            f"old {fam}_lnlike")
+        return out
+
+    def partials(f):
+        partial, _ = buffers(f)
+        _check(getattr(lib, f"split_{fam}_partials")(
+            _ptr(f), f.shape[0], f.shape[1], *head,
+            *(_ptr(a) for a in arrays), _ptr(chunks), nchunks,
+            _ptr(partial), _stream()), f"old {fam}_partials")
+        return partial
+
+    def finish(f):
+        partial, out = buffers(f)
+        _check(getattr(lib, f"split_{fam}_finish")(
+            _ptr(partial), nchunks, f.shape[0], _ptr(out), _stream()),
+            f"old {fam} finish")
+        return out
+
+    return whole, partials, finish, nchunks
+
+
+def old_calls(lib, fam, data):
+    """(whole call, partial pass alone, finish pass alone, chunks) of the
+    earlier design for ``data``: functions of the features; the passes
+    alone share one partial buffer per batch."""
+    _, _, _, _, names, k, head, _ = FAMILIES[fam]
     arrays = tuple(getattr(data, a) for a in names)
     head = tuple(head(data))
     nf = data.shape[0] if fam == "z" else data.nfields
-    nchunks = data.chunks.shape[0]
+    chunks = _old_chunks(fam, data)
+    nchunks = chunks.shape[0]
     flags = (int(bool(data.fcmin)),) if fam == "free" else ()
     cols = {"free": lambda f: 1 + f.shape[1], "fixed": lambda f: 5,
             "z": lambda f: 8, "hier": lambda f: 2 + 3 * nf}[fam]
@@ -324,7 +458,7 @@ def old_calls(lib, fam, data):
         out = torch.empty((w, cols(f)), dtype=torch.float64, device=f.device)
         _check(getattr(lib, f"{fam}_lnlike_vg_launch")(
             _ptr(f), w, f.shape[1], *head, *(_ptr(a) for a in arrays),
-            _ptr(data.chunks), nchunks, *flags, _ptr(partial), _ptr(out),
+            _ptr(chunks), nchunks, *flags, _ptr(partial), _ptr(out),
             _stream()), f"old {fam}_lnlike_vg")
         return out
 
@@ -332,18 +466,27 @@ def old_calls(lib, fam, data):
         partial, _ = buffers(f)
         _check(getattr(lib, f"split_{fam}_vg_partials")(
             _ptr(f), f.shape[0], f.shape[1], *head,
-            *(_ptr(a) for a in arrays), _ptr(data.chunks), nchunks, *flags,
+            *(_ptr(a) for a in arrays), _ptr(chunks), nchunks, *flags,
             _ptr(partial), _stream()), f"old {fam}_vg_partials")
         return partial
 
     def finish(f):
         partial, out = buffers(f)
         _check(getattr(lib, f"split_{fam}_vg_finish")(
-            _ptr(partial), _ptr(data.chunks), nchunks, _ptr(f), f.shape[0],
+            _ptr(partial), _ptr(chunks), nchunks, _ptr(f), f.shape[0],
             f.shape[1], nf, _ptr(out), _stream()), f"old {fam}_vg_finish")
         return out
 
-    return whole, partials, finish
+    return whole, partials, finish, nchunks
+
+
+def _errs(got, ref):
+    """(value, gradient) errors of ``got`` against ``ref``: the rows of a
+    value+gradient kernel, or a value kernel's values (gradient 0)."""
+    if got.dim() == 1:
+        return cs._rel(got, ref), 0.0
+    return (cs._rel(got[:, 0], ref[:, 0]),
+            cs._grad_rel(got[:, 1:], ref[:, 1:]))
 
 
 def sweep(case, f, ref):
@@ -355,11 +498,11 @@ def sweep(case, f, ref):
     kernel = getattr(cl, case.kname)
     rule, phase_rule = cl._vg_geometry, cl._z_phases
     npieces = {p: t.shape[0] for p, t, _ in case.data.vg_tables}
-    chosen = rule(npieces, f.shape[0], cl._sm_count(f.device.index),
-                  cl.VG_TILES[case.fam])
+    tiles = cl._tiles(case.kname)
+    chosen = rule(npieces, f.shape[0], cl._sm_count(f.device.index), tiles)
     out = {}
     try:
-        for tile in cl.VG_TILES[case.fam]:
+        for tile in tiles:
             for piece in npieces:
                 geom = (tile, piece)
                 cl._vg_geometry = lambda *a, g=geom: g
@@ -373,8 +516,7 @@ def sweep(case, f, ref):
                         cl._z_phases = lambda *a, g=ph: g
                     got, again = kernel(f, case.data), kernel(f, case.data)
                     torch.cuda.synchronize()
-                    err = (cs._rel(got[:, 0], ref[:, 0]),
-                           cs._grad_rel(got[:, 1:], ref[:, 1:]))
+                    err = _errs(got, ref)
                     if not (torch.equal(got, again)
                             and err[0] <= cs.RTOL_KERNEL
                             and err[1] <= cs.RTOL_GRAD):
@@ -410,48 +552,86 @@ def ablate(libs, call):
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--old", required=True,
-                    help="the earlier design's csrc/ directory")
-    ap.add_argument("--widths", default="1,8,256")
-    ap.add_argument("--families", default="",
-                    help="compare only these (comma-separated) of the "
-                         "families the old sources hold")
-    ap.add_argument("--ablate", action="store_true",
-                    help="also time the current kernels with parts of "
-                         "their tail left out (ABLATIONS)")
-    ap.add_argument("--sweep", action="store_true",
-                    help="also time the current kernel at every (walker "
-                         "tile, piece) it is built for")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    cs.phase_device()
-    cs.phase_build()
-    old, fams = build_old(args.old)
+# the one-launch kernels whose C entry points --parent calls in the old
+# library through the current wrappers
+PARENT_ENTRIES = ("free_lnlike_vg_launch", "fixed_lnlike_vg_launch",
+                  "z_lnlike_vg_launch", "hier_lnlike_vg_launch")
+
+
+def parent_turns(old_dir, dev, widths):
+    """Each value+gradient kernel through the parent's library (``old_dir``
+    built as it is, the current wrapper calling it) and through the
+    current one: the two held to the same bits, then timed in turns
+    (parent, current, current, parent). Returns the rows."""
+    parent = build_copy(old_dir, {}, "parent",
+                        {k: _build.ENTRY_POINTS[k] for k in PARENT_ENTRIES})
+    real = _build.load_library
+    rows = []
+    for case in cs._cases(dev, "_vg"):
+        if case.grid != FAMILIES[case.fam][2]:
+            continue
+        kernel, data = getattr(cl, case.kname), case.data
+        lo, hi = case.layout.bounds_arrays(torch.float64, dev)
+        for w in widths:
+            gen = torch.Generator(device=dev).manual_seed(2000 + w)
+            th = 0.7 * (lo + hi) / 2 + 0.3 * sample_init(
+                gen, case.layout, w, dtype=torch.float64, device=dev)
+            f = case.features(th.float()).float()
+
+            def timed(lib):
+                _build.load_library = real if lib is None else (
+                    lambda: lib)
+                try:
+                    return kernel(f, data), cs._device_ms(
+                        lambda: kernel(f, data))
+                finally:
+                    _build.load_library = real
+
+            (got_p, p1), (got_c, c1) = timed(parent), timed(None)
+            if not torch.equal(got_p, got_c):
+                raise SystemExit(f"{case.kname} W={w}: the parent's and the "
+                                 "current kernel's rows differ")
+            turns = [p1, c1, timed(None)[1], timed(parent)[1]]
+            rows.append({"kernel": case.kname, "grid": case.grid, "w": w,
+                         "turns_ms": turns})
+            print(f"{case.kname} {case.grid} W={w}: parent / current / "
+                  f"current / parent "
+                  f"{' / '.join(f'{t * 1e3:.2f}' for t in turns)} us; the "
+                  "same bits")
+    return rows
+
+
+def design_turns(args):
+    """The current kernels against the two-pass design of ``args.old``
+    (the value+gradient kernels, or with ``args.value`` the value
+    kernels), in turns: the JSON summary."""
+    old, fams = build_old(args.old, args.value)
+    families = VALUE_FAMILIES if args.value else FAMILIES
     ablated = {k: build_copy(_build.SRC_DIR, edits, f"ablate{i}",
                              _build.ENTRY_POINTS)
                for i, (k, edits) in enumerate(ABLATIONS.items())
                } if args.ablate else {}
     dev = torch.device("cuda:0")
-    widths = [int(x) for x in args.widths.split(",")]
+    widths = [int(x) for x in (args.widths or (
+        "13,50,100,2400" if args.value else "1,8,256")).split(",")]
 
     def empty(n):
         _check(old.split_empty_launch(n, _stream()), "empty kernels")
 
-    res = {"card": cs._SMI[0], "empty_ms": cs._device_ms(lambda: empty(1)),
+    res = {"card": cs._SMI[0], "mode": "value" if args.value else "vg",
+           "empty_ms": cs._device_ms(lambda: empty(1)),
            "empty_pair_ms": cs._device_ms(lambda: empty(2)), "rows": []}
     print(f"empty kernel {res['empty_ms'] * 1e3:.2f} us, empty pair "
           f"{res['empty_pair_ms'] * 1e3:.2f} us (graph replay)")
-    for case in cs._cases(dev, "_vg"):
-        if case.fam not in fams or case.grid != FAMILIES[case.fam][2] or (
+    for case in cs._cases(dev, "" if args.value else "_vg"):
+        if case.fam not in fams or case.grid != families[case.fam][2] or (
                 args.families and case.fam not in args.families.split(",")):
             continue
         fam, data = case.fam, case.data
         new = getattr(cl, case.kname)
         plain = getattr(cl, case.kname + "_reference")
-        whole, partials, finish = old_calls(old, fam, data)
+        whole, partials, finish, nchunks = (
+            old_value_calls if args.value else old_calls)(old, fam, data)
         lo, hi = case.layout.bounds_arrays(torch.float64, dev)
         for w in widths:
             gen = torch.Generator(device=dev).manual_seed(2000 + w)
@@ -463,17 +643,15 @@ def main():
             ref = plain(f, data)
             torch.cuda.synchronize()
             same = (torch.equal(got_o, again_o), torch.equal(got_n, again_n))
-            errs = {}
-            for tag, got in (("old", got_o), ("new", got_n)):
-                errs[tag] = (cs._rel(got[:, 0], ref[:, 0]),
-                             cs._grad_rel(got[:, 1:], ref[:, 1:]))
-            errs["new_vs_old"] = (cs._rel(got_n[:, 0], got_o[:, 0]),
-                                  cs._grad_rel(got_n[:, 1:], got_o[:, 1:]))
+            errs = {"old": _errs(got_o, ref), "new": _errs(got_n, ref),
+                    "new_vs_old": _errs(got_n, got_o)}
             bad = [t for t, (v, g) in errs.items()
                    if not (v <= cs.RTOL_KERNEL and g <= cs.RTOL_GRAD)]
-            if bad or not all(same):
+            if bad or not all(same) or data.vg_tickets.any():
                 raise SystemExit(f"{case.kname} W={w}: errors {errs}, "
-                                 f"bit-identical (old, new) {same}")
+                                 f"bit-identical (old, new) {same}, "
+                                 f"tickets at 0 "
+                                 f"{not data.vg_tickets.any()}")
             turns = [cs._device_ms(lambda: whole(f)),
                      cs._device_ms(lambda: new(f, data)),
                      cs._device_ms(lambda: new(f, data)),
@@ -484,8 +662,7 @@ def main():
             prof_old = cs._kernel_us(lambda: whole(f))
             prof_new = cs._kernel_us(lambda: new(f, data))
             row = {"kernel": case.kname, "grid": case.grid, "w": w,
-                   "cells": int(data.g_a.numel()),
-                   "chunks": int(data.chunks.shape[0]),
+                   "cells": int(data.g_a.numel()), "chunks": int(nchunks),
                    "turns_ms": turns, "old_partials_ms": p_ms,
                    "old_finish_ms": f_ms, "profiler_old_us": prof_old,
                    "profiler_new_us": prof_new, "errors": errs}
@@ -503,7 +680,44 @@ def main():
                   f"vs plain value/gradient old {errs['old'][0]:.2e} / "
                   f"{errs['old'][1]:.2e}, new {errs['new'][0]:.2e} / "
                   f"{errs['new'][1]:.2e}; both bit-identical over two "
-                  "launches")
+                  "launches, tickets at 0")
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", required=True,
+                    help="the earlier design's csrc/ directory")
+    ap.add_argument("--value", action="store_true",
+                    help="compare the value kernels z_lnlike and "
+                         "hier_lnlike (else the value+gradient kernels)")
+    ap.add_argument("--widths", default="",
+                    help="walker batches (default 1,8,256; with --value "
+                         "13,50,100,2400)")
+    ap.add_argument("--families", default="",
+                    help="compare only these (comma-separated) of the "
+                         "families the old sources hold")
+    ap.add_argument("--ablate", action="store_true",
+                    help="also time the current kernels with parts of "
+                         "their tail left out (ABLATIONS)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time the current kernel at every (walker "
+                         "tile, piece) it is built for")
+    ap.add_argument("--parent", action="store_true",
+                    help="the old sources are an earlier build of the "
+                         "one-launch value+gradient kernels: compare them "
+                         "(only) in turns")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    cs.phase_device()
+    cs.phase_build()
+    if args.parent:
+        res = {"card": cs._SMI[0], "mode": "parent", "rows": parent_turns(
+            args.old, torch.device("cuda:0"), [
+                int(x) for x in (args.widths or "1,8,256").split(",")])}
+    else:
+        res = design_turns(args)
     print(cs._SMI[0])
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "vg_turns.json"), "w") as fh:
