@@ -367,7 +367,11 @@ def _bound(kname, data, w):
         ndata = (3 if gridonly else 5) * ncell + (3 if stream else 6) * nsrc
     out_cols = (1 + nfeat) if kname.endswith("_vg") else 1
     out_bytes = 8 * w * out_cols
-    nbytes = 4 * (w * nfeat + ndata + _table_ints(kname, data, w)) + out_bytes
+    # a two-pass kernel reads its chunk (or run) table; a one-launch
+    # kernel's piece tables are its implementation's, not the function's
+    table = 0 if kname in ONE_LAUNCH else (
+        data.runs if stream else data.chunks).numel()
+    nbytes = 4 * (w * nfeat + ndata + table) + out_bytes
     ops = w * (ncell * per_cell + nvalid * per_src + (nsrc - nvalid)
                + nnode * per_node)
     tc, ts, tn = TRANS[fam]
@@ -376,19 +380,6 @@ def _bound(kname, data, w):
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops,
             trans)
-
-
-def _table_ints(kname, data, w):
-    """The ints of the launch tables one call of ``kname`` at ``w`` walkers
-    reads: a one-launch kernel's pieces and segments at its geometry, else
-    the data's chunk or run table."""
-    if kname not in ONE_LAUNCH:
-        return (data.runs if "stream" in kname else data.chunks).numel()
-    _, piece = cl._vg_geometry(
-        {p: t.shape[0] for p, t, _ in data.vg_tables}, w,
-        cl._sm_count(data.g_a.device.index or 0), cl._tiles(kname))
-    _, pieces, segs = next(t for t in data.vg_tables if t[0] == piece)
-    return pieces.numel() + segs.numel()
 
 
 def _one_node(kname, grid, w, fn, empty_ms):

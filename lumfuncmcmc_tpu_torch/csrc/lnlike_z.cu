@@ -86,6 +86,14 @@ struct ZNode {
     float lq, t1, hi, lo;
 };
 
+// Where a launch of K slots keeps its band's node quantities in dynamic
+// shared memory: past vg_smem's, rounded up to 16 bytes for their float4
+// stores and loads (vg_smem of one slot and one walker ends 8 bytes past a
+// multiple of 16 at an odd segment count: an even number of fields).
+__host__ __device__ constexpr size_t z_node_off(int tile, int nseg, int k) {
+    return (vg_smem(tile, nseg, k) + 15) & ~(size_t)15;
+}
+
 __device__ __forceinline__ ZNode z_node(const float* th, float dz,
                                         float dz2) {
     const double z1 = dz, z2 = dz2;
@@ -133,7 +141,7 @@ z_value(const float* __restrict__ feats, int nwalkers, int nfeat, int s_l,
     extern __shared__ __align__(16) unsigned char smem[];   // z_smem
     int4* seg_sh = (int4*)smem;         // the segment table, for the finish
     double* segsum = (double*)(smem + (size_t)nseg * sizeof(int4));
-    float4* node = (float4*)(smem + vg_smem(T, nseg, 1));
+    float4* node = (float4*)(smem + z_node_off(T, nseg, 1));
     for (int s = threadIdx.x; s < nseg; s += THREADS) seg_sh[s] = segs[s];
     const int4 pc = pieces[blockIdx.x];  // (f, r0, r1, 0) or (0, i0, i1, 1)
     const int w0 = blockIdx.y * T;
@@ -280,7 +288,7 @@ z_vg(const float* __restrict__ feats, int nwalkers, int nfeat, int s_l,
     double* segsum = (double*)(smem + (size_t)nseg * sizeof(int4));
     // the band's node quantities (lq, t1, hi, lo) of walker j, node n at
     // j S_z + n, then (dz, dz^2) of node n at n
-    float4* node = (float4*)(smem + vg_smem(T, nseg, Z_SLOTS));
+    float4* node = (float4*)(smem + z_node_off(T, nseg, Z_SLOTS));
     float2* ndz = (float2*)(node + T * s_z);
     for (int s = threadIdx.x; s < nseg; s += THREADS) seg_sh[s] = segs[s];
     const int4 pc = pieces[blockIdx.x];  // (f, r0, r1, 0) or (0, i0, i1, 1)
@@ -454,11 +462,11 @@ z_vg(const float* __restrict__ feats, int nwalkers, int nfeat, int s_l,
     if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
 }
 
-// Dynamic shared memory of a launch of K slots: vg_smem's, then the band's
-// node quantities of T walkers, and for z_vg (K Z_SLOTS) its nodes' (dz,
-// dz^2).
+// Dynamic shared memory of a launch of K slots: vg_smem's, then from
+// z_node_off the band's node quantities of T walkers, and for z_vg (K
+// Z_SLOTS) its nodes' (dz, dz^2).
 static size_t z_smem(int tile, int nseg, int s_z, int k) {
-    return vg_smem(tile, nseg, k) + (size_t)s_z
+    return z_node_off(tile, nseg, k) + (size_t)s_z
         * (tile * sizeof(float4) + (k > 1 ? sizeof(float2) : 0));
 }
 

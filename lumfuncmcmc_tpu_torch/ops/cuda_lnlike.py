@@ -524,20 +524,6 @@ class CudaZData:
     vg_tickets: Optional[torch.Tensor] = None  # (MAX_ROWS,) int32
 
 
-def _z_chunk_table(shape, nsrc):
-    """Bands of L rows holding about CHUNK_CELLS cells for every field,
-    then the sources in pieces of at most CHUNK_CELLS: the launch table of
-    the earlier two-pass ``z_lnlike``, which ``tools/vg_turns.py --value``
-    times against the current kernel."""
-    nf, sl, sz = shape
-    band = max(1, CHUNK_CELLS // sz)
-    rows = [(f, r, min(r + band, sl), 0)
-            for f in range(nf) for r in range(0, sl, band)]
-    rows += [(0, s, min(s + CHUNK_CELLS, nsrc), 1)
-             for s in range(0, nsrc, CHUNK_CELLS)]
-    return np.asarray(rows, dtype=np.int32).reshape(-1, 4)
-
-
 def prepare_cuda_z_data(ctx: LFContext, layout: ThetaLayoutZ,
                         dtype=None) -> CudaZData:
     """Pack the context's grids and sources into the z kernels' layout,

@@ -369,14 +369,18 @@ def test_hier_step_loop_never_synchronises_and_is_deterministic(device):
     assert torch.isfinite(lnps[-1]).all()
 
 
-def _one_launch_case(device, fam, size_ln, suffix="_vg"):
+def _one_launch_case(device, fam, size_ln, suffix="_vg", nfields=5):
     """The data of ``free_lnlike_vg`` (free completeness),
     ``fixed_lnlike_vg``, ``hier_lnlike_vg`` or ``z_lnlike_vg`` (with
     ``suffix`` "": the value kernels ``hier_lnlike``, ``z_lnlike``) on a
-    400-source catalog, its kernel, plain version and a function of W
-    giving W feature rows near the box centre."""
+    400-source catalog of the first ``nfields`` default fields, its kernel,
+    plain version and a function of W giving W feature rows near the box
+    centre."""
+    d = LFConfig()
     cfg = LFConfig(min_comp_frac=0.5, size_ln=size_ln,
-                   fix_comp=fam != "free")
+                   fix_comp=fam != "free", Flim=d.Flim[:nfields],
+                   Omega_0=d.Omega_0[:nfields],
+                   survey_fields=d.survey_fields[:nfields])
     ctx = _context(cfg, device)
     if fam == "hier":
         layout = ThetaLayoutH.from_config(cfg)
@@ -506,18 +510,24 @@ def test_one_launch_value_kernels_at_every_batch(device, fam, size_ln):
     assert not data.vg_tickets.any()
 
 
-@pytest.mark.parametrize("fam,tile,size_ln", [
-    (fam, tile, size_ln) for fam in ("hier", "z")
+@pytest.mark.parametrize("fam,tile,size_ln,nfields", [
+    (fam, tile, size_ln, nfields) for fam in ("hier", "z")
     for tile in cl.VG_TILES[f"{fam}_value"]
-    for size_ln in ((12, 41, 300) if fam == "z" else (41,))])
+    for size_ln, nfields in (((12, 5), (41, 5), (300, 5), (41, 2), (41, 4))
+                             if fam == "z" else ((41, 5), (41, 4)))])
 def test_one_launch_value_kernels_at_every_walker_tile(device, monkeypatch,
-                                                        fam, tile, size_ln):
+                                                        fam, tile, size_ln,
+                                                        nfields):
     """Every walker-tile instance of the value kernels, whatever the
     geometry rule would take on this card, at W = 13 (a partial last tile
     at every tile but 1) and 2400 on the shortest and the longest pieces (the
-    z model's bands also at 12 and 300 z nodes): the plain version's
-    values, two launches bit-identical, the tickets left at 0."""
-    data, kernel, plain, feats = _one_launch_case(device, fam, size_ln, "")
+    z model's bands also at 12 and 300 z nodes), on catalogs of 5 fields and
+    of an even number (an odd segment count, where the z kernels' node
+    quantities follow an odd number of double segment sums at tile 1): the
+    plain version's values, two launches bit-identical, the tickets left at
+    0."""
+    data, kernel, plain, feats = _one_launch_case(device, fam, size_ln, "",
+                                                  nfields)
     lengths = [p for p, _, _ in data.vg_tables]
     for piece in (min(lengths), max(lengths)):
         monkeypatch.setattr(cl, "_vg_geometry",

@@ -16,6 +16,7 @@ partials and the finish's segment order) holds it to the plain versions.
 """
 
 import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -252,6 +253,36 @@ def test_z_phases_keep_the_lanes_busy(s_z, rows, want):
     (256 pairs), at 12 the band's every row; where a band holds a few rows
     one phase."""
     assert cl._z_phases(s_z, rows) == want
+
+
+def _vg_smem(tile, nseg, k):
+    """``vg_smem`` of ``csrc/vg_ticket.cuh``: the staged segment table
+    (16-byte int4 rows), then ``tile`` walkers' ``k`` double segment
+    sums."""
+    return 16 * nseg + 8 * tile * nseg * k
+
+
+def test_z_node_quantities_are_16_byte_aligned():
+    """Both z kernels keep their band's node quantities, float4s, in
+    dynamic shared memory after ``vg_smem``'s bytes; at one slot
+    (``z_lnlike``) and one walker an odd segment count (an even number of
+    fields with sources) ends those 8 bytes past a multiple of 16. Both
+    kernels and ``z_smem`` take the node array's offset from
+    ``z_node_off``, which rounds it up to 16 bytes at every tile and
+    segment count."""
+    with open(Path(cl.__file__).parent.parent / "csrc" / "lnlike_z.cu") as fh:
+        src = fh.read()
+    assert "return (vg_smem(tile, nseg, k) + 15) & ~(size_t)15;" in src
+    for k in ("1", "Z_SLOTS"):
+        assert f"node = (float4*)(smem + z_node_off(T, nseg, {k}));" in src
+    assert "return z_node_off(tile, nseg, k) + (size_t)s_z" in src
+    assert _vg_smem(1, 5, 1) % 16 == 8
+    for tile in set(cl.VG_TILES["z"] + cl.VG_TILES["z_value"]):
+        for k in (1, cl.VG_Z_SLOTS):
+            for nseg in range(1, 18):
+                off = (_vg_smem(tile, nseg, k) + 15) & ~15
+                assert off % 16 == 0 and 0 <= off - _vg_smem(tile, nseg,
+                                                               k) < 16
 
 
 def _value_feats(size_ln, fam, w, seed):

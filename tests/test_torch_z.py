@@ -22,6 +22,8 @@ same numpy-seeded thetas. Tolerances:
 
 import functools
 import importlib
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -311,9 +313,15 @@ def test_z_vg_source_term_clamps_x_and_the_value_version_does_not():
 
 
 def test_z_chunk_table_covers_every_cell_and_source_once():
+    """The z model's two-pass launch table, which ``tools/vg_turns.py``
+    rebuilds to run the earlier design of the z kernels."""
+    spec = importlib.util.spec_from_file_location(
+        "vg_turns", Path(__file__).parent.parent / "tools" / "vg_turns.py")
+    vg_turns = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vg_turns)
     for shape, nsrc in (((5, 201, 201), 1672), ((2, 7, 300), 0),
                         ((3, 31, 31), 5000)):
-        tab = cl._z_chunk_table(shape, nsrc)
+        tab = vg_turns.z_chunk_table(shape, nsrc)
         nf, sl, sz = shape
         rows = np.zeros((nf, sl), int)
         src = np.zeros(nsrc, int)
@@ -326,7 +334,7 @@ def test_z_chunk_table_covers_every_cell_and_source_once():
                 assert (b - a) * sz <= max(cl.CHUNK_CELLS, sz)
                 rows[f, a:b] += 1
         assert (rows == 1).all() and (src == 1).all()
-    assert len(cl._z_chunk_table((5, 201, 201), 1672)) == 5 * 21 + 1
+    assert len(vg_turns.z_chunk_table((5, 201, 201), 1672)) == 5 * 21 + 1
 
 
 @pytest.mark.parametrize("z_param", Z_PARAMS)

@@ -1,5 +1,5 @@
-"""The one-launch kernels against an earlier two-pass design of the same
-kernels, in turns on one card: the NUTS paths' value+gradient kernels
+"""The one-launch kernels against an earlier design of the same kernels,
+in turns on one card: the NUTS paths' value+gradient kernels
 (``free_lnlike_vg`` of ``fit --sampler nuts``, ``fixed_lnlike_vg`` of
 ``fit -fc --sampler nuts``, ``z_lnlike_vg`` of ``fitz --sampler nuts``,
 ``hier_lnlike_vg`` of ``fith --sampler nuts``), or with ``--value`` the
@@ -10,36 +10,34 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/vg_turns.py --old DIR [--value] [--widths 1,8,256]
                               [--families F,..] [--sweep] [--ablate]
-    python3 tools/vg_turns.py --old DIR --parent [--widths 1,8,256]
 
 ``DIR`` holds the earlier design's ``csrc/`` (for instance a ``git
 archive`` of an earlier commit unpacked under ``_archive/``, which
-``.gitignore`` lists). Each family whose two-pass kernels it holds
-(``*_vg_partials`` and ``*_vg_finish``; with ``--value``, ``z_partials``
-or ``hier_partials`` and the shared ``finish``) is compared (or those of
-``--families``); its sources are built into a library of their own under
-``lumfuncmcmc_tpu_torch/_build/``, with C entry points appended to their
-copies: each old kernel's partial pass alone, its finish pass alone, and a
-pair of empty kernels. On the fits' own catalog
-(``fit --synthetic 2000``'s: ``free_lnlike_vg`` at trapz-101, the others at
+``.gitignore`` lists), built into a library of its own under
+``lumfuncmcmc_tpu_torch/_build/`` with a pair of empty kernels appended.
+Each kernel is compared (or those of ``--families``): where ``DIR`` holds
+its two-pass design (``*_vg_partials`` and ``*_vg_finish``; ``z_partials``
+or ``hier_partials`` and the shared ``finish`` for the value kernels), C
+entry points appended to the copies run each pass alone; else ``DIR`` is
+an earlier build of the one-launch kernel, whose C entry point is the
+current one (for instance the parent commit's ``csrc/``), and the current
+wrapper runs it through that library. On the fits' own catalog (``fit
+--synthetic 2000``'s: ``free_lnlike_vg`` at trapz-101, the others at
 trapz-201) and at each walker batch (default 1, 8, 256; with ``--value``
 13, 50, 100, 2400) it checks the old call and the current wrapper against
 the plain version and each other (values rtol 1e-4, gradients 2e-3 by
-``_grad_close``) and two launches of each on one input bit for bit; then
-times, in ``chip_smoke.py``'s ``_device_ms`` harness (a CUDA graph of 20
-calls replayed between CUDA events): the old call and the current one in
-turns (old, new, new, old), the old partial and finish passes alone, one
-and two empty kernels; and, under ``torch.profiler``, each kernel's own
+``_grad_close``; whether the two give the same bits is reported) and two
+launches of each on one input bit for bit; then times, in
+``chip_smoke.py``'s ``_device_ms`` harness (a CUDA graph of 20 calls
+replayed between CUDA events): the old call and the current one in turns
+(old, new, new, old), a two-pass design's partial and finish passes alone,
+one and two empty kernels; and, under ``torch.profiler``, each kernel's own
 device time per call. With ``--sweep`` it also times the current kernels
 at every (walker tile, piece) they are built for (the z model's at its
 rule's row phases and at one), and with ``--ablate`` builds of them with
-parts left out (``ABLATIONS``). With ``--parent`` the old sources are
-instead an earlier build of the same one-launch value+gradient kernels,
-whose C entry points are the current ones (for instance the parent
-commit's ``csrc/``): each kernel runs through that library and through
-the current one, held to the same bits, and is timed in turns. Prints one
-line per measurement, the card's name and power limit, and writes the JSON
-summary to ``chiprun_out/vg_turns.json``. Imports only the port.
+parts left out (``ABLATIONS``). Prints one line per measurement, the
+card's name and power limit, and writes the JSON summary to
+``chiprun_out/vg_turns.json``. Imports only the port.
 """
 
 from __future__ import annotations
@@ -52,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -68,7 +67,7 @@ from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl  # noqa: E402
 # launch shapes): each family's partial and finish passes alone, with one C
 # signature for every finish
 SPLIT_FREE = r"""
-extern "C" int split_free_vg_partials(
+extern "C" int split_free_lnlike_vg_partials(
         const float* feats, int nwalkers, int nfeat, int nfields,
         const float* g_logf, const float* g_a, const float* g_p,
         const float* g_r, const float* g_w, const float* s_logf,
@@ -81,7 +80,7 @@ extern "C" int split_free_vg_partials(
         s_r, s_lnom0, s_mask, (const int4*)chunks, nchunks, fcmin, partial);
     return (int)cudaGetLastError();
 }
-extern "C" int split_free_vg_finish(
+extern "C" int split_free_lnlike_vg_finish(
         const double* partial, const int* chunks, int nchunks,
         const float* feats, int nwalkers, int nfeat, int nfields,
         double* out, void* stream) {
@@ -92,7 +91,7 @@ extern "C" int split_free_vg_finish(
 }
 """
 SPLIT_HIER = r"""
-extern "C" int split_hier_vg_partials(
+extern "C" int split_hier_lnlike_vg_partials(
         const float* feats, int nwalkers, int nfeat, int nfields,
         const float* g_a, const float* g_p, const float* g_w,
         const int* chunks, int nchunks, double* partial, void* stream) {
@@ -101,7 +100,7 @@ extern "C" int split_hier_vg_partials(
         feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
     return (int)cudaGetLastError();
 }
-extern "C" int split_hier_vg_finish(
+extern "C" int split_hier_lnlike_vg_finish(
         const double* partial, const int* chunks, int nchunks,
         const float* feats, int nwalkers, int nfeat, int nfields,
         double* out, void* stream) {
@@ -112,7 +111,7 @@ extern "C" int split_hier_vg_finish(
 }
 """
 SPLIT_FIXED = r"""
-extern "C" int split_fixed_vg_partials(
+extern "C" int split_fixed_lnlike_vg_partials(
         const float* feats, int nwalkers, int nfeat, const float* g_a,
         const float* g_p, const float* g_w, const int* chunks, int nchunks,
         double* partial, void* stream) {
@@ -121,7 +120,7 @@ extern "C" int split_fixed_vg_partials(
         feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
     return (int)cudaGetLastError();
 }
-extern "C" int split_fixed_vg_finish(
+extern "C" int split_fixed_lnlike_vg_finish(
         const double* partial, const int* chunks, int nchunks,
         const float* feats, int nwalkers, int nfeat, int nfields,
         double* out, void* stream) {
@@ -131,7 +130,7 @@ extern "C" int split_fixed_vg_finish(
 }
 """
 SPLIT_Z = r"""
-extern "C" int split_z_vg_partials(
+extern "C" int split_z_lnlike_vg_partials(
         const float* feats, int nwalkers, int nfeat, int s_l, int s_z,
         const float* g_a, const float* g_p, const float* g_w,
         const float* n_dz, const float* n_dz2, const float* s_a,
@@ -144,7 +143,7 @@ extern "C" int split_z_vg_partials(
         s_lnom0, s_mask, (const int4*)chunks, nchunks, partial);
     return (int)cudaGetLastError();
 }
-extern "C" int split_z_vg_finish(
+extern "C" int split_z_lnlike_vg_finish(
         const double* partial, const int* chunks, int nchunks,
         const float* feats, int nwalkers, int nfeat, int nfields,
         double* out, void* stream) {
@@ -153,8 +152,19 @@ extern "C" int split_z_vg_finish(
     return (int)cudaGetLastError();
 }
 """
+# the value kernels' finish, common.cuh's, at every finish's C signature
+SPLIT_VALUE_FINISH = r"""
+extern "C" int split_FAM_lnlike_finish(
+        const double* partial, const int* chunks, int nchunks,
+        const float* feats, int nwalkers, int nfeat, int nfields,
+        double* out, void* stream) {
+    finish<<<(nwalkers + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        partial, nchunks, nwalkers, out);
+    return (int)cudaGetLastError();
+}
+"""
 SPLIT_Z_VALUE = r"""
-extern "C" int split_z_partials(
+extern "C" int split_z_lnlike_partials(
         const float* feats, int nwalkers, int nfeat, int s_l, int s_z,
         const float* g_a, const float* g_p, const float* g_w,
         const float* n_dz, const float* n_dz2, const float* s_a,
@@ -167,15 +177,9 @@ extern "C" int split_z_partials(
         s_lnom0, s_mask, (const int4*)chunks, nchunks, partial);
     return (int)cudaGetLastError();
 }
-extern "C" int split_z_finish(const double* partial, int nchunks,
-                              int nwalkers, double* out, void* stream) {
-    finish<<<(nwalkers + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        partial, nchunks, nwalkers, out);
-    return (int)cudaGetLastError();
-}
-"""
+""" + SPLIT_VALUE_FINISH.replace("FAM", "z")
 SPLIT_HIER_VALUE = r"""
-extern "C" int split_hier_partials(
+extern "C" int split_hier_lnlike_partials(
         const float* feats, int nwalkers, int nfeat, int nfields,
         const float* g_a, const float* g_p, const float* g_w,
         const int* chunks, int nchunks, double* partial, void* stream) {
@@ -184,13 +188,7 @@ extern "C" int split_hier_partials(
         feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
     return (int)cudaGetLastError();
 }
-extern "C" int split_hier_finish(const double* partial, int nchunks,
-                                 int nwalkers, double* out, void* stream) {
-    finish<<<(nwalkers + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        partial, nchunks, nwalkers, out);
-    return (int)cudaGetLastError();
-}
-"""
+""" + SPLIT_VALUE_FINISH.replace("FAM", "hier")
 SPLIT_EMPTY = r"""
 static __global__ void split_empty() {}
 extern "C" int split_empty_launch(int n, void* stream) {
@@ -200,41 +198,56 @@ extern "C" int split_empty_launch(int n, void* stream) {
 }
 """
 _p, _i = ctypes.c_void_p, ctypes.c_int
-# family -> (its old source, the split passes appended to it, the grid of
-# its case, its old whole call's argument types (its ops/_build.py), its
-# data arrays, its partial sums, the ints after (W, nfeat), the definition
-# of its old partial pass)
-FAMILIES = {
-    "free": ("lnlike.cu", SPLIT_FREE, "trapz-101",
-             [_p, _i, _i, _i] + [_p] * 11 + [_p, _i, _i, _p, _p, _p],
-             cl._FREE_ARRAYS, cl.VG_FREE_SLOTS,
-             lambda d: (d.nfields,), "free_vg_partials("),
-    "fixed": ("lnlike.cu", SPLIT_FIXED, "trapz-201",
-              [_p, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p],
-              cl._FIXED_ARRAYS, cl.VG_HIER_SLOTS, lambda d: (),
-              "fixed_vg_partials("),
-    "z": ("lnlike_z.cu", SPLIT_Z, "trapz-201",
-          [_p, _i, _i, _i, _i] + [_p] * 10 + [_p, _i, _p, _p, _p],
-          cl._Z_ARRAYS, cl.VG_Z_SLOTS, lambda d: d.shape[1:],
-          "z_vg_partials("),
-    "hier": ("lnlike_h.cu", SPLIT_HIER, "trapz-201",
-             [_p, _i, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p],
-             cl._FIXED_ARRAYS, cl.VG_HIER_SLOTS, lambda d: (d.nfields,),
-             "hier_vg_partials("),
-}
-# the same for the value kernels' two-pass design (--value): one partial a
-# (walker, chunk), the finish common.cuh's
-VALUE_FAMILIES = {
-    "z": ("lnlike_z.cu", SPLIT_Z_VALUE, "trapz-201",
-          [_p, _i, _i, _i, _i] + [_p] * 10 + [_p, _i, _p, _p, _p],
-          cl._Z_ARRAYS, 1, lambda d: d.shape[1:], "\nz_partials("),
-    "hier": ("lnlike_h.cu", SPLIT_HIER_VALUE, "trapz-201",
-             [_p, _i, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p],
-             cl._FIXED_ARRAYS, 1, lambda d: (d.nfields,),
-             "\nhier_partials("),
-}
+_FREE_OLD = [_p, _i, _i, _i] + [_p] * 11 + [_p, _i, _i, _p, _p, _p]
+_FIXED_OLD = [_p, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p]
+_Z_OLD = [_p, _i, _i, _i, _i] + [_p] * 10 + [_p, _i, _p, _p, _p]
+_HIER_OLD = [_p, _i, _i, _i] + [_p] * 3 + [_p, _i, _p, _p, _p]
 _FINISH_ARGS = [_p, _p, _i, _p, _i, _i, _i, _p, _p]
-_VALUE_FINISH_ARGS = [_p, _i, _i, _p, _p]
+
+
+class Family(NamedTuple):
+    """A kernel's two-pass design: its source, the split passes appended to
+    it, the grid of its case, its whole call's argument types (that
+    design's ops/_build.py), its data arrays, its partial sums a (walker,
+    chunk), the ints after (W, nfeat), the definition of its partial pass
+    (present only in that design), and its output columns given the data
+    and the features (None: a value)."""
+    src: str
+    split: str
+    grid: str
+    whole: list
+    arrays: tuple
+    slots: int
+    head: Callable
+    mark: str
+    cols: Optional[Callable]
+
+
+FAMILIES = {
+    "free_lnlike_vg": Family(
+        "lnlike.cu", SPLIT_FREE, "trapz-101", _FREE_OLD, cl._FREE_ARRAYS,
+        cl.VG_FREE_SLOTS, lambda d: (d.nfields,), "free_vg_partials(",
+        lambda d, f: 1 + f.shape[1]),
+    "fixed_lnlike_vg": Family(
+        "lnlike.cu", SPLIT_FIXED, "trapz-201", _FIXED_OLD, cl._FIXED_ARRAYS,
+        cl.VG_HIER_SLOTS, lambda d: (), "fixed_vg_partials(",
+        lambda d, f: 5),
+    "z_lnlike_vg": Family(
+        "lnlike_z.cu", SPLIT_Z, "trapz-201", _Z_OLD, cl._Z_ARRAYS,
+        cl.VG_Z_SLOTS, lambda d: d.shape[1:], "z_vg_partials(",
+        lambda d, f: 8),
+    "hier_lnlike_vg": Family(
+        "lnlike_h.cu", SPLIT_HIER, "trapz-201", _HIER_OLD, cl._FIXED_ARRAYS,
+        cl.VG_HIER_SLOTS, lambda d: (d.nfields,), "hier_vg_partials(",
+        lambda d, f: 2 + 3 * d.nfields),
+    "z_lnlike": Family(
+        "lnlike_z.cu", SPLIT_Z_VALUE, "trapz-201", _Z_OLD, cl._Z_ARRAYS, 1,
+        lambda d: d.shape[1:], "\nz_partials(", None),
+    "hier_lnlike": Family(
+        "lnlike_h.cu", SPLIT_HIER_VALUE, "trapz-201", _HIER_OLD,
+        cl._FIXED_ARRAYS, 1, lambda d: (d.nfields,), "\nhier_partials(",
+        None),
+}
 
 
 def build_copy(src_dir, edits, tag, entry):
@@ -272,39 +285,34 @@ def build_copy(src_dir, edits, tag, entry):
     return lib
 
 
-def build_old(src_dir, value=False):
-    """The earlier design's sources with the split entry points of each
-    family whose two-pass kernels they hold appended (the value kernels'
-    with ``value``); returns (the library, those families)."""
-    families = VALUE_FAMILIES if value else FAMILIES
+def build_old(src_dir, knames):
+    """The earlier sources with a pair of empty kernels and the split
+    entry points of each kernel of ``knames`` whose two-pass design they
+    hold appended; returns (the library, {kernel: whether the sources hold
+    its two-pass design, else an earlier build of its one-launch
+    design})."""
     text = {}
-    for name in {f[0] for f in families.values()} | {"lnlike.cu"}:
+    for name in {FAMILIES[k].src for k in knames} | {"lnlike.cu"}:
         path = os.path.join(src_dir, name)
         if not os.path.exists(path):
             raise SystemExit(f"{src_dir} holds no {name}")
         with open(path) as fh:
             text[name] = fh.read()
-    fams = [f for f, (src, *_, mark) in families.items()
-            if mark in text[src]]
-    if not fams:
-        raise SystemExit(f"{src_dir} holds no two-pass "
-                         f"{'value' if value else 'vg'} kernels")
     add = {"lnlike.cu": SPLIT_EMPTY}
     entry = {"split_empty_launch": [_i, _p]}
-    for f in fams:
-        src, split, _, whole = families[f][:4]
-        add[src] = add.get(src, "") + split
-        if value:
-            entry[f"{f}_lnlike_launch"] = whole
-            entry[f"split_{f}_partials"] = whole[:-3] + [_p, _p]
-            entry[f"split_{f}_finish"] = _VALUE_FINISH_ARGS
+    kinds = {}
+    for k in knames:
+        fm = FAMILIES[k]
+        kinds[k] = fm.mark in text[fm.src]
+        if kinds[k]:
+            add[fm.src] = add.get(fm.src, "") + fm.split
+            entry[f"{k}_launch"] = fm.whole
+            entry[f"split_{k}_partials"] = fm.whole[:-2] + [_p]
+            entry[f"split_{k}_finish"] = _FINISH_ARGS
         else:
-            entry[f"{f}_lnlike_vg_launch"] = whole
-            entry[f"split_{f}_vg_partials"] = whole[:-2] + [_p]
-            entry[f"split_{f}_vg_finish"] = _FINISH_ARGS
+            entry[f"{k}_launch"] = _build.ENTRY_POINTS[f"{k}_launch"]
     edits = {n: lambda t, a=a: t + a for n, a in add.items()}
-    return build_copy(src_dir, edits, "old_value" if value else "old",
-                      entry), fams
+    return build_copy(src_dir, edits, "old", entry), kinds
 
 
 # the current kernels with their tail cut short, to split a call's time
@@ -368,113 +376,82 @@ def _check(rc, what):
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def _old_chunks(fam, data):
-    """The two-pass design's chunk table of ``data``: the z model's bands
-    (``_z_chunk_table``; its data keeps no chunk table now), else the data's
-    own."""
-    if fam != "z":
-        return data.chunks
-    return torch.as_tensor(cl._z_chunk_table(data.shape, data.s_a.numel()),
-                           device=data.g_a.device)
+def z_chunk_table(shape, nsrc):
+    """Bands of L rows holding about ``CHUNK_CELLS`` cells for every field,
+    then the sources in pieces of at most ``CHUNK_CELLS``: the launch table
+    of the z model's two-pass kernels, which its data no longer keeps."""
+    nf, sl, sz = shape
+    band = max(1, cl.CHUNK_CELLS // sz)
+    rows = [(f, r, min(r + band, sl), 0)
+            for f in range(nf) for r in range(0, sl, band)]
+    rows += [(0, s, min(s + cl.CHUNK_CELLS, nsrc), 1)
+             for s in range(0, nsrc, cl.CHUNK_CELLS)]
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 4)
 
 
-def old_value_calls(lib, fam, data):
-    """(whole call, partial pass alone, finish pass alone) of the earlier
-    two-pass value kernel for ``data``: functions of the features; the
-    passes alone share one partial buffer per batch."""
-    names, head = VALUE_FAMILIES[fam][4], VALUE_FAMILIES[fam][6]
-    arrays = tuple(getattr(data, a) for a in names)
-    head = tuple(head(data))
-    chunks = _old_chunks(fam, data)
-    nchunks = chunks.shape[0]
-    bufs = {}
-
-    def buffers(f):
-        w = f.shape[0]
-        if w not in bufs:
-            bufs[w] = (torch.empty((w, nchunks), dtype=torch.float64,
-                                   device=f.device),
-                       torch.empty((w,), dtype=torch.float64,
-                                   device=f.device))
-        return bufs[w]
-
-    def whole(f):
-        w = f.shape[0]
-        partial = torch.empty((w, nchunks), dtype=torch.float64,
-                              device=f.device)
-        out = torch.empty((w,), dtype=torch.float64, device=f.device)
-        _check(getattr(lib, f"{fam}_lnlike_launch")(
-            _ptr(f), w, f.shape[1], *head, *(_ptr(a) for a in arrays),
-            _ptr(chunks), nchunks, _ptr(partial), _ptr(out), _stream()),
-            f"old {fam}_lnlike")
-        return out
-
-    def partials(f):
-        partial, _ = buffers(f)
-        _check(getattr(lib, f"split_{fam}_partials")(
-            _ptr(f), f.shape[0], f.shape[1], *head,
-            *(_ptr(a) for a in arrays), _ptr(chunks), nchunks,
-            _ptr(partial), _stream()), f"old {fam}_partials")
-        return partial
-
-    def finish(f):
-        partial, out = buffers(f)
-        _check(getattr(lib, f"split_{fam}_finish")(
-            _ptr(partial), nchunks, f.shape[0], _ptr(out), _stream()),
-            f"old {fam} finish")
-        return out
-
-    return whole, partials, finish, nchunks
-
-
-def old_calls(lib, fam, data):
+def old_calls(lib, kname, data, two_pass):
     """(whole call, partial pass alone, finish pass alone, chunks) of the
-    earlier design for ``data``: functions of the features; the passes
-    alone share one partial buffer per batch."""
-    _, _, _, _, names, k, head, _ = FAMILIES[fam]
-    arrays = tuple(getattr(data, a) for a in names)
-    head = tuple(head(data))
-    nf = data.shape[0] if fam == "z" else data.nfields
-    chunks = _old_chunks(fam, data)
+    earlier design of kernel ``kname`` for ``data``: functions of the
+    features; the passes alone share one partial buffer per batch. An
+    earlier build of the one-launch kernel (not ``two_pass``) runs through
+    the current wrapper and has no passes: (whole call, None, None, 0)."""
+    if not two_pass:
+        kernel = getattr(cl, kname)
+
+        def through_old(f):
+            real = _build.load_library
+            _build.load_library = lambda: lib
+            try:
+                return kernel(f, data)
+            finally:
+                _build.load_library = real
+        return through_old, None, None, 0
+    fm = FAMILIES[kname]
+    arrays = tuple(getattr(data, a) for a in fm.arrays)
+    head = tuple(fm.head(data))
+    z = isinstance(data, cl.CudaZData)
+    nf = data.shape[0] if z else data.nfields
+    chunks = (torch.as_tensor(z_chunk_table(data.shape, data.s_a.numel()),
+                              device=data.g_a.device) if z else data.chunks)
     nchunks = chunks.shape[0]
-    flags = (int(bool(data.fcmin)),) if fam == "free" else ()
-    cols = {"free": lambda f: 1 + f.shape[1], "fixed": lambda f: 5,
-            "z": lambda f: 8, "hier": lambda f: 2 + 3 * nf}[fam]
+    flags = (int(bool(data.fcmin)),) if kname.startswith("free") else ()
+
+    def empty(f):
+        w = f.shape[0]
+        return (torch.empty((w, nchunks, fm.slots), dtype=torch.float64,
+                            device=f.device),
+                torch.empty((w,) if fm.cols is None else
+                            (w, fm.cols(data, f)), dtype=torch.float64,
+                            device=f.device))
+
     bufs = {}
 
     def buffers(f):
-        w = f.shape[0]
-        if w not in bufs:
-            bufs[w] = (torch.empty((w, nchunks, k), dtype=torch.float64,
-                                   device=f.device),
-                       torch.empty((w, cols(f)), dtype=torch.float64,
-                                   device=f.device))
-        return bufs[w]
+        if f.shape[0] not in bufs:
+            bufs[f.shape[0]] = empty(f)
+        return bufs[f.shape[0]]
 
     def whole(f):
-        w = f.shape[0]
-        partial = torch.empty((w, nchunks, k), dtype=torch.float64,
-                              device=f.device)
-        out = torch.empty((w, cols(f)), dtype=torch.float64, device=f.device)
-        _check(getattr(lib, f"{fam}_lnlike_vg_launch")(
-            _ptr(f), w, f.shape[1], *head, *(_ptr(a) for a in arrays),
-            _ptr(chunks), nchunks, *flags, _ptr(partial), _ptr(out),
-            _stream()), f"old {fam}_lnlike_vg")
-        return out
-
-    def partials(f):
-        partial, _ = buffers(f)
-        _check(getattr(lib, f"split_{fam}_vg_partials")(
+        partial, out = empty(f)
+        _check(getattr(lib, f"{kname}_launch")(
             _ptr(f), f.shape[0], f.shape[1], *head,
             *(_ptr(a) for a in arrays), _ptr(chunks), nchunks, *flags,
-            _ptr(partial), _stream()), f"old {fam}_vg_partials")
+            _ptr(partial), _ptr(out), _stream()), f"old {kname}")
+        return out
+
+    def partials(f):
+        partial, _ = buffers(f)
+        _check(getattr(lib, f"split_{kname}_partials")(
+            _ptr(f), f.shape[0], f.shape[1], *head,
+            *(_ptr(a) for a in arrays), _ptr(chunks), nchunks, *flags,
+            _ptr(partial), _stream()), f"old {kname} partials")
         return partial
 
     def finish(f):
         partial, out = buffers(f)
-        _check(getattr(lib, f"split_{fam}_vg_finish")(
+        _check(getattr(lib, f"split_{kname}_finish")(
             _ptr(partial), _ptr(chunks), nchunks, _ptr(f), f.shape[0],
-            f.shape[1], nf, _ptr(out), _stream()), f"old {fam}_vg_finish")
+            f.shape[1], nf, _ptr(out), _stream()), f"old {kname} finish")
         return out
 
     return whole, partials, finish, nchunks
@@ -552,61 +529,14 @@ def ablate(libs, call):
     return out
 
 
-# the one-launch kernels whose C entry points --parent calls in the old
-# library through the current wrappers
-PARENT_ENTRIES = ("free_lnlike_vg_launch", "fixed_lnlike_vg_launch",
-                  "z_lnlike_vg_launch", "hier_lnlike_vg_launch")
-
-
-def parent_turns(old_dir, dev, widths):
-    """Each value+gradient kernel through the parent's library (``old_dir``
-    built as it is, the current wrapper calling it) and through the
-    current one: the two held to the same bits, then timed in turns
-    (parent, current, current, parent). Returns the rows."""
-    parent = build_copy(old_dir, {}, "parent",
-                        {k: _build.ENTRY_POINTS[k] for k in PARENT_ENTRIES})
-    real = _build.load_library
-    rows = []
-    for case in cs._cases(dev, "_vg"):
-        if case.grid != FAMILIES[case.fam][2]:
-            continue
-        kernel, data = getattr(cl, case.kname), case.data
-        lo, hi = case.layout.bounds_arrays(torch.float64, dev)
-        for w in widths:
-            gen = torch.Generator(device=dev).manual_seed(2000 + w)
-            th = 0.7 * (lo + hi) / 2 + 0.3 * sample_init(
-                gen, case.layout, w, dtype=torch.float64, device=dev)
-            f = case.features(th.float()).float()
-
-            def timed(lib):
-                _build.load_library = real if lib is None else (
-                    lambda: lib)
-                try:
-                    return kernel(f, data), cs._device_ms(
-                        lambda: kernel(f, data))
-                finally:
-                    _build.load_library = real
-
-            (got_p, p1), (got_c, c1) = timed(parent), timed(None)
-            if not torch.equal(got_p, got_c):
-                raise SystemExit(f"{case.kname} W={w}: the parent's and the "
-                                 "current kernel's rows differ")
-            turns = [p1, c1, timed(None)[1], timed(parent)[1]]
-            rows.append({"kernel": case.kname, "grid": case.grid, "w": w,
-                         "turns_ms": turns})
-            print(f"{case.kname} {case.grid} W={w}: parent / current / "
-                  f"current / parent "
-                  f"{' / '.join(f'{t * 1e3:.2f}' for t in turns)} us; the "
-                  "same bits")
-    return rows
-
-
 def design_turns(args):
-    """The current kernels against the two-pass design of ``args.old``
-    (the value+gradient kernels, or with ``args.value`` the value
-    kernels), in turns: the JSON summary."""
-    old, fams = build_old(args.old, args.value)
-    families = VALUE_FAMILIES if args.value else FAMILIES
+    """The current kernels against the earlier design of ``args.old`` (the
+    value+gradient kernels, or with ``args.value`` the value kernels), in
+    turns: the JSON summary."""
+    suffix = "" if args.value else "_vg"
+    knames = [k for k in FAMILIES if k.endswith("_lnlike" + suffix) and (
+        not args.families or k.split("_")[0] in args.families.split(","))]
+    old, kinds = build_old(args.old, knames)
     ablated = {k: build_copy(_build.SRC_DIR, edits, f"ablate{i}",
                              _build.ENTRY_POINTS)
                for i, (k, edits) in enumerate(ABLATIONS.items())
@@ -623,15 +553,14 @@ def design_turns(args):
            "empty_pair_ms": cs._device_ms(lambda: empty(2)), "rows": []}
     print(f"empty kernel {res['empty_ms'] * 1e3:.2f} us, empty pair "
           f"{res['empty_pair_ms'] * 1e3:.2f} us (graph replay)")
-    for case in cs._cases(dev, "" if args.value else "_vg"):
-        if case.fam not in fams or case.grid != families[case.fam][2] or (
-                args.families and case.fam not in args.families.split(",")):
+    for case in cs._cases(dev, suffix):
+        if case.kname not in kinds or case.grid != FAMILIES[case.kname].grid:
             continue
-        fam, data = case.fam, case.data
+        data, two_pass = case.data, kinds[case.kname]
         new = getattr(cl, case.kname)
         plain = getattr(cl, case.kname + "_reference")
-        whole, partials, finish, nchunks = (
-            old_value_calls if args.value else old_calls)(old, fam, data)
+        whole, partials, finish, nchunks = old_calls(old, case.kname, data,
+                                                     two_pass)
         lo, hi = case.layout.bounds_arrays(torch.float64, dev)
         for w in widths:
             gen = torch.Generator(device=dev).manual_seed(2000 + w)
@@ -656,31 +585,36 @@ def design_turns(args):
                      cs._device_ms(lambda: new(f, data)),
                      cs._device_ms(lambda: new(f, data)),
                      cs._device_ms(lambda: whole(f))]
-            partials(f)
-            p_ms = cs._device_ms(lambda: partials(f))
-            f_ms = cs._device_ms(lambda: finish(f))
-            prof_old = cs._kernel_us(lambda: whole(f))
-            prof_new = cs._kernel_us(lambda: new(f, data))
             row = {"kernel": case.kname, "grid": case.grid, "w": w,
-                   "cells": int(data.g_a.numel()), "chunks": int(nchunks),
-                   "turns_ms": turns, "old_partials_ms": p_ms,
-                   "old_finish_ms": f_ms, "profiler_old_us": prof_old,
-                   "profiler_new_us": prof_new, "errors": errs}
+                   "cells": int(data.g_a.numel()), "two_pass": two_pass,
+                   "chunks": int(nchunks), "turns_ms": turns,
+                   "same_bits": torch.equal(got_n, got_o),
+                   "profiler_old_us": cs._kernel_us(lambda: whole(f)),
+                   "profiler_new_us": cs._kernel_us(lambda: new(f, data)),
+                   "errors": errs}
+            split = ""
+            if two_pass:
+                partials(f)
+                row["old_partials_ms"] = cs._device_ms(lambda: partials(f))
+                row["old_finish_ms"] = cs._device_ms(lambda: finish(f))
+                split = (f"; old partials alone "
+                         f"{row['old_partials_ms'] * 1e3:.2f} us, finish "
+                         f"alone {row['old_finish_ms'] * 1e3:.2f} us")
             if args.sweep:
                 row["sweep"] = sweep(case, f, ref)
             if args.ablate:
                 row["ablate_ms"] = ablate(ablated, lambda: new(f, data))
             res["rows"].append(row)
+            prof = {k: {n: round(v, 2) for n, v in row[k].items()}
+                    for k in ("profiler_old_us", "profiler_new_us")}
             print(f"{case.kname} {case.grid} W={w}: old / new / new / old "
-                  f"{' / '.join(f'{t * 1e3:.2f}' for t in turns)} us; old "
-                  f"partials alone {p_ms * 1e3:.2f} us, finish alone "
-                  f"{f_ms * 1e3:.2f} us; profiler old "
-                  f"{ {k: round(v, 2) for k, v in prof_old.items()} }, new "
-                  f"{ {k: round(v, 2) for k, v in prof_new.items()} }; "
-                  f"vs plain value/gradient old {errs['old'][0]:.2e} / "
-                  f"{errs['old'][1]:.2e}, new {errs['new'][0]:.2e} / "
-                  f"{errs['new'][1]:.2e}; both bit-identical over two "
-                  "launches, tickets at 0")
+                  f"{' / '.join(f'{t * 1e3:.2f}' for t in turns)} us{split}; "
+                  f"profiler old {prof['profiler_old_us']}, new "
+                  f"{prof['profiler_new_us']}; vs plain value/gradient old "
+                  f"{errs['old'][0]:.2e} / {errs['old'][1]:.2e}, new "
+                  f"{errs['new'][0]:.2e} / {errs['new'][1]:.2e}; old and new "
+                  f"{'the same' if row['same_bits'] else 'different'} bits; "
+                  "both bit-identical over two launches, tickets at 0")
     return res
 
 
@@ -695,29 +629,20 @@ def main():
                     help="walker batches (default 1,8,256; with --value "
                          "13,50,100,2400)")
     ap.add_argument("--families", default="",
-                    help="compare only these (comma-separated) of the "
-                         "families the old sources hold")
+                    help="compare only these (comma-separated) "
+                         "families")
     ap.add_argument("--ablate", action="store_true",
                     help="also time the current kernels with parts of "
                          "their tail left out (ABLATIONS)")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the current kernel at every (walker "
                          "tile, piece) it is built for")
-    ap.add_argument("--parent", action="store_true",
-                    help="the old sources are an earlier build of the "
-                         "one-launch value+gradient kernels: compare them "
-                         "(only) in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     cs.phase_device()
     cs.phase_build()
-    if args.parent:
-        res = {"card": cs._SMI[0], "mode": "parent", "rows": parent_turns(
-            args.old, torch.device("cuda:0"), [
-                int(x) for x in (args.widths or "1,8,256").split(",")])}
-    else:
-        res = design_turns(args)
+    res = design_turns(args)
     print(cs._SMI[0])
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "vg_turns.json"), "w") as fh:
