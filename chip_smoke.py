@@ -21,10 +21,9 @@ failure ends the run with a nonzero exit:
    samples x 8 rows for its Ln Prob recompute) and 13, with out-of-box
    thetas, a negative Flim (free), a row on the ``sch_al`` bound (z) and a
    ``sig_L = 0`` row (hier, in both ``fix_sch_al`` layouts); kernel and
-   plain times; the one-launch value kernels (``z_lnlike``,
-   ``hier_lnlike``: ``ONE_LAUNCH``) also held to two launches on one input
-   bit for bit, to their tickets back at 0, and at W = 50 to one kernel
-   node a call (``torch.profiler``);
+   plain times; every value kernel is one launch a call (``ONE_LAUNCH``),
+   also held to two launches on one input bit for bit, to its tickets back
+   at 0, and at W = 50 to one kernel node a call (``torch.profiler``);
 4. each value+gradient kernel (``free_lnlike_vg``, ``fixed_lnlike_vg``,
    ``z_lnlike_vg``, ``hier_lnlike_vg``) the same way at W = 1, 8 and 256
    (values rtol 1e-4, gradients by the JAX package's ``_grad_close`` rule
@@ -72,7 +71,8 @@ failure ends the run with a nonzero exit:
    difference of 32 close theta pairs near the truth against float64
    through each kernel's value (<= 0.05 absolute), two launches on one
    input bit for bit, and the sum of 2 shards against one (1e-6); the
-   resident kernels' times at the same shape beside theirs;
+   resident kernels' times at the same shape beside theirs (their tickets
+   held back at 0 after every call);
 12. ``fit mega``: ``fit`` and ``fit --sampler nuts`` on that catalog with
    ``use_x64`` (float64 lnprob, float32 kernels): the artifacts, the log's
    1,019,385 sources and streaming engine, exact launch counts (stretch
@@ -85,7 +85,7 @@ failure ends the run with a nonzero exit:
    kernels), the lnp differences of 32 close theta pairs near the truth
    through ``fixed_lnlike``, ``z_lnlike``, ``hier_lnlike`` and the value
    column of each ``_vg`` twin, against the float64 eager engine (<= 0.05
-   absolute, each error printed).
+   absolute, each error printed), each kernel's tickets back at 0.
 
 Phases 5-8 and 12 run side by side, each path's stretch and NUTS fit in
 a process of its own (``--path``): the sampler loops are host-bound, so
@@ -135,8 +135,9 @@ RTOL_GRAD = 2e-3     # the JAX package's gradient bar (_grad_close)
 # kernels of one launch a call: held bit for bit over two launches, to
 # their tickets back at 0 and to one kernel node a call, their time split
 # in phases 3 and 4
-ONE_LAUNCH = ("z_lnlike", "hier_lnlike", "free_lnlike_vg",
-              "fixed_lnlike_vg", "z_lnlike_vg", "hier_lnlike_vg")
+ONE_LAUNCH = ("free_lnlike", "fixed_lnlike", "z_lnlike", "hier_lnlike",
+              "free_lnlike_vg", "fixed_lnlike_vg", "z_lnlike_vg",
+              "hier_lnlike_vg")
 NSTEPS, NWALKERS, NSYNTH = 2000, 100, 2000
 NUTS_CHAINS, NUTS_WARMUP = 8, 200
 # NUTS samples by kernel family (warmup is the CLI's 200 and holds most of
@@ -157,16 +158,16 @@ MEGA_TARGET, MEGA_SEED, MEGA_SOURCES = 1_200_000, 7, 1_019_385
 MEGA_STEPS = 2000       # stretch steps of the mega fit
 DLNP_TOL = 0.05         # lnp difference of close thetas vs float64
 SOURCES = {"z": "lnlike_z.cu", "hier": "lnlike_h.cu",
-           "fixed_lnlike_vg": "lnlike_h.cu",
+           "fixed": "lnlike_h.cu",
            "free_stream": "lnlike_stream.cu", "roofline": "roofline.cu"}
 # The card's peaks for the bound (H100 SXM at 700 W): float32 outside the
 # tensor cores, and HBM.
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
-# float32 operations per cell evaluation, counted from csrc/lnlike.cu (an FMA
-# is 2, each exp/log/rsqrt/div/max/compare 1; fcmin > 0): the value
-# kernels' free grid cell 23 and unmasked source 23 (a masked one 1),
-# fixed grid cell 8; the value+gradient kernels' free grid cell 46 and
-# unmasked source 45, fixed grid cell 12.
+# float32 operations per cell evaluation (an FMA is 2, each
+# exp/log/rsqrt/div/max/compare 1; fcmin > 0), counted from csrc/lnlike.cu:
+# free_lnlike's grid cell 23 and unmasked source 23 (a masked one 1),
+# free_lnlike_vg's grid cell 46 and unmasked source 45; from
+# csrc/lnlike_h.cu: fixed_lnlike's grid cell 8, fixed_lnlike_vg's 12.
 # From csrc/lnlike_z.cu, a third count per (walker, field, z node) for the
 # hoisted node quantities, the least the function needs whatever forms
 # them: z_lnlike grid cell 7, unmasked source 16, node 12; z_lnlike_vg grid
@@ -367,10 +368,10 @@ def _bound(kname, data, w):
         ndata = (3 if gridonly else 5) * ncell + (3 if stream else 6) * nsrc
     out_cols = (1 + nfeat) if kname.endswith("_vg") else 1
     out_bytes = 8 * w * out_cols
-    # a two-pass kernel reads its chunk (or run) table; a one-launch
-    # kernel's piece tables are its implementation's, not the function's
-    table = 0 if kname in ONE_LAUNCH else (
-        data.runs if stream else data.chunks).numel()
+    # a streaming kernel reads its run table, which sets what it computes
+    # (each shard's runs); a one-launch kernel's piece tables are its
+    # implementation's, not the function's
+    table = data.runs.numel() if stream else 0
     nbytes = 4 * (w * nfeat + ndata + table) + out_bytes
     ops = w * (ncell * per_cell + nvalid * per_src + (nsrc - nvalid)
                + nnode * per_node)
@@ -428,7 +429,7 @@ def _in_rows(fn, th, rows):
 def _cases(dev, suffix):
     """The checked shapes, on the catalog the fits below build (``fit
     --synthetic NSYNTH``, cli/common.py), so each kernel sees the sources
-    and chunks the fits give it. Each case carries its kernel's name, grid,
+    and cells the fits give it. Each case carries its kernel's name, grid,
     config, layout and float32 kernel data, and its family's feature map
     (rounded float64 rows), host-side collapsed terms, float64 eager
     lnprob, prior test and kernel-path lnprobs."""
@@ -817,6 +818,13 @@ def _close_pairs(center, width, gen, npairs=32):
         device=center.device)])
 
 
+def _tickets_at_0(what, data):
+    """Fails unless the one-launch kernels left ``data``'s tickets at 0."""
+    torch.cuda.synchronize()
+    if data.vg_tickets.any():
+        fail(f"{what}: tickets not back at 0")
+
+
 def _dlnp_err(v, want):
     """Largest error of the lnp differences of the pairs of
     :func:`_close_pairs` (first half vs second half) against ``want``'s."""
@@ -864,6 +872,8 @@ def phase_precision(dev, m):
               getattr(cl, f"{fam}_lnlike_vg").launches)
         d_val = _dlnp_err(lnprob(th), want)
         d_vg = _dlnp_err(post(th), want)
+        _tickets_at_0(f"{fam}_lnlike mega", lnprob.data)
+        _tickets_at_0(f"{fam}_lnlike_vg mega", post.data)
         if (getattr(cl, f"{fam}_lnlike").launches - n0[0] != 1
                 or getattr(cl, f"{fam}_lnlike_vg").launches - n0[1] != 1):
             fail(f"{fam}: the precision gate did not run through its "
@@ -949,6 +959,7 @@ def phase_stream(dev, m):
     # post: the value column NUTS's accept step reads
     d_val, d_vg, d_res = (_dlnp_err(v, want) for v in (
         lnprob(th), post(th), cl.free_lnlike(fr, resident)))
+    _tickets_at_0("free_lnlike mega", resident)
     dlnp = want[32:] - want[:32]
     print(f"mega: lnp differences of 32 close pairs (|dlnp| "
           f"{float(dlnp.abs().min()):.3f} to "
@@ -983,6 +994,7 @@ def phase_stream(dev, m):
     pms = _device_ms(lambda: cl.free_stream_lnlike_reference(fw, data),
                      inner=3, reps=5)
     rms = _device_ms(lambda: cl.free_lnlike(fr, resident), inner=10, reps=9)
+    _tickets_at_0("free_lnlike mega, timed", resident)
     cms = _call_ms(lambda: cl.free_stream_lnlike(fw, data))
     lms = _call_ms(lambda: lnprob(th), inner=20, reps=5)
     bms, by, nb, nops, ntr = _bound("free_stream_lnlike", data, 50)
@@ -1049,6 +1061,7 @@ def phase_stream(dev, m):
                          inner=2, reps=5)
         rms = _device_ms(lambda: cl.free_lnlike_vg(fr_vg, resident),
                          inner=10, reps=9)
+        _tickets_at_0(f"free_lnlike_vg mega W={w}, timed", resident)
         bms, by, nb, nops, ntr = _bound("free_stream_lnlike_vg", data, w)
         print(f"free_stream_lnlike_vg mega W={w} device time: kernel "
               f"{ms * 1e3:.2f} us, plain {pms * 1e3:.2f} us, resident "

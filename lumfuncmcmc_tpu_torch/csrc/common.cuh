@@ -1,15 +1,14 @@
 // What the kernel sources of this directory share: the block size, the
-// block reduction, the finish pass of the two-pass value kernels
-// (lnlike.cu's free_lnlike and fixed_lnlike) and the free-completeness
-// ln fc terms (lnlike.cu and lnlike_stream.cu). Each .cu file is its
-// own translation unit of the one library (ops/_build.py), so the finish
-// kernel is static.
+// block reduction of the streaming kernels (lnlike_stream.cu), Kahan's
+// float32 sum (lnlike_z.cu, lnlike_stream.cu) and the free-completeness
+// ln fc terms (lnlike.cu and lnlike_stream.cu). The one-launch kernels'
+// block sums, tickets and finish are in vg_ticket.cuh.
 //
 // Every value leaves the kernels in float64: at 10^5 sources |lnL| ~ 1e6,
 // where float32's spacing (~0.06) is past the 0.05 that the sampler's
 // accept step can bear in the lnp difference of two close thetas. Each
 // thread sums its few terms in float32; the block reduction, the
-// per-chunk partials and the finish are double.
+// partials and the finish are double.
 
 #pragma once
 
@@ -83,24 +82,4 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
     const float t = s + y;
     c = (t - s) - y;
     s = t;
-}
-
-// Thread 0 of the block writes sum over the block of v, in double: each
-// thread's float32 sum is converted once.
-__device__ __forceinline__ double block_sum_f32_to_f64(float v) {
-    double d[1] = {(double)v};
-    block_sum_k<1>(d);
-    return d[0];
-}
-
-// out[w] = sum_c partial[w, c], summed in chunk order, in double.
-static __global__ void finish(const double* __restrict__ partial,
-                              int nchunks, int nwalkers,
-                              double* __restrict__ out) {
-    const int w = blockIdx.x * blockDim.x + threadIdx.x;
-    if (w >= nwalkers) return;
-    double s = 0.0;
-    const double* p = partial + (size_t)w * nchunks;
-    for (int c = 0; c < nchunks; ++c) s += p[c];
-    out[w] = s;
 }

@@ -1,20 +1,19 @@
-// Single-epoch log-likelihood kernels for Hopper (sm_90a): the value
-// kernels and their value + feature-gradient twins (the NUTS gradient
-// path). The z model's kernels are in lnlike_z.cu; the sources share
-// common.cuh (block size, block reduction, the ln fc terms, the value
-// kernels' finish pass) and are compiled into one library by ops/_build.py;
-// free_lnlike_vg shares vg_ticket.cuh (the one-launch finish) with
-// hier_lnlike_vg and z_lnlike_vg.
+// Single-epoch free-completeness log-likelihood kernels for Hopper
+// (sm_90a): the value kernel (the stretch path of `fit`) and its value +
+// feature-gradient twin (the NUTS gradient path), one kernel body. The
+// fixed-completeness pair is hier_lnlike_vg's kernel body with the features
+// shared by every field, in lnlike_h.cu; its rows are described here. The
+// z model's kernels are in lnlike_z.cu; the sources share common.cuh (block
+// size, block reduction, the ln fc terms) and vg_ticket.cuh (the one-launch
+// finish), and are compiled into one library by ops/_build.py.
 //
 // free_lnlike replaces the TPU kernels _kernel_free_bcast
 // (lumfuncmcmc_tpu/ops/pallas_lnlike.py:601) and _kernel_free (:761);
-// fixed_lnlike replaces _kernel_fixed_bcast (:751) and _kernel_fixed
-// (:813). The TPU's broadcast/slab variants are two VMEM layouts of one
-// computation; here one layout serves every catalog size.
-// free_lnlike_vg replaces _kernel_free_vg (:832). fixed_lnlike_vg, which
-// replaces _kernel_fixed_vg (:1255), is hier_lnlike_vg's kernel body with
-// the features shared by every field, in lnlike_h.cu; its rows are
-// described here.
+// fixed_lnlike (lnlike_h.cu) replaces _kernel_fixed_bcast (:751) and
+// _kernel_fixed (:813). The TPU's broadcast/slab variants are two VMEM
+// layouts of one computation; here one layout serves every catalog size.
+// free_lnlike_vg replaces _kernel_free_vg (:832); fixed_lnlike_vg
+// (lnlike_h.cu) replaces _kernel_fixed_vg (:1255).
 //
 // What they compute, per walker w (feature row th = feats[w]):
 //   free:  sum over fields f of
@@ -43,51 +42,48 @@
 //
 // What bounds them on the card: transcendental throughput and launch
 // latency. At the stretch fit's shape (W = 50 walkers x 51,005 cells) one
-// call is ~2.6 M cell evaluations: a few microseconds of SFU work, with
-// the grid arrays (1 MB) resident in L2 across walkers. At the NUTS shape
-// (W = 8 chains) a value+gradient call is ~0.4 M cell evaluations of ~50
-// float32 operations each, a fraction of a microsecond at the card's peak
-// rates: launch latency and the dependent transcendental chain per thread
-// bound it; at W = 256 the SFU rate takes over. The value kernels keep
-// the SMs busy at small W and stay deterministic:
-//   - grid (nchunks, W): block (c, w) reduces chunk c (<= 2048 cells or
-//     sources of one field, from the host chunk table (field, start, end,
-//     is_source)) for walker w, so W = 50 already gives ~1,500 blocks for
-//     132 SMs;
-//   - each thread accumulates its few terms in a float32 register, the
-//     block reduces the sums in double with warp shuffles and one
-//     shared-memory pass, and writes them to a (W, nchunks) double
-//     scratch buffer the caller allocates;
-//   - a second small kernel sums each walker's partials in fixed chunk
-//     order (in double) and writes float64: no float atomics, identical
-//     results run to run.
-// free_lnlike_vg was built so too, and its finish pass alone took 7.4-8.2
-// us a call whatever W (a 32-thread block per walker walking its 30 chunk
-// partials), more than its partial pass at W = 1 and 8 (6.0-6.7 us), with
-// a second launch (~1.1 us) on top; at W = 256 the partial pass took 80
-// us, 2.2x the same-mix bound (PERF.md, H100 80GB HBM3). It is now one
-// launch a call, the same rows:
+// value call is ~2.6 M cell evaluations: a few microseconds of SFU work,
+// with the grid arrays (1 MB) resident in L2 across walkers. At the NUTS
+// shape (W = 8 chains) a value+gradient call is ~0.4 M cell evaluations
+// of ~50 float32 operations each, a fraction of a microsecond at the
+// card's peak rates: launch latency and the dependent transcendental chain
+// per thread bound it; at W = 256 the SFU rate takes over. Both were
+// first built in two passes: a (nchunks, W) grid, block (c, w) reducing
+// chunk c (at most 2048 cells or sources of one field) for one walker
+// into a (W, nchunks) double scratch, then a small kernel summing each
+// walker's partials in chunk order. The finish pass alone took 4-8 us a
+// call whatever W, and each block read its chunk from L2 once per walker
+// (PERF.md, H100 80GB HBM3). Both are now one launch a call of one kernel
+// body:
 //   - a (piece, walker tile) grid: the host cuts every field's cells and
 //     sources into near-equal pieces of one length and picks the length
-//     and the tile (1 or 2 walkers: tiles of 4 held 99 registers, 2 blocks
-//     an SM, and ran slower) from W and the SM count (ops/cuda_lnlike.py
-//     _vg_geometry): at W = 1 pieces of 512 (105 blocks), at W = 8 of 2048
-//     (240), at W = 256 tiles of 2 walkers on pieces of ~3400 cells (2560
-//     blocks), so a cell is read once per tile and a thread runs two
-//     independent chains;
+//     and the tile from W and the SM count (ops/cuda_lnlike.py
+//     _vg_geometry, each kernel its own tiles, VG_TILES): the value
+//     kernel, one sum a walker, takes tiles of 1, 2 or 4 walkers (tiles of
+//     8 held 105 registers, 2 blocks an SM, and ran 7-9% slower at W =
+//     1200-2400); the value+gradient kernel, seven sums a walker, 1 or 2
+//     (tiles of 4 held 99 registers, 2 blocks an SM, and ran slower). So a
+//     cell is read once per tile and a thread runs up to T independent
+//     rsqrt -> logf -> divide -> expf chains;
 //   - each thread loads its next cell before it computes this one;
-//   - the block reduces its T x 7 float32 sums in double by a
-//     reduce-scatter over the lanes (vg_ticket.cuh vg_block_sums: ~T x 7
+//   - the block reduces its T x S float32 sums in double by a
+//     reduce-scatter over the lanes (vg_ticket.cuh vg_block_sums: ~T x S
 //     double shuffles a warp, where a shuffle tree per sum takes five times
 //     that), writes its partials and draws its tile's ticket; the last
 //     block of the tile sums the tile's partials per segment in a fixed
 //     order, routes each segment's slots to its columns (d_lf50/d_t2 to
 //     the segment's field) and writes float64 (vg_ticket.cuh): one kernel
 //     node per call, no float atomics, the same bits run to run, and the
-//     cancellation of d_cg + d_cs (~ -integral + N near the mode) happens
-//     in double.
+//     cancellation of the grid integral against the source sum (lnl, and
+//     d_cg + d_cs ~ -integral + N near the mode) happens in double.
 // Plain expf/logf/rsqrtf (no --use_fast_math), matching the plain PyTorch
-// versions in ops/cuda_lnlike.py.
+// versions in ops/cuda_lnlike.py, but for the value kernel's ln fc: its
+// log and its divide by 1 - exp(-R t2) are the SFU's (__logf,
+// __fdividef: ln_fc_sfu). The IEEE divide calls a slow path and the
+// accurate logf is ~30 instructions longer, which keeps the compiler from
+// interleaving the T walkers' chains: free_lnlike took 15.7 us at W = 50
+// so, 12.2 with the SFU's (PERF.md, H100 80GB HBM3), within 1e-7 of the
+// plain version.
 
 #include <cuda_runtime.h>
 
@@ -96,89 +92,53 @@
 
 #define FREE_SLOTS 7     // ops/cuda_lnlike.py VG_FREE_SLOTS
 
-// ---------------------------------------------------------------------------
-// value kernels
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS)
-free_partials(const float* __restrict__ feats, int nfeat, int nfields,
-              const float* __restrict__ g_logf, const float* __restrict__ g_a,
-              const float* __restrict__ g_p, const float* __restrict__ g_r,
-              const float* __restrict__ g_w,
-              const float* __restrict__ s_logf, const float* __restrict__ s_a,
-              const float* __restrict__ s_p, const float* __restrict__ s_r,
-              const float* __restrict__ s_lnom0,
-              const float* __restrict__ s_mask,
-              const int4* __restrict__ chunks, int nchunks, int fcmin,
-              double* __restrict__ partial) {
-    const int c = blockIdx.x;
-    const int w = blockIdx.y;
-    const int4 ch = chunks[c];            // (field, start, end, is_source)
-    const float* th = feats + (size_t)w * nfeat;
-    const float aA = th[2], lA = th[3], t1 = th[4], ac = th[5];
-    const float lf50 = th[6 + ch.x];
-    const float t2 = th[6 + nfields + ch.x];
-    float acc[1] = {0.0f};
-    if (!ch.w) {
-        const float c_g = th[0];
-        for (int i = ch.y + threadIdx.x; i < ch.z; i += THREADS) {
-            const float e = c_g + aA * (g_a[i] - lA) - g_p[i] * t1
-                + ln_fc(g_logf[i], g_r[i], ac, lf50, t2, fcmin);
-            acc[0] -= expf(e) * g_w[i];
-        }
-    } else {
-        const float c_s = th[1];
-        for (int i = ch.y + threadIdx.x; i < ch.z; i += THREADS) {
-            if (s_mask[i] > 0.0f) {
-                acc[0] += c_s + aA * (s_a[i] - lA) - s_p[i] * t1 + s_lnom0[i]
-                    + ln_fc(s_logf[i], s_r[i], ac, lf50, t2, fcmin);
-            }
-        }
-    }
-    const double s = block_sum_f32_to_f64(acc[0]);
-    if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = s;
+// ln_fc (common.cuh) with the SFU's log and divide: __logf is within
+// 2^-21.4 of ln fc for fc in [0.5, 1] and 3 ulp below, __fdividef 2 ulp
+// for a divisor 1 - exp(-R t2) in (0, 1].
+__device__ __forceinline__ float ln_fc_sfu(float logf_, float r, float ac,
+                                           float lf50, float t2, int fcmin) {
+    const float x = ac * (logf_ - lf50);
+    const float fc = fmaxf(0.5f + 0.5f * x * rsqrtf(1.0f + x * x), 1e-30f);
+    const float lf = __logf(fc);
+    if (!fcmin) return lf;
+    return __fdividef(lf, 1.0f - expf(-(r * t2)));
 }
 
-__global__ void __launch_bounds__(THREADS)
-fixed_partials(const float* __restrict__ feats, int nfeat,
-               const float* __restrict__ g_a, const float* __restrict__ g_p,
-               const float* __restrict__ g_w,
-               const int4* __restrict__ chunks, int nchunks,
-               double* __restrict__ partial) {
-    const int c = blockIdx.x;
-    const int w = blockIdx.y;
-    const int4 ch = chunks[c];
-    const float* th = feats + (size_t)w * nfeat;
-    const float cg = th[0], aA = th[1], lA = th[2], t1 = th[3];
-    float acc[1] = {0.0f};
-    for (int i = ch.y + threadIdx.x; i < ch.z; i += THREADS)
-        acc[0] -= expf(cg + aA * (g_a[i] - lA) - g_p[i] * t1) * g_w[i];
-    const double s = block_sum_f32_to_f64(acc[0]);
-    if (threadIdx.x == 0) partial[(size_t)w * nchunks + c] = s;
+// A cell's or source's ln fc for S slots: the value kernel (S 1) takes
+// ln_fc_sfu; the value + gradient kernel takes fc_terms, ln fc with its
+// derivatives.
+template <int S>
+__device__ __forceinline__ FcTerms fc_slots(float logf_, float r, float ac,
+                                            float lf50, float t2,
+                                            int fcmin) {
+    if constexpr (S == 1)
+        return {ln_fc_sfu(logf_, r, ac, lf50, t2, fcmin), 0.0f, 0.0f};
+    else
+        return fc_terms(logf_, r, ac, lf50, t2, fcmin);
 }
 
-// ---------------------------------------------------------------------------
-// value + gradient kernels
-// ---------------------------------------------------------------------------
-
-// free_lnlike_vg: one kernel per call. Block (p, t) of a (piece, walker
-// tile) grid runs piece p of the host's piece table (vg_ticket.cuh) for the
-// T walkers of tile t: each thread takes one cell (or source) a loop trip,
-// the next trip's loaded before this one's is computed, and evaluates it
-// against every walker of the tile from registers, so a trip holds T
-// independent rsqrt -> logf -> divide -> expf chains and each cell is read
-// once per tile, not once per walker.
-// Grid piece slots:   [Se, Se*am, Se*P, Se*dfx*dl, Se*dfx, Se*dft, 0]
-// Source piece slots: [Scontrib, Sm, Sm*am, Sm*P, Sm*dfx*dl, Sm*dfx, Sm*dft]
+// free_lnlike (S 1) and free_lnlike_vg (S FREE_SLOTS): one kernel per
+// call. Block (p, t) of a (piece, walker tile) grid runs piece p of the
+// host's piece table (vg_ticket.cuh) for the T walkers of tile t: each
+// thread takes one cell (or source) a loop trip, the next trip's loaded
+// before this one's is computed, and evaluates it against every walker of
+// the tile from registers, so a trip holds T independent rsqrt -> logf ->
+// divide -> expf chains and each cell is read once per tile, not once per
+// walker.
+// Grid piece slots:   [Se] (S 1), or
+//                     [Se, Se*am, Se*P, Se*dfx*dl, Se*dfx, Se*dft, 0]
+// Source piece slots: [Scontrib] (S 1), or
+//                     [Scontrib, Sm, Sm*am, Sm*P, Sm*dfx*dl, Sm*dfx, Sm*dft]
 // with am = a - lA, dl = logf - lF50_f, S over the piece's cells, per
 // walker; float32 per thread, then the block's double reduction into the
-// (W, npieces, FREE_SLOTS) double partials. The tile's last block to draw
-// its ticket sums them per segment in a fixed order and routes each
-// segment's slots to the columns of the row, [lnl, d_cg, d_cs, d_aA, d_lA,
-// d_t1, d_ac, d_lf50_f.., d_t2_f..]: each column takes one slot of a grid
-// segment and one of a source segment, times a multiplier (0: no term),
-// the per-field columns only their field's segments.
-template <int T>
+// (W, npieces, S) double partials. The tile's last block to draw its ticket
+// sums them per segment in a fixed order and routes each segment's slots
+// to the columns of the row, lnl = -Sum grid + Sum source (S 1) or [lnl,
+// d_cg, d_cs, d_aA, d_lA, d_t1, d_ac, d_lf50_f.., d_t2_f..]: each column
+// takes one slot of a grid segment and one of a source segment, times a
+// multiplier (0: no term), the per-field columns only their field's
+// segments.
+template <int T, int S>
 __global__ void __launch_bounds__(THREADS)
 free_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
         int nfields,
@@ -217,9 +177,9 @@ free_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
             fin[j][1] = ac[j];
         }
     }
-    float acc[T * FREE_SLOTS];
+    float acc[T * S];
 #pragma unroll
-    for (int k = 0; k < T * FREE_SLOTS; ++k) acc[k] = 0.0f;
+    for (int k = 0; k < T * S; ++k) acc[k] = 0.0f;
     // the last trip's prefetch re-reads the piece's last cell
     int i = pc.y + threadIdx.x;
     int nx = min(i, pc.z - 1);
@@ -232,19 +192,21 @@ free_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
             const float nr = g_r[nx], nwg = g_w[nx];
 #pragma unroll
             for (int j = 0; j < T; ++j) {
-                const FcTerms t = fc_terms(lf, r, ac[j], lf50[j], t2[j],
-                                           fcmin);
+                const FcTerms t = fc_slots<S>(lf, r, ac[j], lf50[j], t2[j],
+                                              fcmin);
                 const float am = a - lA[j];
                 const float e = expf(c0[j] + aA[j] * am - p * t1[j]
                                      + t.lnfc) * wg;
-                const float edfx = e * t.dfx;
-                float* g = acc + j * FREE_SLOTS;
+                float* g = acc + j * S;
                 g[0] += e;
-                g[1] += e * am;
-                g[2] += e * p;
-                g[3] += edfx * (lf - lf50[j]);
-                g[4] += edfx;
-                g[5] += e * t.dft;
+                if constexpr (S > 1) {
+                    const float edfx = e * t.dfx;
+                    g[1] += e * am;
+                    g[2] += e * p;
+                    g[3] += edfx * (lf - lf50[j]);
+                    g[4] += edfx;
+                    g[5] += e * t.dft;
+                }
             }
             lf = nlf;
             a = na;
@@ -262,18 +224,20 @@ free_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
             if (m > 0.0f) {
 #pragma unroll
                 for (int j = 0; j < T; ++j) {
-                    const FcTerms t = fc_terms(lf, r, ac[j], lf50[j], t2[j],
-                                               fcmin);
+                    const FcTerms t = fc_slots<S>(lf, r, ac[j], lf50[j],
+                                                  t2[j], fcmin);
                     const float am = a - lA[j];
-                    const float mdfx = m * t.dfx;
-                    float* g = acc + j * FREE_SLOTS;
+                    float* g = acc + j * S;
                     g[0] += c0[j] + aA[j] * am - p * t1[j] + om + t.lnfc;
-                    g[1] += m;
-                    g[2] += m * am;
-                    g[3] += m * p;
-                    g[4] += mdfx * (lf - lf50[j]);
-                    g[5] += mdfx;
-                    g[6] += m * t.dft;
+                    if constexpr (S > 1) {
+                        const float mdfx = m * t.dfx;
+                        g[1] += m;
+                        g[2] += m * am;
+                        g[3] += m * p;
+                        g[4] += mdfx * (lf - lf50[j]);
+                        g[5] += mdfx;
+                        g[6] += m * t.dft;
+                    }
                 }
             }
             m = nm;
@@ -284,23 +248,21 @@ free_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
             om = nom;
         }
     }
-    __shared__ double res[T * FREE_SLOTS];
-    vg_block_sums<T * FREE_SLOTS>(acc, res);
+    __shared__ double res[T * S];
+    vg_block_sums<T * S>(acc, res);
     const int npieces = gridDim.x;
     if (threadIdx.x == 0)
         for (int j = 0; j < nw; ++j) {
             double* o = partial + ((size_t)(w0 + j) * npieces + blockIdx.x)
-                * FREE_SLOTS;
+                * S;
 #pragma unroll
-            for (int k = 0; k < FREE_SLOTS; ++k)
-                o[k] = res[j * FREE_SLOTS + k];
+            for (int k = 0; k < S; ++k) o[k] = res[j * S + k];
         }
     if (!vg_last_arrival(tickets, blockIdx.y, npieces)) return;
 
-    // the tile's last block: its rows
-    vg_segment_sums<FREE_SLOTS>(partial, npieces, seg_sh, nseg, w0, nw,
-                                segsum);
-    const int ncols = 1 + nfeat;
+    // the tile's last block: its rows (S 1: column 0 alone)
+    vg_segment_sums<S>(partial, npieces, seg_sh, nseg, w0, nw, segsum);
+    const int ncols = S == 1 ? 1 : 1 + nfeat;
     for (int c = threadIdx.x; c < nw * ncols; c += THREADS) {
         const int j = c / ncols;
         const int col = c - j * ncols;
@@ -320,20 +282,20 @@ free_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
             case 7: gk = 4; gm = acd; sk = 5; sm = -acd; break; // d_lf50_f
             default: gk = 5; gm = -1.0; sk = 6; sm = 1.0;       // d_t2_f
         }
-        const double* ss = segsum + (size_t)j * nseg * FREE_SLOTS;
+        const double* ss = segsum + (size_t)j * nseg * S;
         double s = 0.0;
         for (int q = 0; q < nseg; ++q) {
             const int4 sg = seg_sh[q];
             const double m = sg.w ? sm : gm;
             if (m != 0.0 && (field < 0 || sg.x == field))
-                s += m * ss[q * FREE_SLOTS + (sg.w ? sk : gk)];
+                s += m * ss[q * S + (sg.w ? sk : gk)];
         }
         out[(size_t)(w0 + j) * ncols + col] = s;
     }
     if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
 }
 
-template <int T>
+template <int T, int S>
 static int launch_free_vg(dim3 grid, size_t smem, cudaStream_t st,
                           const float* feats, int nwalkers, int nfeat,
                           int nfields, const float* g_logf, const float* g_a,
@@ -346,15 +308,24 @@ static int launch_free_vg(dim3 grid, size_t smem, cudaStream_t st,
                           double* partial, int* tickets, double* out) {
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            free_vg<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            free_vg<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    free_vg<T><<<grid, THREADS, smem, st>>>(
+    free_vg<T, S><<<grid, THREADS, smem, st>>>(
         feats, nwalkers, nfeat, nfields, g_logf, g_a, g_p, g_r, g_w, s_logf,
         s_a, s_p, s_r, s_lnom0, s_mask, (const int4*)pieces,
         (const int4*)segs, nseg, fcmin, partial, tickets, out);
     return (int)cudaGetLastError();
+}
+
+// The checks of every launch of free_vg: the feature row, the shared memory
+// of its finish and the grid's tiles.
+static bool free_vg_bad(int nwalkers, int nfeat, int nfields, int tile,
+                        int npieces, int nseg, size_t smem) {
+    return nfeat != 6 + 2 * nfields || nwalkers < 1 || tile < 1
+        || npieces < 1 || nseg < 1 || nseg > npieces
+        || (nwalkers + tile - 1) / tile > 65535 || smem > 227 * 1024;
 }
 
 static __global__ void empty_kernel() {}
@@ -362,9 +333,13 @@ static __global__ void empty_kernel() {}
 extern "C" {
 
 // All pointers are device pointers; the stream is a cudaStream_t. Returns
-// the cudaError_t of the launches (0 = success). Allocates nothing: the
-// caller passes a (W, nchunks) double partial buffer (free_lnlike_vg's
-// below) and the double output, (W,) or (W, 1 + nfeat).
+// the cudaError_t of the launch (0 = success). Allocates nothing.
+//
+// free_lnlike: pieces is the (npieces, 4) piece table and segs the (nseg,
+// 4) segment table of one piece length (ops/cuda_lnlike.py _vg_tables),
+// tile the walker tile (_vg_geometry: 1, 2 or 4), partial a (W, npieces)
+// double buffer, tickets the data's zeroed ticket buffer of at least
+// ceil(W / tile) ints, out (W,) double. One launch.
 int free_lnlike_launch(const float* feats, int nwalkers, int nfeat,
                        int nfields,
                        const float* g_logf, const float* g_a,
@@ -372,42 +347,27 @@ int free_lnlike_launch(const float* feats, int nwalkers, int nfeat,
                        const float* s_logf, const float* s_a,
                        const float* s_p, const float* s_r,
                        const float* s_lnom0, const float* s_mask,
-                       const int* chunks, int nchunks, int fcmin,
-                       double* partial, double* out, void* stream) {
+                       const int* pieces, int npieces, const int* segs,
+                       int nseg, int tile, int fcmin, double* partial,
+                       int* tickets, double* out, void* stream) {
+    const size_t smem = vg_smem(tile, nseg, 1);
+    if (free_vg_bad(nwalkers, nfeat, nfields, tile, npieces, nseg, smem))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(npieces, (nwalkers + tile - 1) / tile);
     cudaStream_t st = (cudaStream_t)stream;
-    dim3 grid(nchunks, nwalkers);
-    free_partials<<<grid, THREADS, 0, st>>>(
-        feats, nfeat, nfields, g_logf, g_a, g_p, g_r, g_w, s_logf, s_a, s_p,
-        s_r, s_lnom0, s_mask, (const int4*)chunks, nchunks, fcmin, partial);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    finish<<<(nwalkers + 127) / 128, 128, 0, st>>>(partial, nchunks,
-                                                   nwalkers, out);
-    return (int)cudaGetLastError();
+#define FREE_VG_ARGS grid, smem, st, feats, nwalkers, nfeat, nfields, \
+        g_logf, g_a, g_p, g_r, g_w, s_logf, s_a, s_p, s_r, s_lnom0, s_mask, \
+        pieces, segs, nseg, fcmin, partial, tickets, out
+    switch (tile) {
+        case 1: return launch_free_vg<1, 1>(FREE_VG_ARGS);
+        case 2: return launch_free_vg<2, 1>(FREE_VG_ARGS);
+        case 4: return launch_free_vg<4, 1>(FREE_VG_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
-int fixed_lnlike_launch(const float* feats, int nwalkers, int nfeat,
-                        const float* g_a, const float* g_p, const float* g_w,
-                        const int* chunks, int nchunks,
-                        double* partial, double* out, void* stream) {
-    if (nfeat != 4) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    dim3 grid(nchunks, nwalkers);
-    fixed_partials<<<grid, THREADS, 0, st>>>(
-        feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    finish<<<(nwalkers + 127) / 128, 128, 0, st>>>(partial, nchunks,
-                                                   nwalkers, out);
-    return (int)cudaGetLastError();
-}
-
-// free_lnlike_vg: pieces is the (npieces, 4) piece table and segs the
-// (nseg, 4) segment table of one piece length (ops/cuda_lnlike.py
-// _vg_tables), tile the walker tile (_vg_geometry: 1 or 2), partial a
-// (W, npieces, FREE_SLOTS) double buffer, tickets the data's zeroed ticket
-// buffer of at least ceil(W / tile) ints, out (W, 1 + nfeat) double. One
-// launch.
+// free_lnlike_vg: as free_lnlike, tiles of 1 or 2, partial a (W, npieces,
+// FREE_SLOTS) double buffer, out (W, 1 + nfeat) double. One launch.
 int free_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
                           int nfields,
                           const float* g_logf, const float* g_a,
@@ -420,22 +380,17 @@ int free_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
                           int nseg, int tile, int fcmin, double* partial,
                           int* tickets, double* out, void* stream) {
     const size_t smem = vg_smem(tile, nseg, FREE_SLOTS);
-    if (nfeat != 6 + 2 * nfields || nwalkers < 1 || tile < 1
-        || npieces < 1 || nseg < 1 || nseg > npieces
-        || (nwalkers + tile - 1) / tile > 65535 || smem > 227 * 1024)
+    if (free_vg_bad(nwalkers, nfeat, nfields, tile, npieces, nseg, smem))
         return (int)cudaErrorInvalidValue;
     const dim3 grid(npieces, (nwalkers + tile - 1) / tile);
     cudaStream_t st = (cudaStream_t)stream;
-#define FREE_VG_ARGS grid, smem, st, feats, nwalkers, nfeat, nfields, \
-        g_logf, g_a, g_p, g_r, g_w, s_logf, s_a, s_p, s_r, s_lnom0, s_mask, \
-        pieces, segs, nseg, fcmin, partial, tickets, out
     switch (tile) {
-        case 1: return launch_free_vg<1>(FREE_VG_ARGS);
-        case 2: return launch_free_vg<2>(FREE_VG_ARGS);
+        case 1: return launch_free_vg<1, FREE_SLOTS>(FREE_VG_ARGS);
+        case 2: return launch_free_vg<2, FREE_SLOTS>(FREE_VG_ARGS);
         default: return (int)cudaErrorInvalidValue;
     }
-#undef FREE_VG_ARGS
 }
+#undef FREE_VG_ARGS
 
 // n empty kernels of one warp on the stream: the floor under every
 // kernel's time in chip_smoke.py's timing harness.

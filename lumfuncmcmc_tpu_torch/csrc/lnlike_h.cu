@@ -1,15 +1,18 @@
-// Hierarchical multi-field log-likelihood kernels for Hopper (sm_90a): the
-// value kernel (the stretch path of the hierarchical model) and its value +
-// feature-gradient twin (its NUTS gradient path), one kernel body. A third
-// source of the one kernel library: ops/_build.py compiles it together with
-// lnlike.cu and lnlike_z.cu, with which it shares common.cuh.
+// Fixed-completeness log-likelihood kernels for Hopper (sm_90a), one kernel
+// body: the hierarchical multi-field value kernel (the stretch path of
+// `fith`) and its value + feature-gradient twin (its NUTS gradient path),
+// and the same pair with the features shared by every field, the
+// single-epoch fixed-completeness kernels (the stretch and NUTS paths of
+// `fit -fc`). A third source of the one kernel library: ops/_build.py
+// compiles it together with lnlike.cu and lnlike_z.cu, with which it
+// shares common.cuh.
 //
 // hier_lnlike replaces the TPU kernels _kernel_hier_bcast
 // (lumfuncmcmc_tpu/ops/pallas_lnlike.py:713) and _kernel_hier_slab (:734):
 // two VMEM layouts of one function there, one kernel here. hier_lnlike_vg
-// replaces _kernel_hier_vg (:1221), and the same kernel body, with the
-// features shared by every field, is fixed_lnlike_vg, which replaces
-// _kernel_fixed_vg (:1255): its cells are these cells.
+// replaces _kernel_hier_vg (:1221). fixed_lnlike replaces
+// _kernel_fixed_bcast (:751) and _kernel_fixed (:813), fixed_lnlike_vg
+// _kernel_fixed_vg (:1255): their cells are these cells.
 //
 // What they compute, per walker w (feature row th = feats[w], 1 + 3F floats,
 // see _feat_h_one in ops/cuda_lnlike.py: [aA, (c_f, lA_f, t1_f) x F]):
@@ -25,29 +28,31 @@
 // hier_lnlike_vg emits [lnl, d_aA, (d_c_f, d_lA_f, d_t1_f) x F]
 // from three sums per field, s0 = sum e, s1 = sum e (a - lA_f), s2 = sum e P:
 //   d_aA = -sum_f s1_f,  d_c_f = -s0_f,  d_lA_f = aA s0_f,  d_t1_f = s2_f.
-// fixed_lnlike_vg (feature row [c, aA, lA, t1], the same for every field)
-// emits [lnl, d_c, d_aA, d_lA, d_t1] = [-S0, -S0, -S1, aA S0, S2] from the
-// same three sums S0, S1, S2 over every field's cells.
+// fixed_lnlike (feature row [c, aA, lA, t1], the same for every field)
+// emits lnl = -S0, fixed_lnlike_vg [lnl, d_c, d_aA, d_lA, d_t1] = [-S0,
+// -S0, -S1, aA S0, S2], from the same sums S0, S1, S2 over every field's
+// cells (the collapsed source term is added on the host:
+// ops/cuda_lnlike.py _fixed_collapsed).
 //
-// What bounds them on the card: as fixed_lnlike (lnlike.cu), whose cells
-// these are. At the fit's shape (5 fields x 201 x 201 cells, W = 50 walkers
-// per stretch half-step, W = 8 NUTS chains) a call is 1.6-10 M cell
-// evaluations of 8-12 float32 operations over 2.4 MB of grid arrays that
-// stay in L2 across walkers: launch latency and the dependent exp chain per
-// thread bound it, not bytes. All three were first built in two passes: a
-// (nchunks, W) grid, block (c, w) reducing chunk c of a host table (at
-// most 2048 cells of one field) for one walker into a (W, nchunks)
-// scratch buffer, then a small kernel summing each walker's partials in
-// chunk order. The finish pass of hier_lnlike_vg alone took 5.6-6.1 us a
-// call whatever W, more than its partial pass at W = 1 and 8, and at W =
-// 256 the partial pass took 81 us, 2.3x the same-mix bound, each block
-// reading its chunk from L2 once per walker; hier_lnlike took 23.3 us at
-// W = 50 so (PERF.md, H100 80GB HBM3). All three are now one launch a call
-// of one kernel body, the same rows, as free_lnlike_vg (lnlike.cu):
+// What bounds them on the card: at the fits' shape (5 fields x 201 x 201
+// cells, W = 50 walkers per stretch half-step, W = 8 NUTS chains) a call
+// is 1.6-10 M cell evaluations of 8-12 float32 operations over 2.4 MB of
+// grid arrays that stay in L2 across walkers: launch latency and the
+// dependent exp chain per thread bound it, not bytes. All four were first
+// built in two passes: a (nchunks, W) grid, block (c, w) reducing chunk c
+// of a host table (at most 2048 cells of one field) for one walker into a
+// (W, nchunks) scratch buffer, then a small kernel summing each walker's
+// partials in chunk order. The finish pass of hier_lnlike_vg alone took
+// 5.6-6.1 us a call whatever W, more than its partial pass at W = 1 and 8,
+// and at W = 256 the partial pass took 81 us, 2.3x the same-mix bound,
+// each block reading its chunk from L2 once per walker; hier_lnlike and
+// fixed_lnlike took 23.3 us at W = 50 so (PERF.md, H100 80GB HBM3). All
+// four are now one launch a call of one kernel body, the same rows, as
+// free_lnlike(_vg) (lnlike.cu):
 //   - a (piece, walker tile) grid, the piece length and tile picked on the
 //     host from W and the SM count (ops/cuda_lnlike.py _vg_geometry, each
-//     kernel its own tiles, VG_TILES): the value kernel, one sum a walker,
-//     takes tiles of up to 8 walkers; the value+gradient kernels, three
+//     kernel its own tiles, VG_TILES): the value kernels, one sum a walker,
+//     take tiles of up to 8 walkers; the value+gradient kernels, three
 //     sums a walker, 1, 2 or 4 (tiles of 8 held 76 registers, 3 blocks an
 //     SM, and ran slower). At W = 8 tiles of 2 walkers on pieces of ~4040
 //     cells (200 blocks; fixed_lnlike_vg, whose sweep preferred the larger
@@ -71,21 +76,22 @@
 #define HIER_SLOTS 3          // ops/cuda_lnlike.py VG_HIER_SLOTS
 #define MAX_HIER_FIELDS 64    // ops/cuda_lnlike.py MAX_HIER_FIELDS
 
-// hier_lnlike (S 1), hier_lnlike_vg (S HIER_SLOTS, SHARED false) and
-// fixed_lnlike_vg (S HIER_SLOTS, SHARED true): one kernel per call, as
-// free_lnlike_vg (lnlike.cu). Block (p, t) runs piece p (cells of one
-// field f) for the T walkers of tile t: each thread takes one cell a loop
-// trip, the next trip's loaded before this one's is computed, against every
-// walker of the tile from registers. The features (c, lA, t1) are field
-// f's, at 1 + 3 f in the hierarchical row, or the row's own, at 0, 2 and
-// 3, for every field (aA at 0, or 1). Slots, per walker: [Se] (S 1) or
-// [Se, Se*am, Se*P] with am = a - lA; float32 per thread, the block's
-// reduction and the (W, npieces, S) partials double. The tile's last block
-// to draw its ticket sums them per segment (one field's pieces) in a fixed
-// order and writes lnl = -sum_f s0_f (S 1), or [lnl, d_aA, (d_c_f, d_lA_f,
-// d_t1_f) x F] = [-sum_f s0_f, -sum_f s1_f, (-s0_f, aA s0_f, s2_f) x F],
-// or [lnl, d_c, d_aA, d_lA, d_t1] = [-S0, -S0, -S1, aA S0, S2] with S the
-// sums over every segment, the segments added in order.
+// hier_lnlike (S 1) and hier_lnlike_vg (S HIER_SLOTS), SHARED false;
+// fixed_lnlike (S 1) and fixed_lnlike_vg (S HIER_SLOTS), SHARED true: one
+// kernel per call, as free_lnlike(_vg) (lnlike.cu). Block (p, t) runs
+// piece p (cells of one field f) for the T walkers of tile t: each thread
+// takes one cell a loop trip, the next trip's loaded before this one's is
+// computed, against every walker of the tile from registers. The features
+// (c, lA, t1) are field f's, at 1 + 3 f in the hierarchical row, or the
+// row's own, at 0, 2 and 3, for every field (aA at 0, or 1). Slots, per
+// walker: [Se] (S 1) or [Se, Se*am, Se*P] with am = a - lA; float32 per
+// thread, the block's reduction and the (W, npieces, S) partials double.
+// The tile's last block to draw its ticket sums them per segment (one
+// field's pieces) in a fixed order and writes lnl = -sum_f s0_f (S 1), or
+// [lnl, d_aA, (d_c_f, d_lA_f, d_t1_f) x F] = [-sum_f s0_f, -sum_f s1_f,
+// (-s0_f, aA s0_f, s2_f) x F], or (SHARED) [lnl, d_c, d_aA, d_lA, d_t1] =
+// [-S0, -S0, -S1, aA S0, S2] with S the sums over every segment, the
+// segments added in order.
 template <int T, bool SHARED, int S>
 __global__ void __launch_bounds__(THREADS)
 hier_vg(const float* __restrict__ feats, int nwalkers, int nfeat,
@@ -271,9 +277,31 @@ int hier_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
     }
 }
 
-// fixed_lnlike_vg: as hier_lnlike_vg, over the fixed-completeness data's
-// tables (one segment a field), feature rows [c, aA, lA, t1], out (W, 5)
-// double. One launch.
+// fixed_lnlike: as hier_lnlike, over the fixed-completeness data's tables
+// (one segment a field), feature rows [c, aA, lA, t1], out (W,) double.
+// One launch.
+int fixed_lnlike_launch(const float* feats, int nwalkers, int nfeat,
+                        const float* g_a, const float* g_p, const float* g_w,
+                        const int* pieces, int npieces, const int* segs,
+                        int nseg, int tile, double* partial, int* tickets,
+                        double* out, void* stream) {
+    const size_t smem = vg_smem(tile, nseg, 1);
+    const int nfields = 0;      // not read: every piece takes the row
+    if (nfeat != 4 || hier_vg_bad(nwalkers, tile, npieces, nseg, smem))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(npieces, (nwalkers + tile - 1) / tile);
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (tile) {
+        case 1: return launch_hier_vg<1, true, 1>(HIER_VG_ARGS);
+        case 2: return launch_hier_vg<2, true, 1>(HIER_VG_ARGS);
+        case 4: return launch_hier_vg<4, true, 1>(HIER_VG_ARGS);
+        case 8: return launch_hier_vg<8, true, 1>(HIER_VG_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// fixed_lnlike_vg: as fixed_lnlike, tiles of 1, 2 or 4, partial a (W,
+// npieces, HIER_SLOTS) double buffer, out (W, 5) double. One launch.
 int fixed_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
                            const float* g_a, const float* g_p,
                            const float* g_w,
@@ -281,7 +309,7 @@ int fixed_lnlike_vg_launch(const float* feats, int nwalkers, int nfeat,
                            int nseg, int tile, double* partial,
                            int* tickets, double* out, void* stream) {
     const size_t smem = vg_smem(tile, nseg, HIER_SLOTS);
-    const int nfields = 0;      // not read: every piece takes the row
+    const int nfields = 0;
     if (nfeat != 4 || hier_vg_bad(nwalkers, tile, npieces, nseg, smem))
         return (int)cudaErrorInvalidValue;
     const dim3 grid(npieces, (nwalkers + tile - 1) / tile);

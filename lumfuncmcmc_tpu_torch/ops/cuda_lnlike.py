@@ -30,7 +30,10 @@ accept step bears in the lnp difference of two close thetas
 refused from ``FLOAT32_MAX_SOURCES`` sources on
 (``models/model.py _check_precision``).
 
-Four kernels of ``csrc/lnlike.cu``, value and value + gradient:
+Four single-epoch kernels, value and value + gradient, each pair one
+kernel body (free completeness in ``csrc/lnlike.cu``, fixed completeness
+in ``csrc/lnlike_h.cu``, the hierarchical kernels' body with the features
+shared by every field):
 
 - :func:`free_lnlike` — free completeness; replaces both
   ``_kernel_free_bcast`` (``pallas_lnlike.py:601``) and ``_kernel_free``
@@ -38,7 +41,7 @@ Four kernels of ``csrc/lnlike.cu``, value and value + gradient:
 - :func:`fixed_lnlike` — fixed completeness; replaces both
   ``_kernel_fixed_bcast`` (``:751``) and ``_kernel_fixed`` (``:813``);
 - :func:`free_lnlike_vg` — free completeness, the lnlike and its
-  derivative with respect to every feature in one pass and one launch;
+  derivative with respect to every feature in one pass;
   replaces ``_kernel_free_vg`` (``:832``);
 - :func:`fixed_lnlike_vg` — the same for fixed completeness; replaces
   ``_kernel_fixed_vg`` (``:1255``).
@@ -112,16 +115,12 @@ gradient to autograd of the cheap feature map, the counterpart of the
 The TPU's broadcast/slab split exists only because of VMEM and does not
 carry over: one packing serves every catalog size. Cells and sources are
 concatenated field by field (no lane padding) with ``(F+1,)`` field
-offsets, and an int32 chunk table cuts each field's cells and sources
-into pieces of at most ``CHUNK_CELLS`` for the (chunk, walker) launch
-grid of the two-pass value kernels ``free_lnlike`` and ``fixed_lnlike``.
-The other six kernels of the resident layout (``free_lnlike_vg``,
-``fixed_lnlike_vg``, ``z_lnlike``, ``z_lnlike_vg``, ``hier_lnlike``,
-``hier_lnlike_vg``) are one launch a call: a (piece, walker tile) grid
-over piece tables of several lengths (:func:`_vg_tables`; bands of L rows
-for the z model, :func:`_z_vg_tables`), one chosen per call from the batch
-and the card (:func:`_vg_geometry`); the last block of each walker tile to
-draw its ticket (``vg_tickets``, zeroed once) writes the tile's rows.
+offsets. Every kernel of the resident layout is one launch a call: a
+(piece, walker tile) grid over piece tables of several lengths
+(:func:`_vg_tables`; bands of L rows for the z model,
+:func:`_z_vg_tables`), one chosen per call from the batch and the card
+(:func:`_vg_geometry`); the last block of each walker tile to draw its
+ticket (``vg_tickets``, zeroed once) writes the tile's rows.
 
 Dispatch rule: a CPU tensor takes the plain PyTorch version
 (:func:`free_lnlike_reference`, :func:`fixed_lnlike_reference`,
@@ -156,7 +155,7 @@ from lumfuncmcmc_tpu_torch.ops.schechter import LN10
 
 _LOG_LN10 = math.log(LN10)
 _LOGF_REF = -16.0       # reference log10-flux for the R factorization
-CHUNK_CELLS = 2048      # cells (or sources) one CUDA block reduces
+CHUNK_CELLS = 2048      # sources of a streaming tile (lnlike_stream.cu)
 MAX_ROWS = 65535        # walkers one launch takes (grid.y limit)
 VG_FREE_SLOTS = 7       # partial sums per (walker, piece), csrc/lnlike.cu
 VG_Z_SLOTS = 8          # csrc/lnlike_z.cu
@@ -179,9 +178,9 @@ STREAM_MIN_SOURCES = 40_000
 FLOAT32_MAX_SOURCES = 30_000
 VG_STREAM_SLOTS = 6     # partial sums per (walker, run), lnlike_stream.cu
 STREAM_MAX_RUN = 4      # source tiles one streaming block stages at once
-# the one-launch kernels (the value+gradient kernels of csrc/lnlike.cu,
-# csrc/lnlike_h.cu and csrc/lnlike_z.cu, and the value kernels z_lnlike and
-# hier_lnlike; _vg_geometry): their piece lengths in cells, longest first
+# the one-launch kernels (the value and value+gradient kernels of
+# csrc/lnlike.cu, csrc/lnlike_h.cu and csrc/lnlike_z.cu; _vg_geometry):
+# their piece lengths in cells, longest first
 # (the z model's bands hold about as many cells: _z_vg_tables), and the
 # walker tiles each is built for, by family for the value+gradient kernels
 # and family + "_value" for the value kernels (_tiles), in the order
@@ -190,7 +189,8 @@ STREAM_MAX_RUN = 4      # source tiles one streaming block stages at once
 VG_PIECES = (4096, 2048, 1024, 512)
 VG_Z_PIECES = (16384, 8192, 4096, 2048, 1024)
 VG_TILES = {"free": (1, 2), "fixed": (4, 2, 1), "z": (2, 4, 1),
-            "hier": (1, 2, 4), "z_value": (2, 8, 4, 1),
+            "hier": (1, 2, 4), "free_value": (1, 4, 2),
+            "fixed_value": (4, 8, 2, 1), "z_value": (2, 8, 4, 1),
             "hier_value": (4, 8, 2, 1)}
 
 
@@ -215,14 +215,10 @@ class CudaGridData:
 
     Grid arrays are (C,), source arrays (N,), fields back to back;
     ``grid_off``/``src_off`` hold the (F+1,) field offsets on the host
-    (for the plain versions). ``chunks`` is the (nchunks, 4) int32
-    launch table ``(field, start, end, is_source)`` on the device, from
-    which each block of the two-pass value kernels (``free_lnlike``,
-    ``fixed_lnlike``) reads its field and cell range. Fixed completeness
-    keeps only ``g_a``, ``g_p`` and ``g_w``. ``vg_tables`` and
-    ``vg_tickets`` are read by the one-launch kernels (``free_lnlike_vg``,
-    ``fixed_lnlike_vg``, ``hier_lnlike``, ``hier_lnlike_vg``;
-    :func:`_vg_tables`).
+    (for the plain versions). Fixed completeness keeps only ``g_a``,
+    ``g_p`` and ``g_w``. ``vg_tables`` and ``vg_tickets`` are the launch
+    tables and tickets of every kernel of the family (``free_lnlike(_vg)``,
+    ``fixed_lnlike(_vg)``, ``hier_lnlike(_vg)``; :func:`_vg_tables`).
     """
 
     g_a: torch.Tensor                  # LN10 * (logL - lref)
@@ -236,7 +232,6 @@ class CudaGridData:
     s_r: Optional[torch.Tensor]
     s_lnom0: Optional[torch.Tensor]    # ln(Omega0_src / sqarcsec)
     s_mask: Optional[torch.Tensor]
-    chunks: torch.Tensor
     grid_off: tuple
     src_off: tuple
     lref: float
@@ -245,7 +240,7 @@ class CudaGridData:
     ln_sums: tuple                     # float64 (nsrc, sum(lum - lref),
                                        #   sum_pow_lum, sum_ln_om) of the
                                        #   collapsed ln-term
-    # --- the value+gradient kernels only: _vg_tables, and their arrival
+    # --- the kernels' launch tables (_vg_tables), and their arrival
     # tickets, zeroed here once and left at 0 by every launch ---
     vg_tables: tuple = ()
     vg_tickets: Optional[torch.Tensor] = None  # (MAX_ROWS,) int32
@@ -292,7 +287,8 @@ def _concat(per_field, names):
 
 def _chunk_table(grid_off, src_off, size=CHUNK_CELLS):
     """(field, start, end, is_source) rows cutting every field's cells
-    and sources into pieces of at most ``size``."""
+    and sources into pieces of at most ``size``: the streaming kernels'
+    run table (:func:`prepare_cuda_stream_data`)."""
     rows = []
     for is_src, off in ((0, grid_off), (1, src_off)):
         for f in range(len(off) - 1):
@@ -330,7 +326,7 @@ def _vg_table(tab, piece, device):
 
 def _vg_tables(grid_off, src_off, device):
     """For each piece length of ``VG_PIECES``: ``(piece, pieces,
-    segments)``, the value+gradient kernels' launch tables. ``pieces`` is
+    segments)``, the kernels' launch tables. ``pieces`` is
     :func:`_vg_pieces` at that length (block ``p`` of a launch runs row
     ``p``); ``segments`` as :func:`_vg_table` makes them."""
     return tuple(_vg_table(_vg_pieces(grid_off, src_off, piece), piece,
@@ -462,8 +458,6 @@ def prepare_cuda_data(ctx: LFContext, fix_comp: bool, fcmin: float = 0.0,
         g_logf=opt(g, "logf"), g_r=opt(g, "r"),
         s_logf=opt(s, "logf"), s_a=opt(s, "a"), s_p=opt(s, "p"),
         s_r=opt(s, "r"), s_lnom0=opt(s, "lnom0"), s_mask=opt(s, "mask"),
-        chunks=torch.as_tensor(_chunk_table(grid_off, src_off),
-                               device=device),
         grid_off=grid_off, src_off=src_off, lref=lref, nfields=nf,
         fcmin=float(fcmin) if fcmin else 0.0,
         ln_sums=(float(ctx.nsrc), float((ctx.lum.double() - lref).sum()),
@@ -1273,7 +1267,7 @@ _Z_ARRAYS = ("g_a", "g_p", "g_w", "n_dz", "n_dz2", "s_a", "s_dz", "s_dz2",
 def _signature(name, data):
     """What kernel ``name``'s C entry point takes for ``data``: (data
     array names, feature count, the ints after ``(W, nfeat)``, the ints
-    after the launch table)."""
+    after the walker tile)."""
     if name.startswith("z"):
         return _Z_ARRAYS, 7, data.shape[1:], ()
     if name.startswith("hier"):
@@ -1282,33 +1276,6 @@ def _signature(name, data):
         return _FIXED_ARRAYS, 4, (), ()
     return (_FREE_ARRAYS, 6 + 2 * data.nfields, (data.nfields,),
             (int(bool(data.fcmin)),))
-
-
-def _launch(name, feats, data):
-    """Check the inputs and launch two-pass value kernel ``name`` of
-    ``csrc/`` (``free_lnlike``, ``fixed_lnlike``) on
-    the current stream of ``feats``' device, with a (W, nchunks) double
-    scratch buffer; returns the float64 (W,) output. Raises on any
-    failure."""
-    if feats.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {feats.device}")
-    from lumfuncmcmc_tpu_torch.ops._build import load_library
-    names, nfeat, head, flags = _signature(name, data)
-    arrays = tuple(getattr(data, a) for a in names)
-    _check_cuda_inputs(feats, nfeat, (data.chunks,), arrays)
-    lib = load_library()
-    w, nchunks = feats.shape[0], data.chunks.shape[0]
-    partial = torch.empty((w, nchunks), dtype=torch.float64,
-                          device=feats.device)
-    out = torch.empty((w,), dtype=torch.float64, device=feats.device)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    rc = getattr(lib, f"{name}_launch")(
-        _ptr(feats), w, nfeat, *head, *(_ptr(a) for a in arrays),
-        _ptr(data.chunks), nchunks, *flags, _ptr(partial), _ptr(out),
-        ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    return out
 
 
 _STREAM_GRID = ("g_logf", "g_a", "g_p", "g_r", "g_w")
@@ -1424,10 +1391,10 @@ def _wrapper(name, plain, launch, doc):
 
 
 free_lnlike = _wrapper(
-    "free_lnlike", free_lnlike_reference, _launch,
+    "free_lnlike", free_lnlike_reference, _one_launch(1),
     "Free-completeness lnlike, (W, 6+2F) features -> (W,) float64.")
 fixed_lnlike = _wrapper(
-    "fixed_lnlike", fixed_lnlike_reference, _launch,
+    "fixed_lnlike", fixed_lnlike_reference, _one_launch(1),
     "Fixed-completeness lnlike without its collapsed ln-term, (W, 4) "
     "features -> (W,) float64.")
 free_lnlike_vg = _wrapper(
@@ -1530,7 +1497,7 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
     for it; on the CPU the plain versions run in the context's dtype.
     Free completeness from ``STREAM_MIN_SOURCES`` sources on takes the
     streaming kernels (``batched.stream`` is then ``(sources, source
-    tiles)``).
+    tiles)``); ``batched.data`` is the kernels' data.
 
     The kernel's float64 value plus, where the family has them, the
     collapsed ln-terms, both from the same rounded float64 features, are
@@ -1557,6 +1524,7 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
                            torch.full_like(lnl, -math.inf))
 
     on_card = device.type == "cuda"
+    batched.data = data
     batched.engine = "cuda" if on_card else "plain"
     if isinstance(data, CudaStreamData):
         batched.engine += "-stream"

@@ -369,18 +369,19 @@ def test_hier_step_loop_never_synchronises_and_is_deterministic(device):
     assert torch.isfinite(lnps[-1]).all()
 
 
-def _one_launch_case(device, fam, size_ln, suffix="_vg", nfields=5):
-    """The data of ``free_lnlike_vg`` (free completeness),
+def _one_launch_case(device, fam, size_ln, suffix="_vg", nfields=5,
+                     fcmin=LFConfig.fcmin):
+    """The data of ``free_lnlike_vg`` (free completeness with ``fcmin``),
     ``fixed_lnlike_vg``, ``hier_lnlike_vg`` or ``z_lnlike_vg`` (with
-    ``suffix`` "": the value kernels ``hier_lnlike``, ``z_lnlike``) on a
-    400-source catalog of the first ``nfields`` default fields, its kernel,
-    plain version and a function of W giving W feature rows near the box
-    centre."""
+    ``suffix`` "": the value kernels ``free_lnlike``, ``fixed_lnlike``,
+    ``hier_lnlike``, ``z_lnlike``) on a 400-source catalog of the first
+    ``nfields`` default fields, its kernel, plain version and a function of
+    W giving W feature rows near the box centre."""
     d = LFConfig()
     cfg = LFConfig(min_comp_frac=0.5, size_ln=size_ln,
                    fix_comp=fam != "free", Flim=d.Flim[:nfields],
                    Omega_0=d.Omega_0[:nfields],
-                   survey_fields=d.survey_fields[:nfields])
+                   survey_fields=d.survey_fields[:nfields], fcmin=fcmin)
     ctx = _context(cfg, device)
     if fam == "hier":
         layout = ThetaLayoutH.from_config(cfg)
@@ -474,18 +475,21 @@ def test_one_launch_vg_kernels_at_every_walker_tile(device, monkeypatch,
     assert not data.vg_tickets.any()
 
 
-@pytest.mark.parametrize("fam,size_ln", [
-    ("hier", 12), ("hier", 41), ("z", 12), ("z", 41), ("z", 300)])
-def test_one_launch_value_kernels_at_every_batch(device, fam, size_ln):
+@pytest.mark.parametrize("fam,size_ln,fcmin", [
+    ("hier", 12, 0.1), ("hier", 41, 0.1), ("z", 12, 0.1), ("z", 41, 0.1),
+    ("z", 300, 0.1), ("free", 12, 0.1), ("free", 41, 0.1), ("free", 41, 0.0),
+    ("fixed", 12, 0.1), ("fixed", 41, 0.1)])
+def test_one_launch_value_kernels_at_every_batch(device, fam, size_ln, fcmin):
     """The value kernels of the stretch paths (one launch each, a walker
     tile's last block finishing its values through the data's tickets) at
     W = 1, 13, 50, 100 and 2400 (the NUTS recompute's 300 samples x 8
-    chains), back to back on one data object: each equals the plain
-    version (rtol 1e-4), two launches on one input are bit-identical, W =
-    50 again after W = 2400 gives the first W = 50 values bit for bit, and
-    a CUDA graph of the W = 50 call replayed twice gives them too; the
-    tickets are left at 0."""
-    data, kernel, plain, feats = _one_launch_case(device, fam, size_ln, "")
+    chains), back to back on one data object (free completeness with
+    ``fcmin`` 0 and 0.1): each equals the plain version (rtol 1e-4), two
+    launches on one input are bit-identical, W = 50 again after W = 2400
+    gives the first W = 50 values bit for bit, and a CUDA graph of the W =
+    50 call replayed twice gives them too; the tickets are left at 0."""
+    data, kernel, plain, feats = _one_launch_case(device, fam, size_ln, "",
+                                                  fcmin=fcmin)
     vals = {}
     for w in (1, 13, 50, 100, 2400, 50):
         f = feats(w)
@@ -510,24 +514,33 @@ def test_one_launch_value_kernels_at_every_batch(device, fam, size_ln):
     assert not data.vg_tickets.any()
 
 
-@pytest.mark.parametrize("fam,tile,size_ln,nfields", [
-    (fam, tile, size_ln, nfields) for fam in ("hier", "z")
+_VALUE_TILE_CASES = {
+    "z": ((12, 5, 0.1), (41, 5, 0.1), (300, 5, 0.1), (41, 2, 0.1),
+          (41, 4, 0.1)),
+    "hier": ((41, 5, 0.1), (41, 4, 0.1)),
+    "fixed": ((41, 5, 0.1), (41, 4, 0.1), (41, 2, 0.1)),
+    "free": ((41, 5, 0.1), (41, 4, 0.1), (41, 2, 0.1), (41, 5, 0.0),
+             (41, 2, 0.0))}
+
+
+@pytest.mark.parametrize("fam,tile,size_ln,nfields,fcmin", [
+    (fam, tile, *case) for fam in ("hier", "z", "fixed", "free")
     for tile in cl.VG_TILES[f"{fam}_value"]
-    for size_ln, nfields in (((12, 5), (41, 5), (300, 5), (41, 2), (41, 4))
-                             if fam == "z" else ((41, 5), (41, 4)))])
+    for case in _VALUE_TILE_CASES[fam]])
 def test_one_launch_value_kernels_at_every_walker_tile(device, monkeypatch,
                                                         fam, tile, size_ln,
-                                                        nfields):
+                                                        nfields, fcmin):
     """Every walker-tile instance of the value kernels, whatever the
     geometry rule would take on this card, at W = 13 (a partial last tile
     at every tile but 1) and 2400 on the shortest and the longest pieces (the
     z model's bands also at 12 and 300 z nodes), on catalogs of 5 fields and
     of an even number (an odd segment count, where the z kernels' node
-    quantities follow an odd number of double segment sums at tile 1): the
-    plain version's values, two launches bit-identical, the tickets left at
-    0."""
+    quantities follow an odd number of double segment sums at tile 1; free
+    completeness has a grid and a source segment a field, so 2F segments),
+    free completeness with ``fcmin`` 0 and 0.1: the plain version's values,
+    two launches bit-identical, the tickets left at 0."""
     data, kernel, plain, feats = _one_launch_case(device, fam, size_ln, "",
-                                                  nfields)
+                                                  nfields, fcmin)
     lengths = [p for p, _, _ in data.vg_tables]
     for piece in (min(lengths), max(lengths)):
         monkeypatch.setattr(cl, "_vg_geometry",

@@ -273,14 +273,15 @@ def test_h_feature_gradient_columns_match_autograd(fix_sch_al):
                                   rows)
     np.testing.assert_array_equal(cl.hier_lnlike(feats, data).numpy(),
                                   lnl.detach().numpy())
-    # the chunk table cuts every field's cells, and no sources
-    tab = data.chunks.numpy()
-    assert (tab[:, 3] == 0).all()
-    cover = np.zeros(data.g_a.numel(), int)
-    for fld, a, b, _ in tab:
-        assert data.grid_off[fld] <= a < b <= data.grid_off[fld + 1]
-        cover[a:b] += 1
-    assert (cover == 1).all()
+    # each launch table cuts every field's cells, and no sources
+    for _, tab, _ in data.vg_tables:
+        tab = tab.numpy()
+        assert (tab[:, 3] == 0).all()
+        cover = np.zeros(data.g_a.numel(), int)
+        for fld, a, b, _ in tab:
+            assert data.grid_off[fld] <= a < b <= data.grid_off[fld + 1]
+            cover[a:b] += 1
+        assert (cover == 1).all()
 
 
 def test_per_field_sums_add_up_to_the_catalog_sums():

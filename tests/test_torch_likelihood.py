@@ -195,14 +195,16 @@ def test_feature_maps_and_packing_match_pallas():
     # lA: the same absolute allowance as rtol 1e-5 on JAX's LN10 * Lstar
     np.testing.assert_allclose(got[:, 3] + LN10 * data.lref, want[:, 3],
                                rtol=1e-5)
-    # every cell and source appears in exactly one chunk
-    ch = data.chunks.numpy()
-    assert (ch[:, 2] - ch[:, 1] <= cl.CHUNK_CELLS).all()
-    for is_src, off in ((0, data.grid_off), (1, data.src_off)):
-        rows = ch[ch[:, 3] == is_src]
-        assert (rows[:, 2] - rows[:, 1]).sum() == off[-1]
-        for f, s, e, _ in rows:
-            assert off[f] <= s < e <= off[f + 1]
+    # every cell and source appears in exactly one piece of each of the
+    # kernels' launch tables
+    for piece, tab, _ in data.vg_tables:
+        ch = tab.numpy()
+        assert (ch[:, 2] - ch[:, 1] <= piece).all()
+        for is_src, off in ((0, data.grid_off), (1, data.src_off)):
+            rows = ch[ch[:, 3] == is_src]
+            assert (rows[:, 2] - rows[:, 1]).sum() == off[-1]
+            for f, s, e, _ in rows:
+                assert off[f] <= s < e <= off[f + 1]
 
 
 def test_sample_init_inside_the_box():

@@ -1,8 +1,8 @@
 """The launch geometry of the one-launch kernels: the value+gradient
 kernels ``free_lnlike_vg``, ``fixed_lnlike_vg``, ``hier_lnlike_vg`` and
-``z_lnlike_vg``, and the value kernels ``hier_lnlike`` and ``z_lnlike``
-(``ops/cuda_lnlike.py`` ``_vg_tables``, ``_z_vg_tables``, ``_z_phases``,
-``_vg_geometry``), on the CPU.
+``z_lnlike_vg``, and the value kernels ``free_lnlike``, ``fixed_lnlike``,
+``hier_lnlike`` and ``z_lnlike`` (``ops/cuda_lnlike.py`` ``_vg_tables``,
+``_z_vg_tables``, ``_z_phases``, ``_vg_geometry``), on the CPU.
 
 The kernels cannot run here; what surrounds them is Python, so these tests
 walk a launch's (piece, walker tile) grid as the kernels index it and hold
@@ -25,6 +25,7 @@ import torch
 from lumfuncmcmc_tpu_torch import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.hierarchical import ThetaLayoutH
+from lumfuncmcmc_tpu_torch.models.likelihood import ThetaLayout
 from lumfuncmcmc_tpu_torch.models.likelihood_z import ThetaLayoutZ
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
 from lumfuncmcmc_tpu_torch.utils.synth import (
@@ -33,12 +34,17 @@ from lumfuncmcmc_tpu_torch.utils.synth import (
 NSM = 132       # an H100's SMs
 
 
+def _config(size_ln, fam, fcmin=LFConfig.fcmin):
+    return LFConfig(min_comp_frac=0.5, size_ln=size_ln,
+                    fix_comp=fam != "free", fcmin=fcmin)
+
+
 @functools.lru_cache(maxsize=None)
-def _data(size_ln, fam, dtype=None):
+def _data(size_ln, fam, dtype=None, fcmin=LFConfig.fcmin):
     """The kernel data of family ``fam`` on a 400-source catalog, in
-    ``dtype`` (default: the float64 context's)."""
-    cfg = LFConfig(min_comp_frac=0.5, size_ln=size_ln,
-                   fix_comp=fam != "free")
+    ``dtype`` (default: the float64 context's), free completeness with
+    ``fcmin``."""
+    cfg = _config(size_ln, fam, fcmin)
     cat = apply_completeness_cut(make_catalog(cfg, n_target=400, seed=3),
                                  cfg)
     _, ctx = build_context(cfg, z=cat["z"], flux=cat["flux"],
@@ -76,8 +82,8 @@ def _cell_pieces(data, pieces, piece):
 
 
 @pytest.mark.parametrize("w", [1, 8, 13, 256, 50, 100, 2400])
-@pytest.mark.parametrize("fam", ["free", "hier", "fixed", "hier_value",
-                                 "z_value"])
+@pytest.mark.parametrize("fam", ["free", "hier", "fixed", "free_value",
+                                 "fixed_value", "hier_value", "z_value"])
 @pytest.mark.parametrize("size_ln", [12, 41])
 def test_vg_launch_covers_every_cell_and_source_once(size_ln, fam, w):
     """Block (p, t) runs piece p for walkers [t T, t T + T) (the last tile
@@ -110,7 +116,7 @@ def test_vg_launch_covers_every_cell_and_source_once(size_ln, fam, w):
             assert b - a <= (piece if src else most)
             cover[a:b] += 1
         assert (cover == 1).all()
-    if fam in ("hier", "fixed", "hier_value"):
+    if fam in ("hier", "fixed", "fixed_value", "hier_value"):
         assert (pieces[:, 3] == 0).all()
     # segments: consecutive runs of pieces, one per field and kind
     assert segs[0, 1] == 0 and segs[-1, 2] == len(pieces)
@@ -154,7 +160,8 @@ NPIECES = {"free": {4096: 20, 2048: 30, 1024: 55, 512: 105},
            "hier": {4096: 50, 2048: 100, 1024: 200, 512: 395},
            "fixed": {4096: 50, 2048: 100, 1024: 200, 512: 395},
            "z": {16384: 16, 8192: 31, 4096: 56, 2048: 106, 1024: 207}}
-NPIECES.update(z_value=NPIECES["z"], hier_value=NPIECES["hier"])
+NPIECES.update(free_value=NPIECES["free"], fixed_value=NPIECES["fixed"],
+               z_value=NPIECES["z"], hier_value=NPIECES["hier"])
 
 
 @pytest.mark.parametrize("fam,w,want", [
@@ -169,15 +176,23 @@ NPIECES.update(z_value=NPIECES["z"], hier_value=NPIECES["hier"])
     ("z_value", 1, (1, 1024)), ("z_value", 8, (2, 4096)),
     ("z_value", 13, (2, 8192)), ("z_value", 50, (8, 8192)),
     ("z_value", 100, (8, 16384)),
-    ("z_value", 2400, (8, 16384))])
+    ("z_value", 2400, (8, 16384)),
+    ("free_value", 1, (1, 512)), ("free_value", 8, (1, 2048)),
+    ("free_value", 13, (1, 4096)), ("free_value", 50, (4, 4096)),
+    ("free_value", 100, (4, 4096)), ("free_value", 1200, (4, 4096)),
+    ("free_value", 2400, (4, 4096)),
+    ("fixed_value", 1, (1, 1024)), ("fixed_value", 8, (4, 2048)),
+    ("fixed_value", 13, (4, 4096)), ("fixed_value", 50, (8, 4096)),
+    ("fixed_value", 100, (8, 4096)), ("fixed_value", 1600, (8, 4096)),
+    ("fixed_value", 2400, (8, 4096))])
 def test_vg_geometry_at_the_fits_shapes(fam, w, want):
     """The rule's choices on an H100's 132 SMs at the NUTS path's batches
     (value+gradient kernels: 1 chain, 8, 256) and the value kernels'
     (``_value``: the NUTS start guard's 8 chains, 13, a stretch half-step
-    of 50, 100, the NUTS recompute's 300 samples x 8 chains): at least 1.5
-    blocks per SM where any grid has them, with the most work a block, at
-    equal work the kernel's first tile; else tile 1 and the shortest
-    piece."""
+    of 50, 100, the NUTS recompute's samples x 8 chains: 1,200 free, 1,600
+    fixed, 2,400 z and hier): at least 1.5 blocks per SM where any grid has
+    them, with the most work a block, at equal work the kernel's first
+    tile; else tile 1 and the shortest piece."""
     got = cl._vg_geometry(NPIECES[fam], w, NSM, cl.VG_TILES[fam])
     assert got == want
     tile, piece = got
@@ -285,25 +300,29 @@ def test_z_node_quantities_are_16_byte_aligned():
                                                                k) < 16
 
 
-def _value_feats(size_ln, fam, w, seed):
-    """``w`` float32 feature rows of kernel family ``fam`` (``z`` or
-    ``hier``) for thetas drawn by numpy within ~1% of the box width of the
-    catalog's true parameters, where a fit spends its steps (far from them
-    a few cells carry the whole integral), and their float32 kernel data,
-    as the kernels take them."""
-    cfg = LFConfig(min_comp_frac=0.5, size_ln=size_ln, fix_comp=True)
-    layout = (ThetaLayoutZ if fam == "z" else ThetaLayoutH).from_config(cfg)
+def _value_feats(size_ln, fam, w, seed, fcmin=LFConfig.fcmin):
+    """``w`` float32 feature rows of kernel family ``fam`` (``free``,
+    ``fixed``, ``z`` or ``hier``) for thetas drawn by numpy within ~1% of
+    the box width of the catalog's true parameters, where a fit spends its
+    steps (far from them a few cells carry the whole integral), and their
+    float32 kernel data, as the kernels take them."""
+    cfg = _config(size_ln, fam, fcmin)
+    layout = {"z": ThetaLayoutZ, "hier": ThetaLayoutH}.get(
+        fam, ThetaLayout).from_config(cfg)
     lo, hi = (x.numpy() for x in layout.bounds_arrays(torch.float64, "cpu"))
     truth = {"L": cfg.Lstar, "m": cfg.Lstar, "p": cfg.phistar,
              "s": cfg.sch_al}
-    center = np.array([{"mu_p": cfg.phistar, "sig_L": 0.3,
-                        "sig_p": 0.5}.get(n, truth[n[0]])
+    named = {"mu_p": cfg.phistar, "sig_L": 0.3, "sig_p": 0.5,
+             "alpha": cfg.alpha}
+    named.update({f"Flim_{i}": v for i, v in enumerate(cfg.Flim)})
+    center = np.array([named[n] if n in named else truth[n[0]]
                        for n in layout.names])
     rng = np.random.default_rng(seed)
     th = torch.as_tensor(center + 0.01 * (hi - lo) * rng.standard_normal(
         (w, layout.ndim)))
-    data = _data(size_ln, fam, torch.float32)
-    features = cl._features_z if fam == "z" else cl._features_hier
+    data = _data(size_ln, fam, torch.float32, fcmin)
+    features = {"z": cl._features_z, "hier": cl._features_hier}.get(
+        fam, cl._features)
     return features(th, data, layout, torch.float32).float(), data
 
 
@@ -316,33 +335,94 @@ def _finish(partial, segs):
     return out
 
 
-def _emulate_hier_lnlike(f, data, tile, piece):
-    """``hier_lnlike``'s summation order in numpy: block (p, t) gives each
-    of its THREADS threads the cells ``a + tid, a + tid + THREADS, ...`` of
-    piece p, summed in float32 for every walker of tile t (rows past W
-    repeat walker 0), the block's sums and the partials double; the
-    finish adds them segment by segment and negates."""
+def _emulate_pieces(f, data, tile, piece, term):
+    """The one-launch value kernels' summation order in numpy: block (p,
+    t) gives each of its THREADS threads the cells (or sources) ``a + tid,
+    a + tid + THREADS, ...`` of piece p, whose float32 terms ``term(th,
+    field, is_source, index)`` for the walkers ``th`` of tile t (rows past
+    W repeat walker 0) it sums in float32; the block's sums and the
+    partials are double. Returns the (W, npieces) partials and the
+    segment table."""
     (pieces, segs), = [(p.numpy(), s.numpy()) for n, p, s in data.vg_tables
                        if n == piece]
-    ga, gp, gw = (x.numpy() for x in (data.g_a, data.g_p, data.g_w))
     w = f.shape[0]
     partial = np.zeros((w, len(pieces)))
-    for k, (fld, a, b, _) in enumerate(pieces):
+    for k, (fld, a, b, is_src) in enumerate(pieces):
         idx = a + np.arange(-(-(b - a) // cl.THREADS) * cl.THREADS).reshape(
             -1, cl.THREADS)
         for w0 in range(0, w, tile):
             nw = min(tile, w - w0)
             th = f[[w0 + (j if j < nw else 0) for j in range(tile)]]
-            aA = th[:, :1]
-            cg, lA, t1 = (th[:, 1 + 3 * fld + i:2 + 3 * fld + i]
-                          for i in range(3))
             acc = np.zeros((tile, cl.THREADS), np.float32)
             for trip in idx:
-                i = np.minimum(trip, b - 1)
-                e = np.exp(cg + aA * (ga[i] - lA) - gp[i] * t1) * gw[i]
+                e = term(th, fld, is_src, np.minimum(trip, b - 1))
                 acc = np.where(trip < b, acc + e, acc)
             partial[w0:w0 + nw, k] = acc.astype(np.float64).sum(1)[:nw]
-    return -_finish(partial, segs)
+    return partial, segs
+
+
+def _emulate_fixed_cells(f, data, tile, piece, shared):
+    """``hier_lnlike``'s (or, ``shared``, ``fixed_lnlike``'s: every field
+    reads the row ``[c, aA, lA, t1]``) summation order: a thread's cells
+    ``exp(c + aA (a - lA) - P t1) w`` in float32, double partials; the
+    finish adds them segment by segment and negates."""
+    ga, gp, gw = (x.numpy() for x in (data.g_a, data.g_p, data.g_w))
+
+    def term(th, fld, _, i):
+        if shared:
+            cg, aA, lA, t1 = (th[:, k:k + 1] for k in range(4))
+        else:
+            aA = th[:, :1]
+            cg, lA, t1 = (th[:, 1 + 3 * fld + k:2 + 3 * fld + k]
+                          for k in range(3))
+        return np.exp(cg + aA * (ga[i] - lA) - gp[i] * t1) * gw[i]
+    return -_finish(*_emulate_pieces(f, data, tile, piece, term))
+
+
+def _emulate_hier_lnlike(f, data, tile, piece):
+    return _emulate_fixed_cells(f, data, tile, piece, shared=False)
+
+
+def _emulate_fixed_lnlike(f, data, tile, piece):
+    return _emulate_fixed_cells(f, data, tile, piece, shared=True)
+
+
+def _emulate_free_lnlike(f, data, tile, piece):
+    """``free_lnlike``'s summation order in numpy: a grid piece's terms
+    ``exp(c_g + aA (a - lA) - P t1 + ln fc) w`` and a source piece's
+    masked ``c_s + aA (a - lA) - P t1 + ln Omega0 + ln fc``, float32 per
+    thread, double partials; the finish adds each segment's, grid
+    segments negated, in segment order. (ln fc takes numpy's log and
+    divide, where the kernel takes the SFU's: the card's tests hold
+    those to the plain version.)"""
+    nf = data.nfields
+    g = {k: getattr(data, f"g_{k}").numpy() for k in ("logf", "a", "p", "r",
+                                                      "w")}
+    s = {k: getattr(data, f"s_{k}").numpy() for k in ("logf", "a", "p", "r",
+                                                      "lnom0", "mask")}
+    one = np.float32(1.0)
+
+    def term(th, fld, is_src, i):
+        c0 = th[:, 1 if is_src else 0][:, None]
+        aA, lA, t1, ac = (th[:, k:k + 1] for k in range(2, 6))
+        lf50, t2 = th[:, 6 + fld][:, None], th[:, 6 + nf + fld][:, None]
+        d = s if is_src else g
+        x = ac * (d["logf"][i] - lf50)
+        fc = np.maximum(np.float32(0.5) + np.float32(0.5) * x
+                        * (one / np.sqrt(one + x * x)), np.float32(1e-30))
+        lnfc = np.log(fc)
+        if data.fcmin:
+            lnfc = lnfc / (one - np.exp(-(d["r"][i] * t2)))
+        part = c0 + aA * (d["a"][i] - lA) - d["p"][i] * t1
+        if is_src:
+            return np.where(s["mask"][i] > 0, part + s["lnom0"][i] + lnfc,
+                            np.float32(0.0))
+        return np.exp(part + lnfc) * g["w"][i]
+    partial, segs = _emulate_pieces(f, data, tile, piece, term)
+    out = np.zeros(partial.shape[0])
+    for _, a, b, is_src in segs:
+        out = out + (1.0 if is_src else -1.0) * partial[:, a:b].sum(axis=1)
+    return out
 
 
 def _emulate_z_lnlike(f, data, tile, piece):
@@ -400,18 +480,24 @@ def _emulate_z_lnlike(f, data, tile, piece):
     return _finish(partial, segs)
 
 
-@pytest.mark.parametrize("fam", ["z", "hier"])
+@pytest.mark.parametrize("fam,fcmin", [
+    ("z", 0.1), ("hier", 0.1), ("fixed", 0.1), ("free", 0.1), ("free", 0.0)])
 @pytest.mark.parametrize("size_ln", [12, 41])
-def test_value_kernels_summation_order_matches_the_plain_versions(size_ln,
-                                                                  fam):
+def test_value_kernels_summation_order_matches_the_plain_versions(
+        size_ln, fam, fcmin):
     """A numpy emulation of the one-launch value kernels' order of
     summation, at the rule's geometry for W = 13 and at tiles of 8 on the
     longest pieces, stays within 1e-6 of ``z_lnlike_reference`` /
-    ``hier_lnlike_reference`` (the same float32 terms, summed in float64)
-    on seeded thetas: the per-thread float32 sums cost no more than that."""
-    f, data = _value_feats(size_ln, fam, 13, seed=size_ln)
+    ``hier_lnlike_reference`` / ``fixed_lnlike_reference`` /
+    ``free_lnlike_reference`` (the same float32 terms, summed in float64;
+    free completeness with ``fcmin`` on and off) on seeded thetas: the
+    per-thread float32 sums cost no more than that."""
+    f, data = _value_feats(size_ln, fam, 13, seed=size_ln, fcmin=fcmin)
+    assert fam != "free" or data.fcmin == fcmin
     ref = getattr(cl, f"{fam}_lnlike_reference")(f, data).numpy()
-    emulate = _emulate_z_lnlike if fam == "z" else _emulate_hier_lnlike
+    emulate = {"z": _emulate_z_lnlike, "hier": _emulate_hier_lnlike,
+               "fixed": _emulate_fixed_lnlike,
+               "free": _emulate_free_lnlike}[fam]
     longest = max(p for p, _, _ in data.vg_tables)
     for tile, piece in (_geometry(data, f"{fam}_value", 13), (8, longest)):
         got = emulate(f.numpy(), data, tile, piece)

@@ -63,8 +63,9 @@ MEGA_TARGET, MEGA_SEED = 1_200_000, 7
 
 MODELS = {"single": LumFuncModel, "z": LumFuncModelZ, "hier": LumFuncModelH}
 # the device kernels of each family's main and value+gradient paths
-# (hier_lnlike and hier_lnlike_vg are instances of one template, hier_vg)
-KERNELS = {"single": ("free_partials", "free_vg"),
+# (free_vg and hier_vg each serve a value and a value+gradient kernel; the
+# z model has two templates, z_value and z_vg)
+KERNELS = {"single": ("free_vg", "free_vg"),
            "z": ("z_value", "z_vg"),
            "hier": ("hier_vg", "hier_vg"),
            "stream": ("stream_partials", "stream_vg_partials",
@@ -289,7 +290,7 @@ def main(argv=None):
         wall = time.perf_counter() - t0
     dev_us, launches, kern = _device_us(
         prof, (KERNELS["stream"][0], KERNELS["stream"][3]) if args.mega
-        else (KERNELS[kind][0], "finish"))
+        else KERNELS[kind][:1])
     unprof = out["step_ms"][cases[0][0]] * args.profile_steps / 1e3
     out["profile"] = {
         "steps": args.profile_steps, "wall_s": wall, "device_s": dev_us / 1e6,

@@ -265,10 +265,13 @@ def main():
                                    dtype=torch.float32)
         st = cl.prepare_cuda_stream_data(ctx, cfg.fcmin,
                                          dtype=torch.float32)
-        print(f"N = {nsrc} sources ({n_target} drawn), "
-              f"{int(res.chunks.shape[0])} resident chunks, "
-              f"{int(st.runs.shape[0])} stream runs of up to "
-              f"{st.run_pieces} tiles, waves {st.waves}")
+        npieces = {p: t.shape[0] for p, t, _ in res.vg_tables}
+        tile, piece = cl._vg_geometry(npieces, 50, cl._sm_count(dev.index),
+                                      cl._tiles("free_lnlike"))
+        print(f"N = {nsrc} sources ({n_target} drawn), resident value "
+              f"kernel at W = 50: {npieces[piece]} pieces of up to {piece}, "
+              f"tiles of {tile}; {int(st.runs.shape[0])} stream runs of up "
+              f"to {st.run_pieces} tiles, waves {st.waves}")
         row = {"n_target": n_target, "nsrc": nsrc}
         gen = torch.Generator(device=dev).manual_seed(n_target)
         for w, vg in ((50, False), (8, True), (256, True)):

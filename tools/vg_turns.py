@@ -3,8 +3,8 @@ in turns on one card: the NUTS paths' value+gradient kernels
 (``free_lnlike_vg`` of ``fit --sampler nuts``, ``fixed_lnlike_vg`` of
 ``fit -fc --sampler nuts``, ``z_lnlike_vg`` of ``fitz --sampler nuts``,
 ``hier_lnlike_vg`` of ``fith --sampler nuts``), or with ``--value`` the
-stretch paths' value kernels (``z_lnlike`` of ``fitz``, ``hier_lnlike`` of
-``fith``).
+stretch paths' value kernels (``free_lnlike`` of ``fit``, ``fixed_lnlike``
+of ``fit -fc``, ``z_lnlike`` of ``fitz``, ``hier_lnlike`` of ``fith``).
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -16,8 +16,10 @@ archive`` of an earlier commit unpacked under ``_archive/``, which
 ``.gitignore`` lists), built into a library of its own under
 ``lumfuncmcmc_tpu_torch/_build/`` with a pair of empty kernels appended.
 Each kernel is compared (or those of ``--families``): where ``DIR`` holds
-its two-pass design (``*_vg_partials`` and ``*_vg_finish``; ``z_partials``
-or ``hier_partials`` and the shared ``finish`` for the value kernels), C
+its two-pass design (``*_vg_partials`` and ``*_vg_finish``;
+``free_partials``, ``fixed_partials``, ``z_partials`` or ``hier_partials``
+and the shared ``finish`` for the value kernels, over a chunk table made
+here, ``chunk_table``), C
 entry points appended to the copies run each pass alone; else ``DIR`` is
 an earlier build of the one-launch kernel, whose C entry point is the
 current one (for instance the parent commit's ``csrc/``), and the current
@@ -34,8 +36,10 @@ replayed between CUDA events): the old call and the current one in turns
 one and two empty kernels; and, under ``torch.profiler``, each kernel's own
 device time per call. With ``--sweep`` it also times the current kernels
 at every (walker tile, piece) they are built for (the z model's at its
-rule's row phases and at one), and with ``--ablate`` builds of them with
-parts left out (``ABLATIONS``). Prints one line per measurement, the
+rule's row phases and at one), with ``--ablate`` builds of them with
+parts left out or done otherwise (``ABLATIONS``), and with ``--sass``
+each kernel's SASS instructions, branches, calls and SFU operations in
+those builds (``cuobjdump``). Prints one line per measurement, the
 card's name and power limit, and writes the JSON summary to
 ``chiprun_out/vg_turns.json``. Imports only the port.
 """
@@ -48,6 +52,7 @@ import glob
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 from typing import Callable, NamedTuple, Optional
@@ -163,6 +168,32 @@ extern "C" int split_FAM_lnlike_finish(
     return (int)cudaGetLastError();
 }
 """
+SPLIT_FREE_VALUE = r"""
+extern "C" int split_free_lnlike_partials(
+        const float* feats, int nwalkers, int nfeat, int nfields,
+        const float* g_logf, const float* g_a, const float* g_p,
+        const float* g_r, const float* g_w, const float* s_logf,
+        const float* s_a, const float* s_p, const float* s_r,
+        const float* s_lnom0, const float* s_mask, const int* chunks,
+        int nchunks, int fcmin, double* partial, void* stream) {
+    free_partials<<<dim3(nchunks, nwalkers), THREADS, 0,
+                    (cudaStream_t)stream>>>(
+        feats, nfeat, nfields, g_logf, g_a, g_p, g_r, g_w, s_logf, s_a, s_p,
+        s_r, s_lnom0, s_mask, (const int4*)chunks, nchunks, fcmin, partial);
+    return (int)cudaGetLastError();
+}
+""" + SPLIT_VALUE_FINISH.replace("FAM", "free")
+SPLIT_FIXED_VALUE = r"""
+extern "C" int split_fixed_lnlike_partials(
+        const float* feats, int nwalkers, int nfeat, const float* g_a,
+        const float* g_p, const float* g_w, const int* chunks, int nchunks,
+        double* partial, void* stream) {
+    fixed_partials<<<dim3(nchunks, nwalkers), THREADS, 0,
+                     (cudaStream_t)stream>>>(
+        feats, nfeat, g_a, g_p, g_w, (const int4*)chunks, nchunks, partial);
+    return (int)cudaGetLastError();
+}
+""" + SPLIT_VALUE_FINISH.replace("FAM", "fixed")
 SPLIT_Z_VALUE = r"""
 extern "C" int split_z_lnlike_partials(
         const float* feats, int nwalkers, int nfeat, int s_l, int s_z,
@@ -240,6 +271,13 @@ FAMILIES = {
         "lnlike_h.cu", SPLIT_HIER, "trapz-201", _HIER_OLD, cl._FIXED_ARRAYS,
         cl.VG_HIER_SLOTS, lambda d: (d.nfields,), "hier_vg_partials(",
         lambda d, f: 2 + 3 * d.nfields),
+    "free_lnlike": Family(
+        "lnlike.cu", SPLIT_FREE_VALUE, "trapz-101", _FREE_OLD,
+        cl._FREE_ARRAYS, 1, lambda d: (d.nfields,), "\nfree_partials(",
+        None),
+    "fixed_lnlike": Family(
+        "lnlike.cu", SPLIT_FIXED_VALUE, "trapz-201", _FIXED_OLD,
+        cl._FIXED_ARRAYS, 1, lambda d: (), "\nfixed_partials(", None),
     "z_lnlike": Family(
         "lnlike_z.cu", SPLIT_Z_VALUE, "trapz-201", _Z_OLD, cl._Z_ARRAYS, 1,
         lambda d: d.shape[1:], "\nz_partials(", None),
@@ -260,7 +298,10 @@ def build_copy(src_dir, edits, tag, entry):
     for s in srcs:
         with open(s) as fh:
             name = os.path.basename(s)
-            text[name] = edits.get(name, lambda t: t)(fh.read())
+            orig = fh.read()
+        text[name] = edits.get(name, lambda t: t)(orig)
+        if name in edits and text[name] == orig:
+            raise SystemExit(f"{tag}: the edit of {name} changes nothing")
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
     for name in sorted(text):
         h.update(name.encode() + text[name].encode())
@@ -322,7 +363,9 @@ def build_old(src_dir, knames):
 # out the finish's reads of the partials, or its column pass (z_lnlike's:
 # its rows); the z ones leave out the z kernels' node quantities (constants
 # in their place) or their grid cells, or let z_lnlike_vg's tiles of 4 take
-# as many registers as they would
+# as many registers as they would; the "value ln fc" ones give free_lnlike's
+# ln fc the accurate log and the IEEE divide of the plain version (ln_fc),
+# or one of the two
 _COLS = "for (int c = threadIdx.x; c < nw * ncols; c += THREADS) {"
 _ROWS = "for (int j = threadIdx.x; j < nw; j += THREADS) {"
 ABLATIONS = {
@@ -353,6 +396,13 @@ ABLATIONS = {
     "z tiles of 4 unbounded": {"lnlike_z.cu": lambda t: t.replace(
         "__global__ void __launch_bounds__(THREADS, T == 4 ? 3 : 1)\nz_vg(",
         "__global__ void __launch_bounds__(THREADS)\nz_vg(", 1)},
+    "value ln fc accurate": {"lnlike.cu": lambda t: t.replace(
+        "return {ln_fc_sfu(", "return {ln_fc(")},
+    "value ln fc, IEEE divide": {"lnlike.cu": lambda t: t.replace(
+        "__fdividef(lf, 1.0f - expf(-(r * t2)))",
+        "lf / (1.0f - expf(-(r * t2)))")},
+    "value ln fc, accurate log": {"lnlike.cu": lambda t: t.replace(
+        "const float lf = __logf(fc);", "const float lf = logf(fc);")},
     "finish run twice": {n: lambda t: t.replace(
         "    vg_segment_sums<", "    for (int rep = 0; rep < 2; ++rep) {\n"
         "    vg_segment_sums<").replace(
@@ -361,6 +411,28 @@ ABLATIONS = {
         "    if (threadIdx.x == 0) tickets[blockIdx.y] = 0;\n")
         for n in ("lnlike.cu", "lnlike_h.cu", "lnlike_z.cu")},
 }
+
+
+def sass_counts(lib, label):
+    """Prints, for each one-launch kernel instance of the library ``lib``,
+    its SASS instructions, branches (BRA), calls (CALL: a slow path's, an
+    IEEE divide's) and SFU operations (MUFU), from ``cuobjdump -sass``;
+    returns them by kernel."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True,
+                          text=True, timeout=300).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if not re.match(r"_Z\d+(free_vg|hier_vg|z_value|z_vg)I", name):
+            continue
+        ins = [ln for ln in body.splitlines()
+               if re.search(r"/\*[0-9a-f]{4}\*/", ln)]
+        out[name] = [len(ins)] + [sum(f" {op}" in ln for ln in ins)
+                                  for op in ("BRA", "CALL", "MUFU")]
+    print(f"  SASS ({label}; instructions, BRA, CALL, MUFU): " + ", ".join(
+        f"{k}: {v}" for k, v in sorted(out.items())))
+    return out
 
 
 def _ptr(t):
@@ -374,6 +446,15 @@ def _stream():
 def _check(rc, what):
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def chunk_table(data):
+    """The launch table of the two-pass kernels, which the data no longer
+    keeps: each field's cells, then its sources, cut into pieces of at most
+    ``CHUNK_CELLS`` (the z model's: :func:`z_chunk_table`)."""
+    if isinstance(data, cl.CudaZData):
+        return z_chunk_table(data.shape, data.s_a.numel())
+    return cl._chunk_table(data.grid_off, data.src_off)
 
 
 def z_chunk_table(shape, nsrc):
@@ -409,10 +490,8 @@ def old_calls(lib, kname, data, two_pass):
     fm = FAMILIES[kname]
     arrays = tuple(getattr(data, a) for a in fm.arrays)
     head = tuple(fm.head(data))
-    z = isinstance(data, cl.CudaZData)
-    nf = data.shape[0] if z else data.nfields
-    chunks = (torch.as_tensor(z_chunk_table(data.shape, data.s_a.numel()),
-                              device=data.g_a.device) if z else data.chunks)
+    nf = data.shape[0] if isinstance(data, cl.CudaZData) else data.nfields
+    chunks = torch.as_tensor(chunk_table(data), device=data.g_a.device)
     nchunks = chunks.shape[0]
     flags = (int(bool(data.fcmin)),) if kname.startswith("free") else ()
 
@@ -551,6 +630,9 @@ def design_turns(args):
     res = {"card": cs._SMI[0], "mode": "value" if args.value else "vg",
            "empty_ms": cs._device_ms(lambda: empty(1)),
            "empty_pair_ms": cs._device_ms(lambda: empty(2)), "rows": []}
+    if args.sass:
+        res["sass"] = {label: sass_counts(lib, label) for label, lib in
+                       [("current", _build.load_library()), *ablated.items()]}
     print(f"empty kernel {res['empty_ms'] * 1e3:.2f} us, empty pair "
           f"{res['empty_pair_ms'] * 1e3:.2f} us (graph replay)")
     for case in cs._cases(dev, suffix):
@@ -623,8 +705,9 @@ def main():
     ap.add_argument("--old", required=True,
                     help="the earlier design's csrc/ directory")
     ap.add_argument("--value", action="store_true",
-                    help="compare the value kernels z_lnlike and "
-                         "hier_lnlike (else the value+gradient kernels)")
+                    help="compare the value kernels free_lnlike, "
+                         "fixed_lnlike, z_lnlike and hier_lnlike (else the "
+                         "value+gradient kernels)")
     ap.add_argument("--widths", default="",
                     help="walker batches (default 1,8,256; with --value "
                          "13,50,100,2400)")
@@ -637,6 +720,10 @@ def main():
     ap.add_argument("--sweep", action="store_true",
                     help="also time the current kernel at every (walker "
                          "tile, piece) it is built for")
+    ap.add_argument("--sass", action="store_true",
+                    help="also count each kernel's SASS instructions, "
+                         "branches, calls and SFU operations (with "
+                         "--ablate: in every ablated build too)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
