@@ -4,8 +4,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases (run as 1, 2, 10, 3, 4, 11, 13, then the fit paths and 9); any
-failure ends the run with a nonzero exit:
+Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 15 and
+9); any failure ends the run with a nonzero exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
    ``nvidia-smi``'s name and power limit;
@@ -85,13 +85,38 @@ failure ends the run with a nonzero exit:
    kernels), the lnp differences of 32 close theta pairs near the truth
    through ``fixed_lnlike``, ``z_lnlike``, ``hier_lnlike`` and the value
    column of each ``_vg`` twin, against the float64 eager engine (<= 0.05
-   absolute, each error printed), each kernel's tickets back at 0.
+   absolute, each error printed), each kernel's tickets back at 0;
+14. the evidence ladder's likelihood: on the fits' catalog, for each
+   family, ``run_tempered`` (16 rungs x 100 walkers x ``LADDER_STEPS``)
+   through ``make_cuda_prior_like``'s ``lnlike_fn`` (its value kernel,
+   one launch a half-step for all rungs, then the recompute in
+   ``MAX_ROWS`` chunks: exact launch counts), then the same chains'
+   post-burn lnlike by the float64 eager engine (the hierarchical data
+   term without the hyperprior): the two stepping-stone ln Z within
+   ``DLNP_TOL`` (0.05 nats), the tickets back at 0, each |dlnZ| and the
+   ladder's wall time printed;
+15. ``compare-ic`` on ``fit`` vs ``fit -fc`` (the same catalog) and
+   ``stack-ic`` on both, from the paths' ``ic_pointwise`` files: a
+   verdict, the stacked score, no launch.
 
-Phases 5-8 and 12 run side by side, each path's stretch and NUTS fit in
-a process of its own (``--path``): the sampler loops are host-bound, so
-the five take about the time of the longest. Each fit runs with every
-launch counter set to 0 just before it and read just after. Prints the
-kernel summary as one JSON line, then the device line last.
+Phases 5-8 and 12 run side by side, each path in a process of its own
+(``--path``): its stretch fit, its NUTS fit, then the model comparison
+(``PATHS[label].compare``): the finished stretch fit rerun with ``--ic``
+(every path; 1000 draws x 1,019,385 sources on the mega path), ``--ppc``
+(``fit``, ``fitz``, ``fith``) and ``--evidence 16`` (``fit``; ``fith``
+with ``--evidence-swap 10 --evidence-tune 1``), gated on the resumed
+posterior, every artifact, the IC's decomposition error under the JAX
+package's tolerance rule and a finite ``k_max``, the PPC's E[N_pred]
+over the ``select_samples`` rows within 5 sqrt(N_obs) of N_obs (the
+artifact's, over every row, printed beside it), and the ladder's exact
+value-kernel launches (one a half-step for all rungs, plus the
+recompute's chunks);
+then ``fit -fc --map`` (the MAP's logL* within 3 posterior sd of the
+stretch median, no launch) and a ``fit --init-map`` stretch fit. The
+sampler loops are host-bound, so the five take about the time of the
+longest. Each run has every launch counter set to 0 just before it and
+read just after. Prints the kernel summary as one JSON line, then the
+device line last.
 """
 
 from __future__ import annotations
@@ -116,12 +141,14 @@ from lumfuncmcmc_tpu_torch import LFConfig
 from lumfuncmcmc_tpu_torch.cli.main import main as cli_main
 from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.hierarchical import (
-    ThetaLayoutH, make_lnprob_h)
+    ThetaLayoutH, lnlike_h_split, make_lnprob_h)
 from lumfuncmcmc_tpu_torch.models.likelihood import (
-    ThetaLayout, make_lnprob, sample_init)
+    ThetaLayout, lnlike_single_epoch, make_lnprob, sample_init)
 from lumfuncmcmc_tpu_torch.models.likelihood_z import (
-    ThetaLayoutZ, make_lnprob_z)
+    ThetaLayoutZ, lnlike_z, make_lnprob_z)
 from lumfuncmcmc_tpu_torch.models.model import select_samples
+from lumfuncmcmc_tpu_torch.samplers.tempering import (
+    beta_ladder, evidence_from_ladder, run_tempered)
 from lumfuncmcmc_tpu_torch.ops import _build
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
 from lumfuncmcmc_tpu_torch.ops import roofline as rl
@@ -157,6 +184,8 @@ DEVICE_LINE = "Device: cuda:0"      # what a run on the card logs first
 MEGA_TARGET, MEGA_SEED, MEGA_SOURCES = 1_200_000, 7, 1_019_385
 MEGA_STEPS = 2000       # stretch steps of the mega fit
 DLNP_TOL = 0.05         # lnp difference of close thetas vs float64
+EVIDENCE_RUNGS = 16     # --evidence's rungs on the fit paths
+LADDER_STEPS = 400      # phase 14's ladder steps (the CLI's: the fit's -ns)
 SOURCES = {"z": "lnlike_z.cu", "hier": "lnlike_h.cu",
            "fixed": "lnlike_h.cu",
            "free_stream": "lnlike_stream.cu", "roofline": "roofline.cu"}
@@ -1116,7 +1145,7 @@ def _drive(argv, run_dir):
     log = logging.getLogger("lumfuncmcmc_tpu_torch")
     log.addHandler(rec)
     cwd = os.getcwd()
-    os.makedirs(run_dir)
+    os.makedirs(run_dir, exist_ok=True)
     os.chdir(run_dir)
     try:
         for name in KERNELS:
@@ -1149,25 +1178,32 @@ def _artifacts(label, out, base, has_mpl):
     return post
 
 
-def _path(cmd, extra, out, fam, col, **kw):
+def _path(cmd, extra, out, fam, col, compare, **kw):
     """A fit path: CLI arguments after the subcommand, output directory,
     the kernel family, the posterior column the NUTS run is held to, the
-    catalog size, stretch steps, NUTS samples and whether it runs with
-    ``use_x64``."""
+    model-comparison flags its finished stretch fit is rerun with, the
+    catalog size, stretch steps, NUTS samples, whether it runs with
+    ``use_x64``, and its fresh ``--map`` / ``--init-map`` run (``also``)."""
     base = dict(nsynth=NSYNTH, nsteps=NSTEPS, nuts=NUTS_STEPS[fam],
-                x64=False)
+                x64=False, also=None)
     return SimpleNamespace(cmd=cmd, extra=extra, out=out, fam=fam, col=col,
-                           **{**base, **kw})
+                           compare=compare, **{**base, **kw})
 
 
+EVIDENCE = ["--evidence", str(EVIDENCE_RUNGS)]
 PATHS = {
-    "fit": _path("fit", [], "LFMCMCOut", "free", r"$\log L_*$"),
-    "fit -fc": _path("fit", ["-fc"], "LFMCMCOut", "fixed", r"$\log L_*$"),
-    "fitz": _path("fitz", [], "LFMCMCzOut", "z", r"$\log {\rm{L}}2_*$"),
-    "fith": _path("fith", [], "LFMCMCHOut", "hier", r"$\mu_{L_*}$"),
+    "fit": _path("fit", [], "LFMCMCOut", "free", r"$\log L_*$",
+                 ["--ic", "--ppc"] + EVIDENCE, also="--init-map"),
+    "fit -fc": _path("fit", ["-fc"], "LFMCMCOut", "fixed", r"$\log L_*$",
+                     ["--ic"], also="--map"),
+    "fitz": _path("fitz", [], "LFMCMCzOut", "z", r"$\log {\rm{L}}2_*$",
+                  ["--ic", "--ppc"]),
+    "fith": _path("fith", [], "LFMCMCHOut", "hier", r"$\mu_{L_*}$",
+                  ["--ic", "--ppc"] + EVIDENCE + ["--evidence-swap", "10",
+                                                  "--evidence-tune", "1"]),
     "fit mega": _path("fit", ["--seed", str(MEGA_SEED), "--quadrature",
                               "gauss"], "LFMCMCOut", "free", r"$\log L_*$",
-                      nsynth=MEGA_TARGET, nsteps=MEGA_STEPS,
+                      ["--ic"], nsynth=MEGA_TARGET, nsteps=MEGA_STEPS,
                       nuts=NUTS_STEPS["mega"], x64=True),
 }
 
@@ -1199,14 +1235,23 @@ def _check_lf_matrix(label, out, base):
         fail(f"{label}: the LF matrix is not finite and positive")
 
 
+def _fit_argv(path, workdir, has_mpl):
+    """The stretch fit's command line of ``path``."""
+    return [path.cmd, "--synthetic", str(path.nsynth), "-mcf", "0.5",
+            "-nw", str(NWALKERS), "-ns", str(path.nsteps), "--config",
+            _smoke_config(workdir, has_mpl, path.x64)] + path.extra
+
+
+def _run_dir(workdir, label):
+    return os.path.join(workdir, label.replace(" ", "_"))
+
+
 def phase_fit(label, workdir, has_mpl):
     """The port's CLI, end to end, through the kernels. Returns the
     launch counts and the posterior's ``col`` column."""
     path = PATHS[label]
-    argv = [path.cmd, "--synthetic", str(path.nsynth), "-mcf", "0.5",
-            "-nw", str(NWALKERS), "-ns", str(path.nsteps), "--config",
-            _smoke_config(workdir, has_mpl, path.x64)] + path.extra
-    run_dir = os.path.join(workdir, label.replace(" ", "_"))
+    argv = _fit_argv(path, workdir, has_mpl)
+    run_dir = _run_dir(workdir, label)
     rc, counts, rec, peak, wall = _drive(argv, run_dir)
     if rc != 0:
         fail(f"{label} returned {rc}")
@@ -1370,6 +1415,299 @@ def phase_nuts(stretch_label, workdir, has_mpl, stretch_col):
     return counts
 
 
+def _ladder_launches(rec, label):
+    """The value-kernel launches the log's evidence ladder makes: each
+    leg one for the start and one a half-step over all rungs, then the
+    lnlike recompute of the main leg's chain in ``MAX_ROWS`` chunks."""
+    nr, nw, nsteps = _logged(
+        rec, r"Evidence ladder: (\d+) rungs x (\d+) walkers x (\d+) steps",
+        label)
+    swap = [ln for ln in rec.lines
+            if ln.startswith("Replica-exchange swap acceptance")]
+    if swap:
+        m = re.search(r"--evidence-swap (\d+)", " ".join(PATHS[label].compare))
+        nsteps -= nsteps % int(m.group(1))
+    tune = [int(re.search(r"\((\d+) steps\)", ln).group(1))
+            for ln in rec.lines if ln.startswith("Ladder tuning leg")]
+    return (sum(1 + 2 * n for n in tune) + 1 + 2 * int(nsteps)
+            + math.ceil(nr * nsteps * nw / cl.MAX_ROWS)), tune
+
+
+def _ppc_selected(path, out, base):
+    """The posterior predictive check of ``path``'s stretch posterior
+    over its ``select_samples`` rows (the rows of the parameters table,
+    the IC and the path gates), on ``_write_ppc``'s trapz-201 grid of the
+    fits' catalog, on the card: (E[N_pred], N_obs, rows, the largest gap
+    of a walker's median lnprob below the best walker's). The artifact
+    draws from every post-burn row, as the JAX CLI's does, and a stretch
+    walker left in a far local mode is no posterior draw."""
+    from lumfuncmcmc_tpu_torch.cli.common import _pivot_z
+    from lumfuncmcmc_tpu_torch.models.ppc import posterior_predictive_check
+    post = read_fixed_width_two_line(os.path.join(out,
+                                                  f"fitposterior_{base}.dat"))
+    rows = select_samples(np.column_stack([post[k] for k in post]))
+    med = np.median(np.asarray(post["Ln Prob"]).reshape(-1, NWALKERS),
+                    axis=0)
+    cfg = LFConfig(min_comp_frac=0.5)
+    cat = apply_completeness_cut(
+        make_catalog(cfg, n_target=path.nsynth, seed=cfg.seed), cfg)
+    if path.fam == "z":
+        cfg = _pivot_z(cfg, None)
+    fine = cfg.replace(fix_comp=path.fam != "free", size_ln=201,
+                       quadrature="trapz")
+    _, ctx = build_context(fine, z=cat["z"], flux=cat["flux"],
+                           flux_e=cat["flux_e"], field_id=cat["field_id"],
+                           device=torch.device("cuda:0"),
+                           dtype=torch.float32)
+    layout = {"z": ThetaLayoutZ, "hier": ThetaLayoutH}.get(
+        path.fam, ThetaLayout).from_config(fine)
+    res = posterior_predictive_check(rows, ctx, layout, nbins=cfg.nbins,
+                                     seed=cfg.seed)
+    return (res["total_predicted"], float(res["total_observed"]), len(rows),
+            float(med.max() - med.min()))
+
+
+def phase_compare(label, workdir, has_mpl):
+    """The path's finished stretch fit rerun with its model-comparison
+    flags (``PATHS[label].compare``): the resumed posterior, not sampled
+    again; every artifact; the IC's decomposition error under the JAX
+    package's tolerance rule and a finite ``k_max``; the PPC's expected
+    total within 5 sqrt(N_obs) of the observed; the evidence ladder's
+    value-kernel launches exactly one a half-step for all rungs plus the
+    recompute's chunks, and a finite ln Z. Returns the launch counts.
+    The PPC gate reads the check over the ``select_samples`` rows
+    (:func:`_ppc_selected`) and prints the artifact's beside it."""
+    path = PATHS[label]
+    argv = _fit_argv(path, workdir, has_mpl) + path.compare
+    name = f"{label} {' '.join(path.compare)}"
+    run_dir = _run_dir(workdir, label)
+    rc, counts, rec, peak, wall = _drive(argv, run_dir)
+    if rc != 0:
+        fail(f"{name} returned {rc}")
+    if any(ln.startswith("Fitting ") for ln in rec.lines):
+        fail(f"{name}: sampled again instead of resuming the posterior")
+    base = f"test_nb50_nw{NWALKERS}_ns{path.nsteps}_mcf50"
+    out = os.path.join(run_dir, path.out)
+    want = {k: 0 for k in KERNELS}
+    notes = []
+    files = []
+    if "--ic" in path.compare:
+        files += [f"ic_{base}.dat", f"ic_pointwise_{base}.npz"]
+    if "--ppc" in path.compare:
+        files += [f"ppc_{base}.dat"] + ([f"ppc_{base}.png"] if has_mpl
+                                        else [])
+    if "--evidence" in path.compare:
+        files += [f"evidence_{base}.dat"]
+    missing = [f for f in files if not os.path.isfile(os.path.join(out, f))]
+    if missing:
+        fail(f"{name}: missing artifacts {missing}")
+    if "--ic" in path.compare:
+        nsrc, ndraws = _logged(rec, r"Predictive information criteria "
+                               r"\((\d+) sources, (\d+) posterior draws\)",
+                               name)
+        (err,) = _logged(rec, r"decomposition check: max rel err "
+                         r"([\d.e+-]+)", name)
+        tol = 1e-5 if path.x64 else max(1e-4, 3e-7 * math.sqrt(nsrc))
+        ic = read_fixed_width_two_line(os.path.join(out, f"ic_{base}.dat"))
+        kmax = float(np.asarray(ic["k_max"])[0])
+        if not (err <= tol and np.isfinite(kmax)):
+            fail(f"{name}: IC decomposition error {err} (limit {tol:.2e}), "
+                 f"k_max {kmax}")
+        (secs,) = _logged(rec, r"Information criteria: ([\d.]+) s", name)
+        notes.append(
+            f"IC {int(ndraws)} draws x {int(nsrc)} sources in {secs:.2f} s "
+            f"(elpd_loo {float(np.asarray(ic['elpd_loo'])[0]):.3f}, k_max "
+            f"{kmax:.3f}, frac k>0.7 "
+            f"{float(np.asarray(ic['frac_k_gt_07'])[0]):.4f}, decomposition "
+            f"error {err:.2e} of {tol:.2e})")
+    if "--ppc" in path.compare:
+        ppc = read_fixed_width_two_line(os.path.join(out, f"ppc_{base}.dat"))
+        nobs = float(np.sum(ppc["Observed"]))
+        npred = float(np.sum(ppc["PredMean"]))
+        sel_pred, sel_obs, nrows, gap = _ppc_selected(path, out, base)
+        if not (sel_obs == nobs
+                and abs(sel_pred - nobs) < 5.0 * math.sqrt(nobs)):
+            fail(f"{name}: PPC E[N_pred] {sel_pred:.1f} over the selected "
+                 f"rows vs N_obs {nobs:.0f} (limit 5 sqrt(N_obs))")
+        (secs,) = _logged(rec, r"Posterior predictive check: ([\d.]+) s",
+                          name)
+        notes.append(f"PPC E[N_pred] {sel_pred:.1f} over the {nrows} "
+                     f"selected rows vs N_obs {nobs:.0f} (the artifact's, "
+                     f"over all rows, {npred:.1f}; the lowest walker's "
+                     f"median lnprob {gap:.1f} below the best's) in "
+                     f"{secs:.2f} s, worst bin p-value "
+                     f"{float(np.min(ppc['PValue'])):.3f}")
+    if "--evidence" in path.compare:
+        stem, _ = _route(path, rec, name)
+        want[f"{stem}_lnlike"], tune = _ladder_launches(rec, label)
+        lnz, lnz_err, ti, secs = _logged(
+            rec, r"ln Z = ([\d.e+-]+) \+- ([\d.e+-]+) \(stepping-stone; TI "
+            r"([\d.e+-]+) .* in ([\d.]+) s", name)
+        if not np.isfinite([lnz, lnz_err]).all():
+            fail(f"{name}: ln Z {lnz} +- {lnz_err}")
+        notes.append(f"ladder ln Z {lnz:.3f} +- {lnz_err:.3f} (TI {ti:.3f}) "
+                     f"in {secs:.2f} s, {want[f'{stem}_lnlike']} "
+                     f"{stem}_lnlike launches"
+                     + (f" (tuning legs of {tune} steps)" if tune else ""))
+    if counts != want:
+        fail(f"{name}: launch counts {counts}, expected {want}")
+    print(f"{name} (resumed): artifacts ok ({len(files)} files); "
+          + "; ".join(notes) + f"; CLI wall {wall:.1f} s, device memory "
+          f"peak {peak / 2**20:.1f} MiB")
+    return counts
+
+
+def phase_also(label, workdir, has_mpl, stretch_col):
+    """The path's fresh ``--map`` run (no sampling: the MAP of the eager
+    float64 lnpost, its logL* within 3 posterior sd of the stretch fit's
+    median, no kernel launch) or ``--init-map`` stretch fit (Laplace
+    starts, or the uniform fallback at a boundary mode; artifacts and
+    launches as the stretch fit's). Returns the launch counts."""
+    path = PATHS[label]
+    flag = path.also
+    name = f"{label} {flag}"
+    run_dir = _run_dir(workdir, f"{label} {flag}")
+    argv = _fit_argv(path, workdir, has_mpl) + [flag]
+    rc, counts, rec, peak, wall = _drive(argv, run_dir)
+    if rc != 0:
+        fail(f"{name} returned {rc}")
+    base = f"test_nb50_nw{NWALKERS}_ns{path.nsteps}_mcf50"
+    out = os.path.join(run_dir, path.out)
+    want = {k: 0 for k in KERNELS}
+    lnpost, secs = _logged(rec, r"MAP fit: lnpost=([\d.e+-]+) in ([\d.]+) s",
+                           name)
+    if flag == "--map":
+        tab = read_fixed_width_two_line(os.path.join(out, f"map_{base}.dat"))
+        lstar = float(np.asarray(tab["Lstar"])[0])
+        gap = abs(lstar - np.median(stretch_col)) / np.std(stretch_col)
+        if not (np.isfinite(lnpost) and gap < 3.0):
+            fail(f"{name}: MAP lnpost {lnpost}, logL* {lstar:.4f} is "
+                 f"{gap:.2f} posterior sd from the stretch median "
+                 f"{np.median(stretch_col):.4f} (limit 3)")
+        if any(f.startswith("fitposterior") for f in os.listdir(out)):
+            fail(f"{name}: sampled")
+        lnz = float(np.asarray(tab["lnz_laplace"])[0])
+        detail = (f"MAP lnpost {lnpost:.4f} in {secs:.2f} s, logL* "
+                  f"{lstar:.4f} ({gap:.2f} sd from the stretch median), "
+                  f"Laplace ln Z {lnz:.3f}")
+    else:
+        _artifacts(name, out, base, has_mpl)
+        acc = rec.value("Mean acceptance fraction:")
+        if not 0.1 < acc < 0.9:
+            fail(f"{name}: acceptance fraction {acc} outside (0.1, 0.9)")
+        laplace = any(ln.startswith("Walker init: ") for ln in rec.lines)
+        fallback = any("using uniform box starts" in ln for ln in rec.lines)
+        if laplace == fallback:
+            fail(f"{name}: the log names neither the Laplace starts nor "
+                 "their fallback")
+        want[f"{path.fam}_lnlike"] = 1 + 2 * path.nsteps
+        detail = (f"MAP lnpost {lnpost:.4f} in {secs:.2f} s, "
+                  + ("Laplace starts" if laplace else
+                     "uniform fallback (mode on a box edge)")
+                  + f", acceptance {acc:.4f}, sampling loop "
+                  f"{rec.value('Total time taken:'):.3f} s")
+    if counts != want:
+        fail(f"{name}: launch counts {counts}, expected {want}")
+    print(f"{name}: ok; {detail}; CLI wall {wall:.1f} s")
+    return counts
+
+
+def phase_ic_commands(workdir):
+    """``compare-ic`` on ``fit`` vs ``fit -fc`` (the same catalog), then
+    ``stack-ic`` on both: they read only the paths' ``ic_pointwise``
+    files and launch no kernel."""
+    base = f"test_nb50_nw{NWALKERS}_ns{NSTEPS}_mcf50"
+    npz = [os.path.join(_run_dir(workdir, label), PATHS[label].out,
+                        f"ic_pointwise_{base}.npz")
+           for label in ("fit", "fit -fc")]
+    for argv, want in ((["compare-ic"] + npz, "paired sources"),
+                       (["stack-ic"] + npz, "stacked log score")):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, counts, _, _, wall = _drive(argv, os.path.join(workdir,
+                                                               argv[0]))
+        text = out.getvalue()
+        if rc != 0 or want not in text or any(counts.values()):
+            fail(f"{argv[0]}: rc {rc}, launches {counts}, output {text!r}")
+        if argv[0] == "compare-ic" and not re.search(
+                r"is preferred|no significant preference", text):
+            fail(f"compare-ic printed no verdict: {text!r}")
+        print(f"{argv[0]} fit vs fit -fc ({wall:.2f} s):")
+        print("\n".join("  " + ln for ln in text.rstrip().splitlines()))
+
+
+def phase_ladder(dev):
+    """The ladder's likelihood (phase 14): on the fits' catalog, each
+    family's ``run_tempered`` through ``make_cuda_prior_like``'s
+    ``lnlike_fn`` on the card (float32 kernels, one launch a half-step),
+    then the same chains' post-burn lnlike recomputed by the float64
+    eager engine (the hierarchical data term without the hyperprior):
+    the stepping-stone ln Z of the two within ``DLNP_TOL``, the kernel's
+    launches exactly one a half-step plus the recompute's chunks, its
+    tickets back at 0. Returns {family: |dlnZ|}."""
+    base = LFConfig(min_comp_frac=0.5)
+    cat = apply_completeness_cut(
+        make_catalog(base, n_target=NSYNTH, seed=base.seed), base)
+    kw = dict(z=cat["z"], flux=cat["flux"], flux_e=cat["flux_e"],
+              field_id=cat["field_id"], device=dev)
+    fixed = base.replace(fix_comp=True)
+    eager = {"free": lnlike_single_epoch, "fixed": lnlike_single_epoch,
+             "z": lnlike_z,
+             "hier": lambda th, ctx, lay: lnlike_h_split(th, ctx, lay)[0]}
+    betas = beta_ladder(EVIDENCE_RUNGS)
+    out = {}
+    for fam, cfg in (("free", base), ("fixed", fixed), ("z", fixed),
+                     ("hier", fixed)):
+        ctx32, ctx64 = (build_context(cfg, dtype=dt, **kw)[1]
+                        for dt in (torch.float32, torch.float64))
+        layout = {"z": ThetaLayoutZ, "hier": ThetaLayoutH}.get(
+            fam, ThetaLayout).from_config(cfg)
+        model = fam if fam in ("z", "hier") else "single"
+        prior, like = cl.make_cuda_prior_like(ctx32, layout, model)
+        kernel = _kernel(f"{fam}_lnlike")
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        pos0 = torch.stack([sample_init(gen, layout, NWALKERS,
+                                        dtype=torch.float32, device=dev)
+                            for _ in range(EVIDENCE_RUNGS)])
+        n0 = kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chains, lnls, _ = run_tempered(prior, like, pos0, betas, gen,
+                                       LADDER_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _tickets_at_0(f"{fam} ladder", like.data)
+        rows = EVIDENCE_RUNGS * LADDER_STEPS * NWALKERS
+        want = 1 + 2 * LADDER_STEPS + math.ceil(rows / cl.MAX_ROWS)
+        if kernel.launches - n0 != want:
+            fail(f"{fam} ladder: {kernel.launches - n0} {fam}_lnlike "
+                 f"launches, expected {want}")
+        burn = LADDER_STEPS // 2
+        post = chains[:, burn:].double()
+        with torch.no_grad():
+            l64 = _in_rows(lambda th: eager[fam](th, ctx64, layout),
+                           post.reshape(-1, layout.ndim),
+                           1024 if fam == "free" else 256)
+        l64 = l64.reshape(post.shape[:3]).cpu().numpy()
+        l32 = lnls[:, burn:].double().cpu().numpy()
+        z32 = evidence_from_ladder(l32, betas, burn_frac=0.0)["lnz_ss"]
+        z64 = evidence_from_ladder(l64, betas, burn_frac=0.0)["lnz_ss"]
+        d = abs(z32 - z64)
+        if not d <= DLNP_TOL:
+            fail(f"{fam} ladder: stepping-stone ln Z {z32:.4f} through the "
+                 f"kernel vs {z64:.4f} float64 eager (|d| {d:.4f}, limit "
+                 f"{DLNP_TOL})")
+        print(f"{fam} ladder ({EVIDENCE_RUNGS} rungs x {NWALKERS} walkers x "
+              f"{LADDER_STEPS} steps): ln Z {z32:.4f} through {fam}_lnlike, "
+              f"{z64:.4f} float64 eager, |dlnZ| {d:.2e}; ladder wall "
+              f"{wall:.2f} s, {want} launches (largest per-row |dlnl| "
+              f"{np.max(np.abs(l32 - l64)):.3e})")
+        out[fam] = d
+        del chains, lnls, post, ctx32, ctx64
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_vmax(workdir, has_mpl):
     """The standalone 1/V_eff pipeline on the fits' catalog, whole and in
     three equal-count z bins: weights and bootstrap on the card, the
@@ -1444,17 +1782,22 @@ def _check_no_jax():
 
 
 def run_path(label, workdir, has_mpl):
-    """One fit path in this process: its stretch fit, then its NUTS fit.
-    Prints their lines, then one JSON line with the path's launch counts
-    (``python3 chip_smoke.py --path LABEL WORKDIR HAS_MPL``, which
-    :func:`phase_paths` starts)."""
+    """One fit path in this process: its stretch fit, its NUTS fit, the
+    stretch fit rerun with the path's model-comparison flags, and its
+    fresh ``--map`` / ``--init-map`` run where it has one. Prints their
+    lines, then one JSON line with the path's launch counts (``python3
+    chip_smoke.py --path LABEL WORKDIR HAS_MPL``, which :func:`phase_paths`
+    starts)."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     counts, col = phase_fit(label, workdir, has_mpl)
-    nuts = phase_nuts(label, workdir, has_mpl, col)
+    runs = [counts, phase_nuts(label, workdir, has_mpl, col),
+            phase_compare(label, workdir, has_mpl)]
+    if PATHS[label].also:
+        runs.append(phase_also(label, workdir, has_mpl, col))
     _check_no_jax()
     print(json.dumps({"path": label, "launches": {
-        k: counts[k] + nuts[k] for k in KERNELS}}))
+        k: sum(r[k] for r in runs) for k in KERNELS}}))
     return 0
 
 
@@ -1528,6 +1871,8 @@ def main():
         summary[name]["dlnp_err"] = err
     del mega
     torch.cuda.empty_cache()
+    for fam, d in phase_ladder(dev).items():
+        summary[f"{fam}_lnlike"]["ladder_dlnz"] = d
     print(f"kernel phases: {time.perf_counter() - t_start:.1f} s")
     try:
         import matplotlib  # noqa: F401
@@ -1536,6 +1881,7 @@ def main():
         has_mpl = False
     with tempfile.TemporaryDirectory() as workdir:
         launches = phase_paths(workdir, has_mpl)
+        phase_ic_commands(workdir)
         phase_vmax(workdir, has_mpl)
     _check_no_jax()
     launches["roofline_chain"] = roof["launches"]
@@ -1560,7 +1906,8 @@ def main():
         for k in ("max_grad_err", "ms_w256", "plain_ms_w256",
                   "bound_ms_w256", "ms_w1", "split", "split_w1",
                   "split_w256", "resident_ms", "resident_ms_w256",
-                  "dlnp_err", "resident_dlnp_err", "lnprob_call_ms",
+                  "dlnp_err", "resident_dlnp_err", "ladder_dlnz",
+                  "lnprob_call_ms",
                   "elements_per_sec",
                   "transcendentals_per_sec"):
             if k in s:

@@ -7,7 +7,8 @@
 - ``fith`` — hierarchical multi-field fit, into ``LFMCMCHOut/``
 
 each with the stretch/DE/mix ensemble or, with ``--sampler nuts``,
-batched NUTS.
+batched NUTS, and the post-fit analyses ``--ic``, ``--ppc``,
+``--evidence`` and ``--map``.
 
 Flags whose features are not ported yet raise ``NotImplementedError``
 naming the flag, before any work starts.
@@ -19,15 +20,15 @@ import os
 
 from lumfuncmcmc_tpu_torch.cli.common import (
     _align_fields, _apply_precision, _build_cfg, _load_inputs, _pivot_z)
-from lumfuncmcmc_tpu_torch.cli.outputs import _resume_if_done, _write_outputs
+from lumfuncmcmc_tpu_torch.cli.outputs import (
+    _map_only_outputs, _resume_if_done, _resumed_outputs, _run_evidence,
+    _write_evidence, _write_ic, _write_outputs, _write_ppc)
 
 # CLI-only flags (no LFConfig field) -> the value that means "not
-# requested"; unported config fields (init_map, exact_bounds, meshes,
+# requested"; unported config fields (exact_bounds, meshes,
 # checkpoint_every) are refused by the model itself
 _NOT_PORTED_FLAGS = {
-    "map": False, "ic": False, "ppc": False, "evidence": None,
-    "evidence_swap": 0, "evidence_tune": 0, "min_ess": None,
-    "ensembles": None, "nuts_pooled": False,
+    "min_ess": None, "ensembles": None, "nuts_pooled": False,
     "profile": None, "distributed": None,
 }
 
@@ -59,8 +60,9 @@ def _dispatch_sampler(model, cfg, args):
 
 
 def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
-    """Build config + model, the resume-and-replot early exit, the
-    sampler, then the artifact writers."""
+    """Build config + model, the resume-and-replot early exit (with the
+    analyses a rerun asks for), the ``--map`` early exit, the sampler,
+    the evidence ladder, then the artifact writers."""
     args.output_filename = args.output_filename or "test.dat"
     cfg = _build_cfg(args)
     _reject_unported(args, cfg)
@@ -79,12 +81,23 @@ def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
                       device=device, dtype=dtype)
     print(f"Initialized {model_cls.__name__}")
     if _resume_if_done(model, cfg, args, outdir):
+        _resumed_outputs(model, cfg, args, outdir)
         return 0
     names = model.get_param_names()
     print("Labels:", names)
+    if getattr(args, "map", False):
+        return _map_only_outputs(model, cfg, args, outdir)
     _dispatch_sampler(model, cfg, args)
+    ev = (_run_evidence(model, args)
+          if getattr(args, "evidence", None) is not None else None)
     print("Finished fitting model and about to create outputs")
     _write_outputs(model, cfg, args, outdir, names, z_variant=z_variant)
+    if getattr(args, "ppc", False):
+        _write_ppc(model, cfg, args, outdir)
+    if getattr(args, "ic", False):
+        _write_ic(model, cfg, args, outdir)
+    if ev is not None:
+        _write_evidence(ev, cfg, args, outdir)
     return 0
 
 

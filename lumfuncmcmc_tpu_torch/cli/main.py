@@ -1,12 +1,11 @@
 """CLI entry point of the port: ``python -m lumfuncmcmc_tpu_torch
-{fit,fitz,fith,vmax}``.
+{fit,fitz,fith,vmax,compare-ic,stack-ic}``.
 
 ``fit`` (the single-epoch Schechter fit), ``fitz`` (the
-redshift-evolving one), ``fith`` (the hierarchical multi-field one) and
-``vmax`` (the standalone 1/V_eff pipeline) are ported; they take the JAX
-CLI's flag sets, so the same command line works with either package.
-The JAX package's other subcommands are listed and answer "not ported
-yet".
+redshift-evolving one), ``fith`` (the hierarchical multi-field one),
+``vmax`` (the standalone 1/V_eff pipeline) and the model comparison over
+``--ic`` artifacts (``compare-ic``, ``stack-ic``) take the JAX CLI's
+arguments, so the same command line works with either package.
 """
 
 from __future__ import annotations
@@ -16,15 +15,9 @@ import sys
 
 from lumfuncmcmc_tpu_torch.cli.common import _add_common_flags
 from lumfuncmcmc_tpu_torch.cli.fit import cmd_fit, cmd_fith, cmd_fitz
+from lumfuncmcmc_tpu_torch.cli.ic_cmds import cmd_compare_ic, cmd_stack_ic
 from lumfuncmcmc_tpu_torch.cli.vmax import cmd_vmax
 from lumfuncmcmc_tpu_torch.utils.logging import setup_logging
-
-_NOT_PORTED_COMMANDS = ("compare-ic", "stack-ic")
-
-
-def _not_ported(args):
-    raise SystemExit(f"'{args.command}' is not ported yet (run it with the "
-                     "JAX package, lumfuncmcmc_tpu)")
 
 
 def _add_device_flag(p):
@@ -59,6 +52,22 @@ def main(argv=None):
     _add_device_flag(p_fith)
     p_fith.set_defaults(func=cmd_fith)
 
+    p_cmp = sub.add_parser(
+        "compare-ic",
+        help="paired elpd comparison of two --ic runs on the same catalog "
+             "(reads the ic_pointwise_*.npz artifacts)")
+    p_cmp.add_argument("npz_a", type=str, help="ic_pointwise npz of model A")
+    p_cmp.add_argument("npz_b", type=str, help="ic_pointwise npz of model B")
+    p_cmp.set_defaults(func=cmd_compare_ic)
+
+    p_stk = sub.add_parser(
+        "stack-ic",
+        help="stacking weights for model averaging from K --ic runs on the "
+             "same catalog (Yao et al. 2018)")
+    p_stk.add_argument("npz", type=str, nargs="+",
+                       help="ic_pointwise npz artifacts (>= 2)")
+    p_stk.set_defaults(func=cmd_stack_ic)
+
     p_vmax = sub.add_parser("vmax", help="standalone 1/V_eff pipeline")
     _add_common_flags(p_vmax)
     p_vmax.add_argument("--zbins", type=int, default=1)
@@ -79,15 +88,13 @@ def main(argv=None):
                              "scatter")
     _add_device_flag(p_vmax)
     p_vmax.set_defaults(func=cmd_vmax)
-    for name in _NOT_PORTED_COMMANDS:
-        sub.add_parser(name, help="not ported yet",
-                       add_help=False).set_defaults(func=_not_ported)
 
-    args, rest = parser.parse_known_args(argv)
-    if args.func is _not_ported:
-        _not_ported(args)
-    if rest:
-        parser.error("unrecognized arguments: " + " ".join(rest))
+    args = parser.parse_args(argv)
+    if (int(getattr(args, "evidence_tune", 0) or 0)
+            and not int(getattr(args, "evidence_swap", 0) or 0)):
+        # at argument-handling time, not after the whole fit has run
+        parser.error("--evidence-tune needs --evidence-swap M (the "
+                     "ladder is tuned from measured swap rates)")
     if getattr(args, "same_rand", False):
         args.diff_rand = False
     setup_logging()

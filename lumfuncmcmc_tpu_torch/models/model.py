@@ -5,13 +5,15 @@ one, and :class:`LumFuncModelH`, the hierarchical multi-field one.
 
 They keep the public surface of the JAX classes —
 ``fit_model``, ``fit_model_nuts``, ``set_median_fit``, ``veff_lf``,
-``add_fitinfo_to_table``, ``triangle_plot`` and the ``samples`` /
-``medianLF`` / ``Lavg`` / ``lfbinorig`` / ``var`` attributes — with
-tensors on one explicit device and dtype inside.
+``add_fitinfo_to_table``, ``triangle_plot``, the model-comparison
+methods ``log_evidence``, ``information_criteria`` and ``fit_map``, and
+the ``samples`` / ``medianLF`` / ``Lavg`` / ``lfbinorig`` / ``var``
+attributes — with tensors on one explicit device and dtype inside.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Optional
 
@@ -22,12 +24,12 @@ from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.ensemble_driver import _EnsembleDriverMixin
 from lumfuncmcmc_tpu_torch.models.hierarchical import (
-    ThetaLayoutH, make_lnprob_h)
+    ThetaLayoutH, lnlike_h_split, lnprior_h, lnz0_prior, make_lnprob_h)
 from lumfuncmcmc_tpu_torch.models.nuts_driver import _NutsDriverMixin
 from lumfuncmcmc_tpu_torch.models.likelihood import (
-    ThetaLayout, make_lnprob, sample_init)
+    ThetaLayout, lnlike_single_epoch, lnprior, make_lnprob, sample_init)
 from lumfuncmcmc_tpu_torch.models.likelihood_z import (
-    ThetaLayoutZ, make_lnprob_z)
+    ThetaLayoutZ, lnlike_z, lnprior_z, make_lnprob_z)
 from lumfuncmcmc_tpu_torch.ops.cuda_lnlike import FLOAT32_MAX_SOURCES
 from lumfuncmcmc_tpu_torch.models.veff import (
     binned_lf_bootstrap, log_bin_edges, veff_weights)
@@ -70,9 +72,21 @@ def posterior_lfs(model, draws):
 
 # flags whose features the port does not have yet, and the config value
 # that means "off"
-_NOT_PORTED = {"init_map": False,
-               "exact_bounds": False, "mesh_walkers": 0,
+_NOT_PORTED = {"exact_bounds": False, "mesh_walkers": 0,
                "mesh_sources": 1, "checkpoint_every": 0}
+
+# stream tags of the model-comparison runs' generators, the JAX package's
+# fold_in constants: an evidence or MAP run after a fit must not replay
+# the fit's draws
+EVIDENCE_TAG, MAP_TAG = 0x65766964, 0x6d6170
+
+
+def stream_generator(seed: int, tag: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded off ``seed``'s stream by ``tag``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence((int(seed), int(tag)))
+                        .generate_state(1, np.uint64)[0]))
+    return gen
 
 
 class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
@@ -116,16 +130,83 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
     def _make_layout(self):
         raise NotImplementedError
 
-    def _make_scalar_lnprob(self):
-        """The eager engine's lnprob, (C, D) -> (C,): what NUTS
-        differentiates by autograd on the CPU."""
+    def _make_scalar_lnprob(self, ctx=None):
+        """The eager engine's lnprob, (C, D) -> (C,), on ``ctx`` (default
+        the model's): what NUTS differentiates by autograd on the CPU,
+        and what the MAP fit maximizes."""
         raise NotImplementedError
 
-    def _initial_positions(self, generator, diff_rand=True):
-        """Walker starts: uniform draws inside the prior box."""
+    def _prior_like_fns(self):
+        """``(lnprior_fn, lnlike_fn)``, each (W, D) -> (W,): the prior
+        measure (box, and the hierarchical hyperprior) and the data term
+        a tempered run multiplies by beta. Subclasses give the eager
+        split; the hand-kernel engine takes the family's value kernel
+        (:func:`~lumfuncmcmc_tpu_torch.ops.cuda_lnlike.make_cuda_prior_like`)."""
+        if self._resolve_use_pallas():
+            from lumfuncmcmc_tpu_torch.ops.cuda_lnlike import (
+                make_cuda_prior_like)
+            prior, like = make_cuda_prior_like(self.ctx, self.layout,
+                                               model=self.model_kind)
+        else:
+            prior, like = self._eager_prior_like()
+            like.engine = "eager"
+        return prior, self._check_precision(like)
+
+    def _eager_prior_like(self):
+        raise NotImplementedError
+
+    def _default_positions(self, generator):
+        """Uniform draws inside the prior box. Always used by
+        :meth:`log_evidence`: rungs near beta = 0 sample the prior and
+        need prior-wide starts."""
         return sample_init(generator, self.layout, self.cfg.nwalkers,
-                           diff_rand=diff_rand, dtype=self.dtype,
-                           device=self.device)
+                           dtype=self.dtype, device=self.device)
+
+    def _initial_positions(self, generator):
+        """Walker starts: uniform prior-box draws, or with
+        ``cfg.init_map`` overdispersed Laplace draws around the MAP
+        (:meth:`_map_init_positions`)."""
+        if self.cfg.init_map:
+            return self._map_init_positions(generator)
+        self._init_from_map = False
+        return self._default_positions(generator)
+
+    def _map_init_positions(self, generator):
+        """Walkers from N(MAP, 2^2 Laplace cov), each component outside
+        the prior box replaced by a center-shrunk box draw. Falls back
+        to uniform draws, with a warning, when the Laplace covariance is
+        unusable (a mode on a box edge, or no negative definite
+        Hessian); ``self._init_from_map`` records which ran, so the NUTS
+        start guard shrinks only the fallback's starts."""
+        if getattr(self, "map_fit", None) is None:
+            self.fit_map()
+        res = self.map_fit
+        if not res["hess_ok"] or np.asarray(res["boundary"]).any():
+            self.log.warning(
+                "init_map: Laplace covariance unavailable (%s) — using "
+                "uniform box starts"
+                % ("MAP pinned at a prior bound" if res["hess_ok"]
+                   else "Hessian not negative definite at the mode"))
+            self._init_from_map = False
+            return self._default_positions(generator)
+        lo, hi = self.layout.bounds_arrays(self.dtype, self.device)
+        n, d = self.cfg.nwalkers, self.layout.ndim
+        cov = np.asarray(res["cov"])
+        chol = np.linalg.cholesky(
+            cov + 1e-12 * np.eye(d) * float(np.max(np.diag(cov))))
+        z = torch.randn((n, d), generator=generator, dtype=self.dtype,
+                        device=self.device)
+        pos = (torch.as_tensor(res["theta"], dtype=self.dtype,
+                               device=self.device)[None, :]
+               + 2.0 * (z @ torch.as_tensor(chol, dtype=self.dtype,
+                                            device=self.device).T))
+        u = (0.8 * ((lo + hi) / 2.0)[None, :]
+             + 0.2 * self._default_positions(generator))
+        pos = torch.where((pos > lo) & (pos < hi), pos, u)
+        self._init_from_map = True
+        self.log.info("Walker init: %d Laplace draws around the MAP "
+                      "(2x overdispersed)" % n)
+        return pos
 
     @property
     def lum(self):
@@ -226,6 +307,212 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
                 % (n, str(self.dtype).replace("torch.", ""), 15.0 * n))
         return fn
 
+    def log_evidence(self, nrungs: int = 16, nsteps: int = None,
+                     generator=None, power: float = 5.0, move: str = None,
+                     burn_frac: float = 0.5, swap_every: int = 0,
+                     tune_rounds: int = 0, tune_steps: int = None):
+        """ln Z of this model under its normalized prior by the tempered
+        ladder (:mod:`~lumfuncmcmc_tpu_torch.samplers.tempering`): all
+        ``nrungs`` rungs sample at once, one lnlike call a half-step over
+        rungs x walkers/2 rows. ``swap_every > 0`` adds DEO replica
+        exchange; ``tune_rounds > 0`` (with swaps) prepends that many
+        short legs (``tune_steps``, default nsteps//4 in whole swap
+        rounds) after each of which the ladder is re-spaced to equalize
+        the measured swap rejection. ``generator`` defaults to one
+        seeded off the fit's stream; the starts are always prior-box
+        draws. Returns the estimator dict (``lnz_ss`` primary, ``lnz_ti``
+        the resolution check), also stored as ``self.evidence``.
+        """
+        from lumfuncmcmc_tpu_torch.models.ensemble_driver import _sync
+        from lumfuncmcmc_tpu_torch.samplers.tempering import (
+            barrier_stats, beta_ladder, evidence_from_ladder,
+            run_parallel_tempering, run_tempered, tune_ladder)
+        cfg = self.cfg
+        nsteps = int(nsteps or cfg.nsteps)
+        move = move or cfg.move
+        if tune_rounds and not swap_every:
+            raise ValueError("tune_rounds needs swap_every > 0 (the "
+                             "ladder is tuned from measured swap rates)")
+        if generator is None:
+            generator = stream_generator(cfg.seed, EVIDENCE_TAG, self.device)
+        pos0 = torch.stack([self._default_positions(generator)
+                            for _ in range(nrungs)])
+        betas = beta_ladder(nrungs, power)
+        lnprior_fn, lnlike_fn = self._prior_like_fns()
+        self.log.info(
+            "Evidence ladder: %d rungs x %d walkers x %d steps "
+            "(power-%g spacing), move=%s"
+            % (nrungs, cfg.nwalkers, nsteps, power, move))
+        _sync(self.device)
+        start = time.perf_counter()
+        swap_frac = None
+        if swap_every and int(tune_rounds) > 0:
+            n_tune = int(tune_steps or max(int(swap_every) * 4,
+                                           nsteps // 4))
+            n_tune = max(int(swap_every), n_tune - n_tune % int(swap_every))
+            for t in range(int(tune_rounds)):
+                ch_t, _, _, sw_t = run_parallel_tempering(
+                    lnprior_fn, lnlike_fn, pos0, betas, generator, n_tune,
+                    swap_every=int(swap_every), move=move,
+                    de_prob=cfg.de_prob, lnls=False)
+                betas = tune_ladder(betas, sw_t)
+                # walkers carry over; burn_frac absorbs the transient
+                pos0 = ch_t[:, -1]
+                self.log.info(
+                    "Ladder tuning leg %d/%d (%d steps): swap acceptance "
+                    "%s -> re-spaced betas (min dβ %.2e)"
+                    % (t + 1, int(tune_rounds), n_tune,
+                       np.round(sw_t, 2), float(np.min(np.diff(betas)))))
+        if swap_every:
+            _, lnls, _, swap_frac = run_parallel_tempering(
+                lnprior_fn, lnlike_fn, pos0, betas, generator, nsteps,
+                swap_every=int(swap_every), move=move, de_prob=cfg.de_prob)
+            self.log.info("Replica-exchange swap acceptance per pair: %s"
+                          % np.round(swap_frac, 2))
+        else:
+            _, lnls, _ = run_tempered(lnprior_fn, lnlike_fn, pos0, betas,
+                                      generator, nsteps, move=move,
+                                      de_prob=cfg.de_prob)
+        lnls = lnls.double().cpu().numpy()
+        elapsed = time.perf_counter() - start
+        ev = evidence_from_ladder(lnls, betas, burn_frac=burn_frac)
+        if swap_frac is not None:
+            ev["swap_frac"] = swap_frac
+            bs = barrier_stats(swap_frac)
+            ev["lambda_barrier"] = bs["lambda"]
+            ev["roundtrip_rate_est"] = bs["roundtrip_rate"]
+            self.log.info(
+                "Communication barrier Λ = %.2f -> estimated DEO "
+                "round-trip rate %.3f per replica sweep-pair (Syed et al. "
+                "2021 Cor. 1; low rate with uneven swap acceptance -> "
+                "tune the ladder, uniformly low -> raise nrungs)"
+                % (bs["lambda"], bs["roundtrip_rate"]))
+        self.log.info(
+            "ln Z = %.3f +- %.3f (stepping-stone; TI %.3f +- %.3f; "
+            "|SS-TI| %.3f is the ladder-resolution check) in %.2f s"
+            % (ev["lnz_ss"], ev["lnz_ss_err"], ev["lnz_ti"],
+               ev["lnz_ti_err"], abs(ev["lnz_ss"] - ev["lnz_ti"]), elapsed))
+        gap = abs(ev["lnz_ss"] - ev["lnz_ti"])
+        if gap > 3.0 * (ev["lnz_ss_err"] + ev["lnz_ti_err"]) + 2.0:
+            self.log.warning(
+                "evidence ladder looks UNDER-RESOLVED: |SS-TI| = %.1f nats "
+                "exceeds the combined MC error band — raise nrungs (SS "
+                "should move < O(1) nats between K and 2K rungs before "
+                "you trust a Bayes factor); high-dimensional priors (fith) "
+                "typically need several times the default ladder" % gap)
+        self.evidence = ev
+        return ev
+
+    def information_criteria(self, lnprobcut: float = 7.5,
+                             ndraws: int = 1000, seed: int = None,
+                             chunk: int = 8192):
+        """WAIC + PSIS-LOO from the fitted posterior's ``select_samples``
+        rows (:mod:`~lumfuncmcmc_tpu_torch.models.ic`), logged, checked
+        against the likelihood's own split and stored as ``self.ic``."""
+        from lumfuncmcmc_tpu_torch.models.ic import (
+            format_ic_report, information_criteria)
+        if self.samples is None:
+            raise RuntimeError("fit the model before computing "
+                               "information criteria")
+        cfg = self.cfg
+        draws = select_samples(self.samples, lnprobcut, drop_lnp=True)
+        t0 = time.perf_counter()
+        ic = information_criteria(
+            draws, self.ctx, self.layout,
+            exact_bounds=bool(cfg.exact_bounds), ndraws=int(ndraws),
+            seed=cfg.seed if seed is None else int(seed), chunk=int(chunk))
+        for line in format_ic_report(ic).splitlines():
+            self.log.info(line)
+        self.log.info("Information criteria: %.2f s" %
+                      (time.perf_counter() - t0))
+        # the decomposition is exact; above float noise means a dispatch
+        # bug. float32 roundoff accumulates over the N-source resummation
+        tol = (1e-5 if self.dtype == torch.float64
+               else max(1e-4, 3e-7 * math.sqrt(ic["n_sources"])))
+        if ic["max_abs_recon_err"] > tol:
+            self.log.warning(
+                "pointwise decomposition check FAILED (%.2e) — the "
+                "WAIC/LOO numbers do not match this model's likelihood"
+                % ic["max_abs_recon_err"])
+        if ic["frac_k_gt_07"] > 0.1:
+            self.log.warning(
+                "PSIS tail diagnostic: %.1f%% of sources have Pareto k > "
+                "0.7 — elpd_loo is unreliable; trust elpd_waic only as "
+                "far as p_waic is small" % (100.0 * ic["frac_k_gt_07"]))
+        self.ic = ic
+        return ic
+
+    def rebuild_context(self, cfg, dtype):
+        """A context of this catalog for ``cfg`` in ``dtype`` on the
+        model's device, rebuilt from the luminosities (``LFData.flux`` is
+        absolute cgs while ``build_context`` takes 1e-17 units)."""
+        d = self.data
+
+        def host(a):
+            return None if a is None else a.double().cpu().numpy()
+        return build_context(cfg, z=host(d.z), lum=host(d.lum),
+                             lum_e=host(d.lum_e),
+                             field_id=d.field_id.cpu().numpy(),
+                             device=self.device, dtype=dtype)[1]
+
+    def context64(self):
+        """The model's context in float64: itself on a float64 run, else
+        rebuilt."""
+        if self.dtype == torch.float64:
+            return self.ctx
+        return self.rebuild_context(self.cfg, torch.float64)
+
+    def fit_map(self, nstarts: int = 8, generator=None, maxiter: int = 500):
+        """MAP + Laplace quick-look fit
+        (:func:`~lumfuncmcmc_tpu_torch.models.mapfit.laplace_fit`) of the
+        eager float64 lnpost, with ``lnz_laplace`` in
+        :meth:`log_evidence`'s normalized-prior convention: ``- ln V``
+        of the box, or for the hierarchical model ``- lnz0_prior``, the
+        box-truncated hyperprior mass. ``generator`` defaults to one
+        seeded off the fit's stream. Stored as ``self.map_fit``."""
+        from lumfuncmcmc_tpu_torch.models.mapfit import laplace_fit
+        cfg = self.cfg
+        if generator is None:
+            generator = stream_generator(cfg.seed, MAP_TAG, self.device)
+        lnpost = self._make_scalar_lnprob(self.context64())
+        lo, hi = self.layout.bounds_arrays(torch.float64, self.device)
+        t0 = time.perf_counter()
+        res = laplace_fit(lnpost, lo, hi, generator=generator,
+                          nstarts=int(nstarts), maxiter=int(maxiter))
+        elapsed = time.perf_counter() - t0
+        if res["ln_int"] is not None and self.model_kind == "hier":
+            res["lnz_laplace"] = res["ln_int"] - lnz0_prior(self.layout)
+        elif res["ln_int"] is not None:
+            res["lnz_laplace"] = res["ln_int"] - float(np.sum(np.log(
+                np.asarray(self.layout.hi, np.float64)
+                - np.asarray(self.layout.lo, np.float64))))
+        else:
+            res["lnz_laplace"] = None
+        se = res["se"]
+        self.log.info("MAP fit: lnpost=%.4f in %.2f s (%d/%d starts "
+                      "finite, |grad|=%.2e%s)"
+                      % (res["lnpost"], elapsed, res["n_finite"],
+                         res["nstarts"], res["grad_norm"],
+                         "" if res["hess_ok"]
+                         else "; Hessian NOT negative definite — no "
+                              "Laplace covariance"))
+        for i, name in enumerate(self.layout.names):
+            if res["boundary"][i]:
+                tail = ("  (AT PRIOR BOUND — no Laplace error; widen the "
+                        "box if this parameter should be free)")
+            elif se is not None and np.isfinite(se[i]):
+                tail = " +- %.4f" % se[i]
+            else:
+                tail = ""
+            self.log.info("  %-12s = %10.4f%s"
+                          % (name, res["theta"][i], tail))
+        if res["lnz_laplace"] is not None:
+            self.log.info("  Laplace ln Z = %.3f (cross-check "
+                          "log_evidence's stepping-stone)"
+                          % res["lnz_laplace"])
+        self.map_fit = res
+        return res
+
     def veff_lf(self, flim=None, alpha=None, generator=None):
         """1/V_eff binned LF with bootstrap errors; sets ``phifunc``,
         ``Lavg``, ``lfbinorig`` and ``var``."""
@@ -280,13 +567,19 @@ class LumFuncModel(_BaseModel):
     def _make_layout(self):
         return ThetaLayout.from_config(self.cfg)
 
-    def _make_scalar_lnprob(self):
-        return make_lnprob(self.ctx, self.layout)
+    def _make_scalar_lnprob(self, ctx=None):
+        return make_lnprob(self.ctx if ctx is None else ctx, self.layout)
 
-    def _initial_positions(self, generator):
+    def _eager_prior_like(self):
+        ctx, layout = self.ctx, self.layout
+        return ((lambda th: lnprior(th, layout)),
+                (lambda th: lnlike_single_epoch(th, ctx, layout)))
+
+    def _default_positions(self, generator):
         # only the single-epoch model has the reference's -sr/--same_rand
-        return super()._initial_positions(generator,
-                                          diff_rand=self.cfg.diff_rand)
+        return sample_init(generator, self.layout, self.cfg.nwalkers,
+                           diff_rand=self.cfg.diff_rand, dtype=self.dtype,
+                           device=self.device)
 
     def set_median_fit(self, rndsamples=200, lnprobcut=7.5, generator=None):
         """Median model LF over posterior draws + V_eff with the median
@@ -324,8 +617,22 @@ class LumFuncModelH(_BaseModel):
     def _make_layout(self):
         return ThetaLayoutH.from_config(self.cfg)
 
-    def _make_scalar_lnprob(self):
-        return make_lnprob_h(self.ctx, self.layout)
+    def _make_scalar_lnprob(self, ctx=None):
+        return make_lnprob_h(self.ctx if ctx is None else ctx, self.layout)
+
+    def _eager_prior_like(self):
+        # the population hyperprior belongs to the prior measure: only
+        # the per-field Poisson terms are tempered
+        ctx, layout = self.ctx, self.layout
+
+        def prior(th):
+            lp = lnprior_h(th, layout)
+            _, hyper = lnlike_h_split(th, ctx, layout)
+            return torch.where(torch.isfinite(lp), lp + hyper, lp)
+
+        def like(th):
+            return lnlike_h_split(th, ctx, layout)[0]
+        return prior, like
 
     def set_median_fit(self, rndsamples=200, lnprobcut=7.5, generator=None):
         """Median LF at the population-mean parameters (``mu_L``,
@@ -364,8 +671,13 @@ class LumFuncModelZ(_BaseModel):
     def _make_layout(self):
         return ThetaLayoutZ.from_config(self.cfg)
 
-    def _make_scalar_lnprob(self):
-        return make_lnprob_z(self.ctx, self.layout)
+    def _make_scalar_lnprob(self, ctx=None):
+        return make_lnprob_z(self.ctx if ctx is None else ctx, self.layout)
+
+    def _eager_prior_like(self):
+        ctx, layout = self.ctx, self.layout
+        return ((lambda th: lnprior_z(th, layout)),
+                (lambda th: lnlike_z(th, ctx, layout)))
 
     def set_median_fit(self, lnprobcut=7.5, zlen=100, Llen=100,
                        generator=None):

@@ -91,9 +91,14 @@ class _NutsDriverMixin:
         nchains = min(nchains, pos.shape[0])
         lo, hi = self.layout.bounds_arrays(self.dtype, self.device)
         lnp_y, to_theta, to_y = make_unconstrained(post, lo, hi)
-        # shrink the uniform starts toward the box centre: NUTS needs a
-        # finite gradient start, and the extreme corners have ~-1e6 lnlike
-        start = 0.8 * ((lo + hi) / 2.0)[None, :] + 0.2 * pos[:nchains]
+        start = pos[:nchains]
+        if not getattr(self, "_init_from_map", False):
+            # shrink uniform starts toward the box centre: NUTS needs a
+            # finite gradient start, and the extreme corners have ~-1e6
+            # lnlike. Gated on the init that ran, not on cfg.init_map:
+            # the Laplace init falls back to uniform draws when the mode
+            # Hessian is unusable, and real Laplace starts sit at the mode
+            start = 0.8 * ((lo + hi) / 2.0)[None, :] + 0.2 * start
         y0 = to_y(start)
         # the stuck-start guard needs values only: the forward lnprob
         guard_y, _, _ = make_unconstrained(self.lnprob_batch(), lo, hi)

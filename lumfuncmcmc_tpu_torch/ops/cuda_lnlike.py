@@ -842,21 +842,31 @@ def _features_hier(thetas, data: CudaGridData, layout: ThetaLayoutH, dtype):
     return _round_st(_feat_h_one(th, data, layout), dtype)
 
 
-def _hier_collapsed(feats, thetas, data: CudaGridData, layout: ThetaLayoutH):
-    """(W,) float64 ``lnrest``: the per-field collapsed ln-terms from
-    the rounded features and the per-field float64 catalog sums, plus
-    the Gaussian population hyperprior. The hyperprior is O(1) and
-    smooth, so it is taken from the float64 (clamped) thetas; its ``-ln
-    sig`` and ``((x - mu)/sig)^2`` keep their size beside the ~1e4-sized
-    terms of both signs only in float64."""
+def _hier_lnpart_f(feats, data: CudaGridData):
+    """(W, F) float64: the per-field collapsed ln-terms from the rounded
+    features and the per-field float64 catalog sums (the data term)."""
+    pf = feats[:, 1:].reshape(feats.shape[0], -1, 3)
+    return _collapsed(*data.ln_sums_f, pf[..., 0], feats[:, :1],
+                      pf[..., 1], pf[..., 2])
+
+
+def _hier_hyper_f(thetas, data: CudaGridData, layout: ThetaLayoutH):
+    """(W, F) float64: the Gaussian population hyperprior of each field
+    (the prior measure). It is O(1) and smooth, so it is taken from the
+    float64 (clamped) thetas; its ``-ln sig`` and ``((x - mu)/sig)^2``
+    keep their size beside the ~1e4-sized terms of both signs only in
+    float64."""
     th = torch.clamp(thetas.double(), data.lo, data.hi)
     mu_l, sig_l, mu_p, sig_p, _, lstar_f, phistar_f = layout.unpack(th)
-    pf = feats[:, 1:].reshape(feats.shape[0], -1, 3)
-    lnpart_f = _collapsed(*data.ln_sums_f, pf[..., 0], feats[:, :1],
-                          pf[..., 1], pf[..., 2])
-    hyper = (_ln_normal(lstar_f, mu_l[:, None], sig_l[:, None])
-             + _ln_normal(phistar_f, mu_p[:, None], sig_p[:, None]))
-    return (lnpart_f + hyper).sum(dim=1)
+    return (_ln_normal(lstar_f, mu_l[:, None], sig_l[:, None])
+            + _ln_normal(phistar_f, mu_p[:, None], sig_p[:, None]))
+
+
+def _hier_collapsed(feats, thetas, data: CudaGridData, layout: ThetaLayoutH):
+    """(W,) float64 ``lnrest``: :func:`_hier_lnpart_f` plus
+    :func:`_hier_hyper_f`, summed over the fields."""
+    return (_hier_lnpart_f(feats, data)
+            + _hier_hyper_f(thetas, data, layout)).sum(dim=1)
 
 
 def _features_stream(thetas, data: CudaStreamData, layout: ThetaLayout,
@@ -1489,29 +1499,46 @@ def _family(ctx: LFContext, layout, model: str, kdtype):
     return data, (_features, None, in_box, free_lnlike, free_lnlike_vg)
 
 
+def _engine(ctx: LFContext, layout, model: str):
+    """What every ``make_*`` function starts from: the kernels' dtype
+    (float32 on a CUDA context whatever the context's dtype, as the TPU
+    kernels do; the context's on the CPU, where the plain versions run),
+    the prior box as tensors (made once: a host tensor per call would
+    sync the device) and :func:`_family`'s data and functions. On the card
+    the kernel library is built and loaded here, so the first call
+    (inside the sampler's timed window) does not pay for it."""
+    if ctx.lum.device.type == "cuda":
+        from lumfuncmcmc_tpu_torch.ops._build import load_library
+        load_library()
+    kdtype = torch.float32 if ctx.lum.device.type == "cuda" else ctx.lum.dtype
+    lo, hi = layout.bounds_arrays(ctx.lum.dtype, ctx.lum.device)
+    data, fns = _family(ctx, layout, model, kdtype)
+    return kdtype, lo, hi, data, fns
+
+
+def _tagged(fn, ctx: LFContext, data):
+    """``fn`` with its kernel data (``.data``) and route (``.engine``:
+    "cuda" or "plain", "-stream" for the streaming kernels, whose
+    ``.stream`` is then ``(sources, source tiles)``)."""
+    fn.data = data
+    fn.engine = "cuda" if ctx.lum.device.type == "cuda" else "plain"
+    if isinstance(data, CudaStreamData):
+        fn.engine += "-stream"
+        fn.stream = (int(ctx.lum.shape[0]), data.src_off[-1] // CHUNK_CELLS)
+    return fn
+
+
 def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
-    """The common body of the ``make_*`` functions. On a CUDA context
-    the kernels run in float32 whatever the context's dtype (as the TPU
-    kernels do) and the kernel library is built and loaded here, so the
-    first lnprob call (inside the sampler's timed window) does not pay
-    for it; on the CPU the plain versions run in the context's dtype.
-    Free completeness from ``STREAM_MIN_SOURCES`` sources on takes the
-    streaming kernels (``batched.stream`` is then ``(sources, source
-    tiles)``); ``batched.data`` is the kernels' data.
+    """The common body of the ``make_*`` lnprob functions (dtypes and
+    library loading: :func:`_engine`). Free completeness from
+    ``STREAM_MIN_SOURCES`` sources on takes the streaming kernels.
 
     The kernel's float64 value plus, where the family has them, the
     collapsed ln-terms, both from the same rounded float64 features, are
     summed in float64; then the thetas' dtype and the prior mask: -inf
     outside the prior."""
-    device = ctx.lum.device
-    if device.type == "cuda":
-        from lumfuncmcmc_tpu_torch.ops._build import load_library
-        load_library()
-    kdtype = torch.float32 if device.type == "cuda" else ctx.lum.dtype
-    # bounds made once: a host tensor per call would sync the device
-    lo, hi = layout.bounds_arrays(ctx.lum.dtype, device)
-    data, (features, collapsed, inside, value, vg) = _family(
-        ctx, layout, model, kdtype)
+    kdtype, lo, hi, data, (features, collapsed, inside, value, vg) = \
+        _engine(ctx, layout, model)
 
     def batched(thetas):
         feats = features(thetas, data, layout, kdtype)
@@ -1523,14 +1550,7 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
         return torch.where(inside(thetas, lo, hi), lnl,
                            torch.full_like(lnl, -math.inf))
 
-    on_card = device.type == "cuda"
-    batched.data = data
-    batched.engine = "cuda" if on_card else "plain"
-    if isinstance(data, CudaStreamData):
-        batched.engine += "-stream"
-        batched.stream = (int(ctx.lum.shape[0]),
-                          data.src_off[-1] // CHUNK_CELLS)
-    return batched
+    return _tagged(batched, ctx, data)
 
 
 def make_cuda_lnprob(ctx: LFContext, layout: ThetaLayout):
@@ -1559,6 +1579,45 @@ def make_cuda_lnprob_h(ctx: LFContext, layout: ThetaLayoutH):
     ``make_pallas_lnprob_h``, ``pallas_lnlike.py:1574``, without its
     VMEM gate and its fallback)."""
     return _make_lnprob(ctx, layout, "hier", grad=False)
+
+
+def make_cuda_prior_like(ctx: LFContext, layout, model: str = "single"):
+    """``(lnprior_fn, lnlike_fn)``, each (W, D) -> (W,), the split a
+    tempered run needs (counterpart of the models' ``_prior_like_fns``,
+    ``lumfuncmcmc_tpu/models/model.py:346``): ``lnlike_fn`` is the
+    untempered data term through the family's value kernel (the free
+    one, or the streaming one from ``STREAM_MIN_SOURCES`` sources on;
+    fixed completeness with its collapsed ln-term; the z model; the
+    hierarchical per-field terms without the hyperprior), ``lnprior_fn``
+    the box prior (0 or -inf) and, for the hierarchical model, the
+    population hyperprior, which belongs to the prior measure.
+
+    The features clamp into the box as :func:`_make_lnprob`'s do, so an
+    out-of-box row gets a finite ``lnlike_fn`` and ``lnprior_fn`` masks
+    it. One ``lnlike_fn`` call is one kernel launch on the card;
+    ``lnlike_fn`` carries ``.data``/``.engine`` as the lnprob does."""
+    kdtype, lo, hi, data, (features, collapsed, inside, value, _) = \
+        _engine(ctx, layout, model)
+    if model == "hier":
+        def collapsed(f, th):
+            return _hier_lnpart_f(f, data).sum(dim=1)
+
+    def lnlike_fn(thetas):
+        feats = features(thetas, data, layout, kdtype)
+        part = value(feats.to(kdtype), data)
+        if collapsed is not None:
+            part = part + collapsed(feats, thetas)
+        return part.to(thetas.dtype)
+
+    def lnprior_fn(thetas):
+        ok = inside(thetas, lo, hi)
+        lp = torch.zeros(ok.shape, dtype=thetas.dtype, device=ok.device)
+        if model == "hier":
+            lp = _hier_hyper_f(thetas, data, layout).sum(dim=1).to(
+                thetas.dtype)
+        return torch.where(ok, lp, torch.full_like(lp, -math.inf))
+
+    return lnprior_fn, _tagged(lnlike_fn, ctx, data)
 
 
 def make_cuda_lnprob_and_grad(ctx: LFContext, layout, model: str = "single"):

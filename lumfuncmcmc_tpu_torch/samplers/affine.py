@@ -27,18 +27,26 @@ class EnsembleState(NamedTuple):
     lnp: torch.Tensor      # (nwalkers,)
 
 
+def _pick(other_pos, j):
+    """Rows ``j`` of the fixed half: ``other_pos`` (n, D) with ``j``
+    (m,), or a batch of halves (K, n, D) with ``j`` (K, m), each batch
+    entry taking its partners from its own half."""
+    return torch.take_along_dim(other_pos, j[..., None], dim=-2)
+
+
 def _half_step(rand, move_pos, move_lnp, other_pos, lnprob_batch, a, ndim):
     """Stretch-move one half-ensemble against the fixed other half.
     ``rand = (u_z, j, ln_u)``: per-walker stretch draw, partner index and
-    log acceptance uniform."""
+    log acceptance uniform. Leading batch dimensions (the tempered
+    ladder's rungs) pass through to ``lnprob_batch``."""
     u_z, j, ln_u = rand
     z = ((a - 1.0) * u_z + 1.0) ** 2 / a
-    partner = other_pos[j]                       # (nmove, ndim)
-    prop = partner + z[:, None] * (move_pos - partner)
+    partner = _pick(other_pos, j)                # (..., nmove, ndim)
+    prop = partner + z[..., None] * (move_pos - partner)
     lnp_prop = lnprob_batch(prop)
     ln_ratio = (ndim - 1.0) * torch.log(z) + lnp_prop - move_lnp
     accept = ln_u < ln_ratio
-    new_pos = torch.where(accept[:, None], prop, move_pos)
+    new_pos = torch.where(accept[..., None], prop, move_pos)
     new_lnp = torch.where(accept, lnp_prop, move_lnp)
     return new_pos, new_lnp, accept
 
@@ -49,11 +57,11 @@ def _de_half_step(rand, move_pos, move_lnp, other_pos, lnprob_batch):
     half; symmetric proposal, plain Metropolis accept.
     ``rand = (g, j1, j2, ln_u)``."""
     g, j1, j2, ln_u = rand
-    diff = other_pos[j1] - other_pos[j2]
-    prop = move_pos + g[:, None] * diff
+    diff = _pick(other_pos, j1) - _pick(other_pos, j2)
+    prop = move_pos + g[..., None] * diff
     lnp_prop = lnprob_batch(prop)
     accept = ln_u < lnp_prop - move_lnp
-    new_pos = torch.where(accept[:, None], prop, move_pos)
+    new_pos = torch.where(accept[..., None], prop, move_pos)
     new_lnp = torch.where(accept, lnp_prop, move_lnp)
     return new_pos, new_lnp, accept
 

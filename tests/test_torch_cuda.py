@@ -482,8 +482,10 @@ def test_one_launch_vg_kernels_at_every_walker_tile(device, monkeypatch,
 def test_one_launch_value_kernels_at_every_batch(device, fam, size_ln, fcmin):
     """The value kernels of the stretch paths (one launch each, a walker
     tile's last block finishing its values through the data's tickets) at
-    W = 1, 13, 50, 100 and 2400 (the NUTS recompute's 300 samples x 8
-    chains), back to back on one data object (free completeness with
+    W = 1, 13, 50, 100, 800 (an evidence ladder's half-step) and 2400 (the
+    NUTS recompute's 300 samples x 8 chains), and 65,535 (a ladder
+    recompute's chunk) on the 12-node grids, back to back on one data
+    object (free completeness with
     ``fcmin`` 0 and 0.1): each equals the plain version (rtol 1e-4), two
     launches on one input are bit-identical, W = 50 again after W = 2400
     gives the first W = 50 values bit for bit, and a CUDA graph of the W =
@@ -491,7 +493,12 @@ def test_one_launch_value_kernels_at_every_batch(device, fam, size_ln, fcmin):
     data, kernel, plain, feats = _one_launch_case(device, fam, size_ln, "",
                                                   fcmin=fcmin)
     vals = {}
-    for w in (1, 13, 50, 100, 2400, 50):
+    # 800: an evidence ladder's half-step (16 rungs x 100 walkers / 2);
+    # 65,535 (MAX_ROWS): its lnlike recompute's chunk, on the small grid
+    # where the plain version's (W, cells) temporaries stay small
+    batches = (1, 13, 50, 100, 800, 2400) + ((cl.MAX_ROWS,) if size_ln == 12
+                                             else ()) + (50,)
+    for w in batches:
         f = feats(w)
         n0 = kernel.launches
         got, again = kernel(f, data), kernel(f, data)

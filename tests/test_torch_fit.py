@@ -147,14 +147,20 @@ def test_port_triangle_plot_resume_and_unported_flags(tmp_path,
     # an existing fitposterior: reload and replot, no sampling
     assert port_main(args) == 0
     assert png.stat().st_mtime_ns >= mtime
-    for flag in (["--map"], ["--min-ess", "100"], ["--ensembles", "2"],
+    for flag in (["--min-ess", "100"], ["--ensembles", "2"],
                  ["--exact-bounds"], ["--sampler", "nuts", "--nuts-pooled"],
                  ["--sampler", "nuts", "--min-ess", "100"],
                  ["--sampler", "nuts", "--checkpoint-every", "5"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_main(args + flag)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        port_main(["compare-ic", "a.dat", "b.dat"])
+    # ported: --map and --ic on the resumed posterior, then compare-ic
+    assert port_main(args + ["--map", "--ic"]) == 0
+    out = tmp_path / "LFMCMCOut"
+    for name in ("map_p_nb50_nw16_ns40_mcf50.dat",
+                 "ic_p_nb50_nw16_ns40_mcf50.dat"):
+        assert (out / name).exists()
+    npz = str(out / "ic_pointwise_p_nb50_nw16_ns40_mcf50.npz")
+    assert port_main(["compare-ic", npz, npz]) == 0
     with pytest.raises(SystemExit, match="--nchains must be >= 1"):
         # a new output name: an existing fitposterior skips the sampler
         port_main([a.replace("p.dat", "q.dat") for a in args]
@@ -267,11 +273,18 @@ def test_fitz_resume_pivots_and_unported_flags(tmp_path, monkeypatch):
     # an existing LFMCMCzOut/ fitposterior: reload it, no sampling
     assert port_main(args) == 0
     assert post.stat().st_mtime_ns == mtime
-    for flag in (["--map"], ["--ic"], ["--ppc"], ["--evidence", "4"],
-                 ["--min-ess", "100"], ["--ensembles", "2"],
+    for flag in (["--min-ess", "100"], ["--ensembles", "2"],
                  ["--checkpoint-every", "5"], ["--mesh-walkers", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_main([a.replace("p.dat", "q.dat") for a in args] + flag)
+    # ported: the analyses on the resumed posterior, and a fresh --map
+    assert port_main(args + ["--ic", "--ppc", "--evidence", "4"]) == 0
+    assert post.stat().st_mtime_ns == mtime
+    assert port_main([a.replace("p.dat", "q.dat") for a in args]
+                     + ["--map"]) == 0
+    out = tmp_path / "LFMCMCzOut"
+    for name in ("ic_p", "ppc_p", "evidence_p", "map_q"):
+        assert (out / f"{name}_nb50_nw16_ns30_mcf50.dat").exists(), name
     # fith is ported: the hierarchical fit runs, into its own directory
     assert port_main(["fith" if a == "fitz" else a.replace("p.dat", "h.dat")
                       for a in args]) == 0

@@ -119,11 +119,17 @@ def test_fith_resume_and_unported_flags(tmp_path, monkeypatch):
     # an existing LFMCMCHOut/ fitposterior: reload it and replot
     assert port_main(args) == 0
     assert post.stat().st_mtime_ns == mtime
-    for flag in (["--map"], ["--ic"], ["--ppc"], ["--evidence", "4"],
-                 ["--min-ess", "100"], ["--ensembles", "2"],
-                 ["--checkpoint-every", "5"], ["--mesh-walkers", "2"],
-                 ["--init-map"]):
+    for flag in (["--min-ess", "100"], ["--ensembles", "2"],
+                 ["--checkpoint-every", "5"], ["--mesh-walkers", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_main([a.replace("p.dat", "q.dat") for a in args] + flag)
+    # ported: the analyses on the resumed posterior, --map, --init-map
+    assert port_main(args + ["--map", "--ic", "--ppc", "--evidence",
+                             "4"]) == 0
+    assert post.stat().st_mtime_ns == mtime
+    assert port_main([a.replace("p.dat", "q.dat") for a in args]
+                     + ["--init-map"] + _config(tmp_path)) == 0
+    for name in ("map_p", "ic_p", "ppc_p", "evidence_p", "fitposterior_q"):
+        assert (out / f"{name}_nb50_nw32_ns30_mcf50.dat").exists(), name
     with pytest.raises(SystemExit):
         port_main(args + ["-sr"])           # fith has no -sr/--same_rand

@@ -1,9 +1,11 @@
 """The port stands alone: with ``jax`` and ``lumfuncmcmc_tpu`` made
 unimportable, every module of ``lumfuncmcmc_tpu_torch`` imports and a
 tiny ``--device cpu`` run of each subcommand (``fit``, ``fitz``,
-``fith``, ``vmax``) works; without
-``--device cpu`` and with no CUDA device, each fails and names
-``--device cpu`` instead of running on the CPU.
+``fith``, ``vmax``, and the model comparison: ``--ic``, ``--ppc``,
+``--evidence``, ``--map``, ``--init-map``, ``compare-ic``, ``stack-ic``)
+works; without ``--device cpu`` and with no CUDA device, each fit fails
+and names ``--device cpu`` instead of running on the CPU, while
+``compare-ic`` / ``stack-ic``, which read only ``.npz`` files, run.
 """
 
 import os
@@ -137,3 +139,54 @@ def test_port_imports_nothing_of_jax_and_runs_a_cpu_stream_fit(tmp_path):
                                                          + proc.stderr)
     assert (tmp_path / "LFMCMCOut" / "fitposterior_g_nb50_nw8_ns10_mcf50.dat"
             ).exists()
+
+
+COMPARISON = r"""
+from lumfuncmcmc_tpu_torch.cli.main import main as _main
+_cfg = sys.argv[-2:]
+_fit = ["--synthetic", "120", "-mcf", "0.5", "-ns", "10", "-nw", "8",
+        "--size-ln", "7", "--device", "cpu"] + _cfg
+assert _main(["fit", "-o", "a.dat", "--ic", "--ppc", "--evidence", "3",
+              "--evidence-swap", "2", "--evidence-tune", "1"] + _fit) == 0
+assert _main(["fit", "-fc", "-o", "b.dat", "--ic", "--map"] + _fit) == 0
+assert _main(["fit", "-fc", "-o", "b.dat", "--ic"] + _fit) == 0
+assert _main(["fitz", "-o", "c.dat", "--init-map"] + _fit) == 0
+_npz = ["LFMCMCOut/ic_pointwise_%s_nb50_nw8_ns10_mcf50.npz" % o
+        for o in "ab"]
+assert _main(["compare-ic"] + _npz) == 0
+sys.argv[1:] = ["stack-ic"] + _npz
+"""
+
+
+def test_port_imports_nothing_of_jax_and_runs_the_model_comparison(
+        tmp_path):
+    code = BLOCKED_RUN.replace(
+        "from lumfuncmcmc_tpu_torch.cli.main import main\n",
+        "from lumfuncmcmc_tpu_torch.cli.main import main\n" + COMPARISON)
+    proc = _run(tmp_path, code, [], {})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RC 0" in proc.stdout and "stacked log score" in proc.stdout
+    out = tmp_path / "LFMCMCOut"
+    for name in ("ic_a", "ppc_a", "evidence_a", "map_b", "ic_b"):
+        assert (out / f"{name}_nb50_nw8_ns10_mcf50.dat").exists(), name
+    assert (tmp_path / "LFMCMCzOut"
+            / "fitposterior_c_nb50_nw8_ns10_mcf50.dat").exists()
+
+
+def test_ic_commands_need_no_card(tmp_path):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    for name in ("a", "b"):
+        np.savez(tmp_path / f"{name}.npz", elpd_loo_i=rng.normal(size=50),
+                 elpd_waic_i=rng.normal(size=50),
+                 pareto_k=rng.uniform(size=50))
+    code = ("import sys; from lumfuncmcmc_tpu_torch.cli.main import main; "
+            "main(['compare-ic', 'a.npz', 'b.npz']); "
+            "sys.exit(main(['stack-ic', 'a.npz', 'b.npz']))")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "paired sources" in proc.stdout
+    assert "stacked log score" in proc.stdout

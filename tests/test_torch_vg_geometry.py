@@ -81,7 +81,8 @@ def _cell_pieces(data, pieces, piece):
             (0, data.s_a.numel()), cl._z_band_rows(data.shape, piece) * sz)
 
 
-@pytest.mark.parametrize("w", [1, 8, 13, 256, 50, 100, 2400])
+@pytest.mark.parametrize("w", [1, 8, 13, 256, 50, 100, 800, 2400, 54320,
+                               65535])
 @pytest.mark.parametrize("fam", ["free", "hier", "fixed", "free_value",
                                  "fixed_value", "hier_value", "z_value"])
 @pytest.mark.parametrize("size_ln", [12, 41])
@@ -184,13 +185,22 @@ NPIECES.update(free_value=NPIECES["free"], fixed_value=NPIECES["fixed"],
     ("fixed_value", 1, (1, 1024)), ("fixed_value", 8, (4, 2048)),
     ("fixed_value", 13, (4, 4096)), ("fixed_value", 50, (8, 4096)),
     ("fixed_value", 100, (8, 4096)), ("fixed_value", 1600, (8, 4096)),
-    ("fixed_value", 2400, (8, 4096))])
+    ("fixed_value", 2400, (8, 4096)),
+    # the evidence ladder: a half-step of 16 rungs x 100 walkers / 2, and
+    # the lnlike recompute's chunks of MAX_ROWS rows and a remainder
+    ("free_value", 800, (4, 4096)), ("free_value", 54320, (4, 4096)),
+    ("free_value", 65535, (4, 4096)),
+    ("fixed_value", 800, (8, 4096)), ("fixed_value", 65535, (8, 4096)),
+    ("z_value", 800, (8, 16384)), ("z_value", 65535, (8, 16384)),
+    ("hier_value", 800, (8, 4096)), ("hier_value", 65535, (8, 4096))])
 def test_vg_geometry_at_the_fits_shapes(fam, w, want):
     """The rule's choices on an H100's 132 SMs at the NUTS path's batches
     (value+gradient kernels: 1 chain, 8, 256) and the value kernels'
     (``_value``: the NUTS start guard's 8 chains, 13, a stretch half-step
     of 50, 100, the NUTS recompute's samples x 8 chains: 1,200 free, 1,600
-    fixed, 2,400 z and hier): at least 1.5 blocks per SM where any grid has
+    fixed, 2,400 z and hier; the evidence ladder's half-step of 800 rows
+    and its recompute's chunks of up to 65,535): at least 1.5 blocks per
+    SM where any grid has
     them, with the most work a block, at equal work the kernel's first
     tile; else tile 1 and the shortest piece."""
     got = cl._vg_geometry(NPIECES[fam], w, NSM, cl.VG_TILES[fam])
