@@ -4,8 +4,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 15 and
-9); any failure ends the run with a nonzero exit:
+Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths and 16
+side by side, 15 and 9); any failure ends the run with a nonzero exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
    ``nvidia-smi``'s name and power limit;
@@ -97,10 +97,26 @@ Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 15 and
    ladder's wall time printed;
 15. ``compare-ic`` on ``fit`` vs ``fit -fc`` (the same catalog) and
    ``stack-ic`` on both, from the paths' ``ic_pointwise`` files: a
-   verdict, the stacked score, no launch.
+   verdict, the stacked score, no launch;
+16. the long-run drivers (the ``long`` path, :func:`run_long`) on the
+   fits' catalog, each run with exact launch counts: ``fit
+   --checkpoint-every 500 -ns 2000`` (4 x 1001 ``free_lnlike``), the same
+   command on its npz cut at 2 blocks (2 x 1001; chain, lnprobability
+   and acceptance bit for bit); ``fit --min-ess T -ns 500`` with T
+   between the checkpointed chain's one- and two-block min ESS (B x 1001
+   for B >= 2 blocks, the last at T; its blocks the checkpointed run's
+   bit for bit); ``fit --ensembles 4`` (2 x 2000 + 1 launches, W = 200
+   rows a half-step; cross-ensemble R-hat < 1.1, logL* within 3 sd of the
+   checkpointed fit's); ``fith --ensembles 2 -ns 1000`` (2001
+   ``hier_lnlike``); ``fit -fc --sampler nuts --checkpoint-every 100 -ns
+   200`` and its resume from 1 block (bit for bit), ``--min-ess T2 -ns
+   100`` (>= 2 blocks), with phase 6's NUTS gates and ``fixed_lnlike_vg``
+   launches = transitions + leapfrogs; ``fit --exact-bounds`` (the eager
+   engine, no launch, logL* within 3 sd of the frozen-bounds fit's);
+   ``fit -ns 50 --profile DIR`` (a trace naming ``free_vg``).
 
-Phases 5-8 and 12 run side by side, each path in a process of its own
-(``--path``): its stretch fit, its NUTS fit, then the model comparison
+Phases 5-8, 12 and 16 run side by side, each path in a process of its
+own (``--path``): its stretch fit, its NUTS fit, then the model comparison
 (``PATHS[label].compare``): the finished stretch fit rerun with ``--ic``
 (every path; 1000 draws x 1,019,385 sources on the mega path), ``--ppc``
 (``fit``, ``fitz``, ``fith``) and ``--evidence 16`` (``fit``; ``fith``
@@ -140,6 +156,7 @@ import torch
 from lumfuncmcmc_tpu_torch import LFConfig
 from lumfuncmcmc_tpu_torch.cli.main import main as cli_main
 from lumfuncmcmc_tpu_torch.models.context import build_context
+from lumfuncmcmc_tpu_torch.models.ensemble_driver import _EnsembleDriverMixin
 from lumfuncmcmc_tpu_torch.models.hierarchical import (
     ThetaLayoutH, lnlike_h_split, make_lnprob_h)
 from lumfuncmcmc_tpu_torch.models.likelihood import (
@@ -147,6 +164,8 @@ from lumfuncmcmc_tpu_torch.models.likelihood import (
 from lumfuncmcmc_tpu_torch.models.likelihood_z import (
     ThetaLayoutZ, lnlike_z, make_lnprob_z)
 from lumfuncmcmc_tpu_torch.models.model import select_samples
+from lumfuncmcmc_tpu_torch.samplers.diagnostics import (
+    effective_sample_size)
 from lumfuncmcmc_tpu_torch.samplers.tempering import (
     beta_ladder, evidence_from_ladder, run_tempered)
 from lumfuncmcmc_tpu_torch.ops import _build
@@ -1774,6 +1793,288 @@ def phase_vmax(workdir, has_mpl):
               f"{wall:.2f} s, device memory peak {peak / 2**20:.1f} MiB")
 
 
+LONG = "long"               # the long-run drivers' path (phase 16)
+LONG_BLOCK = 500            # stretch steps of a --min-ess/checkpoint block
+LONG_NUTS_BLOCK = 100       # NUTS samples of one
+
+
+def _cut_npz(src, dst, nblocks):
+    """The checkpoint that block ``nblocks`` of a run wrote, cut from the
+    run's last one: the port's npz keeps every per-block quantity on a
+    leading block axis (NUTS: ``sizes``, ``df``, ``y_run``,
+    ``generator``; stretch: ``acc_blocks``) beside the concatenated
+    samples."""
+    with np.load(src) as ck:
+        d = {k: ck[k] for k in ck.files}
+    if "sizes" in d:
+        rows = int(d["sizes"][:nblocks].sum())
+        for k in ("samples_y", "lnps_y", "alphas"):
+            d[k] = d[k][:rows]
+        for k in ("sizes", "df", "y_run", "generator"):
+            d[k] = d[k][:nblocks]
+    else:
+        rows = d["chain"].shape[0] * nblocks // len(d["acc_blocks"])
+        for k in ("chain", "lnprobability"):
+            d[k] = d[k][:rows]
+        d["acc_blocks"] = d["acc_blocks"][:nblocks]
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    np.savez(dst, **d)
+
+
+def _long_run(name, argv, workdir, has_mpl, out, base, want, run_dir=None):
+    """One long-run CLI run: exit code, artifacts, the exact launch counts
+    ``want`` (kernel -> launches, the rest 0; a callable of the log
+    records gives them), its wall and launches printed. Returns (log
+    records, posterior table, run directory)."""
+    run_dir = run_dir or _run_dir(workdir, name)
+    rc, counts, rec, peak, wall = _drive(argv + ["--config", _smoke_config(
+        workdir, has_mpl)], run_dir)
+    if rc != 0:
+        fail(f"{name} returned {rc}")
+    post = _artifacts(name, os.path.join(run_dir, out), base, has_mpl)
+    expect = {k: 0 for k in KERNELS}
+    expect.update(want(rec) if callable(want) else want)
+    if counts != expect:
+        fail(f"{name}: launch counts {counts}, expected {expect}")
+    used = {k: v for k, v in counts.items() if v}
+    print(f"{name}: CLI wall {wall:.1f} s, launches {used or 'none'}, "
+          f"device memory peak {peak / 2**20:.1f} MiB")
+    return rec, post, run_dir
+
+
+def _long_base(nsteps, nw=NWALKERS):
+    return f"test_nb50_nw{nw}_ns{nsteps}_mcf50"
+
+
+def _nuts_launches(rec, name, guard=True):
+    """A NUTS run's exact launches from its log: the value+gradient
+    kernel once per transition and leapfrog step, the value kernel for
+    the start guard (skipped on a resume) and the Ln Prob recompute."""
+    ntrans, nlf = _logged(rec, r"NUTS work: (\d+) transitions, (\d+) "
+                          r"leapfrog steps", name)
+    at = rec.lines.index("Shape of self.samples")
+    rows = int(re.match(r"\((\d+), \d+\)$", rec.lines[at + 1]).group(1))
+    return {"fixed_lnlike_vg": int(ntrans + nlf),
+            "fixed_lnlike": int(guard) + math.ceil(rows / cl.MAX_ROWS)}
+
+
+def _nuts_gates(rec, name):
+    """Phase 6's NUTS gates on one run's log."""
+    _, _, accept, div_pct = _logged(
+        rec, r"Total time taken: ([\d.]+) s; step size ([\d.e+-]+); mean "
+        r"accept-stat ([\d.]+); divergent transitions ([\d.]+)%", name)
+    _, rhat, _ = _logged(
+        rec, r"min ESS: ([\d.]+); max R-hat: ([\d.]+); ESS/sec: ([\d.]+)",
+        name)
+    if not (div_pct < 5.0 and 0.6 < accept < 0.97 and rhat < 1.1):
+        fail(f"{name}: divergent {div_pct}% (limit 5), accept-stat "
+             f"{accept} (0.6-0.97), max R-hat {rhat} (limit 1.1)")
+    return accept, div_pct, rhat
+
+
+def run_long(workdir, has_mpl):
+    """Phase 16, the long-run drivers on the flagship catalog (``fit
+    --synthetic 2000 -mcf 0.5``, 100 walkers), each run between the
+    launch counters' zero and read: a checkpointed fit resumed from its
+    npz cut at 2 blocks (bit for bit), ``--min-ess`` blocks, four
+    ensembles in one launch a half-step, ``fith --ensembles 2``, NUTS
+    checkpointed and resumed (bit for bit) and in min-ess blocks,
+    ``--exact-bounds`` on the eager engine (no launch) and ``--profile``.
+    Returns the launch counts summed over the runs."""
+    cat = ["--synthetic", str(NSYNTH), "-mcf", "0.5", "-nw", str(NWALKERS)]
+    total = {k: 0 for k in KERNELS}
+    blk = 1 + 2 * LONG_BLOCK
+
+    def add(rec_counts):
+        for k, v in rec_counts.items():
+            total[k] += v
+
+    # a checkpointed fit, then the same command on its npz cut at 2 of 4
+    ck_argv = ["fit"] + cat + ["-ns", str(4 * LONG_BLOCK),
+                               "--checkpoint-every", str(LONG_BLOCK)]
+    base = _long_base(4 * LONG_BLOCK)
+    npz = os.path.join("LFMCMCOut", f"checkpoint_{base}.npz")
+    rec, post, ck_dir = _long_run("long fit --checkpoint-every", ck_argv,
+                                  workdir, has_mpl, "LFMCMCOut", base,
+                                  {"free_lnlike": 4 * blk})
+    add({"free_lnlike": 4 * blk})
+    ref_col = np.asarray(post[r"$\log L_*$"])
+    (ess_2000,) = _logged(rec, r"min ESS: ([\d.]+);", "long fit")
+    res_dir = _run_dir(workdir, "long fit resumed")
+    _cut_npz(os.path.join(ck_dir, npz), os.path.join(res_dir, npz), 2)
+    rec, _, _ = _long_run("long fit --checkpoint-every (resumed at 2 of 4 "
+                          "blocks)", ck_argv, workdir, has_mpl, "LFMCMCOut",
+                          base, {"free_lnlike": 2 * blk}, run_dir=res_dir)
+    add({"free_lnlike": 2 * blk})
+    with np.load(os.path.join(ck_dir, npz)) as a, \
+            np.load(os.path.join(res_dir, npz)) as b:
+        if not (np.array_equal(a["chain"], b["chain"])
+                and np.array_equal(a["lnprobability"], b["lnprobability"])
+                and np.array_equal(a["acc_blocks"], b["acc_blocks"])):
+            fail("long fit: the resumed chain differs from the "
+                 "uninterrupted checkpointed run's")
+        chain = a["chain"]
+    print(f"long fit: the run resumed at 2 of 4 blocks equals the "
+          f"uninterrupted one bit for bit (chain, lnprobability, acceptance"
+          f"); one-run min ESS {ess_2000:.0f}")
+
+    # --min-ess: its block b draws as the checkpointed run's block b, so
+    # a target between that chain's one-block and two-block min ESS (the
+    # rule of fit_model_until) runs two blocks
+    e1, e2 = (_EnsembleDriverMixin._min_ess(chain[:n * LONG_BLOCK])[0]
+              for n in (1, 2))
+    target = 0.5 * (e1 + e2) if e1 < e2 else 1.2 * e1
+    name = f"long fit --min-ess {target:.0f}"
+
+    def ess_launches(rec):
+        return {"free_lnlike": blk * len(
+            [ln for ln in rec.lines if ln.startswith("Block ")])}
+    rec, _, ess_dir = _long_run(
+        name, ["fit"] + cat + ["-ns", str(LONG_BLOCK), "--min-ess",
+                               str(target), "--checkpoint-every",
+                               str(LONG_BLOCK)],
+        workdir, has_mpl, "LFMCMCOut", _long_base(LONG_BLOCK), ess_launches)
+    blocks = [ln for ln in rec.lines if ln.startswith("Block ")]
+    (last,) = _logged(rec, r"min ESS=([\d.]+) \(target", name)
+    if len(blocks) < 2 or not (last >= target - 0.5 or len(blocks) == 50):
+        fail(f"{name}: {len(blocks)} blocks, last min ESS {last}")
+    add(ess_launches(rec))
+    n = min(len(blocks), 4) * LONG_BLOCK
+    with np.load(os.path.join(ess_dir, "LFMCMCOut", "checkpoint_until_"
+                              f"{_long_base(LONG_BLOCK)}.npz")) as c:
+        if not np.array_equal(c["chain"][:n], chain[:n]):
+            fail(f"{name}: its blocks differ from the checkpointed run's")
+    (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s \(", name)
+    print(f"{name}: {len(blocks)} blocks of {LONG_BLOCK} steps (one "
+          f"block's min ESS {e1:.0f}, two blocks' {e2:.0f}), last min ESS "
+          f"{last:.0f}, sampling {secs:.3f} s; its chain is the "
+          "checkpointed run's, block for block")
+
+    # four ensembles, one launch a half-step for all of them
+    name = "long fit --ensembles 4"
+    rec, post, _ = _long_run(name, ["fit"] + cat + ["-ns", str(NSTEPS),
+                                                    "--ensembles", "4"],
+                             workdir, has_mpl, "LFMCMCOut",
+                             _long_base(NSTEPS), {"free_lnlike": 1 + 2 * NSTEPS})
+    add({"free_lnlike": 1 + 2 * NSTEPS})
+    _, rhat_ens, _ = _logged(rec, r"min ESS: ([\d.]+); max cross-ensemble "
+                             r"R-hat: ([\d.]+) \((\d+) ensembles\)", name)
+    rows = select_samples(np.column_stack([post[k] for k in post]))
+    col = rows[:, list(post).index(r"$\log L_*$")]
+    gap = abs(np.median(col) - np.median(ref_col)) / np.std(col)
+    if not (rhat_ens < 1.1 and gap < 3.0):
+        fail(f"{name}: cross-ensemble R-hat {rhat_ens} (limit 1.1), logL* "
+             f"median {np.median(col):.4f} {gap:.2f} sd from the fit's "
+             f"{np.median(ref_col):.4f} (limit 3)")
+    (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s$", name)
+    print(f"{name}: 2 x {NSTEPS} + 1 launches at W = {4 * NWALKERS // 2} "
+          f"rows a half-step, cross-ensemble R-hat {rhat_ens:.4f}, logL* "
+          f"median {np.median(col):.4f} ({gap:.2f} sd from the fit's), "
+          f"sampling {secs:.3f} s")
+
+    # the hierarchical model's two ensembles
+    nh = NSTEPS // 2
+    name = "long fith --ensembles 2"
+    rec, _, _ = _long_run(name, ["fith"] + cat + ["-ns", str(nh),
+                                                  "--ensembles", "2"],
+                          workdir, has_mpl, "LFMCMCHOut", _long_base(nh),
+                          {"hier_lnlike": 1 + 2 * nh})
+    add({"hier_lnlike": 1 + 2 * nh})
+    (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s$", name)
+    print(f"{name}: sampling {secs:.3f} s")
+
+    # NUTS checkpointed in blocks, then resumed from the npz cut at 1 of 2
+    nuts = ["fit", "-fc", "--sampler", "nuts", "--synthetic", str(NSYNTH),
+            "-mcf", "0.5", "--nchains", str(NUTS_CHAINS)]
+    ck_argv = nuts + ["-ns", str(2 * LONG_NUTS_BLOCK), "--checkpoint-every",
+                      str(LONG_NUTS_BLOCK)]
+    base = _long_base(2 * LONG_NUTS_BLOCK)
+    npz = os.path.join("LFMCMCOut", f"checkpoint_nuts_{base}.npz")
+    name = "long fit -fc --sampler nuts --checkpoint-every"
+    rec, post, ck_dir = _long_run(
+        name, ck_argv, workdir, has_mpl, "LFMCMCOut", base,
+        lambda r: _nuts_launches(r, name))
+    add(_nuts_launches(rec, name))
+    accept, div_pct, rhat = _nuts_gates(rec, name)
+    res_dir = _run_dir(workdir, "long nuts resumed")
+    _cut_npz(os.path.join(ck_dir, npz), os.path.join(res_dir, npz), 1)
+    rname = name + " (resumed at 1 of 2 blocks)"
+    rec2, _, _ = _long_run(rname, ck_argv, workdir, has_mpl, "LFMCMCOut",
+                           base, lambda r: _nuts_launches(r, rname, False),
+                           run_dir=res_dir)
+    add(_nuts_launches(rec2, rname, False))
+    with np.load(os.path.join(ck_dir, npz)) as a, \
+            np.load(os.path.join(res_dir, npz)) as b:
+        if not all(np.array_equal(a[k], b[k]) for k in
+                   ("samples_y", "lnps_y", "alphas", "y_run", "generator")):
+            fail(f"{name}: the resumed chain differs from the "
+                 "uninterrupted checkpointed run's")
+    print(f"{name}: accept-stat {accept:.2f}, divergent {div_pct:.2f}%, max "
+          f"R-hat {rhat:.4f}; the run resumed at 1 of 2 blocks equals it "
+          "bit for bit (samples, lnp, accept-stats, states, generator)")
+
+    # NUTS min-ess: a target between the first block's ESS and the two
+    # blocks' (the min-ess chain is the checkpointed run's, block for
+    # block), so that two blocks run
+    names = [k for k in post if k != "Ln Prob"]
+    x = np.column_stack([post[k] for k in names]).reshape(
+        2 * LONG_NUTS_BLOCK, NUTS_CHAINS, len(names))
+    e1 = float(effective_sample_size(x[:LONG_NUTS_BLOCK]).min())
+    e2 = float(effective_sample_size(x).min())
+    target = 0.5 * (e1 + e2) if e1 < e2 else 1.2 * e1
+    name = f"long fit -fc --sampler nuts --min-ess {target:.0f}"
+    rec, _, _ = _long_run(name, nuts + ["-ns", str(LONG_NUTS_BLOCK),
+                                        "--min-ess", str(target)],
+                          workdir, has_mpl, "LFMCMCOut",
+                          _long_base(LONG_NUTS_BLOCK),
+                          lambda r: _nuts_launches(r, name))
+    add(_nuts_launches(rec, name))
+    nblocks = len([ln for ln in rec.lines if ln.startswith("NUTS block ")])
+    accept, div_pct, rhat = _nuts_gates(rec, name)
+    if nblocks < 2:
+        fail(f"{name}: {nblocks} blocks (one block's ESS {e1:.0f}, two "
+             f"blocks' {e2:.0f})")
+    (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s;", name)
+    print(f"{name}: {nblocks} blocks of {LONG_NUTS_BLOCK} samples (one "
+          f"block's ESS {e1:.0f}, two blocks' {e2:.0f}), accept-stat "
+          f"{accept:.2f}, divergent {div_pct:.2f}%, max R-hat {rhat:.4f}, "
+          f"sampling {secs:.2f} s")
+
+    # exact bounds: the eager engine on the card, no kernel launch
+    name = "long fit --exact-bounds"
+    rec, post, _ = _long_run(name, ["fit"] + cat + ["-ns", str(NSTEPS),
+                                                    "--exact-bounds"],
+                             workdir, has_mpl, "LFMCMCOut",
+                             _long_base(NSTEPS), {})
+    if not any("(engine: eager, device: cuda" in ln for ln in rec.lines):
+        fail(f"{name}: the log does not name the eager engine")
+    rows = select_samples(np.column_stack([post[k] for k in post]))
+    col = rows[:, list(post).index(r"$\log L_*$")]
+    gap = abs(np.median(col) - np.median(ref_col)) / np.std(ref_col)
+    if not gap < 3.0:
+        fail(f"{name}: logL* median {np.median(col):.4f} is {gap:.2f} sd "
+             f"from the frozen-bounds fit's {np.median(ref_col):.4f}")
+    (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s$", name)
+    print(f"{name}: eager engine, no launch, logL* median "
+          f"{np.median(col):.4f} ({gap:.2f} sd from the frozen-bounds "
+          f"fit's), sampling {secs:.3f} s")
+
+    # --profile: a torch.profiler trace naming the free value kernel
+    name, nprof = "long fit --profile", 50
+    prof = os.path.join(workdir, "long_profile")
+    _long_run(name, ["fit"] + cat + ["-ns", str(nprof), "--profile", prof],
+              workdir, has_mpl, "LFMCMCOut", _long_base(nprof),
+              {"free_lnlike": 1 + 2 * nprof})
+    add({"free_lnlike": 1 + 2 * nprof})
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+    if not any("free_vg" in open(f).read() for f in traces):
+        fail(f"{name}: no trace under {prof} names free_vg ({traces})")
+    print(f"{name}: {len(traces)} trace file(s), "
+          f"{sum(os.path.getsize(f) for f in traces) / 2**20:.1f} MiB, "
+          "naming free_vg")
+    return total
+
+
 def _check_no_jax():
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "lumfuncmcmc_tpu")]
@@ -1790,11 +2091,14 @@ def run_path(label, workdir, has_mpl):
     starts)."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
-    counts, col = phase_fit(label, workdir, has_mpl)
-    runs = [counts, phase_nuts(label, workdir, has_mpl, col),
-            phase_compare(label, workdir, has_mpl)]
-    if PATHS[label].also:
-        runs.append(phase_also(label, workdir, has_mpl, col))
+    if label == LONG:
+        runs = [run_long(workdir, has_mpl)]
+    else:
+        counts, col = phase_fit(label, workdir, has_mpl)
+        runs = [counts, phase_nuts(label, workdir, has_mpl, col),
+                phase_compare(label, workdir, has_mpl)]
+        if PATHS[label].also:
+            runs.append(phase_also(label, workdir, has_mpl, col))
     _check_no_jax()
     print(json.dumps({"path": label, "launches": {
         k: sum(r[k] for r in runs) for k in KERNELS}}))
@@ -1810,7 +2114,7 @@ def phase_paths(workdir, has_mpl):
     their sums over the paths."""
     procs = {}
     try:
-        for label in PATHS:
+        for label in [*PATHS, LONG]:
             out = open(os.path.join(workdir, f"path_{len(procs)}.out"), "w+")
             procs[label] = (subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--path", label,

@@ -96,8 +96,8 @@ def _add_common_flags(p):
                         "(the reference hardwired its filename, "
                         "run_lumfuncmcmc.py:241)")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="Write a profiler trace of the fit to DIR "
-                        "(not ported yet)")
+                   help="Write a torch.profiler trace of the sampler "
+                        "to DIR")
     p.add_argument("--quadrature", type=str, default=None,
                    choices=["trapz", "gauss"],
                    help="trapz = reference parity; gauss = production "

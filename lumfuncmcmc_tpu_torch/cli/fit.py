@@ -7,15 +7,17 @@
 - ``fith`` — hierarchical multi-field fit, into ``LFMCMCHOut/``
 
 each with the stretch/DE/mix ensemble or, with ``--sampler nuts``,
-batched NUTS, and the post-fit analyses ``--ic``, ``--ppc``,
-``--evidence`` and ``--map``.
+batched NUTS, the long-run drivers (``--min-ess``, ``--checkpoint-every``
+with resume, ``--ensembles``, ``--profile``), and the post-fit analyses
+``--ic``, ``--ppc``, ``--evidence`` and ``--map``.
 
-Flags whose features are not ported yet raise ``NotImplementedError``
-naming the flag, before any work starts.
+Flags whose features are not ported yet (the multi-device ones) raise
+``NotImplementedError`` naming the flag, before any work starts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 from lumfuncmcmc_tpu_torch.cli.common import (
@@ -23,40 +25,91 @@ from lumfuncmcmc_tpu_torch.cli.common import (
 from lumfuncmcmc_tpu_torch.cli.outputs import (
     _map_only_outputs, _resume_if_done, _resumed_outputs, _run_evidence,
     _write_evidence, _write_ic, _write_outputs, _write_ppc)
+from lumfuncmcmc_tpu_torch.utils.io import artifact_path
 
 # CLI-only flags (no LFConfig field) -> the value that means "not
-# requested"; unported config fields (exact_bounds, meshes,
-# checkpoint_every) are refused by the model itself
-_NOT_PORTED_FLAGS = {
-    "min_ess": None, "ensembles": None, "nuts_pooled": False,
-    "profile": None, "distributed": None,
-}
+# requested"; the unported config fields (the meshes) are refused by the
+# model itself
+_NOT_PORTED_FLAGS = {"nuts_pooled": False, "distributed": None}
 
 
-def _reject_unported(args, cfg):
+def _reject_unported(args):
     for flag, off in _NOT_PORTED_FLAGS.items():
-        if flag == "ensembles" and cfg.sampler == "nuts":
-            continue            # ignored with a warning under NUTS
         if getattr(args, flag, off) != off:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet "
                 "(run it with the JAX package, lumfuncmcmc_tpu)")
 
 
-def _dispatch_sampler(model, cfg, args):
-    """NUTS or the ensemble sampler; ``--nchains`` is validated either
-    way, as in the JAX CLI."""
+def _profiler(outdir):
+    """``--profile DIR``: a ``torch.profiler`` trace of the sampler (host
+    and, on the card, device activities), exported into DIR."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(outdir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+
+    def export(prof):
+        path = os.path.join(outdir, "fit_trace.json")
+        prof.export_chrome_trace(path)
+        print(f"Profiler trace written to {path}")
+
+    return profile(activities=acts, on_trace_ready=export)
+
+
+def _dispatch_sampler(model, cfg, args, outdir):
+    """NUTS, replicated ensembles (with or without ``--min-ess``),
+    ``--min-ess`` blocks, or the plain fit, each checkpointed under
+    ``--checkpoint-every`` into its own artifact kind and resumed when
+    that file exists; ``--nchains`` is validated either way, and the run
+    is traced under ``--profile``, as in the JAX CLI."""
+    ens = int(getattr(args, "ensembles", None) or 0)
+    min_ess = getattr(args, "min_ess", None)
     nchains = getattr(args, "nchains", None)
     nchains = 8 if nchains is None else int(nchains)
     if nchains < 1:
         raise SystemExit(f"--nchains must be >= 1, got {nchains}")
-    if cfg.sampler == "nuts":
-        if int(getattr(args, "ensembles", None) or 0) > 1:
-            print("WARNING: --ensembles applies to the ensemble "
-                  "sampler; ignored under --sampler nuts")
-        model.fit_model_nuts(nchains=nchains)
-    else:
-        model.fit_model()
+
+    def ckpt(kind):
+        return (artifact_path(outdir, kind, args.output_filename, cfg,
+                              ext="npz") if cfg.checkpoint_every else None)
+
+    def resume(ck):
+        return bool(ck and os.path.exists(ck))
+
+    prof = (_profiler(args.profile) if getattr(args, "profile", None)
+            else contextlib.nullcontext())
+    with prof:
+        if cfg.sampler == "nuts":
+            if ens > 1:
+                print("WARNING: --ensembles applies to the ensemble "
+                      "sampler; ignored under --sampler nuts")
+            ck = ckpt("checkpoint_nuts")
+            model.fit_model_nuts(
+                nchains=nchains, min_ess=float(min_ess) if min_ess else None,
+                checkpoint_path=ck, resume=resume(ck))
+        elif ens > 1 and min_ess:
+            ck = ckpt("checkpoint_ens_until")
+            model.fit_model_ensembles(ens, min_ess=float(min_ess),
+                                      checkpoint_path=ck, resume=resume(ck))
+        elif ens > 1:
+            ck = ckpt("checkpoint_ens")
+            model.fit_model_ensembles(ens, checkpoint_path=ck,
+                                      resume=resume(ck))
+        elif min_ess:
+            if cfg.thin > 1:
+                print("WARNING: --thin is ignored under --min-ess")
+            # the blocks are cfg.nsteps long and the ESS test re-decides
+            # after each: the block is the save cadence
+            ck = ckpt("checkpoint_until")
+            model.fit_model_until(float(min_ess), checkpoint_path=ck,
+                                  resume=resume(ck))
+        else:
+            ck = ckpt("checkpoint")
+            model.fit_model(checkpoint_path=ck, resume=resume(ck))
 
 
 def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
@@ -65,7 +118,7 @@ def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
     the evidence ladder, then the artifact writers."""
     args.output_filename = args.output_filename or "test.dat"
     cfg = _build_cfg(args)
-    _reject_unported(args, cfg)
+    _reject_unported(args)
     if pivot:
         cfg = _pivot_z(cfg, args.filename)
     device, dtype = _apply_precision(cfg, getattr(args, "device", "cuda"))
@@ -87,7 +140,7 @@ def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
     print("Labels:", names)
     if getattr(args, "map", False):
         return _map_only_outputs(model, cfg, args, outdir)
-    _dispatch_sampler(model, cfg, args)
+    _dispatch_sampler(model, cfg, args, outdir)
     ev = (_run_evidence(model, args)
           if getattr(args, "evidence", None) is not None else None)
     print("Finished fitting model and about to create outputs")

@@ -165,6 +165,12 @@ def _write_ppc(model, cfg, args, outdir):
         plot_ppc, posterior_predictive_check)
     from lumfuncmcmc_tpu_torch.utils.io import (
         artifact_path, write_fixed_width_two_line)
+    if cfg.exact_bounds:
+        print("WARNING: --ppc evaluates predicted counts on the frozen "
+              "build-time grid; with --exact-bounds the posterior was "
+              "sampled under per-theta integration bounds, so faint-bin "
+              "predictions can be biased where posterior Flim drifts "
+              "from the build-time value")
     ctx_fine = model.rebuild_context(
         model.cfg.replace(size_ln=max(201, model.cfg.size_ln or 0),
                           quadrature="trapz"), model.dtype)

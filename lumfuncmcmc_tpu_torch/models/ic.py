@@ -29,7 +29,7 @@ import torch
 from lumfuncmcmc_tpu_torch.models.context import LFContext
 from lumfuncmcmc_tpu_torch.models.hierarchical import ThetaLayoutH
 from lumfuncmcmc_tpu_torch.models.likelihood import (
-    ThetaLayout, lnlike_single_epoch_parts)
+    ThetaLayout, lnlike_exact_bounds_parts, lnlike_single_epoch_parts)
 from lumfuncmcmc_tpu_torch.models.likelihood_z import (
     ThetaLayoutZ, lnlike_z_parts)
 from lumfuncmcmc_tpu_torch.ops.omega import omega_from_logf
@@ -60,7 +60,8 @@ def _parts_h(theta, ctx: LFContext, layout: ThetaLayoutH):
     return lnpart_f.sum(dim=1), int_f.sum(dim=1)
 
 
-def make_pointwise_fns(ctx: LFContext, layout, exact_bounds: bool = False):
+def make_pointwise_fns(ctx: LFContext, layout, exact_bounds: bool = False,
+                       min_comp_frac: float = 0.5, lh: float = 46.0):
     """``(loglam_chunk, parts)`` for the layout's model family.
 
     ``loglam_chunk(thetas (B, D), lum, z, lnom, logf, om0, fid) -> (B,
@@ -91,12 +92,17 @@ def make_pointwise_fns(ctx: LFContext, layout, exact_bounds: bool = False):
     if not isinstance(layout, ThetaLayout):
         raise TypeError(f"unknown layout type {type(layout)!r}")
     if exact_bounds:
-        raise NotImplementedError(
-            "--exact-bounds is not ported yet (it needs the in-graph "
-            "completeness-root bisection, fleming_root_logf)")
+        if layout.fix_comp:
+            raise ValueError("exact_bounds applies to free completeness "
+                             "only")
+        lum_floor = float(ctx.lum.min())       # make_lnprob's floor
 
-    def parts(theta):
-        return lnlike_single_epoch_parts(theta, ctx, layout)
+        def parts(theta):
+            return lnlike_exact_bounds_parts(theta, ctx, layout,
+                                             min_comp_frac, lum_floor, lh)
+    else:
+        def parts(theta):
+            return lnlike_single_epoch_parts(theta, ctx, layout)
 
     if layout.fix_comp:
         def loglam_chunk(theta, lum, z, lnom, logf, om0, fid):
@@ -243,7 +249,9 @@ def _batched(fn, thetas, batch: int):
 
 
 def information_criteria(samples, ctx: LFContext, layout,
-                         exact_bounds: bool = False, ndraws: int = 1000,
+                         exact_bounds: bool = False,
+                         min_comp_frac: float = 0.5, lh: float = 46.0,
+                         ndraws: int = 1000,
                          seed: int = 0, chunk: int = 8192,
                          theta_batch: int = 64,
                          return_pointwise: bool = False):
@@ -271,8 +279,9 @@ def information_criteria(samples, ctx: LFContext, layout,
     dev, dt = ctx.lum.device, ctx.lum.dtype
     thetas = torch.as_tensor(thetas_all, dtype=dt, device=dev)
     S = int(thetas.shape[0])
-    loglam_chunk, parts = make_pointwise_fns(ctx, layout,
-                                             exact_bounds=exact_bounds)
+    loglam_chunk, parts = make_pointwise_fns(
+        ctx, layout, exact_bounds=exact_bounds, min_comp_frac=min_comp_frac,
+        lh=lh)
     with torch.no_grad():
         lnpart_S, fullint_S = (t.double()
                                for t in _batched(parts, thetas, theta_batch))

@@ -24,7 +24,9 @@ import torch
 
 from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import LFContext
-from lumfuncmcmc_tpu_torch.ops.omega import omega_from_logf
+from lumfuncmcmc_tpu_torch.ops.completeness import fleming_root_logf
+from lumfuncmcmc_tpu_torch.ops.omega import LOG10_4PI, omega_from_logf
+from lumfuncmcmc_tpu_torch.ops.quadrature import gl_nodes_unit
 from lumfuncmcmc_tpu_torch.ops.schechter import LN10, log_true_lum_func
 
 
@@ -175,24 +177,109 @@ def lnlike_single_epoch(theta, ctx: LFContext, layout: ThetaLayout,
     return lnpart - fullint
 
 
+def lnlike_exact_bounds_parts(theta, ctx: LFContext, layout: ThetaLayout,
+                              min_comp_frac: float, lum_floor: float,
+                              lh: float, n_nodes: int = 32):
+    """(lnpart, fullint), each (W,), of :func:`lnlike_exact_bounds`."""
+    lstar, phistar, sch_al, logf50, alpha_c = layout.unpack(theta)
+    dt, dev = theta.dtype, theta.device
+    logf50_src = logf50[:, ctx.field_id]                # (W, N)
+    om_src = omega_from_logf(ctx.logf_src, ctx.omega0_src, logf50_src,
+                             alpha_c[:, None], layout.fcmin)
+    lnpart = _ln_term_direct(ctx, lstar, phistar, sch_al,
+                             torch.log(om_src))
+    u, w = (torch.as_tensor(x, dtype=dt, device=dev)
+            for x in gl_nodes_unit(n_nodes))
+    # the true data z-range (context scalars)
+    zmin, zmax = ctx.z_lo, ctx.z_hi
+    # broadcast shapes: (W, panel, field, L node, z node)
+    wb = (slice(None), None, None, None, None)
+    if min_comp_frac > 0.001:
+        # the completeness root per walker and field; minlum(z) = max(
+        # root-implied bound, lum_floor) has a kink where the branches
+        # cross, so each (walker, field) integral splits its z range
+        # there into two Gauss-Legendre panels
+        roots = fleming_root_logf(logf50, alpha_c[:, None], min_comp_frac,
+                                  layout.fcmin, iters=50)         # (W, F)
+        zstar = torch.clamp(ctx.cosmo.z_at_log10_dl_cm(
+            0.5 * (lum_floor - roots - LOG10_4PI)), zmin, zmax)
+        z_lo = torch.stack([torch.full_like(zstar, 1.0) * zmin, zstar], 1)
+        z_hi = torch.stack([zstar, torch.full_like(zstar, 1.0) * zmax], 1)
+        zspan = (z_hi - z_lo)[..., None]                 # (W, 2, F, 1)
+        znodes = z_lo[..., None] + u * zspan             # (W, 2, F, S)
+        wz = w * zspan
+        root_b = roots[:, None, :, None]
+    else:
+        # no completeness cut: the bound is the constant lum_floor,
+        # smooth, one z panel
+        znodes = (zmin + u * (zmax - zmin)).expand(1, 1, 1, n_nodes)
+        wz = w * (zmax - zmin)
+        root_b = None
+    log_dl = ctx.cosmo.log10_dl_cm_at(znodes)
+    dvdz = ctx.cosmo.differential_comoving_volume(znodes)
+    if root_b is None:
+        minlum = torch.full_like(log_dl, lum_floor)
+    else:
+        minlum = torch.clamp(root_b + LOG10_4PI + 2.0 * log_dl,
+                             min=lum_floor)                  # (W, 2, F, S)
+    span = lh - minlum
+    logL = minlum[..., None, :] + u[:, None] * span[..., None, :]
+    wl = w[:, None] * span[..., None, :]                     # (.., S, S)
+    logf = logL - LOG10_4PI - 2.0 * log_dl[..., None, :]
+    om = omega_from_logf(logf, ctx.omega0_f[:, None, None],
+                         logf50[:, None, :, None, None],
+                         alpha_c[wb], layout.fcmin)
+    lnphi = log_true_lum_func(logL, sch_al[wb], lstar[wb], phistar[wb])
+    integrand = torch.exp(lnphi) * om * wl * (wz * dvdz)[..., None, :]
+    return lnpart, integrand.reshape(theta.shape[0], -1).sum(dim=1)
+
+
+def lnlike_exact_bounds(theta, ctx: LFContext, layout: ThetaLayout,
+                        min_comp_frac: float, lum_floor: float, lh: float,
+                        n_nodes: int = 32):
+    """Free-completeness lnL with theta-exact integration bounds.
+
+    The reference freezes the logL grid's lower bound at the build-time
+    completeness parameters even while sampling Flim/alpha_c (its
+    exact-bounds routine is dead code). Here the bound
+
+        minlum_f(z | theta) = max(log10(4 pi dL^2 root_f(theta)), lum_floor)
+
+    is re-derived per evaluation (the root by :func:`fleming_root_logf`,
+    differentiable), and the (L, z) integral taken by Gauss-Legendre on
+    ``n_nodes`` x ``n_nodes`` nodes mapped through the theta-dependent
+    bounds. (W, D) -> (W,).
+    """
+    lnpart, fullint = lnlike_exact_bounds_parts(
+        theta, ctx, layout, min_comp_frac, lum_floor, lh, n_nodes)
+    return lnpart - fullint
+
+
 def make_lnprob(ctx: LFContext, layout: ThetaLayout, collapse: bool = True,
-                exact_bounds: bool = False):
+                exact_bounds: bool = False, min_comp_frac: float = 0.5,
+                lh: float = 46.0):
     """Build the batched lnprob, (W, D) -> (W,).
 
     The likelihood is always evaluated and masked by the prior; box
     bounds are finite, so out-of-box thetas never leak NaN into the
-    result.
+    result. ``exact_bounds`` (free completeness only) takes
+    :func:`lnlike_exact_bounds` with the catalog's faintest luminosity
+    as the floor.
     """
-    if exact_bounds:
-        raise NotImplementedError(
-            "exact_bounds is not ported yet (it needs the in-graph "
-            "completeness-root bisection)")
+    if exact_bounds and layout.fix_comp:
+        raise ValueError("exact_bounds applies to free completeness only")
+    lum_floor = float(ctx.lum.min()) if exact_bounds else None
 
     # bounds made once: a host tensor per call would sync the device
     lo, hi = layout.bounds_arrays(ctx.lum.dtype, ctx.lum.device)
 
     def lnprob(theta):
-        lnl = lnlike_single_epoch(theta, ctx, layout, collapse=collapse)
+        if exact_bounds:
+            lnl = lnlike_exact_bounds(theta, ctx, layout, min_comp_frac,
+                                      lum_floor, lh)
+        else:
+            lnl = lnlike_single_epoch(theta, ctx, layout,
+                                      collapse=collapse)
         return torch.where(in_box(theta, lo, hi), lnl,
                            torch.full_like(lnl, -math.inf))
 

@@ -22,12 +22,14 @@ import torch
 
 from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
-from lumfuncmcmc_tpu_torch.models.ensemble_driver import _EnsembleDriverMixin
+from lumfuncmcmc_tpu_torch.models.ensemble_driver import (
+    _EnsembleDriverMixin, stream_generator)
 from lumfuncmcmc_tpu_torch.models.hierarchical import (
     ThetaLayoutH, lnlike_h_split, lnprior_h, lnz0_prior, make_lnprob_h)
 from lumfuncmcmc_tpu_torch.models.nuts_driver import _NutsDriverMixin
 from lumfuncmcmc_tpu_torch.models.likelihood import (
-    ThetaLayout, lnlike_single_epoch, lnprior, make_lnprob, sample_init)
+    ThetaLayout, lnlike_exact_bounds, lnlike_single_epoch, lnprior,
+    make_lnprob, sample_init)
 from lumfuncmcmc_tpu_torch.models.likelihood_z import (
     ThetaLayoutZ, lnlike_z, lnprior_z, make_lnprob_z)
 from lumfuncmcmc_tpu_torch.ops.cuda_lnlike import FLOAT32_MAX_SOURCES
@@ -70,23 +72,14 @@ def posterior_lfs(model, draws):
     return lf.double().cpu().numpy()
 
 
-# flags whose features the port does not have yet, and the config value
-# that means "off"
-_NOT_PORTED = {"exact_bounds": False, "mesh_walkers": 0,
-               "mesh_sources": 1, "checkpoint_every": 0}
+# flags whose features the port does not have yet (the device meshes),
+# and the config value that means "off"
+_NOT_PORTED = {"mesh_walkers": 0, "mesh_sources": 1}
 
 # stream tags of the model-comparison runs' generators, the JAX package's
 # fold_in constants: an evidence or MAP run after a fit must not replay
 # the fit's draws
 EVIDENCE_TAG, MAP_TAG = 0x65766964, 0x6d6170
-
-
-def stream_generator(seed: int, tag: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded off ``seed``'s stream by ``tag``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(np.random.SeedSequence((int(seed), int(tag)))
-                        .generate_state(1, np.uint64)[0]))
-    return gen
 
 
 class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
@@ -248,18 +241,35 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
         self.nfreeparams = len(vals)
         return vals
 
+    @property
+    def exact_bounds(self):
+        """``cfg.exact_bounds`` where it applies: the single-epoch model
+        under free completeness."""
+        return bool(self.cfg.exact_bounds and self.model_kind == "single"
+                    and not self.cfg.fix_comp)
+
     def _resolve_use_pallas(self):
         """``cfg.use_pallas`` names the hand-kernel engine; None means
-        on for a CUDA device and off on the CPU."""
+        on for a CUDA device and off on the CPU. Exact bounds have no
+        kernel: auto mode takes the eager engine, and an explicit
+        ``use_pallas`` raises."""
+        if self.exact_bounds:
+            if self.cfg.use_pallas:
+                raise ValueError(
+                    "exact_bounds is not implemented in the value kernels "
+                    "— drop --use-pallas (the eager exact-bounds engine "
+                    "is the path for this configuration)")
+            return False
         if self.cfg.use_pallas is None:
             return self.device.type == "cuda"
         return bool(self.cfg.use_pallas)
 
-    def _log_convergence(self, chain):
+    def _log_convergence(self, chain, rhat_line=True):
         """Rank-normalized split-R-hat (bulk/tail max) and the
         Monte-Carlo SE of each parameter's posterior median."""
-        self.log.info("rank-normalized R-hat (bulk/tail max): %.4f"
-                      % rank_normalized_rhat(chain).max())
+        if rhat_line:
+            self.log.info("rank-normalized R-hat (bulk/tail max): %.4f"
+                          % rank_normalized_rhat(chain).max())
         self.log.info("median MCSE per param: %s"
                       % np.array2string(mcse_quantile(chain, 0.5),
                                         precision=4))
@@ -418,8 +428,8 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
         draws = select_samples(self.samples, lnprobcut, drop_lnp=True)
         t0 = time.perf_counter()
         ic = information_criteria(
-            draws, self.ctx, self.layout,
-            exact_bounds=bool(cfg.exact_bounds), ndraws=int(ndraws),
+            draws, self.ctx, self.layout, exact_bounds=self.exact_bounds,
+            min_comp_frac=cfg.min_comp_frac, lh=cfg.Lh, ndraws=int(ndraws),
             seed=cfg.seed if seed is None else int(seed), chunk=int(chunk))
         for line in format_ic_report(ic).splitlines():
             self.log.info(line)
@@ -568,12 +578,24 @@ class LumFuncModel(_BaseModel):
         return ThetaLayout.from_config(self.cfg)
 
     def _make_scalar_lnprob(self, ctx=None):
-        return make_lnprob(self.ctx if ctx is None else ctx, self.layout)
+        return make_lnprob(self.ctx if ctx is None else ctx, self.layout,
+                           exact_bounds=self.exact_bounds,
+                           min_comp_frac=self.cfg.min_comp_frac,
+                           lh=self.cfg.Lh)
 
     def _eager_prior_like(self):
-        ctx, layout = self.ctx, self.layout
-        return ((lambda th: lnprior(th, layout)),
-                (lambda th: lnlike_single_epoch(th, ctx, layout)))
+        ctx, layout, cfg = self.ctx, self.layout, self.cfg
+        if self.exact_bounds:
+            lum_floor = float(ctx.lum.min())
+
+            def like(th):
+                return lnlike_exact_bounds(th, ctx, layout,
+                                           cfg.min_comp_frac, lum_floor,
+                                           cfg.Lh)
+        else:
+            def like(th):
+                return lnlike_single_epoch(th, ctx, layout)
+        return (lambda th: lnprior(th, layout)), like
 
     def _default_positions(self, generator):
         # only the single-epoch model has the reference's -sr/--same_rand

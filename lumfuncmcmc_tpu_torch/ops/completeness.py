@@ -8,9 +8,8 @@ With ``x = alpha * (logf - logF50)``::
     fc_mod  = fc ** ( 1 / (1 - exp(-f/f_tau)) )
 
 The float64 numpy forms used by the host precompute are carried over
-unchanged. The in-graph bisection ``fleming_root_logf`` (and its
-implicit-function derivative) is not ported yet: only NUTS and the
-exact-bounds likelihood use it.
+unchanged. :func:`fleming_root_logf` is the in-graph bisection the
+exact-bounds likelihood takes, with the implicit-function derivative.
 """
 
 from __future__ import annotations
@@ -93,3 +92,54 @@ def fleming_root_logf_np(logF50, alpha, min_comp_frac, fcmin=0.1, iters=80):
         lo = np.where(go_right, mid, lo)
         hi = np.where(go_right, hi, mid)
     return 0.5 * (lo + hi)
+
+
+class _FlemingRoot(torch.autograd.Function):
+    """Bisection root of ``fleming_from_logf(r, logF50, alpha) = mcf`` with
+    the implicit-function derivative: ``dr = -(F_logF50 dlogF50 + F_alpha
+    dalpha) / F_r``. A raw bisection's gradient flows only through its
+    comparisons and comes out zero, which would drop the completeness
+    boundary's term from NUTS trajectories."""
+
+    @staticmethod
+    def forward(ctx, logF50, alpha, min_comp_frac, fcmin, iters):
+        lo, hi = logF50 - 6.0, logF50 + 6.0
+        for _ in range(iters):
+            mid = 0.5 * (lo + hi)
+            go_right = fleming_from_logf(mid, logF50, alpha,
+                                         fcmin) < min_comp_frac
+            lo = torch.where(go_right, mid, lo)
+            hi = torch.where(go_right, hi, mid)
+        root = 0.5 * (lo + hi)
+        ctx.save_for_backward(logF50, alpha, root)
+        ctx.fcmin = fcmin
+        return root
+
+    @staticmethod
+    def backward(ctx, grad):
+        # the saved root comes back attached to this node, so under
+        # create_graph a second derivative goes through the same rule
+        logF50, alpha, root = ctx.saved_tensors
+        create = torch.is_grad_enabled()
+        with torch.enable_grad():
+            r, f, a = torch.broadcast_tensors(root, logF50, alpha)
+            # partials of F at (r, f, a) as functions of them: the
+            # gradient of F(r + e0, f + e1, a + e2) at e = 0
+            e = torch.zeros((3,) + tuple(r.shape), dtype=r.dtype,
+                            device=r.device, requires_grad=True)
+            val = fleming_from_logf(r + e[0], f + e[1], a + e[2],
+                                    ctx.fcmin)
+            (d,) = torch.autograd.grad(val.sum(), e, create_graph=create)
+        g = grad / d[0]
+        return ((-g * d[1]).sum_to_size(logF50.shape),
+                (-g * d[2]).sum_to_size(alpha.shape), None, None, None)
+
+
+def fleming_root_logf(logF50, alpha, min_comp_frac, fcmin=0.1, iters=80):
+    """log10 of the flux where the modified Fleming curve crosses
+    ``min_comp_frac``: a fixed-count bisection on the monotone curve over
+    a 12-dex bracket, elementwise over broadcast (logF50, alpha)
+    tensors, differentiable in both by the implicit-function theorem
+    (:class:`_FlemingRoot`)."""
+    return _FlemingRoot.apply(logF50, alpha, float(min_comp_frac), fcmin,
+                              int(iters))

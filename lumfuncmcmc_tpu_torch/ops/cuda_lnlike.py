@@ -163,12 +163,15 @@ VG_HIER_SLOTS = 3       # csrc/lnlike_h.cu (hier_lnlike_vg, fixed_lnlike_vg)
 MAX_HIER_FIELDS = 64    # csrc/lnlike_h.cu
 THREADS = 256           # csrc/common.cuh: threads of a block
 X_CLAMP = 60.0          # z_lnlike_vg clamps a source's x = a - lq here
-# free completeness takes the streaming kernels from this many sources on:
-# the streaming kernel's W = 50 time is within 12% of the resident one's
-# from 4.2e4 to 8.5e4 sources and below it beyond, and the resident
-# kernel's float32 features (c_s rounded apart from c_g) cost it ~0.01 in
-# the lnp differences of close thetas at 4.2e4 sources and ~0.04 at 1.7e5
-# (PERF.md, tools/stream_crossover.py)
+# free completeness takes the streaming kernels from this many sources on,
+# for the accept step's sake and not for speed: the one-launch resident
+# free_lnlike is the faster kernel where the two were measured (at W = 50
+# on the 1,019,385-source catalog 101.72 us against free_stream_lnlike's
+# 151.55 us, H100 80GB HBM3 at 700 W), but its float32 features round c_s
+# apart from c_g, which costs it 0.022 in the lnp differences of close
+# thetas at 4.2e4 sources, 0.046 at 1.7e5 and 0.47 at 1.0e6, against
+# 0.001-0.011 for the streaming route and the 0.05 that the accept step
+# bears (PERF.md, tools/stream_crossover.py, chip_smoke.py phase_stream)
 STREAM_MIN_SOURCES = 40_000
 # a run that is not float64 is refused from this many sources on: its lnp,
 # cast to float32 at |lnL| ~ 15 N, then errs by up to one float32 spacing

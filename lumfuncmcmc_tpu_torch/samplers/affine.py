@@ -11,6 +11,11 @@ one ``torch.Generator`` on the run's device, with the JAX package's
 shapes. The step loop is a Python loop that never synchronises with the
 device: the chain goes into a preallocated device tensor and
 acceptances are counted on the device.
+
+Independent replicated ensembles (:func:`run_stretch_ensembles`) are a
+leading batch axis of the walkers, as the tempered ladder's rungs are:
+each half-step makes one ``lnprob_batch`` call over all E x W/2 rows,
+and each ensemble draws its partners from its own other half.
 """
 
 from __future__ import annotations
@@ -66,43 +71,52 @@ def _de_half_step(rand, move_pos, move_lnp, other_pos, lnprob_batch):
     return new_pos, new_lnp, accept
 
 
-def _step_de_pre(rands, state: EnsembleState, lnprob_batch: Callable):
-    """One full DE step from pre-generated randoms, each (2, nh)."""
+def _halves(state: EnsembleState):
+    """The two half-ensembles of ``(pos (..., W, D), lnp (..., W))``."""
     pos, lnp = state
-    nh = pos.shape[0] // 2
+    nh = pos.shape[-2] // 2
+    return ((pos[..., :nh, :], lnp[..., :nh]),
+            (pos[..., nh:, :], lnp[..., nh:]))
+
+
+def _join(first, second, a0, a1):
+    return (EnsembleState(torch.cat([first[0], second[0]], dim=-2),
+                          torch.cat([first[1], second[1]], dim=-1)),
+            torch.cat([a0, a1], dim=-1))
+
+
+def _step_de_pre(rands, state: EnsembleState, lnprob_batch: Callable):
+    """One full DE step from pre-generated randoms, each (2, ..., nh)."""
+    (p0, l0), (p1, l1) = _halves(state)
     g, j1, j2, ln_u = rands
-    p0, l0 = pos[:nh], lnp[:nh]
-    p1, l1 = pos[nh:], lnp[nh:]
     p0, l0, a0 = _de_half_step((g[0], j1[0], j2[0], ln_u[0]), p0, l0,
                                p1, lnprob_batch)
     p1, l1, a1 = _de_half_step((g[1], j1[1], j2[1], ln_u[1]), p1, l1,
                                p0, lnprob_batch)
-    return (EnsembleState(torch.cat([p0, p1]), torch.cat([l0, l1])),
-            torch.cat([a0, a1]))
+    return _join((p0, l0), (p1, l1), a0, a1)
 
 
 def _step_pre(rands, state: EnsembleState, lnprob_batch: Callable,
               a: float):
     """One full stretch-move step from pre-generated randoms
-    ``(u_z, j, ln_u)``, each (2, nh): index 0 moves the first half
-    against the second, index 1 the second against the updated first."""
-    pos, lnp = state
-    nwalkers, ndim = pos.shape
-    nh = nwalkers // 2
+    ``(u_z, j, ln_u)``, each (2, ..., nh): index 0 moves the first half
+    against the second, index 1 the second against the updated first.
+    Leading batch dimensions of the walkers (..., W, D) are independent
+    ensembles."""
+    ndim = state.pos.shape[-1]
+    (p0, l0), (p1, l1) = _halves(state)
     u_z, j, ln_u = rands
-    p0, l0 = pos[:nh], lnp[:nh]
-    p1, l1 = pos[nh:], lnp[nh:]
     p0, l0, a0 = _half_step((u_z[0], j[0], ln_u[0]), p0, l0, p1,
                             lnprob_batch, a, ndim)
     p1, l1, a1 = _half_step((u_z[1], j[1], ln_u[1]), p1, l1, p0,
                             lnprob_batch, a, ndim)
-    return (EnsembleState(torch.cat([p0, p1]), torch.cat([l0, l1])),
-            torch.cat([a0, a1]))
+    return _join((p0, l0), (p1, l1), a0, a1)
 
 
-def _stretch_rands(gen, nsteps, nh, dtype, device):
-    """Bulk stretch randoms ``(u_z, j, ln_u)``, each (nsteps, 2, nh)."""
-    shape = (nsteps, 2, nh)
+def _stretch_rands(gen, nsteps, nh, dtype, device, batch=()):
+    """Bulk stretch randoms ``(u_z, j, ln_u)``, each (nsteps, 2,
+    *batch, nh)."""
+    shape = (nsteps, 2, *batch, nh)
     u_z = torch.rand(shape, generator=gen, dtype=dtype, device=device)
     j = torch.randint(0, nh, shape, generator=gen, device=device)
     ln_u = torch.log(torch.rand(shape, generator=gen, dtype=dtype,
@@ -110,12 +124,12 @@ def _stretch_rands(gen, nsteps, nh, dtype, device):
     return u_z, j, ln_u
 
 
-def _de_rands(gen, nsteps, nh, ndim, dtype, device):
+def _de_rands(gen, nsteps, nh, ndim, dtype, device, batch=()):
     """Bulk DE randoms: jittered/jumping gamma, two distinct partner
-    indices, log accept uniforms — each (nsteps, 2, nh). gamma_0 =
-    2.38/sqrt(2 ndim) with 1e-5 jitter, and 10% full-strength
+    indices, log accept uniforms — each (nsteps, 2, *batch, nh).
+    gamma_0 = 2.38/sqrt(2 ndim) with 1e-5 jitter, and 10% full-strength
     (gamma = 1) jumps."""
-    shape = (nsteps, 2, nh)
+    shape = (nsteps, 2, *batch, nh)
     g0 = 2.38 / math.sqrt(2.0 * ndim)
     g = g0 * (1.0 + 1e-5 * torch.randn(shape, generator=gen, dtype=dtype,
                                        device=device))
@@ -142,18 +156,20 @@ def run_with_rands(lnprob_batch: Callable, pos0, rands, nsteps: int,
 
     ``rands``: ``(u_z, j, ln_u)`` for move="stretch", ``(g, j1, j2,
     ln_u)`` for "de", and ``(sel, stretch_rands, de_rands)`` for "mix",
-    where ``sel`` is the host (nsteps,) bool DE schedule. Returns
-    ``(state, chain (nsteps//thin, W, D), lnp (nsteps//thin, W),
-    acc_count (W,))``. The loop makes no host synchronisation.
+    where ``sel`` is the host (nsteps,) bool DE schedule. ``pos0`` is
+    (W, D), or (..., W, D) for independent ensembles with ``rands`` of
+    shape (nsteps, 2, ..., W/2) and a ``lnprob_batch`` that takes the
+    leading dimensions. Returns ``(state, chain (nsteps//thin, ..., W,
+    D), lnp (nsteps//thin, ..., W), acc_count (..., W))``. The loop
+    makes no host synchronisation.
     """
-    nwalkers, ndim = pos0.shape
     state = EnsembleState(pos0, lnprob_batch(pos0))
     nrec = nsteps // thin
-    chain = torch.empty((nrec, nwalkers, ndim), dtype=pos0.dtype,
+    chain = torch.empty((nrec,) + tuple(pos0.shape), dtype=pos0.dtype,
                         device=pos0.device)
-    lnps = torch.empty((nrec, nwalkers), dtype=pos0.dtype,
+    lnps = torch.empty((nrec,) + tuple(pos0.shape[:-1]), dtype=pos0.dtype,
                        device=pos0.device)
-    acc = torch.zeros(nwalkers, dtype=pos0.dtype, device=pos0.device)
+    acc = torch.zeros(pos0.shape[:-1], dtype=pos0.dtype, device=pos0.device)
     if move == "mix":
         sel, sr, dr = rands
     for t in range(nsteps):
@@ -172,19 +188,22 @@ def run_with_rands(lnprob_batch: Callable, pos0, rands, nsteps: int,
 
 def run_stretch(lnprob_batch: Callable, pos0, generator: torch.Generator,
                 nsteps: int, a: float = 2.0, thin: int = 1,
-                move: str = "stretch", de_prob: float = 0.5):
+                move: str = "stretch", de_prob: float = 0.5, de_sel=None):
     """Run the ensemble for ``nsteps`` full steps.
 
-    ``lnprob_batch``: (m, ndim) -> (m,). ``generator`` lives on
-    ``pos0``'s device and supplies every random draw. ``move``:
-    "stretch", "de" or "mix" (the deterministic ``de_schedule`` with
-    ``de_prob``). With ``thin > 1``,
-    ``nsteps`` must be a multiple of ``thin``.
+    ``lnprob_batch``: (m, ndim) -> (m,), or with leading dimensions of
+    ``pos0`` (..., W, D) the same leading dimensions in and out.
+    ``generator`` lives on ``pos0``'s device and supplies every random
+    draw. ``move``: "stretch", "de" or "mix" (the deterministic
+    ``de_schedule`` with ``de_prob``; a blocked run passes its slice of
+    the global schedule as ``de_sel``, so block boundaries do not
+    restart it). With ``thin > 1``, ``nsteps`` must be a multiple of
+    ``thin``.
 
-    Returns ``(state, chain (nsteps//thin, W, D), lnp (nsteps//thin, W),
-    acc_count (W,))`` on the device.
+    Returns ``(state, chain (nsteps//thin, ..., W, D), lnp
+    (nsteps//thin, ..., W), acc_count (..., W))`` on the device.
     """
-    nwalkers, ndim = pos0.shape
+    nwalkers, ndim = pos0.shape[-2:]
     if nwalkers % 2:
         raise ValueError("nwalkers must be even for the red-black scheme")
     if move in ("de", "mix") and nwalkers < 4:
@@ -195,15 +214,64 @@ def run_stretch(lnprob_batch: Callable, pos0, generator: torch.Generator,
         raise ValueError(
             f"nsteps={nsteps} must be a multiple of thin={thin}")
     nh = nwalkers // 2
-    dt, dev = pos0.dtype, pos0.device
+    kw = dict(dtype=pos0.dtype, device=pos0.device,
+              batch=tuple(pos0.shape[:-2]))
     if move == "stretch":
-        rands = _stretch_rands(generator, nsteps, nh, dt, dev)
+        rands = _stretch_rands(generator, nsteps, nh, **kw)
     elif move == "de":
-        rands = _de_rands(generator, nsteps, nh, ndim, dt, dev)
+        rands = _de_rands(generator, nsteps, nh, ndim, **kw)
     elif move == "mix":
-        rands = (de_schedule(nsteps, de_prob),
-                 _stretch_rands(generator, nsteps, nh, dt, dev),
-                 _de_rands(generator, nsteps, nh, ndim, dt, dev))
+        sel = (de_schedule(nsteps, de_prob) if de_sel is None
+               else np.asarray(de_sel))
+        rands = (sel, _stretch_rands(generator, nsteps, nh, **kw),
+                 _de_rands(generator, nsteps, nh, ndim, **kw))
     else:
         raise ValueError(f"unknown move {move!r} (stretch|de|mix)")
     return run_with_rands(lnprob_batch, pos0, rands, nsteps, a, thin, move)
+
+
+def flat_batch(lnprob_batch: Callable) -> Callable:
+    """(..., m, D) -> (..., m) through one ``lnprob_batch`` call over
+    all rows: one kernel launch on the card whatever the batch."""
+    def fn(th):
+        return lnprob_batch(th.reshape(-1, th.shape[-1])).reshape(
+            th.shape[:-1])
+    return fn
+
+
+def _ensemble_major(out):
+    state, chain, lnps, acc = out
+    return state, chain.transpose(0, 1), lnps.transpose(0, 1), acc
+
+
+def run_ensembles_with_rands(lnprob_batch: Callable, pos0, rands,
+                             nsteps: int, a: float = 2.0, thin: int = 1,
+                             move: str = "stretch"):
+    """:func:`run_with_rands` for E independent ensembles, ``pos0`` (E, W,
+    D), ``rands`` each (nsteps, 2, E, W/2) (the "mix" schedule shared):
+    ensemble e runs exactly as ``run_with_rands`` on ``pos0[e]`` and
+    ``x[:, :, e]`` of every random. ``lnprob_batch``: (m, D) -> (m,),
+    called once a half-step over all E x W/2 rows. Returns ``(state,
+    chain (E, nsteps//thin, W, D), lnp (E, nsteps//thin, W), acc (E,
+    W))``."""
+    return _ensemble_major(run_with_rands(flat_batch(lnprob_batch), pos0,
+                                          rands, nsteps, a, thin, move))
+
+
+def run_stretch_ensembles(lnprob_batch: Callable, pos0,
+                          generator: torch.Generator, nsteps: int,
+                          a: float = 2.0, thin: int = 1,
+                          move: str = "stretch", de_prob: float = 0.5,
+                          de_sel=None):
+    """Run E independent ensembles at once, ``pos0`` (E, W, D): the
+    ensemble axis is a batch axis of every half-step (one
+    ``lnprob_batch`` call over all E x W/2 rows), the randoms of all E
+    drawn in bulk from ``generator``. Gives a true multi-chain R-hat
+    (:func:`~lumfuncmcmc_tpu_torch.samplers.diagnostics.gelman_rubin_ensembles`)
+    and fills the card when one ensemble's batch is small. Returns
+    :func:`run_stretch`'s tuple with the ensemble axis first: ``(state,
+    chain (E, nsteps//thin, W, D), lnp (E, nsteps//thin, W), acc (E,
+    W))``."""
+    return _ensemble_major(run_stretch(
+        flat_batch(lnprob_batch), pos0, generator, nsteps, a, thin, move,
+        de_prob, de_sel))

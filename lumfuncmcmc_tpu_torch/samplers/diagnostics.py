@@ -69,6 +69,34 @@ def gelman_rubin(chain):
     return np.sqrt(var_post / np.maximum(w, 1e-300))
 
 
+def gelman_rubin_ensembles(chains):
+    """Multi-chain split-R-hat across independent ensembles.
+
+    ``chains``: (C, nsteps, nwalkers, ndim). Walkers inside one ensemble
+    interact every step, so the independent unit is the whole ensemble:
+    each is split in half along steps, the walker samples of a half
+    pooled, and B/W computed over the 2C groups. Needs C >= 2.
+    """
+    x = np.asarray(chains, dtype=np.float64)
+    if x.ndim != 4 or x.shape[0] < 2:
+        raise ValueError("need (C>=2, nsteps, nwalkers, ndim) chains")
+    c, n, w, d = x.shape
+    if n < 2:
+        raise ValueError(
+            f"need >= 2 recorded post-burn-in steps to split, got {n}")
+    half = n // 2
+    groups = np.concatenate([x[:, :half], x[:, half:2 * half]],
+                            axis=0)                  # (2C, half, W, D)
+    flat = groups.reshape(2 * c, half * w, d)
+    means = flat.mean(axis=1)                        # (2C, D)
+    variances = flat.var(axis=1, ddof=1)             # (2C, D)
+    w_within = variances.mean(axis=0)
+    m = flat.shape[1]
+    b = m * means.var(axis=0, ddof=1)
+    var_post = (m - 1) / m * w_within + b / m
+    return np.sqrt(var_post / np.maximum(w_within, 1e-300))
+
+
 def _norm_ppf(p):
     """Standard-normal quantile, in float64 on the host."""
     arg = torch.as_tensor(np.asarray(p, dtype=np.float64))
@@ -126,6 +154,22 @@ def rank_normalized_rhat(chain):
     bulk = gelman_rubin(_rank_normalize(x))
     folded = gelman_rubin(_rank_normalize(
         np.abs(x - np.median(x, axis=(0, 1), keepdims=True))))
+    return np.maximum(bulk, folded)
+
+
+def rank_normalized_rhat_ensembles(chains):
+    """Rank-normalized (bulk and folded) :func:`gelman_rubin_ensembles`:
+    independent ensembles as the chain unit, ranks taken jointly over
+    every sample."""
+    x = np.asarray(chains, dtype=np.float64)
+    c, n, w, d = x.shape
+
+    def z(v):
+        return _rank_normalize(v.reshape(c * n, w, d)).reshape(c, n, w, d)
+
+    bulk = gelman_rubin_ensembles(z(x))
+    folded = gelman_rubin_ensembles(z(
+        np.abs(x - np.median(x, axis=(0, 1, 2), keepdims=True))))
     return np.maximum(bulk, folded)
 
 

@@ -20,7 +20,11 @@
   the same numbers (:func:`run_nuts_with`).
 - :func:`run_nuts`: dual-averaging step-size warmup pooled over chains
   and the two-stage diagonal mass, then the sampling phase, every number
-  from one ``torch.Generator`` on the run's device.
+  from one ``torch.Generator`` on the run's device. It returns the frozen
+  post-warmup state ``(y_run, eps, scale)`` with the samples, and
+  :func:`continue_nuts` extends a run from that state without re-warmup:
+  the generator's stream is consumed in transition order, so a run of
+  ``m`` samples continued by ``n - m`` is the ``n``-sample run exactly.
 """
 
 from __future__ import annotations
@@ -293,6 +297,13 @@ class NutsRun(NamedTuple):
                               # y' = y / scale
     div_frac: torch.Tensor    # fraction of divergent sampling transitions
     counts: NutsCounts
+    y_run: torch.Tensor       # (C, D) the last state, in y / scale
+
+    @property
+    def state(self):
+        """The frozen post-warmup state ``(y_run, eps, scale)`` that
+        :func:`continue_nuts` extends."""
+        return self.y_run, self.eps, self.scale
 
 
 _GAMMA, _T0, _KAPPA = 0.05, 10.0, 0.75     # dual-averaging constants
@@ -363,17 +374,43 @@ def run_nuts_with(draw: Callable, lnpost_y: Callable, y0, num_warmup: int,
         scale = torch.ones(ndim, dtype=y0.dtype, device=y0.device)
         vg_s = value_and_grad(lambda yp: lnpost_y(yp * scale))
 
-    samples = torch.empty((num_samples,) + tuple(y0.shape), dtype=y0.dtype,
-                          device=y0.device)
-    lnps = torch.empty(samples.shape[:2], dtype=y0.dtype, device=y0.device)
+    return _sample_phase(draw, vg_s, (y_run, eps, scale), 0, num_samples,
+                         max_doublings, counts)
+
+
+def _sample_phase(draw, vg_s, state, start, stop, max_doublings, counts):
+    """Sampling transitions ``start..stop`` (numbers from ``draw("s",
+    t)``) from ``state = (y_run, eps, scale)`` with ``vg_s`` the
+    value+gradient in the rescaled coordinates."""
+    y_run, eps, scale = state
+    n = stop - start
+    samples = torch.empty((n,) + tuple(y_run.shape), dtype=y_run.dtype,
+                          device=y_run.device)
+    lnps = torch.empty(samples.shape[:2], dtype=y_run.dtype,
+                       device=y_run.device)
     alphas = torch.empty_like(lnps)
     divs = torch.empty_like(lnps, dtype=torch.bool)
-    for s in range(num_samples):
-        y_run, lnps[s], alphas[s], divs[s] = _nuts_step(
-            vg_s, max_doublings, eps, draw("s", s), y_run, counts)
-        samples[s] = y_run * scale
+    for i, t in enumerate(range(start, stop)):
+        y_run, lnps[i], alphas[i], divs[i] = _nuts_step(
+            vg_s, max_doublings, eps, draw("s", t), y_run, counts)
+        samples[i] = y_run * scale
     return NutsRun(samples, lnps, alphas, eps, scale,
-                   divs.to(y0.dtype).mean(), counts)
+                   divs.to(y_run.dtype).mean(), counts, y_run)
+
+
+def continue_nuts_with(draw: Callable, lnpost_y: Callable, state,
+                       start: int, stop: int, max_doublings: int = 8,
+                       counts: NutsCounts = None) -> NutsRun:
+    """Sampling transitions ``start..stop`` of a warmed-up run from its
+    frozen ``state = (y_run, eps, scale)``, each transition's numbers
+    from ``draw("s", t)``: the continuation the JAX package's
+    ``continue_nuts_keys`` makes from ``sampling_keys(key, start,
+    stop)``. The step size and mass stay frozen, so blocks compose into
+    one chain. ``counts`` (default new) accumulates the work."""
+    scale = state[2]
+    vg_s = value_and_grad(lambda yp: lnpost_y(yp * scale))
+    return _sample_phase(draw, vg_s, state, start, stop, max_doublings,
+                         NutsCounts() if counts is None else counts)
 
 
 def generator_draw(generator: torch.Generator, nchains: int, ndim: int,
@@ -405,3 +442,17 @@ def run_nuts(lnpost_y: Callable, y0, generator: torch.Generator,
                          max_doublings=max_doublings,
                          target_accept=target_accept, init_step=init_step,
                          adapt_mass=adapt_mass)
+
+
+def continue_nuts(lnpost_y: Callable, state, generator: torch.Generator,
+                  num_samples: int, max_doublings: int = 8,
+                  counts: NutsCounts = None) -> NutsRun:
+    """Extend a warmed-up run by ``num_samples`` transitions from its
+    frozen ``state`` (``NutsRun.state``), drawing every number from
+    ``generator`` where the run left it: ``run_nuts(num_samples=m)``
+    continued by ``n - m`` is ``run_nuts(num_samples=n)`` exactly."""
+    y_run = state[0]
+    draw = generator_draw(generator, y_run.shape[0], y_run.shape[1],
+                          max_doublings, y_run.dtype, y_run.device)
+    return continue_nuts_with(draw, lnpost_y, state, 0, num_samples,
+                              max_doublings, counts)

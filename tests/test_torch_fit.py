@@ -147,12 +147,30 @@ def test_port_triangle_plot_resume_and_unported_flags(tmp_path,
     # an existing fitposterior: reload and replot, no sampling
     assert port_main(args) == 0
     assert png.stat().st_mtime_ns >= mtime
-    for flag in (["--min-ess", "100"], ["--ensembles", "2"],
-                 ["--exact-bounds"], ["--sampler", "nuts", "--nuts-pooled"],
-                 ["--sampler", "nuts", "--min-ess", "100"],
-                 ["--sampler", "nuts", "--checkpoint-every", "5"]):
+    # still refused: the multi-device flags
+    for flag in (["--sampler", "nuts", "--nuts-pooled"],
+                 ["--distributed", "localhost:1234,1,0"],
+                 ["--mesh-walkers", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_main(args + flag)
+    # ported: the long-run flags, each a fresh run with its artifacts
+    nuts = ["--sampler", "nuts", "-fc", "--nchains", "2", "-ns", "10"]
+    no_plot = ["--config", _no_plot_config(tmp_path / "cfg.json")]
+    for name, flag, ckpt in (
+            ("a", ["--min-ess", "100"], None),
+            ("b", ["--ensembles", "2", "--checkpoint-every", "20"],
+             "checkpoint_ens"),
+            ("c", ["--exact-bounds"], None),
+            ("d", nuts + ["--min-ess", "5"], None),
+            ("e", nuts + ["--checkpoint-every", "5"], "checkpoint_nuts")):
+        assert port_main([x.replace("p.dat", f"{name}.dat") for x in args]
+                         + flag + no_plot) == 0
+        ns = flag[flag.index("-ns") + 1] if "-ns" in flag else "40"
+        stem = f"{name}_nb50_nw16_ns{ns}_mcf50"
+        for kind in ("fitposterior", "bestfitLF", "VeffLF"):
+            assert (tmp_path / "LFMCMCOut" / f"{kind}_{stem}.dat").exists()
+        if ckpt:
+            assert (tmp_path / "LFMCMCOut" / f"{ckpt}_{stem}.npz").exists()
     # ported: --map and --ic on the resumed posterior, then compare-ic
     assert port_main(args + ["--map", "--ic"]) == 0
     out = tmp_path / "LFMCMCOut"
@@ -273,10 +291,21 @@ def test_fitz_resume_pivots_and_unported_flags(tmp_path, monkeypatch):
     # an existing LFMCMCzOut/ fitposterior: reload it, no sampling
     assert port_main(args) == 0
     assert post.stat().st_mtime_ns == mtime
-    for flag in (["--min-ess", "100"], ["--ensembles", "2"],
-                 ["--checkpoint-every", "5"], ["--mesh-walkers", "2"]):
+    for flag in (["--mesh-walkers", "2"],
+                 ["--sampler", "nuts", "--nuts-pooled"],
+                 ["--distributed", "localhost:1234,1,0"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_main([a.replace("p.dat", "q.dat") for a in args] + flag)
+    # ported: the long-run flags, each a fresh run with its artifacts
+    for name, flag in (("a", ["--min-ess", "100"]), ("b", ["--ensembles",
+                                                          "2"]),
+                       ("c", ["--checkpoint-every", "10"])):
+        assert port_main([a.replace("p.dat", f"{name}.dat") for a in args]
+                         + flag) == 0
+        assert (tmp_path / "LFMCMCzOut"
+                / f"fitposterior_{name}_nb50_nw16_ns30_mcf50.dat").exists()
+    assert (tmp_path / "LFMCMCzOut"
+            / "checkpoint_c_nb50_nw16_ns30_mcf50.npz").exists()
     # ported: the analyses on the resumed posterior, and a fresh --map
     assert port_main(args + ["--ic", "--ppc", "--evidence", "4"]) == 0
     assert post.stat().st_mtime_ns == mtime

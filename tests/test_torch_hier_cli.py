@@ -1,7 +1,7 @@
 """The ``fith`` CLI of both packages on one synthetic catalog: the
-stretch move, and the resume-and-replot and "not ported yet" behaviour
-(``-fsa``, ``--move mix`` and ``--sampler nuts`` are in
-``tests/test_torch_hier_nuts.py``, which shares this file's helpers).
+stretch move, the resume-and-replot and "not ported yet" behaviour, and
+the long-run flags (``-fsa``, ``--move mix`` and ``--sampler nuts`` are
+in ``tests/test_torch_hier_nuts.py``, which shares this file's helpers).
 
 The same command line runs through the JAX package and the PyTorch port
 (``--device cpu`` added for the port, whose default is the card): both
@@ -119,10 +119,20 @@ def test_fith_resume_and_unported_flags(tmp_path, monkeypatch):
     # an existing LFMCMCHOut/ fitposterior: reload it and replot
     assert port_main(args) == 0
     assert post.stat().st_mtime_ns == mtime
-    for flag in (["--min-ess", "100"], ["--ensembles", "2"],
-                 ["--checkpoint-every", "5"], ["--mesh-walkers", "2"]):
+    for flag in (["--mesh-walkers", "2"],
+                 ["--sampler", "nuts", "--nuts-pooled"],
+                 ["--distributed", "localhost:1234,1,0"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_main([a.replace("p.dat", "q.dat") for a in args] + flag)
+    # ported: the long-run flags, each a fresh run with its artifacts
+    for name, flag in (("a", ["--min-ess", "100"]), ("b", ["--ensembles",
+                                                          "2"]),
+                       ("c", ["--checkpoint-every", "10"])):
+        assert port_main([a.replace("p.dat", f"{name}.dat") for a in args]
+                         + flag + _config(tmp_path)) == 0
+        assert (out / f"fitposterior_{name}_nb50_nw32_ns30_mcf50.dat"
+                ).exists()
+    assert (out / "checkpoint_c_nb50_nw32_ns30_mcf50.npz").exists()
     # ported: the analyses on the resumed posterior, --map, --init-map
     assert port_main(args + ["--map", "--ic", "--ppc", "--evidence",
                              "4"]) == 0

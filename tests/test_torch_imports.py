@@ -1,9 +1,10 @@
 """The port stands alone: with ``jax`` and ``lumfuncmcmc_tpu`` made
 unimportable, every module of ``lumfuncmcmc_tpu_torch`` imports and a
 tiny ``--device cpu`` run of each subcommand (``fit``, ``fitz``,
-``fith``, ``vmax``, and the model comparison: ``--ic``, ``--ppc``,
-``--evidence``, ``--map``, ``--init-map``, ``compare-ic``, ``stack-ic``)
-works; without ``--device cpu`` and with no CUDA device, each fit fails
+``fith``, ``vmax``, the model comparison: ``--ic``, ``--ppc``,
+``--evidence``, ``--map``, ``--init-map``, ``compare-ic``, ``stack-ic``,
+and the long-run drivers: a checkpointed ``--min-ess`` fit and an
+``--ensembles`` fit) works; without ``--device cpu`` and with no CUDA device, each fit fails
 and names ``--device cpu`` instead of running on the CPU, while
 ``compare-ic`` / ``stack-ic``, which read only ``.npz`` files, run.
 """
@@ -190,3 +191,29 @@ def test_ic_commands_need_no_card(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "paired sources" in proc.stdout
     assert "stacked log score" in proc.stdout
+
+
+LONGRUN = r"""
+from lumfuncmcmc_tpu_torch.cli.main import main as _main
+_fit = ["--synthetic", "120", "-mcf", "0.5", "-ns", "10", "-nw", "8",
+        "--size-ln", "7", "--device", "cpu"] + sys.argv[-2:]
+assert _main(["fit", "-o", "a.dat", "--min-ess", "20",
+              "--checkpoint-every", "5"] + _fit) == 0
+sys.argv[1:] = ["fit", "-o", "b.dat", "--ensembles", "2"] + _fit
+"""
+
+
+def test_port_imports_nothing_of_jax_and_runs_the_long_run_drivers(
+        tmp_path):
+    code = BLOCKED_RUN.replace(
+        "from lumfuncmcmc_tpu_torch.cli.main import main\n",
+        "from lumfuncmcmc_tpu_torch.cli.main import main\n" + LONGRUN)
+    proc = _run(tmp_path, code, [], {})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RC 0" in proc.stdout
+    out = tmp_path / "LFMCMCOut"
+    for name in ("fitposterior_a_nb50_nw8_ns10_mcf50.dat",
+                 "checkpoint_until_a_nb50_nw8_ns10_mcf50.npz",
+                 "fitposterior_b_nb50_nw8_ns10_mcf50.dat"):
+        assert (out / name).exists(), name
+    assert "cross-ensemble R-hat" in proc.stderr

@@ -219,5 +219,6 @@ def test_sample_init_inside_the_box():
     np.testing.assert_allclose(u.numpy(), u[:, :1].expand(-1, layout.ndim
                                                           ).numpy(),
                                rtol=1e-12)
-    with pytest.raises(NotImplementedError):
-        tlik.make_lnprob(None, layout, exact_bounds=True)
+    with pytest.raises(ValueError, match="free completeness only"):
+        tlik.make_lnprob(None, tlik.ThetaLayout.from_config(
+            LFConfig(fix_comp=True)), exact_bounds=True)
