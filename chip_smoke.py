@@ -4,8 +4,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths and 16
-side by side, 15 and 9); any failure ends the run with a nonzero exit:
+Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 16 and
+17 side by side, 15 and 9); any failure ends the run with a nonzero exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
    ``nvidia-smi``'s name and power limit;
@@ -113,10 +113,26 @@ side by side, 15 and 9); any failure ends the run with a nonzero exit:
    100`` (>= 2 blocks), with phase 6's NUTS gates and ``fixed_lnlike_vg``
    launches = transitions + leapfrogs; ``fit --exact-bounds`` (the eager
    engine, no launch, logL* within 3 sd of the frozen-bounds fit's);
-   ``fit -ns 50 --profile DIR`` (a trace naming ``free_vg``).
+   ``fit -ns 50 --profile DIR`` (a trace naming ``free_vg``);
+17. the device grid (the ``grid`` path, :func:`run_grid`) on the fits'
+   catalog at ``GRID_STEPS`` steps: a world of 1 under NCCL (``fit
+   --mesh-walkers 1 --distributed 127.0.0.1:PORT,1,0``: 2 x steps + 1
+   ``free_lnlike``, the plain fit's fitposterior byte for byte), the
+   plain fit's evidence ladder and the meshless mega ``fit_model``; then
+   two ranks on the one card (:func:`grid_rank`, a gloo group through
+   ``init_distributed``, the collectives' CUDA tensors staged through the
+   host; NCCL refuses two ranks on one device), each run's launch counts
+   exact per rank: ``fit --mesh-walkers 2`` (W/4 rows a launch, the
+   all_gather's share of the loop, logL* within 3 sd of the plain fit's,
+   the grid's lnprob of 32 thetas vs meshless within ``RTOL_KERNEL``),
+   the ladder on (2,1) (8 rungs a rank, |dlnZ| vs meshless within
+   ``DLNP_TOL``), ``fith --ensembles 2 --mesh-walkers 2`` (one ensemble a
+   rank) and the mega catalog on (1,2) (``free_stream_lnlike`` on source
+   shards, the 32-close-pair gate through the sharded lnprob, each rank's
+   memory peak beside the meshless one's).
 
-Phases 5-8, 12 and 16 run side by side, each path in a process of its
-own (``--path``): its stretch fit, its NUTS fit, then the model comparison
+Phases 5-8, 12, 16 and 17 run side by side, each path in a process of
+its own (``--path``): its stretch fit, its NUTS fit, then the model comparison
 (``PATHS[label].compare``): the finished stretch fit rerun with ``--ic``
 (every path; 1000 draws x 1,019,385 sources on the mega path), ``--ppc``
 (``fit``, ``fitz``, ``fith``) and ``--evidence 16`` (``fit``; ``fith``
@@ -138,6 +154,7 @@ device line last.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import logging
@@ -433,8 +450,18 @@ def _bound(kname, data, w):
 
 def _one_node(kname, grid, w, fn, empty_ms):
     """The split of a one-launch kernel's call: its kernels' own device
-    times (``torch.profiler``), which must be one node; fails otherwise."""
+    times (``torch.profiler``), which must be one node; fails otherwise.
+    A capture with no CUDA event is retaken once."""
     kus = _kernel_us(fn)
+    if not kus:
+        # no CUDA event at all is the instrument's failure, not a kernel
+        # node count: one retake, and two empty captures in a row fail
+        print(f"{kname} {grid} W={w}: torch.profiler captured no CUDA "
+              "event; retaking the capture once")
+        kus = _kernel_us(fn)
+        if not kus:
+            fail(f"{kname} {grid} W={w}: two torch.profiler captures in a "
+                 "row held no CUDA event")
     print(f"{kname} {grid} W={w} split: one launch; the kernel's own "
           f"device time { {k: round(v, 2) for k, v in kus.items()} } us "
           f"(torch.profiler), an empty kernel {empty_ms * 1e3:.2f} us")
@@ -2075,6 +2102,406 @@ def run_long(workdir, has_mpl):
     return total
 
 
+GRID = "grid"               # the device grid's path (phase 17)
+GRID_STEPS = 1000           # stretch steps of the grid's flagship fits
+GRID_MEGA_STEPS = 500       # of its mega fit
+GRID_SECONDS = 600          # what its two rank processes may take
+GRID_DEVICE = "cuda:0"      # both ranks' card
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _grid_argv(workdir, has_mpl, cmd="fit", extra=()):
+    """The flagship stretch fit's command line at ``GRID_STEPS``."""
+    return [cmd, "--synthetic", str(NSYNTH), "-mcf", "0.5", "-nw",
+            str(NWALKERS), "-ns", str(GRID_STEPS), "--config",
+            _smoke_config(workdir, has_mpl)] + list(extra)
+
+
+def _grid_base():
+    return f"test_nb50_nw{NWALKERS}_ns{GRID_STEPS}_mcf50"
+
+
+def _flagship_model(dev, **over):
+    """The flagship ``fit`` model through the library API, on the CLI's
+    catalog (``_load_inputs``), in the card's default dtype."""
+    from lumfuncmcmc_tpu_torch.cli.common import _align_fields, _load_inputs
+    from lumfuncmcmc_tpu_torch.models.model import LumFuncModel
+    cfg = LFConfig(min_comp_frac=0.5, nwalkers=NWALKERS, **over)
+    inputs = _load_inputs(SimpleNamespace(synthetic=NSYNTH, filename=None),
+                          cfg)
+    cfg = _align_fields(cfg, inputs.pop("field_names"))
+    return LumFuncModel(cfg, **inputs, device=dev, dtype=torch.float32)
+
+
+def _grid_mega_model(dev, **over):
+    """The mega catalog's ``fit`` model (``use_x64``, gauss-32, seed 7)
+    through the library API at ``GRID_MEGA_STEPS``, and its catalog."""
+    from lumfuncmcmc_tpu_torch.models.model import LumFuncModel
+    cfg = LFConfig(min_comp_frac=0.5, quadrature="gauss", seed=MEGA_SEED,
+                   nwalkers=NWALKERS, nsteps=GRID_MEGA_STEPS, use_x64=True,
+                   **over)
+    cat = apply_completeness_cut(
+        make_catalog(cfg, n_target=MEGA_TARGET, seed=MEGA_SEED), cfg)
+    return LumFuncModel(cfg, z=cat["z"], flux=cat["flux"],
+                        flux_e=cat["flux_e"], field_id=cat["field_id"],
+                        device=dev, dtype=torch.float64), cat
+
+
+def _expect(label, counts, want):
+    full = {k: 0 for k in KERNELS}
+    full.update(want)
+    if counts != full:
+        fail(f"{label}: launch counts {counts}, expected {full}")
+
+
+def _rows_of(name):
+    """Record the walker rows of every ``name`` launch (the one-launch
+    kernels' ``_launch_vg``); returns the list and the undo."""
+    rows, launch = [], cl._launch_vg
+
+    def recorded(kname, feats, *a, **kw):
+        if kname == name:
+            rows.append(int(feats.shape[0]))
+        return launch(kname, feats, *a, **kw)
+    cl._launch_vg = recorded
+
+    def undo():
+        cl._launch_vg = launch
+    return rows, undo
+
+
+def run_grid(workdir, has_mpl):
+    """Phase 17, the device grid. In this process, a world of 1 under
+    NCCL: ``fit --mesh-walkers 1 --distributed 127.0.0.1:PORT,1,0``
+    beside the plain ``fit`` (the meshless path: the same launches, 2 x
+    steps + 1 ``free_lnlike``, and the same fitposterior bytes), then
+    the plain ``fit``'s evidence ladder (16 rungs, ``LADDER_STEPS``).
+    Then two ranks on the one card (:func:`grid_rank`, each a process
+    that joins a gloo group through ``init_distributed``; NCCL refuses two
+    ranks on one device), whose launch counts are added to the paths'."""
+    dev = torch.device(GRID_DEVICE)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    argv = _grid_argv(workdir, has_mpl)
+    want = {"free_lnlike": 2 * GRID_STEPS + 1}
+    runs = []
+    post = []
+    for name, extra in (("plain", []), ("world 1", [
+            "--mesh-walkers", "1", "--distributed",
+            f"127.0.0.1:{_free_port()},1,0"])):
+        run_dir = os.path.join(workdir, f"grid_{name.replace(' ', '')}")
+        rc, counts, rec, peak, wall = _drive(argv + extra, run_dir)
+        if rc != 0:
+            fail(f"grid {name} fit returned {rc}")
+        _expect(f"grid {name} fit", counts, want)
+        if extra and not any(ln == f"Process group: rank 0 of 1 ({backend})"
+                             for ln in rec.lines):
+            fail(f"grid world 1: the fit did not join a {backend} group of "
+                 "one")
+        out = os.path.join(run_dir, "LFMCMCOut")
+        _artifacts(f"grid {name} fit", out, _grid_base(), has_mpl)
+        with open(os.path.join(out, f"fitposterior_{_grid_base()}.dat"),
+                  "rb") as fh:
+            post.append(fh.read())
+        runs.append(counts)
+        print(f"grid {name} fit: CLI wall {wall:.1f} s, sampling loop "
+              f"{rec.value('Total time taken:'):.3f} s, free_lnlike "
+              f"launches {counts['free_lnlike']}")
+    if post[0] != post[1]:
+        fail("grid world 1: the fitposterior differs from the plain fit's")
+    print(f"grid world 1 ({backend}, --distributed 127.0.0.1:PORT,1,0, "
+          "--mesh-walkers 1): the meshless path, its fitposterior the plain "
+          "fit's byte for byte")
+    _check_no_jax()
+    model = _flagship_model(dev)
+    t1 = time.perf_counter()
+    ev = model.log_evidence(nrungs=EVIDENCE_RUNGS, nsteps=LADDER_STEPS)
+    ladder_s = time.perf_counter() - t1
+    names = list(read_fixed_width_two_line(os.path.join(
+        workdir, "grid_plain", "LFMCMCOut",
+        f"fitposterior_{_grid_base()}.dat")))
+    ref = {"lnz": ev["lnz_ss"], "ladder_s": ladder_s, "col": names[0],
+           "post": os.path.join(workdir, "grid_plain", "LFMCMCOut",
+                                f"fitposterior_{_grid_base()}.dat")}
+    del model
+    torch.cuda.empty_cache()
+    model, cat = _grid_mega_model(dev, mesh_sources=1)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    model.fit_model()
+    ref["mega_s"] = time.perf_counter() - t1
+    ref["mega_peak"] = torch.cuda.max_memory_allocated()
+    print(f"grid: the meshless mega fit_model ({GRID_MEGA_STEPS} steps, "
+          f"{int(model.ctx.lum.shape[0])} sources): sampling "
+          f"{ref['mega_s']:.2f} s, device memory peak "
+          f"{ref['mega_peak'] / 2**20:.1f} MiB")
+    with open(os.path.join(workdir, "grid_ref.json"), "w") as fh:
+        json.dump(ref, fh)
+    del model, cat
+    torch.cuda.empty_cache()
+    port = _free_port()
+    procs = []
+    try:
+        for r in range(2):
+            out = open(os.path.join(workdir, f"grid_rank{r}.out"), "w+")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--grid-rank",
+                 str(r), str(port), workdir, str(int(has_mpl))],
+                stdout=out), out))
+        deadline = time.monotonic() + GRID_SECONDS
+        for r, (proc, out) in enumerate(procs):
+            rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            out.seek(0)
+            lines = out.read().splitlines()
+            print("\n".join(lines[:-1]))
+            if rc != 0:
+                fail(f"grid rank {r} returned {rc}")
+            got = json.loads(lines[-1])
+            if got["grid_rank"] != r:
+                fail(f"grid rank {r}: the process reported {got}")
+            runs.append(got["launches"])
+    finally:
+        for proc, out in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    print(f"grid: phase 17 wall {time.perf_counter() - t0:.1f} s")
+    return {k: sum(r[k] for r in runs) for k in KERNELS}
+
+
+def _collective_clock():
+    """Host seconds and calls inside the grid's collectives (the sharded
+    lnprob's ``all_gather_rows``/``all_reduce_sum``, each ending in the
+    copy back, so a wait for the device's value is in it): ``[seconds,
+    calls]``, and the undo."""
+    from lumfuncmcmc_tpu_torch.parallel import sharding as sh
+    tot, saved = [0.0, 0], (sh.all_gather_rows, sh.all_reduce_sum)
+
+    def clocked(fn):
+        def inner(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            tot[0] += time.perf_counter() - t
+            tot[1] += 1
+            return out
+        return inner
+    sh.all_gather_rows, sh.all_reduce_sum = (clocked(f) for f in saved)
+
+    def undo():
+        sh.all_gather_rows, sh.all_reduce_sum = saved
+    return tot, undo
+
+
+def _rank_print(rank, msg):
+    print(f"grid rank {rank}: {msg}", flush=True)
+
+
+def grid_rank(rank, port, workdir, has_mpl):
+    """One of phase 17's two ranks on the one card: a gloo group of two
+    (``init_distributed(..., backend="gloo")``; gloo takes the collectives'
+    CUDA tensors staged through the host), then, each run with every launch
+    counter set to 0 just before and read just after, its counts exact
+    per rank:
+
+    - ``fit --mesh-walkers 2`` (the (2,1) grid; the value kernels
+      walker-split): 2 x steps + 1 ``free_lnlike`` launches a rank, each
+      of W/4 = 25 rows (the start W/2); the posterior's logL* median
+      within 3 sd of the plain fit's; the grid's lnprob of 32 thetas
+      against the meshless kernel lnprob within ``RTOL_KERNEL``;
+    - the mega catalog on (1,2) through the library (``fit_model``,
+      ``use_x64``): the streaming kernels on source shards, 2 x steps + 1
+      ``free_stream_lnlike`` a rank and no ``free_lnlike``; the lnp
+      differences of 32 close pairs through the sharded lnprob against the
+      float64 eager engine within ``DLNP_TOL``; each rank's device memory
+      peak;
+    - ``fith --ensembles 2 --mesh-walkers 2``: one ensemble a rank, 2 x
+      steps + 1 ``hier_lnlike``;
+    - ``log_evidence(16 rungs)`` on (2,1): 8 rungs a rank, 1 + 2 x steps +
+      the recompute's chunks ``free_lnlike``; |dlnZ| against the meshless
+      ladder (:func:`run_grid`) within ``DLNP_TOL``.
+
+    Prints its lines, then one JSON line with its launch counts."""
+    from lumfuncmcmc_tpu_torch.parallel.distributed import (
+        init_distributed, shutdown)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                     timeout=GRID_SECONDS)
+    dev = torch.device(GRID_DEVICE)
+    with open(os.path.join(workdir, "grid_ref.json")) as fh:
+        ref = json.load(fh)
+    runs = []
+    say = functools.partial(_rank_print, rank)
+    say("gloo group of 2 on one card (collectives' CUDA tensors staged "
+        "through the host)")
+
+    # the flagship fit on (2,1)
+    rows, undo = _rows_of("free_lnlike")
+    coll, undo_coll = _collective_clock()
+    try:
+        run_dir = os.path.join(workdir, f"grid_fit_rank{rank}")
+        rc, counts, rec, peak, wall = _drive(
+            _grid_argv(workdir, has_mpl, extra=["--mesh-walkers", "2"]),
+            run_dir)
+    finally:
+        undo()
+        undo_coll()
+    if rc != 0:
+        fail(f"grid rank {rank} fit returned {rc}")
+    _expect(f"grid rank {rank} fit (2,1)", counts,
+            {"free_lnlike": 2 * GRID_STEPS + 1})
+    if rows != [NWALKERS // 2] + [NWALKERS // 4] * (2 * GRID_STEPS):
+        fail(f"grid rank {rank} fit: launch rows {sorted(set(rows))}, "
+             f"expected {NWALKERS // 2} then {NWALKERS // 4}")
+    runs.append(counts)
+    loop_s = rec.value("Total time taken:")
+    line = (f"fit (2,1): CLI wall {wall:.1f} s, sampling loop {loop_s:.3f} "
+            f"s, {loop_s / GRID_STEPS * 1e3:.3f} ms a step, of which the "
+            f"all_gather {coll[0] / GRID_STEPS * 1e3:.3f} ms ({coll[1]} calls,"
+            f" {100 * coll[0] / loop_s:.1f}% of the loop, host clock, device "
+            f"sync included), free_lnlike launches {counts['free_lnlike']} of "
+            f"{NWALKERS // 4} rows, device memory peak {peak / 2**20:.1f} MiB")
+    if rank == 0:
+        mine = read_fixed_width_two_line(os.path.join(
+            run_dir, "LFMCMCOut", f"fitposterior_{_grid_base()}.dat"))
+        plain = read_fixed_width_two_line(ref["post"])
+        col = ref["col"]
+        m0, sd0 = np.median(plain[col]), np.std(plain[col])
+        m1 = np.median(mine[col])
+        if not abs(m1 - m0) < 3 * sd0:
+            fail(f"grid fit (2,1): logL* median {m1:.4f}, plain {m0:.4f} "
+                 f"(sd {sd0:.4f})")
+        same = np.array_equal(np.asarray(mine[col]), np.asarray(plain[col]))
+        line += (f"; logL* median {m1:.4f} vs the plain fit's {m0:.4f} (sd "
+                 f"{sd0:.4f}), chains {'identical' if same else 'differ'}")
+    elif os.path.exists(os.path.join(run_dir, "LFMCMCOut")):
+        fail("grid rank 1 wrote artifacts")
+    say(line)
+    model = _flagship_model(dev, mesh_walkers=2)
+    th = _central_thetas(model.cfg, model.layout, 32,
+                         torch.Generator(device=dev).manual_seed(17), dev)
+    th = th.to(model.dtype)
+    got = model.lnprob_batch()(th)
+    want_l = cl.make_cuda_lnprob(model.ctx, model.layout)(th)
+    err = _rel(got.double(), want_l.double())
+    if not err <= RTOL_KERNEL:
+        fail(f"grid rank {rank}: lnprob on the grid vs meshless max rel "
+             f"{err:.3e}")
+    say(f"lnprob of 32 thetas on the (2,1) grid vs meshless: max rel "
+        f"{err:.3e} (limit {RTOL_KERNEL:g})")
+
+    # the evidence ladder on (2,1)
+    for name in KERNELS:
+        _kernel(name).launches = 0
+    t0 = time.perf_counter()
+    ev = model.log_evidence(nrungs=EVIDENCE_RUNGS, nsteps=LADDER_STEPS)
+    ladder_s = time.perf_counter() - t0
+    counts = {name: _kernel(name).launches for name in KERNELS}
+    per = EVIDENCE_RUNGS // 2
+    _expect(f"grid rank {rank} ladder", counts, {
+        "free_lnlike": 1 + 2 * LADDER_STEPS
+        + -(-per * LADDER_STEPS * NWALKERS // cl.MAX_ROWS)})
+    runs.append(counts)
+    d = abs(ev["lnz_ss"] - ref["lnz"])
+    if not d <= DLNP_TOL:
+        fail(f"grid rank {rank} ladder: ln Z {ev['lnz_ss']:.4f} vs meshless "
+             f"{ref['lnz']:.4f}")
+    say(f"evidence ladder ({EVIDENCE_RUNGS} rungs, {per} a rank, "
+        f"{LADDER_STEPS} steps): ln Z {ev['lnz_ss']:.4f} vs the meshless "
+        f"ladder's {ref['lnz']:.4f} (|dlnZ| {d:.2e}); ladder wall "
+        f"{ladder_s:.2f} s (meshless {ref['ladder_s']:.2f} s), "
+        f"free_lnlike launches {counts['free_lnlike']}")
+    del model
+    _check_no_jax()
+
+    # fith --ensembles 2 on (2,1)
+    run_dir = os.path.join(workdir, f"grid_fith_rank{rank}")
+    rc, counts, rec, peak, wall = _drive(_grid_argv(
+        workdir, has_mpl, "fith", ["--ensembles", "2", "--mesh-walkers",
+                                   "2"]), run_dir)
+    if rc != 0:
+        fail(f"grid rank {rank} fith --ensembles 2 returned {rc}")
+    _expect(f"grid rank {rank} fith --ensembles 2", counts,
+            {"hier_lnlike": 2 * GRID_STEPS + 1})
+    if not any("sharded over 2 ranks" in ln for ln in rec.lines):
+        fail(f"grid rank {rank} fith: the ensembles were not sharded")
+    runs.append(counts)
+    say(f"fith --ensembles 2 (2,1): one ensemble a rank, CLI wall "
+        f"{wall:.1f} s, sampling {rec.value('Total time taken:'):.3f} s, "
+        f"hier_lnlike launches {counts['hier_lnlike']}, cross-ensemble "
+        f"R-hat line: "
+        + next((ln for ln in rec.lines if "cross-ensemble R-hat" in ln), ""))
+
+    # the mega catalog on (1,2): source shards
+    rec = _Records()
+    log = logging.getLogger("lumfuncmcmc_tpu_torch")
+    log.addHandler(rec)
+    try:
+        model, cat = _grid_mega_model(dev, mesh_sources=2)
+        cfg = model.cfg
+        torch.cuda.reset_peak_memory_stats()
+        fn = model.lnprob_batch()
+        for name in KERNELS:
+            _kernel(name).launches = 0
+        t0 = time.perf_counter()
+        model.fit_model()
+        wall = time.perf_counter() - t0
+        counts = {name: _kernel(name).launches for name in KERNELS}
+    finally:
+        log.removeHandler(rec)
+    peak = torch.cuda.max_memory_allocated()
+    _expect(f"grid rank {rank} mega (1,2)", counts,
+            {"free_stream_lnlike": 2 * GRID_MEGA_STEPS + 1})
+    route = "cuda-stream" if dev.type == "cuda" else "plain-stream"
+    if fn.engine != route or not any(
+            "sources round-robin sharded over 2 ranks" in ln
+            for ln in rec.lines):
+        fail(f"grid rank {rank} mega: engine {fn.engine}, or the log does "
+             "not name the sharded streaming route")
+    runs.append(counts)
+    nsrc = int(model.ctx.lum.shape[0])
+    held = int((fn.data.s_mask > 0).sum())
+    tt = cat["theta_true"]
+    truth = torch.tensor([tt["Lstar"], tt["phistar"], tt["sch_al"],
+                          *cfg.Flim, cfg.alpha], dtype=torch.float64,
+                         device=dev)
+    lo, hi = model.layout.bounds_arrays(torch.float64, dev)
+    th = _close_pairs(truth, hi - lo,
+                      torch.Generator(device=dev).manual_seed(5))
+    v = fn(th)
+    line = (f"mega (1,2) through fit_model ({GRID_MEGA_STEPS} steps): "
+            f"{nsrc} sources, {held} on this rank's shard, sampling "
+            f"{wall:.2f} s (meshless {ref['mega_s']:.2f} s), "
+            f"free_stream_lnlike launches {counts['free_stream_lnlike']}, "
+            f"device memory peak {peak / 2**20:.1f} MiB (the meshless "
+            f"fit_model's {ref['mega_peak'] / 2**20:.1f} MiB; PR 12's CLI "
+            "mega fit, post-processing included, 6332.7 MiB)")
+    if rank == 0:
+        want_v = _in_rows(make_lnprob(model.ctx, model.layout), th, 8)
+        err = _dlnp_err(v, want_v)
+        if not err <= DLNP_TOL:
+            fail(f"grid mega (1,2): lnp differences of 32 close pairs vs "
+                 f"float64 eager off by {err:.4e}")
+        line += (f"; lnp differences of 32 close pairs through the sharded "
+                 f"lnprob vs float64 eager: max error {err:.4e} (limit "
+                 f"{DLNP_TOL})")
+    say(line)
+    del model, fn
+    torch.cuda.empty_cache()
+    _check_no_jax()
+    shutdown()
+    print(json.dumps({"grid_rank": rank, "launches": {
+        k: sum(r[k] for r in runs) for k in KERNELS}}))
+    return 0
+
+
 def _check_no_jax():
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "lumfuncmcmc_tpu")]
@@ -2093,6 +2520,8 @@ def run_path(label, workdir, has_mpl):
         fail("torch.cuda.is_available() is False")
     if label == LONG:
         runs = [run_long(workdir, has_mpl)]
+    elif label == GRID:
+        runs = [run_grid(workdir, has_mpl)]
     else:
         counts, col = phase_fit(label, workdir, has_mpl)
         runs = [counts, phase_nuts(label, workdir, has_mpl, col),
@@ -2114,7 +2543,7 @@ def phase_paths(workdir, has_mpl):
     their sums over the paths."""
     procs = {}
     try:
-        for label in [*PATHS, LONG]:
+        for label in [*PATHS, LONG, GRID]:
             out = open(os.path.join(workdir, f"path_{len(procs)}.out"), "w+")
             procs[label] = (subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--path", label,
@@ -2161,6 +2590,9 @@ REPLACES = {
 def main():
     if sys.argv[1:2] == ["--path"]:
         return run_path(sys.argv[2], sys.argv[3], sys.argv[4] == "1")
+    if sys.argv[1:2] == ["--grid-rank"]:
+        return grid_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         sys.argv[5] == "1")
     t_start = time.perf_counter()
     phase_device()
     phase_build()

@@ -197,7 +197,11 @@ def _add_common_flags(p):
                         "chip at small walker counts)")
     p.add_argument("--distributed", type=str, default=None,
                    metavar="HOST:PORT,NPROC,PID",
-                   help="multi-process run (not ported yet)")
+                   help="join a grid of NPROC ranks, one process and one "
+                        "card a rank, as rank PID (rank 0 listens at "
+                        "HOST:PORT; torchrun launches need no flag); the "
+                        "grid is --mesh-walkers x --mesh-sources, by "
+                        "default (NPROC, 1)")
 
 
 def _build_cfg(args) -> LFConfig:
@@ -270,9 +274,11 @@ def _load_inputs(args, cfg):
 def _apply_precision(cfg, device="cuda"):
     """Choose the run's device and dtype — the one place the port does.
 
-    ``device`` is ``"cuda"`` (the first card; the default everywhere) or
-    ``"cpu"``; the CPU runs only when asked for. With ``"cuda"`` and no
-    usable card this raises: nothing falls back to the CPU.
+    ``device`` is ``"cuda"`` (the first card, or in a process group this
+    rank's, ``cuda:LOCAL_RANK``; the default everywhere) or ``"cpu"``;
+    the CPU runs only when asked for. With ``"cuda"`` and no usable card
+    this raises: nothing falls back to the CPU. A single process that
+    sees several cards uses one and logs how to run on all of them.
     ``cfg.use_x64`` picks the dtype: None means float64 on the CPU
     (accuracy) and float32 on the card (speed). Returns
     ``(device, dtype)`` and logs them.
@@ -286,7 +292,16 @@ def _apply_precision(cfg, device="cuda"):
                 "otherwise: pass --device cpu (device='cpu') to run on "
                 "the CPU")
         if device.index is None:
-            device = torch.device("cuda:0")
+            from lumfuncmcmc_tpu_torch.parallel.distributed import (
+                rank_device, world_size)
+            device = rank_device(device)
+            n = torch.cuda.device_count()
+            if n > 1 and world_size() == 1:
+                setup_logging().info(
+                    "%d cards visible; this process runs on one. A grid "
+                    "over all of them is one process a card: torchrun "
+                    "--nproc-per-node %d -m lumfuncmcmc_tpu_torch ..."
+                    % (n, n))
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}: use cuda or cpu")
     use = cfg.use_x64

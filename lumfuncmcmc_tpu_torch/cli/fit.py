@@ -11,8 +11,13 @@ batched NUTS, the long-run drivers (``--min-ess``, ``--checkpoint-every``
 with resume, ``--ensembles``, ``--profile``), and the post-fit analyses
 ``--ic``, ``--ppc``, ``--evidence`` and ``--map``.
 
-Flags whose features are not ported yet (the multi-device ones) raise
-``NotImplementedError`` naming the flag, before any work starts.
+On a grid of ranks (``--mesh-walkers``/``--mesh-sources``, a
+``torchrun`` launch or ``--distributed``) every rank runs the same
+program, so every collective (the sampler's lnprob, the evidence ladder,
+a resume decision) is called by every rank in the same order, and rank 0
+alone writes artifacts, plots and the profiler's trace. Not ported yet,
+and refused with ``NotImplementedError`` before any work starts:
+``--nuts-pooled``, and ``--sampler nuts`` on more than one rank.
 """
 
 from __future__ import annotations
@@ -25,20 +30,26 @@ from lumfuncmcmc_tpu_torch.cli.common import (
 from lumfuncmcmc_tpu_torch.cli.outputs import (
     _map_only_outputs, _resume_if_done, _resumed_outputs, _run_evidence,
     _write_evidence, _write_ic, _write_outputs, _write_ppc)
+from lumfuncmcmc_tpu_torch.parallel.distributed import (
+    is_primary, world_size)
 from lumfuncmcmc_tpu_torch.utils.io import artifact_path
 
 # CLI-only flags (no LFConfig field) -> the value that means "not
-# requested"; the unported config fields (the meshes) are refused by the
-# model itself
-_NOT_PORTED_FLAGS = {"nuts_pooled": False, "distributed": None}
+# requested"
+_NOT_PORTED_FLAGS = {"nuts_pooled": False}
 
 
-def _reject_unported(args):
+def _reject_unported(args, cfg):
     for flag, off in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag, off) != off:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet "
                 "(run it with the JAX package, lumfuncmcmc_tpu)")
+    ranks = world_size()
+    if cfg.sampler == "nuts" and ranks > 1:
+        raise NotImplementedError(
+            f"--sampler nuts on {ranks} ranks is not ported yet (run it "
+            "with the JAX package, lumfuncmcmc_tpu)")
 
 
 def _profiler(outdir):
@@ -80,7 +91,8 @@ def _dispatch_sampler(model, cfg, args, outdir):
     def resume(ck):
         return bool(ck and os.path.exists(ck))
 
-    prof = (_profiler(args.profile) if getattr(args, "profile", None)
+    prof = (_profiler(args.profile)
+            if getattr(args, "profile", None) and is_primary()
             else contextlib.nullcontext())
     with prof:
         if cfg.sampler == "nuts":
@@ -118,11 +130,12 @@ def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
     the evidence ladder, then the artifact writers."""
     args.output_filename = args.output_filename or "test.dat"
     cfg = _build_cfg(args)
-    _reject_unported(args)
+    _reject_unported(args, cfg)
     if pivot:
         cfg = _pivot_z(cfg, args.filename)
     device, dtype = _apply_precision(cfg, getattr(args, "device", "cuda"))
-    os.makedirs(outdir, exist_ok=True)
+    if is_primary():
+        os.makedirs(outdir, exist_ok=True)
     inputs = _load_inputs(args, cfg)
     cfg = _align_fields(cfg, inputs["field_names"])
     print("Read Input File")
@@ -133,6 +146,11 @@ def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
                       field_names=inputs["field_names"],
                       device=device, dtype=dtype)
     print(f"Initialized {model_cls.__name__}")
+    if model.grid is not None and model.grid.idle:
+        print(f"Rank {model.grid.rank} sits idle: the grid "
+              f"{model.grid.shape} uses {model.grid.size} of "
+              f"{model.grid.world} ranks")
+        return 0
     if _resume_if_done(model, cfg, args, outdir):
         _resumed_outputs(model, cfg, args, outdir)
         return 0
@@ -141,8 +159,12 @@ def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
     if getattr(args, "map", False):
         return _map_only_outputs(model, cfg, args, outdir)
     _dispatch_sampler(model, cfg, args, outdir)
+    # collective: every rank runs the ladder, rank 0 writes
     ev = (_run_evidence(model, args)
           if getattr(args, "evidence", None) is not None else None)
+    if not is_primary():
+        print("Non-primary rank: artifacts written by rank 0")
+        return 0
     print("Finished fitting model and about to create outputs")
     _write_outputs(model, cfg, args, outdir, names, z_variant=z_variant)
     if getattr(args, "ppc", False):

@@ -6,12 +6,19 @@ redshift-evolving one), ``fith`` (the hierarchical multi-field one),
 ``vmax`` (the standalone 1/V_eff pipeline) and the model comparison over
 ``--ic`` artifacts (``compare-ic``, ``stack-ic``) take the JAX CLI's
 arguments, so the same command line works with either package.
+
+A fit runs on a grid of ranks, one process and one card a rank, when it
+is launched by ``torchrun`` or given ``--distributed host:port,N,pid``
+(NCCL on the cards, gloo with ``--device cpu``); the process group is
+joined before anything else and left when the command returns.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+import torch
 
 from lumfuncmcmc_tpu_torch.cli.common import _add_common_flags
 from lumfuncmcmc_tpu_torch.cli.fit import cmd_fit, cmd_fith, cmd_fitz
@@ -98,7 +105,52 @@ def main(argv=None):
     if getattr(args, "same_rand", False):
         args.diff_rand = False
     setup_logging()
-    return args.func(args)
+    joined = _join_process_group(args)
+    try:
+        return args.func(args)
+    finally:
+        if joined:
+            from lumfuncmcmc_tpu_torch.parallel.distributed import shutdown
+            shutdown()
+
+
+FIT_COMMANDS = ("fit", "fitz", "fith")
+
+
+def _join_process_group(args) -> bool:
+    """Join the ranks' process group of ``--distributed`` or of a
+    ``torchrun`` launch (fits only): NCCL on the cards, gloo with
+    ``--device cpu``; no backend stands in for another. Returns whether
+    this call joined it (a process already in a group keeps it)."""
+    import torch.distributed as dist
+
+    from lumfuncmcmc_tpu_torch.parallel import distributed as pd
+    spec = getattr(args, "distributed", None)
+    if args.command not in FIT_COMMANDS:
+        if spec:
+            raise SystemExit("--distributed applies to fit, fitz and fith")
+        return False
+    if dist.is_initialized():
+        if spec:
+            raise SystemExit("--distributed: this process is already in a "
+                             "process group")
+        return False
+    if not (spec or pd.launched_by_torchrun()):
+        return False
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no usable CUDA device (torch.cuda.is_available() is False) for "
+            "the ranks' NCCL group; pass --device cpu to run the ranks on "
+            "the CPU over gloo")
+    if spec:
+        pd.init_distributed(*pd.parse_distributed_spec(spec),
+                            backend=backend)
+    else:
+        pd.init_from_env(backend=backend)
+    setup_logging().info("Process group: rank %d of %d (%s)"
+                         % (pd.rank(), pd.world_size(), backend))
+    return True
 
 
 if __name__ == "__main__":

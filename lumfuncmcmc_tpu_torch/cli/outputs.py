@@ -7,9 +7,10 @@ filenames and the fixed_width_two_line format, and an existing
 fitposterior file triggers the resume-and-replot behaviour. The
 post-fit analyses (``--ppc``, ``--ic``, ``--evidence``, ``--map``)
 write the JAX CLI's ``ppc_*``, ``ic_*`` / ``ic_pointwise_*.npz``,
-``evidence_*`` and ``map_*`` artifacts. The port runs in one process,
-so the JAX writers' ``is_primary`` gates drop out; their order stays
-(the evidence ladder before the writers).
+``evidence_*`` and ``map_*`` artifacts. On a grid of ranks the
+collectives come first on every rank (the evidence ladder, the resume
+decision) and rank 0 alone writes, as the JAX writers' ``is_primary``
+gates have it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import time
 
 import numpy as np
+
+from lumfuncmcmc_tpu_torch.parallel.distributed import agree, is_primary
 
 
 def _write_outputs(model, cfg, args, outdir, names, z_variant=False):
@@ -126,11 +129,14 @@ def _resume_if_done(model, cfg, args, outdir):
         artifact_path, read_fixed_width_two_line)
     fn = artifact_path(outdir, "fitposterior", args.output_filename,
                        cfg, ext="dat")
-    if not os.path.isfile(fn):
+    done = os.path.isfile(fn)
+    if model.grid is not None:
+        agree([done], f"whether {fn} exists", model.grid.group)
+    if not done:
         return False
     tab = read_fixed_width_two_line(fn)
     model.samples = np.column_stack([tab[k] for k in tab])
-    if _can_plot():
+    if _can_plot() and is_primary():
         model.triangle_plot(
             artifact_path(outdir, "triangle", args.output_filename, cfg),
             imgtype=cfg.output_dict.get("image format", "png"))
@@ -141,11 +147,14 @@ def _resume_if_done(model, cfg, args, outdir):
 def _resumed_outputs(model, cfg, args, outdir):
     """Post-fit analyses on a resumed posterior, so that a rerun adding
     ``--ic``/``--ppc``/``--map``/``--evidence`` to a finished fit runs
-    them: the ladder first, then the MAP, then the writers."""
+    them: the ladder first (every rank), then the MAP, then the writers
+    (rank 0)."""
     ev = (_run_evidence(model, args)
           if getattr(args, "evidence", None) is not None else None)
     if getattr(args, "map", False):
         _map_quicklook(model, cfg, args, outdir)
+    if not is_primary():
+        return
     if getattr(args, "ic", False):
         _write_ic(model, cfg, args, outdir)
     if getattr(args, "ppc", False):
@@ -206,7 +215,7 @@ def _map_only_outputs(model, cfg, args, outdir):
     ev = (_run_evidence(model, args)
           if getattr(args, "evidence", None) is not None else None)
     rc = _map_quicklook(model, cfg, args, outdir)
-    if ev is not None:
+    if ev is not None and is_primary():
         _write_evidence(ev, cfg, args, outdir)
     return rc
 
@@ -214,10 +223,12 @@ def _map_only_outputs(model, cfg, args, outdir):
 def _map_quicklook(model, cfg, args, outdir):
     """``--map``: MAP + Laplace instead of sampling, written as one row
     of ``map_*.dat`` (each parameter and its standard error, ``lnpost``,
-    ``lnz_laplace``)."""
+    ``lnz_laplace``); every rank fits (no collective), rank 0 writes."""
     from lumfuncmcmc_tpu_torch.utils.io import (
         artifact_path, write_fixed_width_two_line)
     res = model.fit_map()
+    if not is_primary():
+        return 0
     cols = {}
     se = res["se"]
     for i, nm in enumerate(model.layout.names):
@@ -269,7 +280,8 @@ def _write_ic(model, cfg, args, outdir):
 
 def _run_evidence(model, args):
     """The tempered-evidence ladder of ``--evidence`` (with
-    ``--evidence-swap`` / ``--evidence-tune``)."""
+    ``--evidence-swap`` / ``--evidence-tune``): on a grid a COLLECTIVE,
+    every rank calls it."""
     swap = int(getattr(args, "evidence_swap", 0) or 0)
     tune = int(getattr(args, "evidence_tune", 0) or 0)
     if tune and not swap:

@@ -1,9 +1,14 @@
 """Ensemble-sampler fit drivers (port of
-``lumfuncmcmc_tpu/models/ensemble_driver.py``), meshless and
-single-process: ``fit_model`` with chain checkpoints and resume,
-``fit_model_until`` (stop at a min-ESS target) and
-``fit_model_ensembles`` (independent replicated ensembles, the true
-cross-ensemble R-hat).
+``lumfuncmcmc_tpu/models/ensemble_driver.py``): ``fit_model`` with chain
+checkpoints and resume, ``fit_model_until`` (stop at a min-ESS target)
+and ``fit_model_ensembles`` (independent replicated ensembles, the true
+cross-ensemble R-hat), meshless or on the host's grid of ranks
+(``self.grid``): there every rank runs the driver on the grid's lnprob
+(``lnprob_batch``) and holds the whole chain, the ensembles go whole to
+the ranks (``run_stretch_ensembles_sharded``), rank 0 alone writes the
+checkpoints, and a resume is decided by every rank together: a rank that
+reads another checkpoint than the others (a disk that is not shared)
+makes every rank raise.
 
 The checkpoint protocol is the port's own; it gives the JAX package's
 guarantees. JAX replays a ``jax.random`` key stream on resume; here
@@ -15,17 +20,23 @@ checkpointed run exactly (chain, lnprobability, acceptance, and for
 ``fit_model_until`` its stopping decisions) on one device type. The npz
 fingerprint pins every knob the JAX fingerprint pins plus the port's
 protocol tag and the device type (CPU and CUDA generators draw different
-streams): a mismatch, an npz of the JAX package's included, raises and
-names the fields. The npz keeps each block's acceptance counts
-(``acc_blocks``) beside the chain, so cutting both on their block axis
-gives the checkpoint that block boundary wrote.
+streams), and on a source-split grid the source ranks (the shards' sums
+round apart from the whole catalog's, as JAX pins ``mesh_sources`` for
+its stream route): a mismatch, an npz of the JAX package's included,
+raises and names the fields. A walker-split grid draws the meshless
+chain, so its checkpoints resume on one rank and back. The npz keeps
+each block's acceptance counts (``acc_blocks``) beside the chain, so
+cutting both on their block axis gives the checkpoint that block
+boundary wrote.
 
 The host class provides ``cfg``/``log``/``layout``/``device``/``dtype``,
-``lnprob_batch``, ``_initial_positions`` and ``_log_convergence``.
+``grid``, ``lnprob_batch``, ``_meshless_batch``, ``_require_active``,
+``_initial_positions`` and ``_log_convergence``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import time
 from typing import Optional
@@ -110,8 +121,57 @@ def _host(x):
     return x.double().cpu().numpy()
 
 
+def _save(path, **arrays):
+    """``np.savez`` on rank 0 alone (every rank holds the same arrays)."""
+    from lumfuncmcmc_tpu_torch.parallel.distributed import is_primary
+    if is_primary():
+        np.savez(path, **arrays)
+
+
+def _digest(ck) -> float:
+    """48 bits of a checkpoint's chain, exact in a float64."""
+    if ck is None:
+        return -1.0
+    return float(int(hashlib.sha1(np.ascontiguousarray(
+        ck["chain"]).tobytes()).hexdigest()[:12], 16))
+
+
 class _EnsembleDriverMixin:
     """Stretch-ensemble fit drivers and their checkpoint protocol."""
+
+    def _resume_from(self, path, resume, want, names, label):
+        """The checkpoint dict at ``path`` to resume from, or None for a
+        fresh run; :func:`load_checkpoint`'s refusal raises. On a grid
+        every rank decides together: whether the file is there, whether
+        it passed, its block count and a digest of its chain must agree on
+        every rank, or every rank raises."""
+        have = bool(resume and path and os.path.exists(path))
+        ck, err = None, None
+        if have:
+            try:
+                ck = load_checkpoint(path, want, names, label)
+            except ValueError as e:
+                err = e
+        if self.grid is not None:
+            from lumfuncmcmc_tpu_torch.parallel.distributed import agree
+            agree([have, err is None,
+                   -1 if ck is None else len(ck["acc_blocks"]), _digest(ck)],
+                  f"the {label} to resume from ({path})", self.grid.group)
+        if err is not None:
+            raise err
+        return ck
+
+    @staticmethod
+    def _grid_fields(lnprob):
+        """The fingerprint's grid field: the source ranks of a lnprob that
+        splits the sources (its chain depends on them), else none."""
+        n = getattr(lnprob, "source_shards", 1)
+        return [("mesh_sources", n)] if n > 1 else []
+
+    def _log_grid(self):
+        if self.grid is not None:
+            self._require_active()
+            self.log.info("Device grid: %s" % (self.grid.shape,))
 
     def _ens_fingerprint(self, fields):
         cfg = self.cfg
@@ -149,8 +209,8 @@ class _EnsembleDriverMixin:
              ("every", every)] + list(fields))
         parts_c, parts_l, accs = [], [], []
         done = 0
-        if resume and checkpoint_path and os.path.exists(checkpoint_path):
-            ck = load_checkpoint(checkpoint_path, want, names, label)
+        ck = self._resume_from(checkpoint_path, resume, want, names, label)
+        if ck is not None:
             parts_c, parts_l = [ck["chain"]], [ck["lnprobability"]]
             accs = list(ck["acc_blocks"])
             done = ck["chain"].shape[step_axis] * thin
@@ -172,11 +232,10 @@ class _EnsembleDriverMixin:
             done += nblk
             block += 1
             if checkpoint_path:
-                np.savez(checkpoint_path,
-                         chain=np.concatenate(parts_c, axis=step_axis),
-                         lnprobability=np.concatenate(parts_l,
-                                                      axis=step_axis),
-                         acc_blocks=np.stack(accs), fingerprint=want)
+                _save(checkpoint_path,
+                      chain=np.concatenate(parts_c, axis=step_axis),
+                      lnprobability=np.concatenate(parts_l, axis=step_axis),
+                      acc_blocks=np.stack(accs), fingerprint=want)
         return (np.concatenate(parts_c, axis=step_axis),
                 np.concatenate(parts_l, axis=step_axis),
                 np.sum(np.stack(accs), axis=0))
@@ -216,6 +275,7 @@ class _EnsembleDriverMixin:
         """
         cfg = self.cfg
         generator = self._default_generator(generator)
+        self._log_grid()
         lnprob = self.lnprob_batch()
         ndim = self.layout.ndim
         self.log.info(
@@ -239,7 +299,7 @@ class _EnsembleDriverMixin:
             chain, lnps, acc = self._run_checkpointed(
                 runner, lambda: self._initial_positions(generator),
                 nsteps_exec, thin, every, checkpoint_path, resume,
-                "checkpoint", FIT_TAG)
+                "checkpoint", FIT_TAG, fields=self._grid_fields(lnprob))
         else:
             _, chain, lnps, acc = runner(pos0, generator, nsteps_exec, None)
             chain, lnps, acc = _host(chain), _host(lnps), _host(acc)
@@ -302,16 +362,19 @@ class _EnsembleDriverMixin:
         cfg = self.cfg
         block_steps = int(block_steps or cfg.nsteps)
         checkpoint_path = npz_path(checkpoint_path)
+        self._log_grid()
         lnprob = self.lnprob_batch()
         ndim = self.layout.ndim
         want, names = self._ens_fingerprint(
-            [("nwalkers", cfg.nwalkers), ("block_steps", block_steps)])
+            [("nwalkers", cfg.nwalkers), ("block_steps", block_steps)]
+            + self._grid_fields(lnprob))
         chains, lnps_parts, accs = [], [], []
         ess_min, burn, tau, nblocks = 0.0, 0, 0.0, 0
         _sync(self.device)
         start = time.perf_counter()
-        if resume and checkpoint_path and os.path.exists(checkpoint_path):
-            ck = load_checkpoint(checkpoint_path, want, names, "min-ess")
+        ck = self._resume_from(checkpoint_path, resume, want, names,
+                               "min-ess")
+        if ck is not None:
             chains, lnps_parts = [ck["chain"]], [ck["lnprobability"]]
             accs = list(ck["acc_blocks"])
             pos = torch.as_tensor(ck["chain"][-1], dtype=self.dtype,
@@ -336,9 +399,9 @@ class _EnsembleDriverMixin:
             accs.append(_host(ac))
             chain = np.concatenate(chains)
             if checkpoint_path:
-                np.savez(checkpoint_path, chain=chain,
-                         lnprobability=np.concatenate(lnps_parts),
-                         acc_blocks=np.stack(accs), fingerprint=want)
+                _save(checkpoint_path, chain=chain,
+                      lnprobability=np.concatenate(lnps_parts),
+                      acc_blocks=np.stack(accs), fingerprint=want)
             ess_min, burn, tau = self._min_ess(chain)
             self.log.info("Block %d: %d total steps, tau=%.1f, "
                           "min ESS=%.0f (target %.0f)"
@@ -379,13 +442,26 @@ class _EnsembleDriverMixin:
         blocks until the pooled post-burn min ESS reaches the target or
         ``max_blocks`` blocks ran, saved after every block with
         ``checkpoint_path`` (the :meth:`fit_model_until` protocol).
+
+        On a grid the ensembles go whole to the ranks, each rank running
+        its own with the meshless engine (no collective in the loop),
+        ``nensembles`` rounded up to a multiple of the ranks.
         """
         cfg = self.cfg
         if nensembles < 2:
             raise ValueError("fit_model_ensembles needs >= 2 ensembles "
                              "(use fit_model for one)")
         generator = self._default_generator(generator)
-        lnprob = self.lnprob_batch()
+        grid = self.grid
+        self._log_grid()
+        if grid is not None and nensembles % grid.size:
+            new = -(-nensembles // grid.size) * grid.size
+            self.log.info("Rounding nensembles %d -> %d (multiple of the "
+                          "%d-rank grid)" % (nensembles, new, grid.size))
+            nensembles = new
+        # a grid's rank runs whole W-walker ensembles: the meshless engine
+        lnprob = (self.lnprob_batch() if grid is None
+                  else self._meshless_batch())
         ndim = self.layout.ndim
         thin, nsteps_exec = self._steps_exec()
 
@@ -394,15 +470,21 @@ class _EnsembleDriverMixin:
                                 for _ in range(nensembles)])
 
         def runner(p, gen, n, sel=None):
-            return run_stretch_ensembles(lnprob, p, gen, n, thin=thin,
-                                         move=cfg.move, de_prob=cfg.de_prob,
-                                         de_sel=sel)
+            kw = dict(thin=thin, move=cfg.move, de_prob=cfg.de_prob,
+                      de_sel=sel)
+            if grid is None:
+                return run_stretch_ensembles(lnprob, p, gen, n, **kw)
+            from lumfuncmcmc_tpu_torch.parallel.sharding import (
+                run_stretch_ensembles_sharded)
+            return run_stretch_ensembles_sharded(lnprob, p, gen, n, grid,
+                                                 **kw)
 
         self.log.info(
             "Fitting %d independent replicated ensembles x %d walkers "
-            "(engine: %s, device: %s)" % (
+            "(engine: %s, device: %s)%s" % (
                 nensembles, cfg.nwalkers, getattr(lnprob, "engine", "eager"),
-                self.device))
+                self.device, "" if grid is None
+                else " sharded over %d ranks" % grid.size))
         every = cfg.checkpoint_every or 0
         nsteps_run = nsteps_exec
         _sync(self.device)
@@ -474,9 +556,9 @@ class _EnsembleDriverMixin:
             return self._min_ess(pooled)[0], pooled.shape[0]
 
         nblk, ess_now = 0, 0.0
-        if resume and checkpoint_path and os.path.exists(checkpoint_path):
-            ck = load_checkpoint(checkpoint_path, want, names,
-                                 "ensemble-min-ess")
+        ck = self._resume_from(checkpoint_path, resume, want, names,
+                               "ensemble-min-ess")
+        if ck is not None:
             ch_parts, lnp_parts = [ck["chain"]], [ck["lnprobability"]]
             accs = list(ck["acc_blocks"])
             pos = torch.as_tensor(ck["chain"][:, -1], dtype=self.dtype,
@@ -499,10 +581,10 @@ class _EnsembleDriverMixin:
             lnp_parts.append(_host(lp))
             accs.append(_host(ac))
             if checkpoint_path:
-                np.savez(checkpoint_path,
-                         chain=np.concatenate(ch_parts, axis=1),
-                         lnprobability=np.concatenate(lnp_parts, axis=1),
-                         acc_blocks=np.stack(accs), fingerprint=want)
+                _save(checkpoint_path,
+                      chain=np.concatenate(ch_parts, axis=1),
+                      lnprobability=np.concatenate(lnp_parts, axis=1),
+                      acc_blocks=np.stack(accs), fingerprint=want)
             ess_now, nrec = pooled_ess()
             self.log.info("Ensembles block %d: %d recorded steps, pooled "
                           "min ESS=%.0f (target %.0f)"

@@ -72,10 +72,6 @@ def posterior_lfs(model, draws):
     return lf.double().cpu().numpy()
 
 
-# flags whose features the port does not have yet (the device meshes),
-# and the config value that means "off"
-_NOT_PORTED = {"mesh_walkers": 0, "mesh_sources": 1}
-
 # stream tags of the model-comparison runs' generators, the JAX package's
 # fold_in constants: an evidence or MAP run after a fit must not replay
 # the fit's draws
@@ -90,19 +86,16 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
     def __init__(self, cfg: LFConfig, z, flux=None, flux_e=None,
                  lum=None, lum_e=None, field_id=None, field_names=None,
                  device=None, dtype=None):
-        for name, off in _NOT_PORTED.items():
-            if getattr(cfg, name) != off:
-                raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r} is not ported yet "
-                    "(run it with the JAX package, lumfuncmcmc_tpu)")
         if device is None or dtype is None:
-            # device None means the card: the CPU only when asked for
+            # device None means the card (this rank's on a grid): the CPU
+            # only when asked for
             from lumfuncmcmc_tpu_torch.cli.common import _apply_precision
             device, dtype = _apply_precision(cfg, device or "cuda")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype
         self.log = setup_logging()
+        self.grid = self._make_grid()
         self.field_names = field_names
         t0 = time.time()
         self.data, self.ctx = build_context(
@@ -122,6 +115,38 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
 
     def _make_layout(self):
         raise NotImplementedError
+
+    def _make_grid(self):
+        """The ``(walkers, sources)`` grid of ranks the config asks for
+        (``mesh_walkers`` 0: every rank left), or with no mesh flag and a
+        process group of more than one rank ``(world, 1)``, the JAX CLI's
+        default over every device; None for a grid of one rank, which is
+        the meshless path. On the card, rank 0 builds the kernels while
+        the grid's other ranks wait."""
+        from lumfuncmcmc_tpu_torch.parallel.distributed import world_size
+        from lumfuncmcmc_tpu_torch.parallel.mesh import make_mesh
+        cfg = self.cfg
+        if not (cfg.mesh_walkers or cfg.mesh_sources > 1
+                or world_size() > 1):
+            return None
+        grid = make_mesh(cfg.mesh_walkers, cfg.mesh_sources)
+        if grid.size == 1 and grid.world == 1:
+            return None
+        self.log.info("Device grid: %s of %d ranks, this rank %s"
+                      % (grid.shape, grid.world,
+                         "idle" if grid.idle else
+                         (grid.walker_index, grid.source_index)))
+        if self.device.type == "cuda" and not grid.idle:
+            from lumfuncmcmc_tpu_torch.ops._build import build_on_grid
+            build_on_grid(grid)
+        return grid
+
+    def _require_active(self):
+        """Raise on a rank the grid leaves idle."""
+        if self.grid is not None and self.grid.idle:
+            raise RuntimeError(
+                f"rank {self.grid.rank} is idle in the {self.grid.shape} "
+                f"grid of {self.grid.world} ranks: it has nothing to run")
 
     def _make_scalar_lnprob(self, ctx=None):
         """The eager engine's lnprob, (C, D) -> (C,), on ``ctx`` (default
@@ -275,10 +300,53 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
                                         precision=4))
 
     def lnprob_batch(self):
-        """The (W, D) -> (W,) lnprob of the resolved engine."""
+        """The (W, D) -> (W,) lnprob of the resolved engine: on a grid,
+        the routes of ``lumfuncmcmc_tpu/models/model.py:271-320``
+        (:meth:`_grid_batch`)."""
         if self._lnprob_batch is None:
-            self._lnprob_batch = self._meshless_batch()
+            self._lnprob_batch = (self._meshless_batch() if self.grid is None
+                                  else self._grid_batch())
         return self._lnprob_batch
+
+    def _grid_batch(self):
+        """The grid's lnprob: the streaming kernels on source shards for
+        free completeness on a source-split grid at the streaming route's
+        catalog size (``STREAM_MIN_SOURCES``), else the family's value
+        kernels walker-split over every rank, or the eager engine split
+        on both axes under ``--exact-bounds`` or ``--no-pallas``."""
+        from lumfuncmcmc_tpu_torch.ops.cuda_lnlike import STREAM_MIN_SOURCES
+        from lumfuncmcmc_tpu_torch.parallel import sharding as sh
+        self._require_active()
+        g = self.grid
+        if self._resolve_use_pallas():
+            if (self.model_kind == "single" and not self.cfg.fix_comp
+                    and g.n_sources > 1
+                    and self.ctx.lum.shape[0] >= STREAM_MIN_SOURCES):
+                fn = sh.make_cuda_lnprob_stream_sharded(self.ctx, self.layout,
+                                                        g)
+                self.log.info(
+                    "Engine: %s, sources round-robin sharded over %d ranks "
+                    "x walkers over %d"
+                    % ("CUDA streaming kernels" if fn.engine == "cuda-stream"
+                       else "plain versions of the streaming kernels",
+                       g.n_sources, g.n_walkers))
+            else:
+                fn = sh.make_cuda_lnprob_sharded(self.ctx, self.layout, g,
+                                                 model=self.model_kind)
+                self.log.info("Engine: %s, walker-sharded over the %d-rank "
+                              "grid" % ("CUDA value kernels"
+                                        if fn.engine.startswith("cuda")
+                                        else "plain versions of the value "
+                                             "kernels", g.size))
+            return self._check_precision(fn)
+        fn = sh.make_lnprob_sharded(
+            self.ctx, self.layout, g, model=self.model_kind,
+            exact_bounds=self.exact_bounds,
+            min_comp_frac=self.cfg.min_comp_frac, lh=self.cfg.Lh)
+        fn.engine = "eager"
+        self.log.info("Engine: eager, walkers over %d ranks x sources over "
+                      "%d" % (g.n_walkers, fn.source_shards))
+        return self._check_precision(fn)
 
     def _meshless_batch(self):
         if self._resolve_use_pallas():
@@ -300,7 +368,9 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
         accept step: from ``FLOAT32_MAX_SOURCES`` sources on, for every
         family and engine (the float32 spacing of |lnL| ~ 15 N then
         passes the 0.05 that the lnp difference of two close thetas can
-        bear), and on the streaming route at any size. Returns ``fn``."""
+        bear), and on the streaming route at any size. Returns ``fn``.
+        The count is the whole catalog's on a grid too (the model's context
+        is whole; only the sharded lnprob holds shards)."""
         n = int(self.ctx.lum.shape[0])
         stream = hasattr(fn, "stream")
         if stream:
@@ -330,8 +400,12 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
         rounds) after each of which the ladder is re-spaced to equalize
         the measured swap rejection. ``generator`` defaults to one
         seeded off the fit's stream; the starts are always prior-box
-        draws. Returns the estimator dict (``lnz_ss`` primary, ``lnz_ti``
-        the resolution check), also stored as ``self.evidence``.
+        draws. On a grid whole rungs go one or more to a rank
+        (:func:`~lumfuncmcmc_tpu_torch.parallel.sharding.run_tempered_sharded`,
+        ``run_parallel_tempering_sharded``: the meshless ladder's run), K
+        rounded up to a multiple of the ranks. Returns the estimator dict
+        (``lnz_ss`` primary, ``lnz_ti`` the resolution check), also stored
+        as ``self.evidence``.
         """
         from lumfuncmcmc_tpu_torch.models.ensemble_driver import _sync
         from lumfuncmcmc_tpu_torch.samplers.tempering import (
@@ -343,6 +417,24 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
         if tune_rounds and not swap_every:
             raise ValueError("tune_rounds needs swap_every > 0 (the "
                              "ladder is tuned from measured swap rates)")
+        grid = self.grid
+        if grid is not None:
+            self._require_active()
+            if nrungs % grid.size:
+                # whole rungs a rank; rounding up buys ladder resolution
+                new = -(-nrungs // grid.size) * grid.size
+                self.log.info("Rounding evidence rungs %d -> %d (multiple "
+                              "of the %d-rank grid)" % (nrungs, new,
+                                                        grid.size))
+                nrungs = new
+            from lumfuncmcmc_tpu_torch.parallel.sharding import (
+                run_parallel_tempering_sharded, run_tempered_sharded)
+
+            def run_parallel_tempering(*a, **kw):
+                return run_parallel_tempering_sharded(*a[:6], grid, **kw)
+
+            def run_tempered(*a, **kw):
+                return run_tempered_sharded(*a[:6], grid, **kw)
         if generator is None:
             generator = stream_generator(cfg.seed, EVIDENCE_TAG, self.device)
         pos0 = torch.stack([self._default_positions(generator)
@@ -351,8 +443,10 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
         lnprior_fn, lnlike_fn = self._prior_like_fns()
         self.log.info(
             "Evidence ladder: %d rungs x %d walkers x %d steps "
-            "(power-%g spacing), move=%s"
-            % (nrungs, cfg.nwalkers, nsteps, power, move))
+            "(power-%g spacing), move=%s%s"
+            % (nrungs, cfg.nwalkers, nsteps, power, move,
+               "" if grid is None
+               else ", rungs sharded over %d ranks" % grid.size))
         _sync(self.device)
         start = time.perf_counter()
         swap_frac = None

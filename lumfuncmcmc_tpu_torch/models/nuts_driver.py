@@ -1,6 +1,7 @@
 """NUTS fit driver (port of ``fit_model_nuts``, ``_nuts_gradient_post``,
 the min-ess block loop and the checkpoint protocol of
-``lumfuncmcmc_tpu/models/nuts_driver.py``), meshless and single-process.
+``lumfuncmcmc_tpu/models/nuts_driver.py``), meshless and single-process
+(a grid of ranks refuses NUTS: its mesh routes are not ported yet).
 
 A run is a first block (``run_nuts``: warmup and the first samples) and
 continuation blocks (``continue_nuts`` from the frozen ``(y_run, eps,
@@ -157,6 +158,11 @@ class _NutsDriverMixin:
         chain equal to the unblocked run's (the module's protocol).
         """
         cfg = self.cfg
+        grid = getattr(self, "grid", None)
+        if grid is not None:
+            raise NotImplementedError(
+                f"--sampler nuts on a grid of {grid.size} ranks is not "
+                "ported yet (run it with the JAX package, lumfuncmcmc_tpu)")
         if not 0.0 < float(cfg.nuts_target_accept) < 1.0:
             raise ValueError(
                 "nuts_target_accept must be strictly between 0 and 1 "

@@ -101,6 +101,27 @@ def build() -> str:
     return so_path
 
 
+def build_on_grid(grid) -> None:
+    """Build once for a grid of ranks: the grid's rank 0 (``LOCAL_RANK``
+    0 on each node of a torchrun launch) runs ``nvcc`` while the grid's
+    other ranks wait at a barrier, then every rank loads the library (a
+    rank on a node whose disk holds no build builds its own). A
+    COLLECTIVE over ``grid.group``."""
+    from lumfuncmcmc_tpu_torch.parallel.distributed import barrier
+    leader = (int(os.environ["LOCAL_RANK"]) == 0
+              if "LOCAL_RANK" in os.environ else grid.rank == 0)
+    err = None
+    if leader:
+        try:
+            build()
+        except Exception as e:      # the others must not wait for it
+            err = e
+    barrier(grid.group)
+    if err is not None:
+        raise err
+    load_library()
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every
     entry point's argument types declared."""

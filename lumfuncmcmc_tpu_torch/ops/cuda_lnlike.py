@@ -557,8 +557,9 @@ class CudaStreamData:
     """The streaming kernels' per-shard layout (free completeness).
 
     Grid arrays are (C,), fields back to back, with the quadrature
-    weights divided by ``nshards``; source arrays are (nshards, S): shard
-    k holds every ``nshards``-th source of each field, each field padded
+    weights divided by ``nshards``; source arrays are (shards held, S):
+    every shard, or on a source-sharded grid only its rank's. Shard k
+    holds every ``nshards``-th source of each field, each field padded
     to a whole number of ``CHUNK_CELLS``-source tiles (mask 0 in the
     padding), at offsets ``src_off`` shared by every shard. ``runs`` is
     the (nruns, 4) int32 launch table ``(field, start, end, is_source)``
@@ -568,7 +569,7 @@ class CudaStreamData:
     them. ``waves`` is, for the value and the value+gradient kernel, the
     number of blocks that fill the card once at ``run_pieces`` (0 off
     the card). ``logf`` is relative to ``_LOGF_REF``. ``sums`` is
-    (nshards, 4) float64: each shard's ``(n, sum(lum - lref), sum P, sum
+    (shards held, 4) float64: each shard's ``(n, sum(lum - lref), sum P, sum
     ln Omega0)`` over its unmasked sources, the sums of
     :func:`_collapsed`, for the theta-affine source terms.
     """
@@ -578,10 +579,10 @@ class CudaStreamData:
     g_p: torch.Tensor        # 10^(logL - lref)
     g_r: torch.Tensor        # 10^(logf - _LOGF_REF)
     g_w: torch.Tensor        # weight * area * ln10 / nshards
-    s_logf: torch.Tensor     # (nshards, S)
+    s_logf: torch.Tensor     # (shards held, S)
     s_r: torch.Tensor
     s_mask: torch.Tensor
-    sums: torch.Tensor       # (nshards, 4) float64
+    sums: torch.Tensor       # (shards held, 4) float64
     runs: torch.Tensor
     run_pieces: int
     waves: tuple             # (value, value+gradient) blocks per wave
@@ -635,12 +636,15 @@ def _stream_waves(device: torch.device, run_pieces: int) -> tuple:
 
 
 def prepare_cuda_stream_data(ctx: LFContext, fcmin: float, nshards: int = 1,
-                             dtype=None) -> CudaStreamData:
+                             dtype=None,
+                             shard: Optional[int] = None) -> CudaStreamData:
     """Pack the context into the streaming kernels' per-shard layout, on
     the context's device, in ``dtype`` (default: the context's); the
     counterpart of ``prepare_pallas_data(..., flat=False,
     src_row_align=_SLAB_ROWS)`` (one shard) and
-    ``prepare_stream_shard_data`` (``pallas_lnlike.py:299``, ``:346``)."""
+    ``prepare_stream_shard_data`` (``pallas_lnlike.py:299``, ``:346``).
+    ``shard``: pack only that shard's sources (a source-sharded grid's
+    rank holds its own), else all ``nshards``."""
     device = ctx.lum.device
     dtype = dtype or ctx.lum.dtype
     lref = float(ctx.lref)
@@ -664,18 +668,19 @@ def prepare_cuda_stream_data(ctx: LFContext, fcmin: float, nshards: int = 1,
     padded = [-(-n // CHUNK_CELLS) * CHUNK_CELLS for n in per_shard]
     src_off = tuple(int(x) for x in np.concatenate([[0],
                                                     np.cumsum(padded)]))
-    s_logf = np.zeros((nshards, src_off[-1]))
-    s_r = np.ones((nshards, src_off[-1]))
-    s_mask = np.zeros((nshards, src_off[-1]))
-    sums = np.zeros((nshards, 4))
-    for k in range(nshards):
+    held = range(nshards) if shard is None else [int(shard)]
+    s_logf = np.zeros((len(held), src_off[-1]))
+    s_r = np.ones((len(held), src_off[-1]))
+    s_mask = np.zeros((len(held), src_off[-1]))
+    sums = np.zeros((len(held), 4))
+    for row, k in enumerate(held):
         for f in range(nf):
             idx = sel_f[f][k::nshards]
             at = slice(src_off[f], src_off[f] + len(idx))
-            s_logf[k, at] = logf[idx]
-            s_r[k, at] = 10.0 ** np.clip(logf[idx], -30.0, 25.0)
-            s_mask[k, at] = mask[idx]
-            sums[k] += terms[:, idx].sum(axis=1)
+            s_logf[row, at] = logf[idx]
+            s_r[row, at] = 10.0 ** np.clip(logf[idx], -30.0, 25.0)
+            s_mask[row, at] = mask[idx]
+            sums[row] += terms[:, idx].sum(axis=1)
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
@@ -1302,8 +1307,9 @@ def _launch_stream(name, feats, data: CudaStreamData, shard=0):
     kernel. Raises on any failure."""
     if feats.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {feats.device}")
-    if not 0 <= shard < data.nshards:
-        raise ValueError(f"{name}: shard {shard} of {data.nshards}")
+    if not 0 <= shard < data.s_logf.shape[0]:
+        raise ValueError(f"{name}: row {shard} of the "
+                         f"{data.s_logf.shape[0]} shards held")
     from lumfuncmcmc_tpu_torch.ops._build import load_library
     nfeat = 6 + 2 * data.nfields
     arrays = (tuple(getattr(data, a) for a in _STREAM_GRID)

@@ -203,7 +203,14 @@ def run_stretch(lnprob_batch: Callable, pos0, generator: torch.Generator,
     Returns ``(state, chain (nsteps//thin, ..., W, D), lnp
     (nsteps//thin, ..., W), acc_count (..., W))`` on the device.
     """
-    nwalkers, ndim = pos0.shape[-2:]
+    check_run(pos0, nsteps, thin, move)
+    rands = draw_rands(generator, move, nsteps, pos0, de_prob, de_sel)
+    return run_with_rands(lnprob_batch, pos0, rands, nsteps, a, thin, move)
+
+
+def check_run(pos0, nsteps: int, thin: int, move: str):
+    """:func:`run_stretch`'s argument checks."""
+    nwalkers = pos0.shape[-2]
     if nwalkers % 2:
         raise ValueError("nwalkers must be even for the red-black scheme")
     if move in ("de", "mix") and nwalkers < 4:
@@ -213,21 +220,25 @@ def run_stretch(lnprob_batch: Callable, pos0, generator: torch.Generator,
     if thin > 1 and nsteps % thin:
         raise ValueError(
             f"nsteps={nsteps} must be a multiple of thin={thin}")
-    nh = nwalkers // 2
+
+
+def draw_rands(generator: torch.Generator, move: str, nsteps: int, pos0,
+               de_prob: float = 0.5, de_sel=None):
+    """Every random draw of :func:`run_stretch` from ``pos0`` (..., W, D),
+    in its order: :func:`run_with_rands`' ``rands`` for ``move``."""
+    nh, ndim = pos0.shape[-2] // 2, pos0.shape[-1]
     kw = dict(dtype=pos0.dtype, device=pos0.device,
               batch=tuple(pos0.shape[:-2]))
     if move == "stretch":
-        rands = _stretch_rands(generator, nsteps, nh, **kw)
-    elif move == "de":
-        rands = _de_rands(generator, nsteps, nh, ndim, **kw)
-    elif move == "mix":
+        return _stretch_rands(generator, nsteps, nh, **kw)
+    if move == "de":
+        return _de_rands(generator, nsteps, nh, ndim, **kw)
+    if move == "mix":
         sel = (de_schedule(nsteps, de_prob) if de_sel is None
                else np.asarray(de_sel))
-        rands = (sel, _stretch_rands(generator, nsteps, nh, **kw),
-                 _de_rands(generator, nsteps, nh, ndim, **kw))
-    else:
-        raise ValueError(f"unknown move {move!r} (stretch|de|mix)")
-    return run_with_rands(lnprob_batch, pos0, rands, nsteps, a, thin, move)
+        return (sel, _stretch_rands(generator, nsteps, nh, **kw),
+                _de_rands(generator, nsteps, nh, ndim, **kw))
+    raise ValueError(f"unknown move {move!r} (stretch|de|mix)")
 
 
 def flat_batch(lnprob_batch: Callable) -> Callable:

@@ -23,6 +23,7 @@ from lumfuncmcmc_tpu.cli.main import main as jax_main
 from lumfuncmcmc_tpu.config import LFConfig
 from lumfuncmcmc_tpu.utils.io import read_fixed_width_two_line
 from lumfuncmcmc_tpu_torch.cli.main import main as port_main
+from tests.torch_grid_worker import run_grid_flags
 
 torch.set_num_threads(2)
 # 64 walkers: over four catalog seeds the largest of the nine median gaps
@@ -31,6 +32,7 @@ torch.set_num_threads(2)
 ARGS = ["--synthetic", "300", "-mcf", "0.5", "-ns", "400", "-nw", "64",
         "--size-ln", "21", "-o", "t.dat"]
 BASE = "t_nb50_nw64_ns400_mcf50"
+
 
 
 def _no_plot_config(path):
@@ -147,15 +149,14 @@ def test_port_triangle_plot_resume_and_unported_flags(tmp_path,
     # an existing fitposterior: reload and replot, no sampling
     assert port_main(args) == 0
     assert png.stat().st_mtime_ns >= mtime
-    # still refused: the multi-device flags
-    for flag in (["--sampler", "nuts", "--nuts-pooled"],
-                 ["--distributed", "localhost:1234,1,0"],
-                 ["--mesh-walkers", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            port_main(args + flag)
+    # still refused: --nuts-pooled
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        port_main(args + ["--sampler", "nuts", "--nuts-pooled"])
+    no_plot = ["--config", _no_plot_config(tmp_path / "cfg.json")]
+    run_grid_flags(port_main, args, tmp_path / "LFMCMCOut",
+                   "nb50_nw16_ns40_mcf50", no_plot)
     # ported: the long-run flags, each a fresh run with its artifacts
     nuts = ["--sampler", "nuts", "-fc", "--nchains", "2", "-ns", "10"]
-    no_plot = ["--config", _no_plot_config(tmp_path / "cfg.json")]
     for name, flag, ckpt in (
             ("a", ["--min-ess", "100"], None),
             ("b", ["--ensembles", "2", "--checkpoint-every", "20"],
@@ -291,11 +292,11 @@ def test_fitz_resume_pivots_and_unported_flags(tmp_path, monkeypatch):
     # an existing LFMCMCzOut/ fitposterior: reload it, no sampling
     assert port_main(args) == 0
     assert post.stat().st_mtime_ns == mtime
-    for flag in (["--mesh-walkers", "2"],
-                 ["--sampler", "nuts", "--nuts-pooled"],
-                 ["--distributed", "localhost:1234,1,0"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            port_main([a.replace("p.dat", "q.dat") for a in args] + flag)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        port_main([a.replace("p.dat", "q.dat") for a in args]
+                  + ["--sampler", "nuts", "--nuts-pooled"])
+    run_grid_flags(port_main, args, tmp_path / "LFMCMCzOut",
+                   "nb50_nw16_ns30_mcf50")
     # ported: the long-run flags, each a fresh run with its artifacts
     for name, flag in (("a", ["--min-ess", "100"]), ("b", ["--ensembles",
                                                           "2"]),

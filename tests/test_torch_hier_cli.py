@@ -28,6 +28,7 @@ from lumfuncmcmc_tpu.cli.main import main as jax_main
 from lumfuncmcmc_tpu.config import LFConfig
 from lumfuncmcmc_tpu.utils.io import read_fixed_width_two_line
 from lumfuncmcmc_tpu_torch.cli.main import main as port_main
+from tests.torch_grid_worker import run_grid_flags
 
 torch.set_num_threads(2)
 COMMON = ["--synthetic", "300", "-mcf", "0.5", "--size-ln", "21", "-o",
@@ -119,11 +120,11 @@ def test_fith_resume_and_unported_flags(tmp_path, monkeypatch):
     # an existing LFMCMCHOut/ fitposterior: reload it and replot
     assert port_main(args) == 0
     assert post.stat().st_mtime_ns == mtime
-    for flag in (["--mesh-walkers", "2"],
-                 ["--sampler", "nuts", "--nuts-pooled"],
-                 ["--distributed", "localhost:1234,1,0"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            port_main([a.replace("p.dat", "q.dat") for a in args] + flag)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        port_main([a.replace("p.dat", "q.dat") for a in args]
+                  + ["--sampler", "nuts", "--nuts-pooled"])
+    run_grid_flags(port_main, args, out, "nb50_nw32_ns30_mcf50",
+                   _config(tmp_path))
     # ported: the long-run flags, each a fresh run with its artifacts
     for name, flag in (("a", ["--min-ess", "100"]), ("b", ["--ensembles",
                                                           "2"]),

@@ -4,7 +4,8 @@ tiny ``--device cpu`` run of each subcommand (``fit``, ``fitz``,
 ``fith``, ``vmax``, the model comparison: ``--ic``, ``--ppc``,
 ``--evidence``, ``--map``, ``--init-map``, ``compare-ic``, ``stack-ic``,
 and the long-run drivers: a checkpointed ``--min-ess`` fit and an
-``--ensembles`` fit) works; without ``--device cpu`` and with no CUDA device, each fit fails
+``--ensembles`` fit, and the grid: ``fit --mesh-walkers 2`` on two gloo
+ranks) works; without ``--device cpu`` and with no CUDA device, each fit fails
 and names ``--device cpu`` instead of running on the CPU, while
 ``compare-ic`` / ``stack-ic``, which read only ``.npz`` files, run.
 """
@@ -217,3 +218,39 @@ def test_port_imports_nothing_of_jax_and_runs_the_long_run_drivers(
                  "fitposterior_b_nb50_nw8_ns10_mcf50.dat"):
         assert (out / name).exists(), name
     assert "cross-ensemble R-hat" in proc.stderr
+
+
+def test_grid_imports_nothing_of_jax_and_runs_on_two_gloo_ranks(tmp_path):
+    """The grid twin: with ``jax`` and ``lumfuncmcmc_tpu`` blocked, the
+    ``parallel/`` modules import, and ``fit --mesh-walkers 2`` runs on two
+    gloo ranks (``--distributed``), rank 0 alone writing."""
+    from tests.torch_grid_worker import _free_port
+    code = BLOCKED_RUN.replace(
+        "for name in names:\n",
+        "assert {'lumfuncmcmc_tpu_torch.parallel.distributed',\n"
+        "        'lumfuncmcmc_tpu_torch.parallel.mesh',\n"
+        "        'lumfuncmcmc_tpu_torch.parallel.sharding'} <= set(names)\n"
+        "for name in names:\n")
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text('{"output_dict": {"parameters": true, "settings": true,'
+                   ' "fitposterior": true, "bestfitLF": true, "VeffLF": '
+                   'true, "triangle plot": false, "image format": "png"}}')
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    port = _free_port()
+    procs = []
+    for r in range(2):
+        (tmp_path / f"r{r}").mkdir()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, "fit"] + FIT
+            + ["-nw", "8", "--device", "cpu", "--mesh-walkers", "2",
+               "--distributed", f"127.0.0.1:{port},2,{r}", "--config",
+               str(cfg)], cwd=tmp_path / f"r{r}", env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert "RC 0" in out
+    assert "Device grid: {'walkers': 2, 'sources': 1}" in outs[1][1]
+    assert (tmp_path / "r0" / "LFMCMCOut"
+            / "fitposterior_g_nb50_nw8_ns10_mcf50.dat").exists()
+    assert not (tmp_path / "r1" / "LFMCMCOut").exists()
