@@ -129,7 +129,19 @@ Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 16 and
    ``DLNP_TOL``), ``fith --ensembles 2 --mesh-walkers 2`` (one ensemble a
    rank) and the mega catalog on (1,2) (``free_stream_lnlike`` on source
    shards, the 32-close-pair gate through the sharded lnprob, each rank's
-   memory peak beside the meshless one's).
+   memory peak beside the meshless one's); then NUTS on the grid, each run
+   with exact per-rank launches (its vg kernel transitions + leapfrog
+   steps, its value kernel the start guard and the Ln Prob recompute) and
+   phase 6's gates (divergences < 5%, accept-stat in (0.6, 0.97), R-hat <
+   1.1, logL* within 3 sd of the stretch fit's): the mega catalog's
+   source-sharded streaming value+gradient of 8 thetas against the
+   meshless one (values ``RTOL_KERNEL``, gradients ``RTOL_GRAD``) and its
+   NUTS on (1,2) (``free_stream_lnlike_vg`` on source shards, the source
+   group's host-staged ``all_reduce`` a call timed), the mega catalog's
+   per-rank replicas on (2,1) checkpointed and resumed on a world of 1
+   (bit for bit), the flagship's replicas (``free_lnlike_vg``) adapting
+   alone and with ``--nuts-pooled`` (one step size), and ``fit -fc`` on
+   the pooled route (``fixed_lnlike_vg``).
 
 Phases 5-8, 12, 16 and 17 run side by side, each path in a process of
 its own (``--path``): its stretch fit, its NUTS fit, then the model comparison
@@ -1873,23 +1885,26 @@ def _long_base(nsteps, nw=NWALKERS):
     return f"test_nb50_nw{nw}_ns{nsteps}_mcf50"
 
 
-def _nuts_launches(rec, name, guard=True):
-    """A NUTS run's exact launches from its log: the value+gradient
-    kernel once per transition and leapfrog step, the value kernel for
-    the start guard (skipped on a resume) and the Ln Prob recompute."""
+def _nuts_launches(rec, name, guard=True, fam="fixed"):
+    """A NUTS run's exact launches from its log (on a grid, this rank's):
+    the family's value+gradient kernel once per transition and leapfrog
+    step, its value kernel for the start guard (skipped on a resume) and
+    the Ln Prob recompute (one launch a ``MAX_ROWS`` chunk of the whole
+    chain's rows, a slice of each on every rank of a grid)."""
     ntrans, nlf = _logged(rec, r"NUTS work: (\d+) transitions, (\d+) "
                           r"leapfrog steps", name)
     at = rec.lines.index("Shape of self.samples")
     rows = int(re.match(r"\((\d+), \d+\)$", rec.lines[at + 1]).group(1))
-    return {"fixed_lnlike_vg": int(ntrans + nlf),
-            "fixed_lnlike": int(guard) + math.ceil(rows / cl.MAX_ROWS)}
+    return {f"{fam}_lnlike_vg": int(ntrans + nlf),
+            f"{fam}_lnlike": int(guard) + math.ceil(rows / cl.MAX_ROWS)}
 
 
 def _nuts_gates(rec, name):
     """Phase 6's NUTS gates on one run's log."""
     _, _, accept, div_pct = _logged(
-        rec, r"Total time taken: ([\d.]+) s; step size ([\d.e+-]+); mean "
-        r"accept-stat ([\d.]+); divergent transitions ([\d.]+)%", name)
+        rec, r"Total time taken: ([\d.]+) s; step size ([\d.e+-]+)(?:\.\."
+        r"[\d.e+-]+ \(per replica\))?; mean accept-stat ([\d.]+); "
+        r"divergent transitions ([\d.]+)%", name)
     _, rhat, _ = _logged(
         rec, r"min ESS: ([\d.]+); max R-hat: ([\d.]+); ESS/sec: ([\d.]+)",
         name)
@@ -2107,6 +2122,10 @@ GRID_STEPS = 1000           # stretch steps of the grid's flagship fits
 GRID_MEGA_STEPS = 500       # of its mega fit
 GRID_SECONDS = 600          # what its two rank processes may take
 GRID_DEVICE = "cuda:0"      # both ranks' card
+GRID_NUTS_CHAINS = 8        # chains of the grid's NUTS runs (at least)
+GRID_NUTS_WARMUP, GRID_NUTS_STEPS = 100, 120    # on the flagship catalog
+GRID_MEGA_NUTS = (40, 40)   # warmup and samples on the mega catalog
+GRID_NUTS_CK = "grid_nuts_ck.npz"   # the mega replica run's checkpoint
 
 
 def _free_port():
@@ -2143,9 +2162,9 @@ def _grid_mega_model(dev, **over):
     """The mega catalog's ``fit`` model (``use_x64``, gauss-32, seed 7)
     through the library API at ``GRID_MEGA_STEPS``, and its catalog."""
     from lumfuncmcmc_tpu_torch.models.model import LumFuncModel
-    cfg = LFConfig(min_comp_frac=0.5, quadrature="gauss", seed=MEGA_SEED,
-                   nwalkers=NWALKERS, nsteps=GRID_MEGA_STEPS, use_x64=True,
-                   **over)
+    cfg = LFConfig(**{**dict(min_comp_frac=0.5, quadrature="gauss",
+                             seed=MEGA_SEED, nwalkers=NWALKERS,
+                             nsteps=GRID_MEGA_STEPS, use_x64=True), **over})
     cat = apply_completeness_cut(
         make_catalog(cfg, n_target=MEGA_TARGET, seed=MEGA_SEED), cfg)
     return LumFuncModel(cfg, z=cat["z"], flux=cat["flux"],
@@ -2176,15 +2195,59 @@ def _rows_of(name):
     return rows, undo
 
 
+def _grid_nuts(label, model, fam, kw, ref_median, say=print, guard=True):
+    """One NUTS run of ``model`` (``fit_model_nuts(**kw)``), every launch
+    counter set to 0 just before and read just after: its launches exact
+    (:func:`_nuts_launches`: on a grid, this rank's), phase 6's gates,
+    and the posterior's logL* median within 3 of its sd of the stretch
+    fit's ``ref_median``. Prints its line; returns (launches, log records,
+    the logged step size)."""
+    rec = _Records()
+    log = logging.getLogger("lumfuncmcmc_tpu_torch")
+    log.addHandler(rec)
+    try:
+        for name in KERNELS:
+            _kernel(name).launches = 0
+        samples = model.fit_model_nuts(**kw)
+        counts = {name: _kernel(name).launches for name in KERNELS}
+    finally:
+        log.removeHandler(rec)
+    _expect(label, counts, _nuts_launches(rec, label, guard, fam))
+    accept, div_pct, rhat = _nuts_gates(rec, label)
+    (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s;", label)
+    step = re.search(r"step size ([^;]+);", next(
+        ln for ln in reversed(rec.lines)
+        if ln.startswith("Total time taken"))).group(1)
+    ntrans, nlf = _logged(rec, r"NUTS work: (\d+) transitions, (\d+) "
+                          r"leapfrog steps", label)
+    col = samples[:, 0]
+    gap = abs(np.median(col) - ref_median) / np.std(col)
+    if not gap < 3.0:
+        fail(f"{label}: logL* median {np.median(col):.4f} is {gap:.2f} "
+             f"posterior sd from the stretch fit's {ref_median:.4f}")
+    vg = f"{fam}_lnlike_vg"
+    say(f"{label}: {int(ntrans)} transitions + {int(nlf)} leapfrog steps = "
+        f"{vg} launches {counts[vg]}, {fam}_lnlike {counts[f'{fam}_lnlike']}"
+        f"; sampling {secs:.2f} s, {secs / (ntrans + nlf) * 1e3:.3f} ms per "
+        f"value+gradient call; step size {step}; accept-stat {accept}, "
+        f"divergent {div_pct}%, max R-hat {rhat}; logL* median "
+        f"{np.median(col):.4f} vs the stretch fit's {ref_median:.4f} "
+        f"({gap:.2f} sd)")
+    return counts, rec, step
+
+
 def run_grid(workdir, has_mpl):
     """Phase 17, the device grid. In this process, a world of 1 under
     NCCL: ``fit --mesh-walkers 1 --distributed 127.0.0.1:PORT,1,0``
     beside the plain ``fit`` (the meshless path: the same launches, 2 x
     steps + 1 ``free_lnlike``, and the same fitposterior bytes), then
-    the plain ``fit``'s evidence ladder (16 rungs, ``LADDER_STEPS``).
-    Then two ranks on the one card (:func:`grid_rank`, each a process
-    that joins a gloo group through ``init_distributed``; NCCL refuses two
-    ranks on one device), whose launch counts are added to the paths'."""
+    the plain ``fit``'s evidence ladder (16 rungs, ``LADDER_STEPS``) and
+    the stretch fits the grid's NUTS runs are held to (``fit -fc``, the
+    meshless mega ``fit_model``). Then two ranks on the one card
+    (:func:`grid_rank`, each a process that joins a gloo group through
+    ``init_distributed``; NCCL refuses two ranks on one device), whose
+    launch counts are added to the paths', and last the ranks' mega
+    replica checkpoint resumed here (:func:`_grid_nuts_resume`)."""
     dev = torch.device(GRID_DEVICE)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     t0 = time.perf_counter()
@@ -2229,6 +2292,19 @@ def run_grid(workdir, has_mpl):
     ref = {"lnz": ev["lnz_ss"], "ladder_s": ladder_s, "col": names[0],
            "post": os.path.join(workdir, "grid_plain", "LFMCMCOut",
                                 f"fitposterior_{_grid_base()}.dat")}
+    ref["med_free"] = float(np.median(read_fixed_width_two_line(
+        ref["post"])[names[0]]))
+    del model
+    # the stretch fit the grid's `fit -fc --sampler nuts` is held to
+    model = _flagship_model(dev, fix_comp=True, nsteps=GRID_STEPS)
+    for name in KERNELS:
+        _kernel(name).launches = 0
+    model.fit_model()
+    counts = {name: _kernel(name).launches for name in KERNELS}
+    _expect("grid plain fit -fc", counts,
+            {"fixed_lnlike": 2 * GRID_STEPS + 1})
+    runs.append(counts)
+    ref["med_fixed"] = float(np.median(model.samples[:, 0]))
     del model
     torch.cuda.empty_cache()
     model, cat = _grid_mega_model(dev, mesh_sources=1)
@@ -2237,6 +2313,7 @@ def run_grid(workdir, has_mpl):
     model.fit_model()
     ref["mega_s"] = time.perf_counter() - t1
     ref["mega_peak"] = torch.cuda.max_memory_allocated()
+    ref["med_mega"] = float(np.median(model.samples[:, 0]))
     print(f"grid: the meshless mega fit_model ({GRID_MEGA_STEPS} steps, "
           f"{int(model.ctx.lum.shape[0])} sources): sampling "
           f"{ref['mega_s']:.2f} s, device memory peak "
@@ -2272,8 +2349,45 @@ def run_grid(workdir, has_mpl):
                 proc.kill()
                 proc.wait()
             out.close()
+    runs.append(_grid_nuts_resume(workdir, dev, ref))
     print(f"grid: phase 17 wall {time.perf_counter() - t0:.1f} s")
     return {k: sum(r[k] for r in runs) for k in KERNELS}
+
+
+def _grid_nuts_resume(workdir, dev, ref):
+    """The mega replica run's checkpoint (written by rank 0 of the (2,1)
+    grid, two blocks) cut at its first block and resumed on a world of 1:
+    the second block's launches exact (no start guard), phase 6's gates,
+    and the samples, Ln Prob, acceptance statistics and per-chain state of
+    the npz it writes those of the grid's, bit for bit (the streaming
+    kernels sum a chain's terms in one order whatever the batch's width)."""
+    ck = os.path.join(workdir, GRID_NUTS_CK)
+    cut = os.path.join(workdir, "grid_world1", GRID_NUTS_CK)
+    _cut_npz(ck, cut, 1)
+    model, _ = _grid_mega_model(dev, nsteps=GRID_MEGA_NUTS[1],
+                                checkpoint_every=GRID_MEGA_NUTS[1] // 2)
+    if model.grid is not None:
+        fail("grid world 1 NUTS resume: the model is on a grid")
+    label = "grid world 1: the mega (2,1) replica checkpoint resumed"
+    counts, rec, _ = _grid_nuts(
+        label, model, "free_stream", dict(
+            num_warmup=GRID_MEGA_NUTS[0], nchains=GRID_NUTS_CHAINS,
+            checkpoint_path=cut, resume=True),
+        ref["med_mega"], guard=False)
+    if not any("start guard skipped" in ln for ln in rec.lines):
+        fail(f"{label}: it did not resume")
+    with np.load(ck) as a, np.load(cut) as b:
+        same = [k for k in ("samples_y", "lnps_y", "alphas", "y_run",
+                            "eps", "scale") if np.array_equal(a[k], b[k])]
+        if len(same) != 6:
+            fail(f"{label}: only {same} equal the grid's bit for bit "
+                 f"(largest sample difference "
+                 f"{np.abs(a['samples_y'] - b['samples_y']).max():.3e})")
+    print(f"{label}: the second block's samples, Ln Prob, acceptance and "
+          "per-chain state the grid's bit for bit")
+    del model
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _collective_clock():
@@ -2325,7 +2439,13 @@ def grid_rank(rank, port, workdir, has_mpl):
       steps + 1 ``hier_lnlike``;
     - ``log_evidence(16 rungs)`` on (2,1): 8 rungs a rank, 1 + 2 x steps +
       the recompute's chunks ``free_lnlike``; |dlnZ| against the meshless
-      ladder (:func:`run_grid`) within ``DLNP_TOL``.
+      ladder (:func:`run_grid`) within ``DLNP_TOL``;
+    - NUTS (:func:`_grid_nuts`, ``fit_model_nuts``): the mega catalog's
+      sharded streaming value+gradient against the meshless one, its
+      streaming route on (1,2) and its replicas on (2,1) (checkpointed;
+      both from ``--init-map`` starts: from the box, the 1e6-source
+      posterior's warmup is long), the flagship's replicas adapting alone
+      and pooled, and ``fit -fc`` on the pooled route.
 
     Prints its lines, then one JSON line with its launch counts."""
     from lumfuncmcmc_tpu_torch.parallel.distributed import (
@@ -2493,7 +2613,101 @@ def grid_rank(rank, port, workdir, has_mpl):
                  f"lnprob vs float64 eager: max error {err:.4e} (limit "
                  f"{DLNP_TOL})")
     say(line)
+
+    # the mega catalog's NUTS on (1,2): the streaming route
+    from lumfuncmcmc_tpu_torch.parallel import sharding as sh
+    from lumfuncmcmc_tpu_torch.samplers.nuts import value_and_grad
+    th8 = th[:GRID_NUTS_CHAINS]
+    v, g = sh.make_cuda_vg_stream_sharded(model.ctx, model.layout,
+                                          model.grid, data=fn.data)(th8)
+    v1, g1 = value_and_grad(cl.make_cuda_lnprob_and_grad(
+        model.ctx, model.layout))(th8)
+    err_v, err_g = _rel(v, v1), _grad_rel(g, g1)
+    if not (err_v <= RTOL_KERNEL and err_g <= RTOL_GRAD):
+        fail(f"grid rank {rank} mega (1,2): the sharded streaming "
+             f"value+gradient vs meshless: value {err_v:.3e} (limit "
+             f"{RTOL_KERNEL:g}), gradient {err_g:.3e} ({RTOL_GRAD:g})")
+    say(f"mega (1,2): the source-sharded streaming value+gradient of "
+        f"{GRID_NUTS_CHAINS} thetas vs the meshless streaming one: value max "
+        f"rel {err_v:.3e} (limit {RTOL_KERNEL:g}), gradient {err_g:.3e} "
+        f"(_grad_close, limit {RTOL_GRAD:g})")
+    del v1, g1
+    # the chains start from Laplace draws around the MAP (--init-map):
+    # from the box, the 1e6-source posterior's warmup is long
+    model.cfg = model.cfg.replace(nsteps=GRID_MEGA_NUTS[1], init_map=True)
+    label = f"grid rank {rank} mega --sampler nuts (1,2)"
+    coll, undo_coll = _collective_clock()
+    try:
+        counts, rec, _ = _grid_nuts(label, model, "free_stream", dict(
+            num_warmup=GRID_MEGA_NUTS[0], nchains=GRID_NUTS_CHAINS),
+            ref["med_mega"], say)
+    finally:
+        undo_coll()
+    if not any("source-sharded streaming" in ln for ln in rec.lines):
+        fail(f"{label}: the log does not name the streaming route")
+    (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s;", label)
+    say(f"mega --sampler nuts (1,2): the collectives (the source group's "
+        f"all_reduce of every value+gradient call, host-staged) "
+        f"{coll[0]:.2f} s of the run's {secs:.2f} s sampling, "
+        f"{coll[0] / max(coll[1], 1) * 1e3:.3f} ms a call over {coll[1]} "
+        "calls (host clock, device sync included)")
+    runs.append(counts)
+    map_fit = model.map_fit
     del model, fn
+    torch.cuda.empty_cache()
+
+    # the mega catalog's per-rank replicas on (2,1), each rank adapting
+    # alone, checkpointed: run_grid resumes it on a world of 1 (the same
+    # catalog's MAP starts)
+    model, _ = _grid_mega_model(dev, mesh_walkers=2,
+                                nsteps=GRID_MEGA_NUTS[1],
+                                checkpoint_every=GRID_MEGA_NUTS[1] // 2,
+                                init_map=True)
+    model.map_fit = map_fit
+    label = f"grid rank {rank} mega --sampler nuts --checkpoint-every " \
+            f"{GRID_MEGA_NUTS[1] // 2} (2,1)"
+    counts, rec, _ = _grid_nuts(label, model, "free_stream", dict(
+        num_warmup=GRID_MEGA_NUTS[0], nchains=GRID_NUTS_CHAINS,
+        checkpoint_path=os.path.join(workdir, GRID_NUTS_CK)),
+        ref["med_mega"], say)
+    if not any("per-rank replicas over the 2-rank grid" in ln
+               and "independent per-rank adaptation" in ln
+               for ln in rec.lines):
+        fail(f"{label}: the log does not name the replicas route")
+    runs.append(counts)
+    del model
+    torch.cuda.empty_cache()
+    _check_no_jax()
+
+    # NUTS on (2,1): the flagship's per-rank replicas, each adapting alone
+    # and pooled, and the pooled route of fixed completeness
+    nkw = dict(num_warmup=GRID_NUTS_WARMUP, nchains=GRID_NUTS_CHAINS)
+    model = _flagship_model(dev, mesh_walkers=2, nsteps=GRID_NUTS_STEPS)
+    label = f"grid rank {rank} fit --sampler nuts (2,1)"
+    counts, rec, step = _grid_nuts(label, model, "free", nkw,
+                                   ref["med_free"], say)
+    if not any("per-rank replicas over the 2-rank grid" in ln
+               and "independent per-rank adaptation" in ln
+               for ln in rec.lines):
+        fail(f"{label}: the log does not name the replicas route")
+    runs.append(counts)
+    label = f"grid rank {rank} fit --sampler nuts --nuts-pooled (2,1)"
+    counts, rec, step = _grid_nuts(label, model, "free", dict(
+        nkw, pooled=True), ref["med_free"], say)
+    if ".." in step:
+        fail(f"{label}: the ranks' step sizes differ ({step})")
+    runs.append(counts)
+    del model
+    model = _flagship_model(dev, mesh_walkers=2, fix_comp=True,
+                            nsteps=GRID_NUTS_STEPS)
+    label = f"grid rank {rank} fit -fc --sampler nuts (2,1)"
+    counts, rec, _ = _grid_nuts(label, model, "fixed", nkw,
+                                ref["med_fixed"], say)
+    if not any("NUTS chains sharded over the 2 walker ranks" in ln
+               for ln in rec.lines):
+        fail(f"{label}: the log does not name the pooled route")
+    runs.append(counts)
+    del model
     torch.cuda.empty_cache()
     _check_no_jax()
     shutdown()

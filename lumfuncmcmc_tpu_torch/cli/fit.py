@@ -15,9 +15,10 @@ On a grid of ranks (``--mesh-walkers``/``--mesh-sources``, a
 ``torchrun`` launch or ``--distributed``) every rank runs the same
 program, so every collective (the sampler's lnprob, the evidence ladder,
 a resume decision) is called by every rank in the same order, and rank 0
-alone writes artifacts, plots and the profiler's trace. Not ported yet,
-and refused with ``NotImplementedError`` before any work starts:
-``--nuts-pooled``, and ``--sampler nuts`` on more than one rank.
+alone writes artifacts, plots and the profiler's trace. ``--sampler
+nuts`` there takes the route JAX takes for the same command line
+(``models/nuts_driver.py nuts_route``), and ``--nuts-pooled`` pools the
+per-rank replicas' step-size and mass adaptation.
 """
 
 from __future__ import annotations
@@ -30,26 +31,8 @@ from lumfuncmcmc_tpu_torch.cli.common import (
 from lumfuncmcmc_tpu_torch.cli.outputs import (
     _map_only_outputs, _resume_if_done, _resumed_outputs, _run_evidence,
     _write_evidence, _write_ic, _write_outputs, _write_ppc)
-from lumfuncmcmc_tpu_torch.parallel.distributed import (
-    is_primary, world_size)
+from lumfuncmcmc_tpu_torch.parallel.distributed import is_primary
 from lumfuncmcmc_tpu_torch.utils.io import artifact_path
-
-# CLI-only flags (no LFConfig field) -> the value that means "not
-# requested"
-_NOT_PORTED_FLAGS = {"nuts_pooled": False}
-
-
-def _reject_unported(args, cfg):
-    for flag, off in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag, off) != off:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet "
-                "(run it with the JAX package, lumfuncmcmc_tpu)")
-    ranks = world_size()
-    if cfg.sampler == "nuts" and ranks > 1:
-        raise NotImplementedError(
-            f"--sampler nuts on {ranks} ranks is not ported yet (run it "
-            "with the JAX package, lumfuncmcmc_tpu)")
 
 
 def _profiler(outdir):
@@ -101,7 +84,9 @@ def _dispatch_sampler(model, cfg, args, outdir):
                       "sampler; ignored under --sampler nuts")
             ck = ckpt("checkpoint_nuts")
             model.fit_model_nuts(
-                nchains=nchains, min_ess=float(min_ess) if min_ess else None,
+                nchains=nchains,
+                pooled=True if getattr(args, "nuts_pooled", False) else None,
+                min_ess=float(min_ess) if min_ess else None,
                 checkpoint_path=ck, resume=resume(ck))
         elif ens > 1 and min_ess:
             ck = ckpt("checkpoint_ens_until")
@@ -130,7 +115,6 @@ def _run_fit_family(args, model_cls, outdir, z_variant=False, pivot=False):
     the evidence ladder, then the artifact writers."""
     args.output_filename = args.output_filename or "test.dat"
     cfg = _build_cfg(args)
-    _reject_unported(args, cfg)
     if pivot:
         cfg = _pivot_z(cfg, args.filename)
     device, dtype = _apply_precision(cfg, getattr(args, "device", "cuda"))

@@ -128,12 +128,13 @@ def _save(path, **arrays):
         np.savez(path, **arrays)
 
 
-def _digest(ck) -> float:
-    """48 bits of a checkpoint's chain, exact in a float64."""
+def _digest(ck, key="chain") -> float:
+    """48 bits of a checkpoint's chain (its array ``key``), exact in a
+    float64."""
     if ck is None:
         return -1.0
     return float(int(hashlib.sha1(np.ascontiguousarray(
-        ck["chain"]).tobytes()).hexdigest()[:12], 16))
+        ck[key]).tobytes()).hexdigest()[:12], 16))
 
 
 class _EnsembleDriverMixin:

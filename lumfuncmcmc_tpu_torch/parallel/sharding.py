@@ -26,12 +26,25 @@ rungs (:func:`run_tempered_sharded`,
 :func:`run_parallel_tempering_sharded`) go one or more to a rank: every
 rank draws the randoms of all of them, as the meshless run does, and runs
 its own rows, so the grid reproduces the meshless run.
+
+NUTS chains go in blocks to the ranks of an axis (:func:`run_nuts_sharded`:
+every rank of the grid for the per-rank replicas, the walker ranks for the
+pooled and streaming routes), each rank running the meshless sampler on its
+block with every transition's numbers drawn for the whole batch and its
+rows kept (``samplers/nuts.py block_draw``). The streaming route
+(:func:`run_nuts_stream_sharded`) splits the catalog over the source ranks
+inside the value+gradient: one ``all_reduce`` of the shard's value and
+feature gradient a call (:func:`make_cuda_lnprob_and_grad_stream_sharded`),
+so the ranks of a source group hold the same chains, get the same bits and
+leave every leapfrog loop together. The state a run returns is per chain,
+so it regroups onto any grid (elastic checkpoints).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -447,3 +460,264 @@ def run_parallel_tempering_sharded(lnprior_fn, lnlike_fn, pos0, betas,
     return run_parallel_tempering_sharded_with(
         lnprior_fn, lnlike_fn, pos0, betas, rands, u, nsteps, grid,
         swap_every=swap_every, a=a, move=move, lnls=lnls)[:4]
+
+
+# ---------------------------------------------------------------------------
+# NUTS on the grid
+# ---------------------------------------------------------------------------
+
+class _SourceSum(torch.autograd.Function):
+    """The streaming lnlike of this rank's source shard summed over the
+    source group, its value AND feature gradient in one ``all_reduce`` of
+    the kernel's (W, 1+nfeat) rows; the backward multiplies by the summed
+    gradient columns. (``torch.distributed.nn``'s ``all_reduce`` would
+    reduce the cotangent again in its backward and count the gradient once
+    a rank.)"""
+
+    @staticmethod
+    def forward(ctx, feats, data, group, kdtype):
+        from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
+        rows = all_reduce_sum(cl.free_stream_lnlike_vg(feats.to(kdtype),
+                                                       data, 0), group)
+        ctx.save_for_backward(rows[:, 1:])
+        return rows[:, 0]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (gfeats,) = ctx.saved_tensors
+        return gfeats * grad_out[:, None], None, None, None
+
+
+def make_cuda_lnprob_and_grad_stream_sharded(ctx: LFContext, layout, grid,
+                                             data=None):
+    """(C, D) -> (C,) lnprob of this rank's own rows that autograd
+    differentiates, with the catalog split over the source ranks: the
+    rank's shard through ``free_stream_lnlike_vg`` (one launch a call),
+    the value and feature gradient summed over the source group
+    (:class:`_SourceSum`, a COLLECTIVE of the source group), the
+    theta-affine source terms from the whole catalog's sums, then the
+    host's pullback to theta and the prior mask (JAX's
+    ``_stream_vg_local_parts``, ``sharding.py:346``). ``data``: this
+    rank's shard (``prepare_cuda_stream_data(..., shard=k)``), e.g. the
+    value route's, else packed here. None under fixed completeness."""
+    from lumfuncmcmc_tpu_torch.models.likelihood import in_box
+    from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
+    if layout.fix_comp:
+        return None
+    cuda = ctx.lum.device.type == "cuda"
+    if cuda:
+        from lumfuncmcmc_tpu_torch.ops._build import load_library
+        load_library()
+    kdtype = torch.float32 if cuda else ctx.lum.dtype
+    lo, hi = layout.bounds_arrays(ctx.lum.dtype, ctx.lum.device)
+    if data is None:
+        data = cl.prepare_cuda_stream_data(ctx, layout.fcmin, grid.n_sources,
+                                           dtype=kdtype,
+                                           shard=grid.source_index)
+    group = grid.source_group
+    sums = all_reduce_sum(data.sums[0], group)
+
+    def local(thetas):
+        feats = cl._features_stream(thetas, data, layout, kdtype)
+        part = (_SourceSum.apply(feats, data, group, kdtype)
+                + cl._collapsed(*sums, feats[:, 0], feats[:, 2],
+                                feats[:, 3], feats[:, 4]))
+        lnl = part.to(thetas.dtype)
+        return torch.where(in_box(thetas, lo, hi), lnl,
+                           torch.full_like(lnl, -math.inf))
+
+    local.source_shards = grid.n_sources
+    return cl._tagged(local, ctx, data)
+
+
+def make_cuda_vg_stream_sharded(ctx: LFContext, layout, grid, data=None):
+    """Batched ``(W, D) -> (lnp (W,), grad (W, D))`` with the catalog split
+    over the source ranks and the walkers over the walker ranks (padded to
+    a multiple of them), each slice through
+    :func:`make_cuda_lnprob_and_grad_stream_sharded` and gathered: the
+    gradient surface of a mega catalog on the grid (counterpart of
+    ``make_pallas_vg_stream_sharded``, ``sharding.py:381``). A COLLECTIVE
+    of the grid. None under fixed completeness."""
+    from lumfuncmcmc_tpu_torch.samplers.nuts import value_and_grad
+    post = make_cuda_lnprob_and_grad_stream_sharded(ctx, layout, grid, data)
+    if post is None:
+        return None
+    vg = value_and_grad(post)
+    nw, index, group = grid.n_walkers, grid.walker_index, grid.walker_group
+
+    def batch(thetas):
+        padded, w = _pad_walkers(thetas, nw)
+        blk = padded.shape[0] // nw
+        v, g = vg(padded[index * blk:(index + 1) * blk])
+        return (all_gather_rows(v, group)[:w],
+                all_gather_rows(g, group)[:w])
+
+    for k in ("engine", "data", "stream", "source_shards"):
+        setattr(batch, k, getattr(post, k))
+    return batch
+
+
+class ShardedNutsRun(NamedTuple):
+    """A NUTS run on the grid, gathered on every rank of its axis."""
+
+    samples: torch.Tensor     # (S, C, D), unconstrained y
+    lnps: torch.Tensor        # (S, C)
+    alphas: torch.Tensor      # (S, C)
+    eps: torch.Tensor         # (ranks,) each rank's step size
+    div_frac: torch.Tensor    # (ranks,) each rank's divergent fraction
+    counts: object            # this rank's NutsCounts
+    state: tuple              # per chain: y_run (C, D), eps (C,),
+                              # scale (C, D)
+
+
+def nuts_axis(grid, axis):
+    """``(ranks, this rank's index, group)`` of the axis NUTS chains split
+    over: every rank of the grid ("grid", the per-rank replicas) or the
+    walker ranks ("walkers", whose source ranks hold the same chains). No
+    grid (None) is one rank: the meshless run."""
+    if grid is None:
+        return 1, 0, None
+    if axis == "grid":
+        return grid.size, grid.rank, grid.group
+    if axis == "walkers":
+        return grid.n_walkers, grid.walker_index, grid.walker_group
+    raise ValueError(f"NUTS axis {axis!r} is neither 'grid' nor 'walkers'")
+
+
+def _chains_gathered(x, group):
+    """(S, C_blk, ...) -> (S, C, ...): every rank's chain block in order."""
+    return all_gather_rows(x.transpose(0, 1).contiguous(),
+                           group).transpose(0, 1)
+
+
+def _nuts_gathered(run, blk, group):
+    """A rank's ``NutsRun`` of ``blk`` chains -> :class:`ShardedNutsRun`."""
+    y_run, eps, scale = run.state
+    eps = torch.as_tensor(eps, dtype=y_run.dtype, device=y_run.device)
+    state = (all_gather_rows(y_run, group),
+             all_gather_rows(eps.expand(blk).contiguous(), group),
+             all_gather_rows(scale.expand(blk, y_run.shape[1]).contiguous(),
+                             group))
+    one = eps.reshape(-1)[:1]
+    return ShardedNutsRun(
+        _chains_gathered(run.samples, group),
+        _chains_gathered(run.lnps, group),
+        _chains_gathered(run.alphas, group),
+        all_gather_rows(one, group),
+        all_gather_rows(run.div_frac.reshape(1), group), run.counts, state)
+
+
+def run_nuts_sharded_with(draw, lnp_y, y0, grid, num_warmup, num_samples,
+                          pooled=False, axis="grid", **kw):
+    """NUTS chains in blocks over ``axis`` (:func:`nuts_axis`) from the
+    whole batch's ``draw(phase, t)`` (``samplers/nuts.py``'s protocol):
+    rank i runs :func:`~lumfuncmcmc_tpu_torch.samplers.nuts.run_nuts_with`
+    on chains ``[i B, (i+1) B)`` and their rows of the draws, on the
+    per-rank ``lnp_y``. ``pooled=False``: each rank adapts its own step
+    size and mass from its chains (numpyro's parallel semantics);
+    ``pooled=True``: from every rank's chains of the axis, one step size
+    and mass for all (the meshless run bit for bit in float64). Returns
+    the :class:`ShardedNutsRun` gathered on every rank (counterparts of
+    ``run_nuts_sharded`` and ``run_nuts_stream_sharded``,
+    ``sharding.py:179,420``)."""
+    from lumfuncmcmc_tpu_torch.samplers.nuts import block_draw, run_nuts_with
+    n, index, group = nuts_axis(grid, axis)
+    blk = _chain_blk(y0.shape[0], n, "chain")
+    c0 = index * blk
+    run = run_nuts_with(block_draw(draw, c0, c0 + blk), lnp_y,
+                        y0[c0:c0 + blk], num_warmup, num_samples,
+                        pool=group if pooled else None, **kw)
+    return _nuts_gathered(run, blk, group)
+
+
+def continue_nuts_sharded_with(draw, lnp_y, state, grid, start, stop,
+                               axis="grid", max_doublings=8, counts=None):
+    """Sampling transitions ``start..stop`` of a warmed-up run from its
+    per-chain ``state`` (``ShardedNutsRun.state``, or a checkpoint's,
+    written on any grid), each rank continuing its chain block with each
+    chain's own frozen step size and mass (counterparts of
+    ``continue_nuts_sharded`` / ``continue_nuts_keys_sharded``,
+    ``sharding.py:253,301``)."""
+    from lumfuncmcmc_tpu_torch.samplers.nuts import (
+        block_draw, continue_nuts_with)
+    y_run, eps, scale = state
+    n, index, group = nuts_axis(grid, axis)
+    blk = _chain_blk(y_run.shape[0], n, "chain")
+    at = slice(index * blk, (index + 1) * blk)
+    eps = torch.as_tensor(eps, dtype=y_run.dtype,
+                          device=y_run.device).expand(y_run.shape[0])
+    scale = scale.expand(y_run.shape)
+    run = continue_nuts_with(block_draw(draw, at.start, at.stop), lnp_y,
+                             (y_run[at], eps[at], scale[at]), start, stop,
+                             max_doublings, counts)
+    return _nuts_gathered(run, blk, group)
+
+
+def _whole_draw(generator, y, max_doublings):
+    from lumfuncmcmc_tpu_torch.samplers.nuts import generator_draw
+    return generator_draw(generator, y.shape[0], y.shape[1], max_doublings,
+                          y.dtype, y.device)
+
+
+def run_nuts_sharded(lnp_y, y0, generator, grid, num_warmup, num_samples,
+                     pooled=False, axis="grid", max_doublings=8, **kw):
+    """:func:`run_nuts_sharded_with` drawing every number from
+    ``generator`` (seeded alike on every rank) as the meshless
+    :func:`~lumfuncmcmc_tpu_torch.samplers.nuts.run_nuts` does for the
+    whole batch."""
+    return run_nuts_sharded_with(
+        _whole_draw(generator, y0, max_doublings), lnp_y, y0, grid,
+        num_warmup, num_samples, pooled=pooled, axis=axis,
+        max_doublings=max_doublings, **kw)
+
+
+def continue_nuts_sharded(lnp_y, state, generator, grid, num_samples,
+                          axis="grid", max_doublings=8, counts=None):
+    """Extend a warmed-up grid (or meshless) run by ``num_samples``
+    transitions, every number from ``generator`` where the run left it:
+    on any grid whose ranks divide the chains, the meshless
+    :func:`~lumfuncmcmc_tpu_torch.samplers.nuts.continue_nuts` of the same
+    per-chain state."""
+    return continue_nuts_sharded_with(
+        _whole_draw(generator, state[0], max_doublings), lnp_y, state, grid,
+        0, num_samples, axis, max_doublings, counts)
+
+
+def _stream_lnp_y(ctx, layout, grid):
+    from lumfuncmcmc_tpu_torch.samplers.nuts import make_unconstrained
+    post = make_cuda_lnprob_and_grad_stream_sharded(ctx, layout, grid)
+    if post is None:
+        return None
+    lo, hi = layout.bounds_arrays(ctx.lum.dtype, ctx.lum.device)
+    return make_unconstrained(post, lo, hi)[0]
+
+
+def run_nuts_stream_sharded(ctx: LFContext, layout, grid, y0, generator,
+                            num_warmup, num_samples, pooled=True, **kw):
+    """Mega-catalog NUTS with chains over the walker ranks and the catalog
+    over the source ranks (counterpart of ``run_nuts_stream_sharded``,
+    ``sharding.py:420``): :func:`run_nuts_sharded` on the ``walkers`` axis
+    with :func:`make_cuda_lnprob_and_grad_stream_sharded` as the per-rank
+    lnprob. The ranks of a source group run the same chains on the same
+    numbers and get the same summed bits, so they stay in step. ``pooled``
+    (default) adapts one step size over the walker ranks. None under fixed
+    completeness."""
+    lnp_y = _stream_lnp_y(ctx, layout, grid)
+    if lnp_y is None:
+        return None
+    return run_nuts_sharded(lnp_y, y0, generator, grid, num_warmup,
+                            num_samples, pooled=pooled, axis="walkers", **kw)
+
+
+def continue_nuts_stream_sharded(ctx: LFContext, layout, grid, state,
+                                 generator, num_samples, **kw):
+    """Extend a streaming grid run from its per-chain ``state``, under any
+    walker split; the source ranks' count must be the writer's (the
+    summation order of the source group is part of the arithmetic).
+    Counterpart of ``continue_nuts_stream_sharded`` /
+    ``continue_nuts_keys_stream_sharded``, ``sharding.py:510,566``."""
+    lnp_y = _stream_lnp_y(ctx, layout, grid)
+    if lnp_y is None:
+        return None
+    return continue_nuts_sharded(lnp_y, state, generator, grid, num_samples,
+                                 axis="walkers", **kw)

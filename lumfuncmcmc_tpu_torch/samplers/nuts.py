@@ -25,6 +25,13 @@
   :func:`continue_nuts` extends a run from that state without re-warmup:
   the generator's stream is consumed in transition order, so a run of
   ``m`` samples continued by ``n - m`` is the ``n``-sample run exactly.
+- On a grid of ranks every rank draws each transition's numbers for the
+  whole chain batch from the same seeded generator and keeps its block's
+  rows (:func:`block_draw`), so chain c's numbers are a function of
+  (seed, c, transition) only, never of the grid; and the warmup may pool
+  its statistics over a process group (``pool``): the acceptance
+  statistics and the mass's trace are gathered whole, so a pooled run on
+  any split of the chains is the meshless run.
 """
 
 from __future__ import annotations
@@ -292,9 +299,10 @@ class NutsRun(NamedTuple):
     samples: torch.Tensor     # (num_samples, C, D), unconstrained y
     lnps: torch.Tensor        # (num_samples, C) lnpost_y at the samples
     alphas: torch.Tensor      # (num_samples, C) acceptance statistics
-    eps: torch.Tensor         # adapted step size
-    scale: torch.Tensor       # (D,) diagonal mass scale: eps applies to
-                              # y' = y / scale
+    eps: torch.Tensor         # adapted step size (per chain, (C,), in a
+                              # continuation of a per-chain state)
+    scale: torch.Tensor       # (D,) or per chain (C, D) diagonal mass
+                              # scale: eps applies to y' = y / scale
     div_frac: torch.Tensor    # fraction of divergent sampling transitions
     counts: NutsCounts
     y_run: torch.Tensor       # (C, D) the last state, in y / scale
@@ -309,11 +317,23 @@ class NutsRun(NamedTuple):
 _GAMMA, _T0, _KAPPA = 0.05, 10.0, 0.75     # dual-averaging constants
 
 
+def _gather_chains(x, pool):
+    """``x`` with the chains (axis 0 of (C,), axis 1 of (T, C, D)) of
+    every rank of ``pool`` in rank order: the meshless run's tensor."""
+    from lumfuncmcmc_tpu_torch.parallel.distributed import all_gather_rows
+    if x.dim() == 1:
+        return all_gather_rows(x, pool)
+    return all_gather_rows(x.transpose(0, 1).contiguous(),
+                           pool).transpose(0, 1)
+
+
 def _dual_averaging(vg, y, draw, phase, nsteps, eps0, max_doublings,
-                    target_accept, counts, keep_trace=False):
+                    target_accept, counts, keep_trace=False, pool=None):
     """Step-size warmup: ``nsteps`` transitions adapting log eps to the
-    chain-pooled mean acceptance statistic. Returns ``(y, eps_bar,
-    trace)``; the trace (nsteps, C, D) only with ``keep_trace``."""
+    chain-pooled mean acceptance statistic, the chains of every rank of
+    the process group ``pool`` (gathered each transition: a collective)
+    where one is given. Returns ``(y, eps_bar, trace)``; the trace
+    (nsteps, C, D) only with ``keep_trace``."""
     mu = math.log(10.0 * eps0)
     log_eps = torch.full((), math.log(eps0), dtype=y.dtype, device=y.device)
     log_eps_bar = log_eps
@@ -322,6 +342,8 @@ def _dual_averaging(vg, y, draw, phase, nsteps, eps0, max_doublings,
     for s in range(nsteps):
         y, _, alpha, _ = _nuts_step(vg, max_doublings, torch.exp(log_eps),
                                     draw(phase, s), y, counts)
+        if pool is not None:
+            alpha = _gather_chains(alpha, pool)
         t = s + 1.0
         h_bar = ((1 - 1 / (t + _T0)) * h_bar
                  + (target_accept - alpha.mean()) / (t + _T0))
@@ -337,7 +359,7 @@ def _dual_averaging(vg, y, draw, phase, nsteps, eps0, max_doublings,
 def run_nuts_with(draw: Callable, lnpost_y: Callable, y0, num_warmup: int,
                   num_samples: int, max_doublings: int = 8,
                   target_accept: float = 0.8, init_step: float = 0.1,
-                  adapt_mass: bool = True) -> NutsRun:
+                  adapt_mass: bool = True, pool=None) -> NutsRun:
     """Run C NUTS chains from ``y0`` (C, D) on the batched ``lnpost_y``,
     taking each transition's numbers from ``draw(phase, t)`` ->
     :class:`NutsRands`: phase ``"a"`` (the first or only warmup stage),
@@ -351,6 +373,13 @@ def run_nuts_with(draw: Callable, lnpost_y: Callable, y0, num_warmup: int,
     the rescaled coordinates y' = y / scale. The JAX package's constants
     and order of operations throughout (``run_nuts``,
     ``lumfuncmcmc_tpu/samplers/nuts.py:336``).
+
+    ``pool``: a process group whose ranks run the other chain blocks of
+    one run (``pool_axes`` there). Each warmup transition then takes the
+    mean acceptance statistic of the whole gathered (C,) vector, and the
+    mass the variance of the whole gathered trace, on every rank: one
+    step size and mass for all, the meshless run's bit for bit (where
+    JAX ``pmean``s two moments).
     """
     ndim = y0.shape[1]
     counts = NutsCounts()
@@ -359,18 +388,21 @@ def run_nuts_with(draw: Callable, lnpost_y: Callable, y0, num_warmup: int,
         n_a = num_warmup // 2
         y, _, trace = _dual_averaging(vg, y0, draw, "a", n_a, init_step,
                                       max_doublings, target_accept, counts,
-                                      keep_trace=True)
-        var = trace[n_a // 2:].reshape(-1, ndim).var(dim=0, unbiased=False)
+                                      keep_trace=True, pool=pool)
+        tail = trace[n_a // 2:]
+        if pool is not None:
+            tail = _gather_chains(tail, pool)
+        var = tail.reshape(-1, ndim).var(dim=0, unbiased=False)
         scale = torch.sqrt(torch.clamp(var, min=1e-10))
         vg_s = value_and_grad(lambda yp: lnpost_y(yp * scale))
         y_run, eps, _ = _dual_averaging(vg_s, y / scale, draw, "b",
                                         num_warmup - n_a, init_step,
                                         max_doublings, target_accept,
-                                        counts)
+                                        counts, pool=pool)
     else:
         y_run, eps, _ = _dual_averaging(vg, y0, draw, "a", num_warmup,
                                         init_step, max_doublings,
-                                        target_accept, counts)
+                                        target_accept, counts, pool=pool)
         scale = torch.ones(ndim, dtype=y0.dtype, device=y0.device)
         vg_s = value_and_grad(lambda yp: lnpost_y(yp * scale))
 
@@ -417,7 +449,9 @@ def generator_draw(generator: torch.Generator, nchains: int, ndim: int,
                    max_doublings: int, dtype, device):
     """``draw(phase, t)`` for :func:`run_nuts_with` that takes every
     number from ``generator`` on ``device`` (phase and index unused: the
-    stream is consumed in transition order)."""
+    stream is consumed in transition order), for ``nchains`` chains: on a
+    grid the whole batch, of which :func:`block_draw` keeps a rank's
+    rows."""
     md = max_doublings
 
     def draw(phase, t):
@@ -429,6 +463,16 @@ def generator_draw(generator: torch.Generator, nchains: int, ndim: int,
             u_sub=torch.rand((nchains, md), **kw))
 
     return draw
+
+
+def block_draw(draw: Callable, lo: int, hi: int) -> Callable:
+    """``draw`` restricted to the chains ``[lo, hi)``: each transition's
+    numbers are drawn for the whole batch and these rows kept, so a
+    chain's numbers do not depend on how the batch is split, and ranks
+    whose trajectories differ in length stay in step on the stream."""
+    def draw_block(phase, t):
+        return NutsRands(*(r[lo:hi] for r in draw(phase, t)))
+    return draw_block
 
 
 def run_nuts(lnpost_y: Callable, y0, generator: torch.Generator,

@@ -149,9 +149,8 @@ def test_port_triangle_plot_resume_and_unported_flags(tmp_path,
     # an existing fitposterior: reload and replot, no sampling
     assert port_main(args) == 0
     assert png.stat().st_mtime_ns >= mtime
-    # still refused: --nuts-pooled
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_main(args + ["--sampler", "nuts", "--nuts-pooled"])
+    # ported: --nuts-pooled is taken (the existing posterior is reloaded)
+    assert port_main(args + ["--sampler", "nuts", "--nuts-pooled"]) == 0
     no_plot = ["--config", _no_plot_config(tmp_path / "cfg.json")]
     run_grid_flags(port_main, args, tmp_path / "LFMCMCOut",
                    "nb50_nw16_ns40_mcf50", no_plot)
@@ -292,9 +291,9 @@ def test_fitz_resume_pivots_and_unported_flags(tmp_path, monkeypatch):
     # an existing LFMCMCzOut/ fitposterior: reload it, no sampling
     assert port_main(args) == 0
     assert post.stat().st_mtime_ns == mtime
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_main([a.replace("p.dat", "q.dat") for a in args]
-                  + ["--sampler", "nuts", "--nuts-pooled"])
+    # ported: --nuts-pooled is taken (the existing posterior is reloaded)
+    assert port_main(args + ["--sampler", "nuts", "--nuts-pooled"]) == 0
+    assert post.stat().st_mtime_ns == mtime
     run_grid_flags(port_main, args, tmp_path / "LFMCMCzOut",
                    "nb50_nw16_ns30_mcf50")
     # ported: the long-run flags, each a fresh run with its artifacts

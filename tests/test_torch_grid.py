@@ -27,8 +27,9 @@ Cases are named after their JAX twins in ``tests/test_sharding.py``:
   checkpoint makes every rank raise;
 - the CLI: ``fit --mesh-walkers 2`` on 2 ranks writes the one-process
   run's artifacts (rank 0 alone), ``fitz``/``fith``/``fit -fc`` with
-  the long-run and evidence flags run on the grid, and ``--sampler
-  nuts`` on 2 ranks and ``--nuts-pooled`` are refused.
+  the long-run and evidence flags run on the grid.
+
+NUTS on the grid is in ``tests/test_torch_grid_nuts.py``.
 """
 
 import contextlib
@@ -360,9 +361,6 @@ def test_model_ladder_and_ensembles_on_the_grid(pools, catalog):
     for e in ens:
         np.testing.assert_array_equal(e["samples"], m.samples)
         np.testing.assert_array_equal(e["rhat"], m.rhat_ensembles)
-    refused = pool.run("model", arrays_cfg=catalog, shape=(4, 1),
-                       what="nuts")
-    assert all("lumfuncmcmc_tpu" in r and "not ported" in r for r in refused)
 
 
 FIT = ["--synthetic", "250", "-mcf", "0.5", "-ns", "30", "-nw", "12",
@@ -426,19 +424,6 @@ def test_cli_long_runs_and_evidence_on_the_grid(pools, tmp_path):
         assert post in got[0]["files"], (name, got[0]["files"])
         if "--evidence" in flags:
             assert post.replace("fitposterior", "evidence") in got[0]["files"]
-
-
-def test_cli_refuses_nuts_on_two_ranks_and_nuts_pooled(pools, tmp_path,
-                                                       monkeypatch):
-    argv = ["fit"] + FIT + ["-o", "n.dat", "--sampler", "nuts", "-fc"]
-    got = pools(2).run("cli", argv=argv, workdir=str(tmp_path))
-    for g in got:
-        assert g["rc"].startswith("NotImplementedError")
-        assert "2 ranks" in g["rc"] and "lumfuncmcmc_tpu" in g["rc"]
-        assert g["files"] == []
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="nuts-pooled"):
-        port_main(argv + ["--nuts-pooled"])
 
 
 def test_jax_sharded_reference_is_on_eight_devices():

@@ -1,6 +1,6 @@
 """The ``fith`` CLI of both packages on one synthetic catalog: the
-stretch move, the resume-and-replot and "not ported yet" behaviour, and
-the long-run flags (``-fsa``, ``--move mix`` and ``--sampler nuts`` are
+stretch move, the resume-and-replot behaviour (``--nuts-pooled`` taken),
+and the long-run flags (``-fsa``, ``--move mix`` and ``--sampler nuts`` are
 in ``tests/test_torch_hier_nuts.py``, which shares this file's helpers).
 
 The same command line runs through the JAX package and the PyTorch port
@@ -120,9 +120,9 @@ def test_fith_resume_and_unported_flags(tmp_path, monkeypatch):
     # an existing LFMCMCHOut/ fitposterior: reload it and replot
     assert port_main(args) == 0
     assert post.stat().st_mtime_ns == mtime
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_main([a.replace("p.dat", "q.dat") for a in args]
-                  + ["--sampler", "nuts", "--nuts-pooled"])
+    # ported: --nuts-pooled is taken (the existing posterior is reloaded)
+    assert port_main(args + ["--sampler", "nuts", "--nuts-pooled"]) == 0
+    assert post.stat().st_mtime_ns == mtime
     run_grid_flags(port_main, args, out, "nb50_nw32_ns30_mcf50",
                    _config(tmp_path))
     # ported: the long-run flags, each a fresh run with its artifacts

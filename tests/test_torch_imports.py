@@ -5,7 +5,7 @@ tiny ``--device cpu`` run of each subcommand (``fit``, ``fitz``,
 ``--evidence``, ``--map``, ``--init-map``, ``compare-ic``, ``stack-ic``,
 and the long-run drivers: a checkpointed ``--min-ess`` fit and an
 ``--ensembles`` fit, and the grid: ``fit --mesh-walkers 2`` on two gloo
-ranks) works; without ``--device cpu`` and with no CUDA device, each fit fails
+ranks, with the stretch move and with ``--sampler nuts``) works; without ``--device cpu`` and with no CUDA device, each fit fails
 and names ``--device cpu`` instead of running on the CPU, while
 ``compare-ic`` / ``stack-ic``, which read only ``.npz`` files, run.
 """
@@ -220,17 +220,11 @@ def test_port_imports_nothing_of_jax_and_runs_the_long_run_drivers(
     assert "cross-ensemble R-hat" in proc.stderr
 
 
-def test_grid_imports_nothing_of_jax_and_runs_on_two_gloo_ranks(tmp_path):
-    """The grid twin: with ``jax`` and ``lumfuncmcmc_tpu`` blocked, the
-    ``parallel/`` modules import, and ``fit --mesh-walkers 2`` runs on two
-    gloo ranks (``--distributed``), rank 0 alone writing."""
+def _two_gloo_ranks(tmp_path, code, extra):
+    """``fit`` with ``extra`` on two gloo ranks (``--distributed``) with
+    ``code`` as the program: both exit 0, rank 0 alone writes. Returns
+    the ranks' standard errors."""
     from tests.torch_grid_worker import _free_port
-    code = BLOCKED_RUN.replace(
-        "for name in names:\n",
-        "assert {'lumfuncmcmc_tpu_torch.parallel.distributed',\n"
-        "        'lumfuncmcmc_tpu_torch.parallel.mesh',\n"
-        "        'lumfuncmcmc_tpu_torch.parallel.sharding'} <= set(names)\n"
-        "for name in names:\n")
     cfg = tmp_path / "cfg.json"
     cfg.write_text('{"output_dict": {"parameters": true, "settings": true,'
                    ' "fitposterior": true, "bestfitLF": true, "VeffLF": '
@@ -244,13 +238,46 @@ def test_grid_imports_nothing_of_jax_and_runs_on_two_gloo_ranks(tmp_path):
             [sys.executable, "-c", code, "fit"] + FIT
             + ["-nw", "8", "--device", "cpu", "--mesh-walkers", "2",
                "--distributed", f"127.0.0.1:{port},2,{r}", "--config",
-               str(cfg)], cwd=tmp_path / f"r{r}", env=env,
+               str(cfg)] + extra, cwd=tmp_path / f"r{r}", env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = [p.communicate(timeout=300) for p in procs]
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
         assert "RC 0" in out
-    assert "Device grid: {'walkers': 2, 'sources': 1}" in outs[1][1]
     assert (tmp_path / "r0" / "LFMCMCOut"
             / "fitposterior_g_nb50_nw8_ns10_mcf50.dat").exists()
     assert not (tmp_path / "r1" / "LFMCMCOut").exists()
+    return [err for _, err in outs]
+
+
+def test_grid_imports_nothing_of_jax_and_runs_on_two_gloo_ranks(tmp_path):
+    """The grid twin: with ``jax`` and ``lumfuncmcmc_tpu`` blocked, the
+    ``parallel/`` modules import, and ``fit --mesh-walkers 2`` runs on two
+    gloo ranks (``--distributed``), rank 0 alone writing."""
+    code = BLOCKED_RUN.replace(
+        "for name in names:\n",
+        "assert {'lumfuncmcmc_tpu_torch.parallel.distributed',\n"
+        "        'lumfuncmcmc_tpu_torch.parallel.mesh',\n"
+        "        'lumfuncmcmc_tpu_torch.parallel.sharding'} <= set(names)\n"
+        "for name in names:\n")
+    errs = _two_gloo_ranks(tmp_path, code, [])
+    assert "Device grid: {'walkers': 2, 'sources': 1}" in errs[1]
+
+
+def test_grid_nuts_imports_nothing_of_jax_and_runs_on_two_gloo_ranks(
+        tmp_path):
+    """The NUTS grid twin: with ``jax`` and ``lumfuncmcmc_tpu`` blocked,
+    ``fit --sampler nuts --nuts-pooled --use-pallas --mesh-walkers 2``
+    runs on two gloo ranks (the per-rank replicas, pooled; a shallow tree
+    keeps it short), rank 0 alone writing."""
+    code = BLOCKED_RUN.replace(
+        "from lumfuncmcmc_tpu_torch.cli.main import main\n",
+        "from lumfuncmcmc_tpu_torch.cli.main import main\n"
+        "from lumfuncmcmc_tpu_torch.models import nuts_driver\n"
+        "nuts_driver.MAX_DOUBLINGS = 2\n")
+    errs = _two_gloo_ranks(tmp_path, code, [
+        "--sampler", "nuts", "--nuts-pooled", "--use-pallas", "--nchains",
+        "4"])
+    for err in errs:
+        assert "per-rank replicas over the 2-rank grid" in err
+        assert "pooled adaptation" in err

@@ -1,5 +1,6 @@
-"""The ranks of ``tests/test_torch_grid.py``: gloo processes on the CPU
-that run the port's grid paths. They import the port and torch, never
+"""The ranks of ``tests/test_torch_grid.py`` and
+``tests/test_torch_grid_nuts.py``: gloo processes on the CPU that run the
+port's grid paths. They import the port and torch, never
 JAX: the test process holds the JAX side.
 
 :class:`RankPool` starts ``world`` ranks once (``torch.multiprocessing``
@@ -12,6 +13,7 @@ that waits in a collective for a rank that raised.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import socket
@@ -48,9 +50,11 @@ def run_grid_flags(main, args, out, base, extra=()):
 
 
 class RankPool:
-    """``world`` gloo ranks, started once, each with a queue of cases."""
+    """``world`` gloo ranks, started once, each with a queue of cases.
+    ``env``: variables the ranks start with (their own torch reads them
+    when it first dispatches)."""
 
-    def __init__(self, world: int):
+    def __init__(self, world: int, env=None):
         import torch.multiprocessing as mp
         ctx = mp.get_context("spawn")
         port = _free_port()
@@ -61,8 +65,17 @@ class RankPool:
                                   args=(r, world, port, self.inqs[r],
                                         self.outq))
                       for r in range(world)]
-        for p in self.procs:
-            p.start()
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            for p in self.procs:
+                p.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
 
     def run(self, case: str, timeout: float = 2 * TIMEOUT, **kw) -> list:
         """Every rank's result of ``CASES[case](**kw)``, by rank."""
@@ -352,10 +365,12 @@ def case_resume_mismatch(arrays_cfg, shape, path):
     return "no error"
 
 
-def case_model(arrays_cfg, shape, what, **kw):
+def case_model(arrays_cfg, shape, what, over=None, **kw):
     """A model method on the grid: ``evidence`` (``log_evidence``),
-    ``ensembles`` (``fit_model_ensembles``) or ``nuts``."""
-    m = _model(arrays_cfg, shape)
+    ``ensembles`` (``fit_model_ensembles``) or ``nuts``
+    (``fit_model_nuts``, ``md`` its tree depth); ``over``: config
+    fields."""
+    m = _model(arrays_cfg, shape, **(over or {}))
     if what == "evidence":
         ev = m.log_evidence(**kw)
         return {k: ev[k] for k in ("lnz_ss", "lnz_ti", "nrungs",
@@ -364,16 +379,27 @@ def case_model(arrays_cfg, shape, what, **kw):
     if what == "ensembles":
         m.fit_model_ensembles(**kw)
         return {"samples": m.samples, "rhat": m.rhat_ensembles}
+    with _depth(kw.pop("md", None)):
+        m.fit_model_nuts(**kw)
+    return {"samples": m.samples}
+
+
+@contextlib.contextmanager
+def _depth(md):
+    """The driver's NUTS tree depth set to ``md`` (None: kept)."""
+    from lumfuncmcmc_tpu_torch.models import nuts_driver as nd
+    depth = nd.MAX_DOUBLINGS
+    nd.MAX_DOUBLINGS = md or depth
     try:
-        m.fit_model_nuts(nchains=2)
-    except NotImplementedError as e:
-        return str(e)
-    return "no error"
+        yield
+    finally:
+        nd.MAX_DOUBLINGS = depth
 
 
-def case_cli(argv, workdir):
+def case_cli(argv, workdir, max_doublings=None):
     """The port's CLI in ``workdir``/rank<r> on every rank: its exit code
-    and the files each rank wrote there."""
+    and the files each rank wrote there. ``max_doublings``: the NUTS
+    tree depth of the run (the driver's ``MAX_DOUBLINGS``)."""
     import torch.distributed as dist
 
     from lumfuncmcmc_tpu_torch.cli.main import main
@@ -382,15 +408,155 @@ def case_cli(argv, workdir):
     cwd = os.getcwd()
     os.chdir(d)
     try:
-        try:
+        with _depth(max_doublings):
             rc = main(list(argv))
-        except NotImplementedError as e:
-            rc = f"NotImplementedError: {e}"
     finally:
         os.chdir(cwd)
     files = sorted(os.path.relpath(os.path.join(p, f), d)
                    for p, _, fs in os.walk(d) for f in fs)
     return {"rc": rc, "files": files}
+
+
+def _nuts_post(ctx, layout, grid, route):
+    """The per-rank lnprob NUTS differentiates on ``route``: the eager
+    engine ("eager"), the value+gradient kernels' plain versions
+    ("kernel") or the streaming route's source-summed one ("stream")."""
+    from lumfuncmcmc_tpu_torch.models.likelihood import make_lnprob
+    from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
+    from lumfuncmcmc_tpu_torch.parallel import sharding as sh
+    if route == "eager":
+        return make_lnprob(ctx, layout)
+    if route == "kernel":
+        return cl.make_cuda_lnprob_and_grad(ctx, layout)
+    return sh.make_cuda_lnprob_and_grad_stream_sharded(ctx, layout, grid)
+
+
+def case_nuts(arrays, cfg_kw, shape, y0, route="kernel", pooled=True,
+              axis="walkers", warmup=40, samples=12, md=5, seed=3,
+              meshless=False, blocks=False, cont=0):
+    """``run_nuts_sharded`` (``run_nuts_stream_sharded`` on the "stream"
+    route) on the grid from the (C, D) starts ``y0``; with ``meshless``
+    rank 0 also runs ``run_nuts`` on the same seed, with ``blocks`` every
+    rank runs ``run_nuts_with`` on its block of chains and their rows of
+    the same draws, unpooled, and with ``cont`` the run is continued by
+    that many samples (``continue_nuts_stream_sharded``)."""
+    import torch
+
+    from lumfuncmcmc_tpu_torch.parallel import sharding as sh
+    from lumfuncmcmc_tpu_torch.parallel.mesh import make_mesh
+    from lumfuncmcmc_tpu_torch.samplers import nuts as tn
+    ctx, layout = _ctx_layout(arrays, cfg_kw, "single")
+    grid = make_mesh(*shape)
+    lo, hi = layout.bounds_arrays(torch.float64, "cpu")
+    lnp_y = tn.make_unconstrained(_nuts_post(ctx, layout, grid, route), lo,
+                                  hi)[0]
+    y0 = torch.as_tensor(y0)
+    gen = torch.Generator().manual_seed(seed)
+    if route == "stream":
+        run = sh.run_nuts_stream_sharded(ctx, layout, grid, y0, gen, warmup,
+                                         samples, pooled=pooled,
+                                         max_doublings=md)
+    else:
+        run = sh.run_nuts_sharded(lnp_y, y0, gen, grid, warmup, samples,
+                                  pooled=pooled, axis=axis,
+                                  max_doublings=md)
+    out = {"eps": run.eps.numpy(), "state_eps": run.state[1].numpy(),
+           "counts": (run.counts.transitions, run.counts.leapfrogs)}
+    if cont:
+        more = sh.continue_nuts_stream_sharded(ctx, layout, grid, run.state,
+                                               gen, cont, max_doublings=md)
+        out["cont"] = more.samples.numpy()
+    if grid.rank == 0:
+        out.update(samples=run.samples.numpy(), lnps=run.lnps.numpy(),
+                   alphas=run.alphas.numpy(),
+                   state=[x.numpy() for x in run.state])
+    if meshless and grid.rank == 0:
+        ref = tn.run_nuts(lnp_y, y0, torch.Generator().manual_seed(seed),
+                          warmup, samples, max_doublings=md)
+        out["meshless"] = (ref.samples.numpy(), ref.lnps.numpy(),
+                           ref.alphas.numpy(), float(ref.eps),
+                           ref.scale.numpy())
+    if blocks:
+        n, i, _ = sh.nuts_axis(grid, axis)
+        b = y0.shape[0] // n
+        draw = tn.generator_draw(torch.Generator().manual_seed(seed),
+                                 y0.shape[0], y0.shape[1], md, y0.dtype,
+                                 "cpu")
+        ref = tn.run_nuts_with(tn.block_draw(draw, i * b, (i + 1) * b),
+                               lnp_y, y0[i * b:(i + 1) * b], warmup,
+                               samples, max_doublings=md)
+        out["block"] = (i * b, ref.samples.numpy(), ref.lnps.numpy(),
+                        float(ref.eps))
+        out["mine"] = run.samples[:, i * b:(i + 1) * b].numpy()
+    return out
+
+
+def case_vg_stream(arrays, cfg_kw, shape, thetas):
+    """``make_cuda_vg_stream_sharded`` of ``thetas`` on the grid."""
+    import torch
+
+    from lumfuncmcmc_tpu_torch.parallel import sharding as sh
+    from lumfuncmcmc_tpu_torch.parallel.mesh import make_mesh
+    ctx, layout = _ctx_layout(arrays, cfg_kw, "single")
+    fn = sh.make_cuda_vg_stream_sharded(ctx, layout, make_mesh(*shape))
+    v, g = fn(torch.as_tensor(thetas))
+    return {"v": v.numpy(), "g": g.numpy(), "engine": fn.engine,
+            "shards": fn.source_shards}
+
+
+def case_nuts_fit(arrays_cfg, shape, path=None, resume=False, cut=None,
+                  stream=False, **kw):
+    """``fit_model_nuts`` of the model on the grid (``kw`` its arguments
+    and, by ``cfg_`` prefix, config fields), checkpointed at ``path``;
+    with ``cut`` (blocks) rank 0 first cuts the npz there to that many
+    blocks, as a kill would have left it, and every rank resumes from it
+    (a shared disk; ``chip_smoke.py``'s cut). ``stream``: the streaming
+    route's source-count gate
+    lowered to 0. Returns the chain, the samples, the log lines of the
+    route and this rank's ``np.savez`` calls."""
+    import logging
+
+    import torch.distributed as dist
+
+    from chip_smoke import _cut_npz
+    from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
+    over = {k[4:]: kw.pop(k) for k in list(kw) if k.startswith("cfg_")}
+    gate = cl.STREAM_MIN_SOURCES
+    cl.STREAM_MIN_SOURCES = 0 if stream else gate
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log = logging.getLogger("lumfuncmcmc_tpu_torch")
+    keep = Keep()
+    log.addHandler(keep)
+    saves, savez = [], np.savez
+
+    def counted(*a, **k):
+        saves.append(a[0])
+        return savez(*a, **k)
+
+    try:
+        m = _model(arrays_cfg, shape, **over)
+        if cut is not None and dist.is_initialized():
+            if dist.get_rank() == 0:
+                _cut_npz(path, path, cut)
+            dist.barrier()
+        elif cut is not None:
+            _cut_npz(path, path, cut)
+        np.savez = counted
+        with _depth(kw.pop("max_doublings", None)):
+            m.fit_model_nuts(checkpoint_path=path, resume=resume, **kw)
+    finally:
+        np.savez = savez
+        cl.STREAM_MIN_SOURCES = gate
+        log.removeHandler(keep)
+    if dist.is_initialized():
+        dist.barrier()
+    return {"chain": m.chain, "samples": m.samples, "saves": len(saves),
+            "lines": [ln for ln in lines if ln.startswith("NUTS")]}
 
 
 def case_smoke():
