@@ -4,8 +4,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 16 and
-17 side by side, 15 and 9); any failure ends the run with a nonzero exit:
+Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 16, 17
+and 18 side by side, 15 and 9); any failure ends the run with a nonzero
+exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
    ``nvidia-smi``'s name and power limit;
@@ -18,7 +19,8 @@ Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 16 and
    trapz-101 and gauss-32 (``free_lnlike``) and trapz-201
    (``fixed_lnlike``, ``z_lnlike``, ``hier_lnlike``), for the batches the
    fits give them (50 and 100 walkers; 8 chains for the NUTS start guard,
-   samples x 8 rows for its Ln Prob recompute) and 13, with out-of-box
+   samples x 8 rows for its Ln Prob recompute), 13, and the calibration
+   replicates' 16, 24, 32, 48 and 64 (``CALIB_WIDTHS``), with out-of-box
    thetas, a negative Flim (free), a row on the ``sch_al`` bound (z) and a
    ``sig_L = 0`` row (hier, in both ``fix_sch_al`` layouts); kernel and
    plain times; every value kernel is one launch a call (``ONE_LAUNCH``),
@@ -141,9 +143,28 @@ Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 16 and
    per-rank replicas on (2,1) checkpointed and resumed on a world of 1
    (bit for bit), the flagship's replicas (``free_lnlike_vg``) adapting
    alone and with ``--nuts-pooled`` (one step size), and ``fit -fc`` on
-   the pooled route (``fixed_lnlike_vg``).
+   the pooled route (``fixed_lnlike_vg``);
+18. the calibration replicates (the ``calib`` path, :func:`run_calib`;
+   ``lumfuncmcmc_tpu_torch/utils/calibration.py``) through the CUDA value
+   kernels: each family's kernel on its first replicate's own data (gauss
+   quadrature, the hierarchical model at 2 fields) at the replicates'
+   widths against its plain version; ``tests/test_calibration.py``'s three
+   ``-m slow`` gates at their K, sizes, seeds and bounds
+   (``sbc_replicate`` K = 12, 32 x 400, ``size_ln`` 41, rng 7;
+   ``coverage_replicate_z`` K = 8, rng 17; ``sbc_replicate_h`` K = 10, rng
+   23) and ``coverage_replicate(free=True, pallas=True)`` twice with
+   ``move="mix"`` and twice with ``init_map=True`` (finite chains inside
+   the box, nine cover entries, which start ran), each replicate with
+   exactly 2 x steps + 1 launches of its family's kernel and none of
+   another, its wall and its setup/sampling split printed; and the five
+   examples of ``lumfuncmcmc_tpu_torch/examples/`` (``quickstart`` and
+   ``model_comparison`` at their own sizes, ``sbc_check 2``,
+   ``coverage_check 2 --free --pallas``, ``coverage_check_z 2``), one
+   after the other, each in a process of its own (``python3
+   chip_smoke.py --example NAME ARGS``): exit code 0, its table, no JAX,
+   its kernels' launches.
 
-Phases 5-8, 12, 16 and 17 run side by side, each path in a process of
+Phases 5-8, 12, 16, 17 and 18 run side by side, each path in a process of
 its own (``--path``): its stretch fit, its NUTS fit, then the model comparison
 (``PATHS[label].compare``): the finished stretch fit rerun with ``--ic``
 (every path; 1000 draws x 1,019,385 sources on the mega path), ``--ppc``
@@ -611,7 +632,8 @@ def phase_kernels(dev):
         # the stretch fits' batches (half and all of the walkers), the
         # NUTS start guard's (the chains) and its Ln Prob recompute's
         # (samples x chains), and an odd one
-        for w in (50, NWALKERS, 13, NUTS_CHAINS, case.steps * NUTS_CHAINS):
+        for w in (50, NWALKERS, 13, NUTS_CHAINS, case.steps * NUTS_CHAINS,
+                  *CALIB_WIDTHS):
             gen = torch.Generator(device=dev).manual_seed(1000 + w)
             th = _spoil(case, sample_init(gen, layout, w,
                                           dtype=torch.float64, device=dev))
@@ -1189,9 +1211,13 @@ def _smoke_config(workdir, has_mpl, x64=False):
     cfg_path = os.path.join(workdir, f"smoke_config{'_x64' * x64}.json")
     od = dict(LFConfig().output_dict)
     od["triangle plot"] = has_mpl
-    with open(cfg_path, "w") as fh:
+    # the paths' processes share the file: each writes its own copy and
+    # renames it in, so no reader ever sees it half written
+    tmp = f"{cfg_path}.{os.getpid()}"
+    with open(tmp, "w") as fh:
         json.dump({"output_dict": od, **({"use_x64": True} if x64 else {})},
                   fh)
+    os.replace(tmp, cfg_path)
     return cfg_path
 
 
@@ -2716,6 +2742,332 @@ def grid_rank(rank, port, workdir, has_mpl):
     return 0
 
 
+CALIB = "calib"             # the calibration replicates' path (phase 18)
+# the value kernel of each replicate family, its feature map, and the
+# widths its fits give it (the half-step's and the start's)
+CALIB_FAMILIES = {"sbc": ("fixed_lnlike", cl._features, (16, 32)),
+                  "z": ("z_lnlike", cl._features_z, (16, 32)),
+                  "hier": ("hier_lnlike", cl._features_hier, (24, 48)),
+                  "free": ("free_lnlike", cl._features, (32, 64))}
+CALIB_WIDTHS = (16, 24, 32, 48, 64)
+CALIB_DEVICE = "cuda:0"     # the replicates' card
+# the examples each run once on the card, in processes of their own, one
+# after the other: arguments and a line of the table
+EXAMPLES = {
+    "quickstart": ([], "[[Schechter fit]]"),
+    "model_comparison": ([], "  ln Bayes factor (single vs z) = "),
+    "sbc_check": (["2"], "rank histograms over {0..7}"),
+    "coverage_check": (["2", "--free", "--pallas"],
+                       "=== coverage over 2 replicates"),
+    "coverage_check_z": (["2"], "=== z-model coverage over 2 replicates"),
+}
+# what an example must launch (its family's value kernels; quickstart's
+# NUTS also the fixed value+gradient kernel), and exactly where a count
+# follows from its replicates: K x (2 x steps + 1)
+EXAMPLE_LAUNCHES = {
+    "quickstart": {"fixed_lnlike": None, "fixed_lnlike_vg": None},
+    "model_comparison": {"fixed_lnlike": None, "z_lnlike": None},
+    "sbc_check": {"fixed_lnlike": 2 * (2 * 600 + 1)},
+    "coverage_check": {"free_lnlike": 2 * (2 * 1500 + 1)},
+    "coverage_check_z": {"z_lnlike": 2 * (2 * 1500 + 1)},
+}
+EXAMPLE_SECONDS = 600       # what the five examples' processes may take
+
+
+def _calib_setups(dev):
+    """The first replicate of each family, set up as the calibration path
+    runs it (its truth from a fresh copy of the gate's ``rng``): the
+    model, and its starts."""
+    from lumfuncmcmc_tpu_torch.utils import calibration as cal
+    rng = np.random.default_rng
+    sbc = cal._sbc_setup(0, rng(7), 32, 400, None, 41, dev)
+    z = cal._z_setup(0, rng(17), 800, 32, 800, 1024, 41, dev)
+    hier = cal._hier_setup(0, rng(23), 2, 48, 800, 41, dev)
+    free = cal._coverage_setup(0, rng(7), True, True, False, 1500, 64, None,
+                               2048, dev)
+    return {"sbc": sbc[:2], "z": z[:2], "hier": hier[:2], "free": free[:2]}
+
+
+def _calib_widths(dev):
+    """Each family's value kernel on the data of its first replicate
+    (gauss quadrature; the hierarchical model at 2 fields) at the
+    replicates' widths, the half-step's and the start's: against its
+    plain version (``RTOL_KERNEL``), two launches bit for bit, tickets
+    back at 0. Launches made here are not the path's: the counters are
+    set to 0 before each replicate."""
+    for fam, (model, pos0) in _calib_setups(dev).items():
+        kname, features, widths = CALIB_FAMILIES[fam]
+        lnprob = model.lnprob_batch()
+        if lnprob.engine != "cuda":
+            fail(f"calib {fam}: the replicate's engine is {lnprob.engine}, "
+                 "not the CUDA kernel")
+        kernel = getattr(cl, kname)
+        plain = getattr(cl, kname + "_reference")
+        data = lnprob.data
+        for w in widths:
+            feats = features(pos0[:w].float(), data, model.layout,
+                             torch.float32).float()
+            got, again = kernel(feats, data), kernel(feats, data)
+            ref = plain(feats, data)
+            torch.cuda.synchronize()
+            err = _rel(got, ref)
+            print(f"calib {kname} W={w} on the {fam} replicate's data "
+                  f"({int(model.ctx.lum.shape[0])} sources, "
+                  f"{len(model.cfg.Flim)} fields, gauss-"
+                  f"{model.cfg.size_ln or 32}): kernel vs plain max rel "
+                  f"{err:.3e}")
+            if not (torch.isfinite(got).all() and torch.equal(got, again)):
+                fail(f"calib {kname} W={w}: non-finite, or two launches "
+                     "differ")
+            if data.vg_tickets.any():
+                fail(f"calib {kname} W={w}: tickets not back at 0")
+            if err > RTOL_KERNEL:
+                fail(f"calib {kname} W={w}: kernel vs plain {err:.3e} > "
+                     f"{RTOL_KERNEL}")
+
+
+def _calib_replicate(label, fn, kname, steps, k, rng, rec, **kw):
+    """One replicate ``fn(k, rng, device=cuda, **kw)`` with every launch
+    counter set to 0 just before and read just after: exactly 2 x
+    ``steps`` + 1 launches of ``kname`` and none of another kernel, a
+    finite chain. Prints its wall and its setup/sampling split (the
+    replicate's log line). Returns (result, counts, chain)."""
+    from lumfuncmcmc_tpu_torch.utils import calibration as cal
+    chains, real = [], cal._run
+
+    def run(lnprob, pos0, generator, n, move="stretch"):
+        if lnprob.engine != "cuda":
+            fail(f"{label} {k}: engine {lnprob.engine}, not the CUDA kernel")
+        chains.append(real(lnprob, pos0, generator, n, move))
+        return chains[-1]
+
+    for name in KERNELS:
+        _kernel(name).launches = 0
+    cal._run = run
+    t0 = time.perf_counter()
+    try:
+        out = fn(k, rng, device=torch.device(CALIB_DEVICE), **kw)
+    finally:
+        cal._run = real
+    wall = time.perf_counter() - t0
+    counts = {name: _kernel(name).launches for name in KERNELS}
+    want = {name: 0 for name in KERNELS}
+    want[kname] = 2 * steps + 1
+    if counts != want:
+        fail(f"{label} {k}: launches "
+             f"{ {n: v for n, v in counts.items() if v} }, want "
+             f"{kname} {want[kname]} and nothing else")
+    if len(chains) != 1 or not np.isfinite(chains[0]).all():
+        fail(f"{label} {k}: no run, or a non-finite chain")
+    split = [ln for ln in rec.lines if ln.startswith("calibration ")
+             and f"replicate {k}:" in ln and "sampling" in ln]
+    print(f"{label} {k}: wall {wall:.3f} s; {split[-1] if split else ''}",
+          flush=True)
+    return out, counts, chains[0]
+
+
+def _hits(covers, names):
+    return ({p: sum(c[p][0] for c in covers) for p in names},
+            {p: sum(c[p][1] for c in covers) for p in names})
+
+
+def _calib_gates(rec, add):
+    """``tests/test_calibration.py``'s three ``-m slow`` gates at their
+    K, sizes, seeds and bounds (its docstrings give the false-alarm
+    rates: < 2%, < 0.5%, < 1%), each replicate through its CUDA value
+    kernel."""
+    from lumfuncmcmc_tpu_torch.utils import calibration as cal
+    # single-epoch: K = 12, 32 x 400, size_ln 41, rng 7
+    rng = np.random.default_rng(7)
+    ranks, covers = [], []
+    for k in range(12):
+        (r, cover, _, _), counts, _ = _calib_replicate(
+            "calib sbc", cal.sbc_replicate, "fixed_lnlike", 400, k, rng,
+            rec, nwalkers=32, nsteps=400, M=7, size_ln=41)
+        add(counts)
+        ranks.append(r)
+        covers.append(cover)
+    ranks = np.asarray(ranks)
+    h68, h95 = _hits(covers, cal.PARAMS)
+    for i, p in enumerate(cal.PARAMS):
+        mean_rank = float(ranks[:, i].mean())
+        print(f"calib sbc gate {p}: 68% {h68[p]}/12, 95% {h95[p]}/12, "
+              f"mean rank {mean_rank:.2f}")
+        if h68[p] < 4 or h95[p] < 7 or not 1.5 <= mean_rank <= 5.5:
+            fail(f"calib sbc gate {p}: 68% {h68[p]}/12 (>= 4), 95% "
+                 f"{h95[p]}/12 (>= 7), mean rank {mean_rank:.2f} "
+                 "([1.5, 5.5])")
+    if sum(h68.values()) > 33:
+        fail(f"calib sbc gate: pooled 68% {sum(h68.values())}/36 > 33")
+    # redshift-evolving: K = 8 at the defaults, rng 17
+    rng = np.random.default_rng(17)
+    covers = []
+    for k in range(8):
+        (cover, names), counts, _ = _calib_replicate(
+            "calib z", cal.coverage_replicate_z, "z_lnlike", 800, k, rng,
+            rec)
+        add(counts)
+        covers.append(cover)
+    h68, h95 = _hits(covers, names)
+    print(f"calib z gate: 68% {h68}, 95% {h95} of 8")
+    bad = [p for p in names if h68[p] < 1 or h95[p] < 5]
+    if bad or not 24 <= sum(h68.values()) <= 55:
+        fail(f"calib z gate: {bad} under the floors (68% >= 1, 95% >= 5) "
+             f"or pooled 68% {sum(h68.values())}/56 outside [24, 55]")
+    # hierarchical: K = 10 at the defaults, rng 23
+    rng = np.random.default_rng(23)
+    ranks, covers = [], []
+    for k in range(10):
+        (r, cover, _, _), counts, _ = _calib_replicate(
+            "calib hier", cal.sbc_replicate_h, "hier_lnlike", 800, k, rng,
+            rec)
+        add(counts)
+        ranks.append(r)
+        covers.append(cover)
+    ranks = np.asarray(ranks)
+    names = list(covers[0])
+    h68, h95 = _hits(covers, names)
+    for i, p in enumerate(names):
+        mean_rank = float(ranks[:, i].mean())
+        print(f"calib hier gate {p}: 68% {h68[p]}/10, 95% {h95[p]}/10, "
+              f"mean rank {mean_rank:.2f}")
+        if h68[p] < 2 or h95[p] < 6 or not 1.0 <= mean_rank <= 6.0:
+            fail(f"calib hier gate {p}: 68% {h68[p]}/10 (>= 2), 95% "
+                 f"{h95[p]}/10 (>= 6), mean rank {mean_rank:.2f} "
+                 "([1.0, 6.0])")
+
+
+def _calib_free(rec, add):
+    """``coverage_replicate(free=True, pallas=True)``: two replicates with
+    ``move="mix"`` and two with ``init_map=True`` (no statistics at K =
+    2): chains finite and inside the prior box, a cover entry for each of
+    the nine parameters, and for ``init_map`` which start ran."""
+    from lumfuncmcmc_tpu_torch.utils import calibration as cal
+    layout = ThetaLayout.from_config(LFConfig(min_comp_frac=0.5))
+    lo, hi = np.asarray(layout.lo), np.asarray(layout.hi)
+    for label, kw in (("mix", {"move": "mix"}), ("init_map",
+                                                 {"init_map": True})):
+        rng = np.random.default_rng(7)
+        for k in range(2):
+            cover, counts, chain = _calib_replicate(
+                f"calib free {label}", cal.coverage_replicate, "free_lnlike",
+                1500, k, rng, rec, free=True, pallas=True, **kw)
+            add(counts)
+            if not ((chain > lo) & (chain < hi)).all():
+                fail(f"calib free {label} {k}: the chain left the box")
+            if list(cover) != list(layout.names):
+                fail(f"calib free {label} {k}: cover names {list(cover)}")
+            print(f"calib free {label} {k}: 68% covered "
+                  f"{[p for p in cover if cover[p][0]]}")
+            if label == "init_map":
+                start = [ln for ln in rec.lines
+                         if ln.startswith(f"calibration replicate {k}: ")]
+                if not start:
+                    fail(f"calib free init_map {k}: no start logged")
+                print(f"calib free init_map {k}: {start[-1]}")
+
+
+def _start_example(name, workdir):
+    args, _ = EXAMPLES[name]
+    out = open(os.path.join(workdir, f"example_{name}.out"), "w+")
+    err = open(os.path.join(workdir, f"example_{name}.err"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--example", name,
+         *args], stdout=out, stderr=err, cwd=workdir)
+    return proc, out, err
+
+
+def _finish_example(name, started, deadline):
+    """Wait for an example's process; its exit code 0, its table, no JAX
+    (``run_example`` checked) and its launches. Returns the counts."""
+    proc, out, err = started
+    try:
+        rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        out.seek(0)
+        err.seek(0)
+        lines = out.read().splitlines()
+        tail = err.read()[-2000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+    if rc != 0:
+        fail(f"example {name} returned {rc}: {tail}")
+    table = EXAMPLES[name][1]
+    if not any(ln.startswith(table) for ln in lines):
+        fail(f"example {name}: no '{table}' line in its output")
+    got = json.loads(lines[-1])
+    print(f"example {name} {' '.join(EXAMPLES[name][0])}: wall "
+          f"{got['wall']:.1f} s; its output:")
+    print("\n".join(lines[:-1]))
+    for kname, n in EXAMPLE_LAUNCHES[name].items():
+        if got["launches"][kname] == 0 or (
+                n is not None and got["launches"][kname] != n):
+            fail(f"example {name}: {got['launches'][kname]} launches of "
+                 f"{kname} (want {n or '> 0'})")
+    return got["launches"]
+
+
+def run_example(name, args):
+    """An example's ``main`` in this process (``python3 chip_smoke.py
+    --example NAME ARGS``) on the card, every launch counter at 0 before
+    it and read after; the last line of its output is one JSON line with
+    its wall and the counts."""
+    import importlib
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    mod = importlib.import_module(f"lumfuncmcmc_tpu_torch.examples.{name}")
+    for k in KERNELS:
+        _kernel(k).launches = 0
+    t0 = time.perf_counter()
+    rc = mod.main(list(args))
+    wall = time.perf_counter() - t0
+    counts = {k: _kernel(k).launches for k in KERNELS}
+    _check_no_jax()
+    print(json.dumps({"example": name, "wall": wall, "launches": counts}))
+    return rc
+
+
+def run_calib(workdir, has_mpl):
+    """Phase 18, the calibration replicates on the card: each family's
+    value kernel on its first replicate's data at the replicates' widths
+    (:func:`_calib_widths`), ``tests/test_calibration.py``'s three gates
+    (:func:`_calib_gates`) and the free model's ``pallas=True`` replicates
+    (:func:`_calib_free`), each replicate's launches exact; then the five
+    examples, one at a time, each in a process of its own. Returns the
+    launch counts summed over the replicates and the examples."""
+    # one busy process at a time, below the other paths' priority (its
+    # examples inherit it): the grid's ranks beside it are host-bound and
+    # their collectives wait on the slowest rank
+    os.nice(10)
+    t0 = time.perf_counter()
+    rec = _Records()
+    log = logging.getLogger("lumfuncmcmc_tpu_torch")
+    log.addHandler(rec)
+    total = {k: 0 for k in KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    try:
+        _calib_widths(torch.device(CALIB_DEVICE))
+        _calib_gates(rec, add)
+        _calib_free(rec, add)
+    finally:
+        log.removeHandler(rec)
+    print(f"calib replicates: {time.perf_counter() - t0:.1f} s")
+    exdir = os.path.join(workdir, "examples")
+    os.makedirs(exdir, exist_ok=True)
+    deadline = time.monotonic() + EXAMPLE_SECONDS
+    for name in EXAMPLES:
+        add(_finish_example(name, _start_example(name, exdir), deadline))
+    print(f"calib path: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def _check_no_jax():
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "lumfuncmcmc_tpu")]
@@ -2734,6 +3086,8 @@ def run_path(label, workdir, has_mpl):
         fail("torch.cuda.is_available() is False")
     if label == LONG:
         runs = [run_long(workdir, has_mpl)]
+    elif label == CALIB:
+        runs = [run_calib(workdir, has_mpl)]
     elif label == GRID:
         runs = [run_grid(workdir, has_mpl)]
     else:
@@ -2757,7 +3111,7 @@ def phase_paths(workdir, has_mpl):
     their sums over the paths."""
     procs = {}
     try:
-        for label in [*PATHS, LONG, GRID]:
+        for label in [*PATHS, LONG, GRID, CALIB]:
             out = open(os.path.join(workdir, f"path_{len(procs)}.out"), "w+")
             procs[label] = (subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--path", label,
@@ -2804,6 +3158,8 @@ REPLACES = {
 def main():
     if sys.argv[1:2] == ["--path"]:
         return run_path(sys.argv[2], sys.argv[3], sys.argv[4] == "1")
+    if sys.argv[1:2] == ["--example"]:
+        return run_example(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--grid-rank"]:
         return grid_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                          sys.argv[5] == "1")

@@ -463,7 +463,10 @@ def prepare_cuda_data(ctx: LFContext, fix_comp: bool, fcmin: float = 0.0,
         s_r=opt(s, "r"), s_lnom0=opt(s, "lnom0"), s_mask=opt(s, "mask"),
         grid_off=grid_off, src_off=src_off, lref=lref, nfields=nf,
         fcmin=float(fcmin) if fcmin else 0.0,
-        ln_sums=(float(ctx.nsrc), float((ctx.lum.double() - lref).sum()),
+        # padded sources (src_mask 0) repeat a real row: masked out here
+        # as in the context's own sums
+        ln_sums=(float(ctx.nsrc), float(((ctx.lum.double() - lref)
+                                          * ctx.src_mask.double()).sum()),
                  float(ctx.sum_pow_lum), float(ctx.sum_ln_om)),
         vg_tables=_vg_tables(grid_off, src_off, device),
         vg_tickets=torch.zeros(MAX_ROWS, dtype=torch.int32, device=device))
