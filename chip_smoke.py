@@ -4,9 +4,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, then the fit paths, 16, 17
-and 18 side by side, 15 and 9); any failure ends the run with a nonzero
-exit:
+Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, 19, then the fit paths, 16,
+17 and 18 side by side, 15 and 9); any failure ends the run with a
+nonzero exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
    ``nvidia-smi``'s name and power limit;
@@ -162,7 +162,18 @@ exit:
    ``coverage_check 2 --free --pallas``, ``coverage_check_z 2``), one
    after the other, each in a process of its own (``python3
    chip_smoke.py --example NAME ARGS``): exit code 0, its table, no JAX,
-   its kernels' launches.
+   its kernels' launches;
+19. the public library API ("api", :func:`phase_api`): ``fleming``,
+   ``inverse_fleming``, ``p_curve``, ``omega``, ``lum_at_flux``,
+   ``efunc``, ``trapz_weights`` and ``gauss_legendre`` on float64 tensors
+   on the card against the same calls on the CPU (rtol 1e-12; the deep
+   faint tail of the completeness curve by its logarithm),
+   ``build_cosmo_table(device="cuda")`` field for field
+   ``build_cosmo_arrays``; then the flagship ``fit`` model through
+   ``samplers.step``, 3 steps from a seeded generator with exactly 6
+   ``free_lnlike`` launches and no other, bit for bit ``run_stretch``'s
+   loop over the same draws (and one step ``run_stretch(nsteps=1)``), and
+   ``VeffLF()`` the table of ``veff_lf()``; its wall printed.
 
 Phases 5-8, 12, 16, 17 and 18 run side by side, each path in a process of
 its own (``--path``): its stretch fit, its NUTS fit, then the model comparison
@@ -1792,6 +1803,189 @@ def phase_ladder(dev):
     return out
 
 
+RTOL_API = 1e-12     # the library functions, CUDA float64 vs CPU float64
+API_STEPS = 3        # samplers.step calls of the "api" phase
+
+
+def _api_close(name, got, want, fraction=False):
+    """``got`` (on the card) against ``want`` (CPU) at ``RTOL_API``. A
+    completeness ``fraction`` is held so from 1e-30 of its largest value
+    up; below that, where fc ** (1 / (1 - exp(-f/f_tau))) raises fc to a
+    power in the hundreds and one ulp of exp moves the value by ~1e-11,
+    by its logarithm at ``RTOL_API``, values under the smallest normal on
+    either side counting as 0. Returns the largest relative error."""
+    got = got.detach().cpu().double().numpy() if torch.is_tensor(got) \
+        else np.asarray(got, dtype=np.float64)
+    want = want.detach().double().numpy() if torch.is_tensor(want) \
+        else np.asarray(want, dtype=np.float64)
+    if got.shape != want.shape:
+        fail(f"api: {name}: shape {got.shape}, expected {want.shape}")
+    tiny = np.finfo(np.float64).tiny
+    big = np.abs(want) >= (1e-30 * np.abs(want).max() if fraction else 0.0)
+    err = np.abs(got - want)[big] / np.maximum(np.abs(want[big]), tiny)
+    worst = float(err.max()) if err.size else 0.0
+    if fraction:
+        tail = ~big & (want >= tiny)
+        lg = np.abs(np.log(got[tail]) - np.log(want[tail])) / np.abs(
+            np.log(want[tail]))
+        worst = max(worst, float(lg.max()) if lg.size else 0.0)
+        if not np.array_equal(got[~big] < tiny, want[~big] < tiny):
+            fail(f"api: {name}: an underflow on one side only")
+    if not worst <= RTOL_API:
+        fail(f"api: {name}: largest relative error {worst:.3e} on the card "
+             f"vs the CPU (limit {RTOL_API})")
+    return worst
+
+
+def _api_functions(dev):
+    """The library functions added with the public API (completeness,
+    Omega, quadrature, cosmology) on float64 tensors on the card against
+    the same calls on the CPU; returns {name: largest relative error}."""
+    from lumfuncmcmc_tpu_torch import cosmology as cos
+    from lumfuncmcmc_tpu_torch import ops
+    from lumfuncmcmc_tpu_torch.ops import quadrature as quad
+    from lumfuncmcmc_tpu_torch.ops.completeness import min_flux_p_curve
+    from lumfuncmcmc_tpu_torch.ops.omega import lum_at_flux
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(16)
+    f = 10.0 ** rng.uniform(-19, -14, size=4096)
+    z = rng.uniform(1.9, 2.4, size=4096)
+    logL = rng.uniform(41.5, 43.5, size=4096)
+    f50 = 10.0 ** rng.uniform(-17.5, -16.5, size=64)
+    alpha = rng.uniform(2.0, 6.0, size=64)
+    on = {d: {k: torch.tensor(v, dtype=torch.float64, device=d)
+              for k, v in (("f", f), ("z", z), ("logL", logL),
+                           ("f50", f50), ("alpha", alpha))}
+          for d in (dev, cpu)}
+    tabs = {d: cos.build_cosmo_table(3.0, dtype=torch.float64, device=d)
+            for d in (dev, cpu)}
+    calls = {
+        "fleming": (lambda d, t: [ops.fleming(t["f"], *c) for c in (
+            (3.0e-17, 3.5, 0.1), (2.72e-17, 4.56, 0.1), (5.0e-17, 2.0, 0.3),
+            (1.0e-17, 6.5, 0.05), (3.0e-17, 3.5, 0), (3.0e-17, None))],
+            True),
+        "inverse_fleming": (lambda d, t: [ops.inverse_fleming(
+            t["f50"], t["alpha"], c) for c in (0.1, 0.2, 0.7)], False),
+        "p_curve": (lambda d, t: [ops.p_curve(t["f"], 3e-17, a)
+                                  for a in (-3.5, -2.0, 3.5)], False),
+        "omega": (lambda d, t: [ops.omega(t["logL"], t["z"], tabs[d], *c)
+                                for c in ((1.0e5, -16.5, 3.5, 0.1),
+                                          (2.0e4, -16.6, 4.56, 0.0))], True),
+        "lum_at_flux": (lambda d, t: [lum_at_flux(t["f"], t["z"], tabs[d])],
+                        False),
+        "efunc": (lambda d, t: [cos.efunc(t["z"])], False),
+        "trapz_weights": (lambda d, t: [quad.trapz_weights(n, device=d)
+                                        for n in (2, 101, 201)], False),
+        "gauss_legendre": (lambda d, t: [*quad.gauss_legendre(32, device=d),
+                                         *quad.gauss_legendre(64, 0.05, 3.0,
+                                                              device=d)],
+                           False),
+    }
+    errs = {}
+    for name, (fn, fraction) in calls.items():
+        got, want = fn(dev, on[dev]), fn(cpu, on[cpu])
+        for g in got:
+            if g.device.type != dev.type or g.dtype != torch.float64:
+                fail(f"api: {name} gave {g.dtype} on {g.device}")
+        errs[name] = max(_api_close(name, g, w, fraction)
+                         for g, w in zip(got, want))
+    for mcf in (0.0, 0.2, 0.5, 0.8):
+        if not min_flux_p_curve(mcf, 3e-17, -3.5) >= 0.0:
+            fail(f"api: min_flux_p_curve({mcf}) is not a flux")
+    arrays = cos.build_cosmo_arrays(3.0)
+    for dtype in (torch.float64, torch.float32):
+        table = cos.build_cosmo_table(3.0, dtype=dtype, device=dev)
+        for k in cos.COSMO_FIELDS:
+            got = getattr(table, k)
+            want = torch.tensor(arrays[k], dtype=dtype)
+            if got.device.type != dev.type or not torch.equal(got.cpu(),
+                                                              want):
+                fail(f"api: build_cosmo_table's {k} ({dtype}) is not "
+                     "build_cosmo_arrays'")
+    return errs
+
+
+def phase_api(dev):
+    """The "api" phase: the library functions added with the public API
+    on the card against the CPU (:func:`_api_functions`), then the
+    flagship ``fit`` model (``-mcf 0.5``, the fits' 2000-source catalog,
+    trapz-101) through the public ``samplers.step``: ``API_STEPS`` steps
+    from a seeded generator on the card, every launch counter set to 0
+    just before and read just after (exactly 2 ``free_lnlike`` a step and
+    no other kernel), their positions and lnp bit for bit those of
+    ``run_stretch``'s loop over the same draws, one ``step`` bit for bit
+    ``run_stretch(nsteps=1)``; and ``VeffLF()`` the table of
+    ``veff_lf()``. Returns the steps' launches."""
+    from lumfuncmcmc_tpu_torch import samplers
+    from lumfuncmcmc_tpu_torch.samplers import affine
+    t0 = time.perf_counter()
+    errs = _api_functions(dev)
+    model = _flagship_model(dev)
+    lnprob = model.lnprob_batch()
+    if not lnprob.engine.startswith("cuda"):
+        fail(f"api: the flagship model's engine is {lnprob.engine}")
+    pos0 = sample_init(torch.Generator(device=dev).manual_seed(16),
+                       model.layout, NWALKERS, dtype=torch.float32,
+                       device=dev)
+    state = affine.EnsembleState(pos0, lnprob(pos0))
+    for name in KERNELS:
+        _kernel(name).launches = 0
+    gen = torch.Generator(device=dev).manual_seed(17)
+    steps, accepted = [], 0
+    for _ in range(API_STEPS):
+        state, acc = samplers.step(gen, state, lnprob)
+        steps.append(state)
+        accepted += int(acc.sum())
+    torch.cuda.synchronize()
+    counts = {name: _kernel(name).launches for name in KERNELS}
+    _expect("api steps", counts, {"free_lnlike": 2 * API_STEPS})
+    if not (0 < accepted and torch.isfinite(state.lnp).all()):
+        fail(f"api: {accepted} moves accepted, lnp finite: "
+             f"{bool(torch.isfinite(state.lnp).all())}")
+    # run_stretch(nsteps=3) draws each random's three steps in one bulk
+    # call, so the same seed gives three steps other randoms: the steps
+    # are held to its loop (run_with_rands) over their own draws
+    gen = torch.Generator(device=dev).manual_seed(17)
+    draws = [affine.draw_rands(gen, "stretch", 1, pos0)
+             for _ in range(API_STEPS)]
+    rands = tuple(torch.cat(x) for x in zip(*draws))
+    _, chain, lnps, _ = affine.run_with_rands(lnprob, pos0, rands,
+                                              API_STEPS)
+    for t, st in enumerate(steps):
+        if not (torch.equal(st.pos, chain[t]) and torch.equal(st.lnp,
+                                                               lnps[t])):
+            fail(f"api: step {t + 1} differs from run_stretch's loop over "
+                 "the same draws")
+    one, _ = samplers.step(torch.Generator(device=dev).manual_seed(18),
+                           affine.EnsembleState(pos0, lnprob(pos0)), lnprob)
+    want, _, _, _ = samplers.run_stretch(
+        lnprob, pos0, torch.Generator(device=dev).manual_seed(18), 1)
+    if not (torch.equal(one.pos, want.pos) and torch.equal(one.lnp,
+                                                           want.lnp)):
+        fail("api: step differs from run_stretch(nsteps=1) on one seed")
+    lavg, lf, var = model.VeffLF()
+    lavg2, lf2, var2 = model.veff_lf()
+    # the binning sums in the card's atomics order (index_add_,
+    # scatter_add_): the table agrees to float32 sums in another order
+    veff_err = max(float(np.max(np.abs(a - b) / np.maximum(
+        np.abs(b), np.finfo(np.float64).tiny)))
+        for a, b in ((lavg, lavg2), (lf, lf2), (var, var2)))
+    if not (np.array_equal(lavg, lavg2) and veff_err <= RTOL_KERNEL
+            and np.isfinite(lf).all() and len(lf) == model.cfg.nbins):
+        fail(f"api: VeffLF() is not veff_lf()'s table (largest relative "
+             f"difference {veff_err:.3e})")
+    wall = time.perf_counter() - t0
+    print(f"api: {len(errs)} library functions on the card vs the CPU, "
+          f"largest relative error {max(errs.values()):.3e} "
+          f"({', '.join(f'{k} {v:.1e}' for k, v in errs.items())}); "
+          f"build_cosmo_table equal to build_cosmo_arrays; {API_STEPS} "
+          f"samplers.step calls on the flagship model: {counts['free_lnlike']}"
+          f" free_lnlike launches, {accepted} moves accepted, bit for bit "
+          f"run_stretch's loop; VeffLF() = veff_lf() (largest relative "
+          f"difference {veff_err:.1e}); api phase wall {wall:.2f} s")
+    return counts
+
+
 def phase_vmax(workdir, has_mpl):
     """The standalone 1/V_eff pipeline on the fits' catalog, whole and in
     three equal-count z bins: weights and bootstrap on the card, the
@@ -3180,6 +3374,7 @@ def main():
     for fam, d in phase_ladder(dev).items():
         summary[f"{fam}_lnlike"]["ladder_dlnz"] = d
     print(f"kernel phases: {time.perf_counter() - t_start:.1f} s")
+    api = phase_api(dev)
     try:
         import matplotlib  # noqa: F401
         has_mpl = True
@@ -3191,6 +3386,8 @@ def main():
         phase_vmax(workdir, has_mpl)
     _check_no_jax()
     launches["roofline_chain"] = roof["launches"]
+    for name, n in api.items():
+        launches[name] += n
     for name, n in launches.items():
         if n == 0:
             fail(f"{name} was never launched on the main paths")

@@ -68,6 +68,14 @@ class CosmologyParams:
 DEFAULT_COSMOLOGY = CosmologyParams()
 
 
+def efunc(z, p: CosmologyParams = DEFAULT_COSMOLOGY):
+    """E(z) = H(z)/H0 of the tensor ``z``: matter, lambda, radiation and
+    curvature."""
+    zp1 = 1.0 + z
+    return torch.sqrt(p.Om0 * zp1**3 + p.Ok0 * zp1**2 + p.Or0 * zp1**4
+                      + p.Ode0)
+
+
 def _efunc_np(z, p: CosmologyParams):
     zp1 = 1.0 + z
     return np.sqrt(p.Om0 * zp1**3 + p.Ok0 * zp1**2 + p.Or0 * zp1**4 + p.Ode0)
@@ -182,3 +190,12 @@ def build_cosmo_arrays(zmax: float, n: int = 32768,
     return {"zgrid": z, "dc_mpc": dc_mpc, "dm_mpc": dm_mpc,
             "dl_mpc": dl_mpc, "log10_dl_cm": log10_dl_cm,
             "dvdz_sr": dvdz_sr, "vc_sr": vc}
+
+
+def build_cosmo_table(zmax: float, n: int = 32768,
+                      p: CosmologyParams = DEFAULT_COSMOLOGY,
+                      dtype=torch.float32, *, device) -> CosmoTable:
+    """:class:`CosmoTable` on ``device`` from the float64 host tables of
+    :func:`build_cosmo_arrays`, cast to ``dtype``."""
+    return cosmo_table_from_arrays(build_cosmo_arrays(zmax, n, p), device,
+                                   dtype)

@@ -37,6 +37,7 @@ from lumfuncmcmc_tpu_torch.models.likelihood import in_box, lnprior
 from lumfuncmcmc_tpu_torch.ops.schechter import (
     LN10, _LOG_LN10, log_true_lum_func)
 
+NEG_INF = -math.inf
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -154,7 +155,7 @@ def make_lnprob_h(ctx: LFContext, layout: ThetaLayoutH):
     def lnprob(theta):
         lnl = lnlike_h(torch.clamp(theta, lo, hi), ctx, layout)
         return torch.where(in_box(theta, lo, hi), lnl,
-                           torch.full_like(lnl, -math.inf))
+                           torch.full_like(lnl, NEG_INF))
 
     return lnprob
 

@@ -29,6 +29,8 @@ from lumfuncmcmc_tpu_torch.ops.omega import LOG10_4PI, omega_from_logf
 from lumfuncmcmc_tpu_torch.ops.quadrature import gl_nodes_unit
 from lumfuncmcmc_tpu_torch.ops.schechter import LN10, log_true_lum_func
 
+NEG_INF = -math.inf
+
 
 @dataclass(frozen=True)
 class ThetaLayout:
@@ -118,7 +120,7 @@ def lnprior(theta, layout: ThetaLayout):
     """Uniform box prior: 0 inside, -inf outside. (W, D) -> (W,)."""
     lo, hi = layout.bounds_arrays(theta.dtype, theta.device)
     return torch.where(in_box(theta, lo, hi), 0.0,
-                       -math.inf).to(theta.dtype)
+                       NEG_INF).to(theta.dtype)
 
 
 def _ln_term_collapsed(ctx: LFContext, lstar, phistar, sch_al):
@@ -281,7 +283,7 @@ def make_lnprob(ctx: LFContext, layout: ThetaLayout, collapse: bool = True,
             lnl = lnlike_single_epoch(theta, ctx, layout,
                                       collapse=collapse)
         return torch.where(in_box(theta, lo, hi), lnl,
-                           torch.full_like(lnl, -math.inf))
+                           torch.full_like(lnl, NEG_INF))
 
     return lnprob
 

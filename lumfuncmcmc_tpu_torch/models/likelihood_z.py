@@ -24,6 +24,7 @@ from lumfuncmcmc_tpu_torch.config import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import LFContext
 from lumfuncmcmc_tpu_torch.ops.schechter import log_schechter_z
 
+NEG_INF = -math.inf
 NPIVOT = 6      # leading theta entries under the strict prior
 
 
@@ -129,7 +130,7 @@ def lnprior_z(theta, layout: ThetaLayoutZ):
     (W, D) -> (W,)."""
     lo, hi = layout.bounds_arrays(theta.dtype, theta.device)
     return torch.where(in_box_z(theta, lo, hi), 0.0,
-                       -math.inf).to(theta.dtype)
+                       NEG_INF).to(theta.dtype)
 
 
 def lnlike_z_parts(theta, ctx: LFContext, layout: ThetaLayoutZ):
@@ -169,6 +170,6 @@ def make_lnprob_z(ctx: LFContext, layout: ThetaLayoutZ):
     def lnprob(theta):
         lnl = lnlike_z(theta, ctx, layout)
         return torch.where(in_box_z(theta, lo, hi), lnl,
-                           torch.full_like(lnl, -math.inf))
+                           torch.full_like(lnl, NEG_INF))
 
     return lnprob

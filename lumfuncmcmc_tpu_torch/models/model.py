@@ -654,6 +654,10 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
         self.var = var.double().cpu().numpy()
         return self.Lavg, self.lfbinorig, self.var
 
+    def VeffLF(self):
+        """The reference's name for :meth:`veff_lf`."""
+        return self.veff_lf()
+
     def add_fitinfo_to_table(self, percentiles, start_value=1,
                              lnprobcut=7.5):
         """Fill the percentile columns of ``self.table`` row -1."""

@@ -7,9 +7,12 @@ With ``x = alpha * (logf - logF50)``::
     f_tau   : flux where fc = fcmin  (closed form)
     fc_mod  = fc ** ( 1 / (1 - exp(-f/f_tau)) )
 
-The float64 numpy forms used by the host precompute are carried over
-unchanged. :func:`fleming_root_logf` is the in-graph bisection the
-exact-bounds likelihood takes, with the implicit-function derivative.
+The likelihood works in log flux (:func:`fleming_from_logf`);
+:func:`fleming`, :func:`inverse_fleming` and :func:`p_curve` are the
+reference's linear-flux forms. The float64 numpy forms used by the host
+precompute, and :func:`min_flux_p_curve`, are carried over unchanged.
+:func:`fleming_root_logf` is the in-graph bisection the exact-bounds
+likelihood takes, with the implicit-function derivative.
 """
 
 from __future__ import annotations
@@ -28,12 +31,19 @@ def expdecay(x, tau):
 def _log10_inverse_fleming_ratio(alpha, fcmin):
     """log10(f_tau / F50) where the unmodified curve equals fcmin. The
     crossing sits on the faint side of F50 for fcmin < 0.5 and the
-    bright side for fcmin > 0.5. ``alpha`` is a tensor, ``fcmin`` a
-    float in (0, 1)."""
+    bright side for fcmin > 0.5. ``alpha`` is a tensor or a float,
+    ``fcmin`` a float in (0, 1)."""
     s = 2.0 * fcmin - 1.0
     a = s * s
     sign = float((s > 0) - (s < 0))
-    return sign * torch.sqrt(abs(a / (1.0 - a)) / alpha**2)
+    sqrt = torch.sqrt if isinstance(alpha, torch.Tensor) else math.sqrt
+    return sign * sqrt(abs(a / (1.0 - a)) / alpha**2)
+
+
+def inverse_fleming(f50, alpha, fcmin=0.1):
+    """Flux where the unmodified Fleming completeness equals fcmin.
+    Tensors or floats; a float pair gives a float."""
+    return f50 * 10.0 ** _log10_inverse_fleming_ratio(alpha, fcmin)
 
 
 def fleming_from_logf(logf, logF50, alpha, fcmin=0.1):
@@ -56,6 +66,26 @@ def fleming_from_logf(logf, logF50, alpha, fcmin=0.1):
                           else 1e-30)
     out = torch.exp(torch.log(safe_fc) / fc_decay)
     return torch.where(fc > 0.0, out, torch.zeros_like(out))
+
+
+def fleming(f, Flim=3.0e-17, alpha=3.5, fcmin=0.1):
+    """Modified Fleming completeness of the linear fluxes ``f`` (a
+    tensor), on its device and in its dtype. As in the reference,
+    ``alpha=None`` means fully complete and a falsy ``fcmin`` drops the
+    faint-end modification. :func:`fleming_from_logf` is the form the
+    likelihood uses."""
+    if alpha is None:
+        return torch.ones_like(f)
+    logF50 = (torch.log10(Flim) if isinstance(Flim, torch.Tensor)
+              else math.log10(Flim))
+    return fleming_from_logf(torch.log10(f), logF50, alpha, fcmin)
+
+
+def p_curve(F, Flim=3.0e-17, alpha=-3.5):
+    """The reference's older completeness curve with the 2.5x slope
+    (its ``get_min_flux`` uses it), on the tensor ``F``."""
+    x = 2.5 * alpha * torch.log10(F / Flim)
+    return 0.5 * (1.0 - x / torch.sqrt(1.0 + x * x))
 
 
 def fleming_from_logf_np(logf, logF50, alpha, fcmin=0.1):
@@ -92,6 +122,25 @@ def fleming_root_logf_np(logF50, alpha, min_comp_frac, fcmin=0.1, iters=80):
         lo = np.where(go_right, mid, lo)
         hi = np.where(go_right, hi, mid)
     return 0.5 * (lo + hi)
+
+
+def min_flux_p_curve(min_comp_frac, Flim, alpha, iters=80):
+    """Flux where :func:`p_curve` reaches ``min_comp_frac``: a host
+    float64 bisection in log flux (the curve is increasing in F for
+    alpha < 0, the reference's usage); 0 for ``min_comp_frac`` ~ 0, as
+    the reference's ``get_min_flux`` returns."""
+    if abs(min_comp_frac) < 1.0e-6:
+        return 0.0
+    lo, hi = np.log10(Flim) - 6.0, np.log10(Flim) + 6.0
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        x = 2.5 * alpha * (mid - np.log10(Flim))
+        val = 0.5 * (1.0 - x / np.sqrt(1.0 + x * x))
+        if (val < min_comp_frac) == (alpha < 0):
+            lo = mid
+        else:
+            hi = mid
+    return 10.0 ** (0.5 * (lo + hi))
 
 
 class _FlemingRoot(torch.autograd.Function):

@@ -5,6 +5,8 @@ exact in float32."""
 
 from __future__ import annotations
 
+import torch
+
 from lumfuncmcmc_tpu_torch.cosmology import SQARCSEC_PER_SR
 from lumfuncmcmc_tpu_torch.ops.completeness import fleming_from_logf
 
@@ -26,3 +28,18 @@ def omega_from_logf(logf, omega_0, logF50, alpha, fcmin=0.1):
     in steradians times the Fleming completeness."""
     return omega_0 / SQARCSEC_PER_SR * fleming_from_logf(
         logf, logF50, alpha, fcmin)
+
+
+def omega(logL, z, cosmo, omega_0, logF50, alpha, fcmin=0.1):
+    """Omega(logL, z) of the reference, exact: the implied flux from the
+    cosmology table ``cosmo`` (:class:`~lumfuncmcmc_tpu_torch.cosmology.
+    CosmoTable`), then :func:`omega_from_logf`."""
+    logf = logflux_from_loglum(logL, cosmo.log10_dl_cm_at(z))
+    return omega_from_logf(logf, omega_0, logF50, alpha, fcmin)
+
+
+def lum_at_flux(F, z, cosmo):
+    """Luminosity [erg/s] of the flux tensor ``F`` [cgs] at redshift
+    ``z`` (the reference's ``get_L_constF``)."""
+    return 10.0 ** loglum_from_logflux(torch.log10(F),
+                                       cosmo.log10_dl_cm_at(z))

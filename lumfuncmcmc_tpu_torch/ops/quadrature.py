@@ -1,10 +1,29 @@
-"""Fixed-order Gauss–Legendre quadrature (port of the part of
-``lumfuncmcmc_tpu/ops/quadrature.py`` that ``models/veff.py`` uses)."""
+"""Fixed-order quadrature rules (port of
+``lumfuncmcmc_tpu/ops/quadrature.py``): trapezoid weights and
+Gauss–Legendre nodes, computed on the host in float64 and put on the
+device the caller names."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def trapz_weights(n: int, *, dtype=torch.float64, device):
+    """Trapezoid endpoint weights for n uniformly-spaced samples:
+    integral = dx * sum(w * f) with w = [0.5, 1, ..., 1, 0.5]."""
+    w = np.ones(n)
+    w[0] = w[-1] = 0.5
+    return torch.tensor(w, dtype=dtype, device=device)
+
+
+def gauss_legendre(n: int, a=0.0, b=1.0, *, dtype=torch.float64, device):
+    """Gauss–Legendre nodes and weights on [a, b]."""
+    x, w = np.polynomial.legendre.leggauss(n)
+    x = 0.5 * (x + 1.0) * (b - a) + a
+    w = 0.5 * (b - a) * w
+    return (torch.tensor(x, dtype=dtype, device=device),
+            torch.tensor(w, dtype=dtype, device=device))
 
 
 def gl_nodes_unit(n: int):

@@ -113,6 +113,15 @@ def _step_pre(rands, state: EnsembleState, lnprob_batch: Callable,
     return _join((p0, l0), (p1, l1), a0, a1)
 
 
+def step(generator: torch.Generator, state: EnsembleState,
+         lnprob_batch: Callable, a: float = 2.0):
+    """One full stretch-move step (both halves) with randoms drawn from
+    ``generator``, as the first step of :func:`run_stretch` with
+    ``nsteps=1`` draws them. Returns ``(state, accepted (W,))``."""
+    rands = draw_rands(generator, "stretch", 1, state.pos)
+    return _step_pre(tuple(x[0] for x in rands), state, lnprob_batch, a)
+
+
 def _stretch_rands(gen, nsteps, nh, dtype, device, batch=()):
     """Bulk stretch randoms ``(u_z, j, ln_u)``, each (nsteps, 2,
     *batch, nh)."""

@@ -38,6 +38,8 @@ from lumfuncmcmc_tpu_torch.samplers.affine import (
     _de_half_step, _de_rands, _half_step, _stretch_rands, de_schedule)
 from lumfuncmcmc_tpu_torch.samplers.diagnostics import effective_sample_size
 
+NEG_INF = -math.inf
+
 
 def beta_ladder(nrungs: int, power: float = 5.0):
     """Power-law temperature ladder β_k = (k/(K−1))^power, K rungs from
@@ -101,7 +103,7 @@ class _Tempered:
     def tempered(self, lp, lnl):
         t = torch.where(self.b > 0, self.b * lnl, torch.zeros_like(lnl))
         return torch.where(torch.isfinite(lp), lp + t,
-                           torch.full_like(lp, -math.inf))
+                           torch.full_like(lp, NEG_INF))
 
     def __call__(self, th):
         K, m, D = th.shape

@@ -16,14 +16,14 @@ from lumfuncmcmc_tpu import cosmology as jcosmo
 from lumfuncmcmc_tpu.ops import quadrature as jquad
 from lumfuncmcmc_tpu_torch import cosmology as tcosmo
 from lumfuncmcmc_tpu_torch.ops import completeness as tcomp
-from lumfuncmcmc_tpu_torch.ops import omega as tomega
 from lumfuncmcmc_tpu_torch.ops import quadrature as tquad
-from lumfuncmcmc_tpu_torch.ops import schechter as tsch
 
-# lumfuncmcmc_tpu.ops re-exports functions under these module names
+# both ops packages re-export functions under these module names
 jcomp = importlib.import_module("lumfuncmcmc_tpu.ops.completeness")
 jsch = importlib.import_module("lumfuncmcmc_tpu.ops.schechter")
 jomega = importlib.import_module("lumfuncmcmc_tpu.ops.omega")
+tomega = importlib.import_module("lumfuncmcmc_tpu_torch.ops.omega")
+tsch = importlib.import_module("lumfuncmcmc_tpu_torch.ops.schechter")
 
 torch.set_num_threads(2)
 RTOL = 1e-12

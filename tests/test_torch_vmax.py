@@ -44,11 +44,11 @@ from lumfuncmcmc_tpu_torch.cosmology import (
     COSMO_FIELDS, cosmo_table_from_arrays)
 from lumfuncmcmc_tpu_torch.models import schfit as tfit
 from lumfuncmcmc_tpu_torch.models import veff as tveff
-from lumfuncmcmc_tpu_torch.ops import schechter as tsch
 from lumfuncmcmc_tpu_torch.ops.gamma import upper_gamma
 
 import importlib
 jsch = importlib.import_module("lumfuncmcmc_tpu.ops.schechter")
+tsch = importlib.import_module("lumfuncmcmc_tpu_torch.ops.schechter")
 
 torch.set_num_threads(2)
 

@@ -45,12 +45,12 @@ from lumfuncmcmc_tpu_torch.models.context import (
 from lumfuncmcmc_tpu_torch.models.likelihood import sample_init
 from lumfuncmcmc_tpu_torch.models.model import LumFuncModel, LumFuncModelZ
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
-from lumfuncmcmc_tpu_torch.ops import schechter as tsch
 from lumfuncmcmc_tpu_torch.utils import synth
 
-# ``lumfuncmcmc_tpu.ops`` exports a function named ``schechter`` over
-# its submodule of the same name
+# both ops packages export a function named ``schechter`` over their
+# submodule of the same name
 jsch = importlib.import_module("lumfuncmcmc_tpu.ops.schechter")
+tsch = importlib.import_module("lumfuncmcmc_tpu_torch.ops.schechter")
 
 torch.set_num_threads(2)
 
