@@ -60,7 +60,9 @@ nonzero exit:
    inside their bounds and not on them (a z bin's ``al``, known to +-0.3,
    may sit on its upper bound, where the LM ends without its flag);
 10. the same-mix roofline: ``roofline_chain`` against its plain version
-   (rtol 1e-5), then its main path, ``transcendental_peak``, with the
+   (rtol 1e-5) at (256, 1024) and at (3, 1000), not a whole number of its
+   blocks (its chains a thread, grid and registers printed), then its
+   main path, ``transcendental_peak``, with the
    counter set to 0 before and read after: the card's sustained rate on
    the likelihood's own transcendental mix, which gives every kernel a
    second bound (``same_mix_ms``: its transcendentals over that rate);
@@ -854,21 +856,31 @@ def phase_vg_kernels(dev):
 
 
 def phase_roofline(dev):
-    """``roofline_chain`` against its plain version, then its main path,
+    """``roofline_chain`` against its plain version at (256, 1024) and
+    at (3, 1000), its layout printed, then its main path,
     ``transcendental_peak``, with the launch counter set to 0 just before
     and read just after. Returns the kernel's summary row and the
     measured rate."""
     gen = torch.Generator(device=dev).manual_seed(15)
-    x = 0.05 + 0.9 * torch.rand((256, 1024), generator=gen, device=dev)
-    got = rl.roofline_chain(x, 8)
-    ref = rl.roofline_chain_reference(x, 8)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    rel = _rel(got, ref)
-    print(f"roofline_chain (256, 1024) x 8 iterations: kernel vs plain max "
-          f"abs {err:.3e}, max rel {rel:.3e}")
-    if not (torch.isfinite(got).all() and rel <= 1e-5):
-        fail(f"roofline_chain vs plain {rel:.3e} > 1e-5")
+    errs = {}
+    for shape in ((256, 1024), (3, 1000)):
+        x = 0.05 + 0.9 * torch.rand(shape, generator=gen, device=dev)
+        got = rl.roofline_chain(x, 8)
+        ref = rl.roofline_chain_reference(x, 8)
+        torch.cuda.synchronize()
+        err, rel = float((got - ref).abs().max()), _rel(got, ref)
+        errs[shape] = err, rel
+        lay = rl.kernel_layout(x.numel())
+        print(f"roofline_chain {shape} x 8 iterations: kernel vs plain max "
+              f"abs {err:.3e}, max rel {rel:.3e}; E = "
+              f"{lay['chains_per_thread']} chains a thread, grid "
+              f"{lay['blocks']} x {lay['threads']} on {lay['sms']} SMs "
+              f"({lay['blocks_per_sm']} resident an SM), "
+              f"{lay['registers']} registers, {lay['local_bytes']} local "
+              f"bytes a thread")
+        if not (torch.isfinite(got).all() and rel <= 1e-5):
+            fail(f"roofline_chain {shape} vs plain {rel:.3e} > 1e-5")
+    err, rel = errs[(256, 1024)]
     rl.roofline_chain.launches = 0
     peak = rl.transcendental_peak(dev)
     launches = rl.roofline_chain.launches

@@ -1,8 +1,9 @@
 // What the kernel sources of this directory share: the block size, the
 // block reduction of the streaming kernels (lnlike_stream.cu), Kahan's
-// float32 sum (lnlike_z.cu, lnlike_stream.cu) and the free-completeness
-// ln fc terms (lnlike.cu and lnlike_stream.cu). The one-launch kernels'
-// block sums, tickets and finish are in vg_ticket.cuh.
+// float32 sum (lnlike_z.cu, lnlike_stream.cu), the free-completeness
+// ln fc terms (lnlike.cu and lnlike_stream.cu) and the SFU log of ln fc
+// (lnlike.cu and roofline.cu). The one-launch kernels' block sums,
+// tickets and finish are in vg_ticket.cuh.
 //
 // Every value leaves the kernels in float64: at 10^5 sources |lnL| ~ 1e6,
 // where float32's spacing (~0.06) is past the 0.05 that the sampler's
@@ -47,6 +48,17 @@ __device__ __forceinline__ FcTerms fc_terms(float logf_, float r, float ac,
     const float q = expf(-(r * t2));
     const float inv_d = 1.0f / (1.0f - q);
     return {lfc * inv_d, dfx * inv_d, -lfc * (r * q) * inv_d * inv_d};
+}
+
+// ln max(0.5 + 0.5 x rsqrt(1 + x^2), 1e-30) with the SFU's log: __logf is
+// within 2^-21.4 of ln fc for fc in [0.5, 1] and 3 ulp below. The rsqrt and
+// log of the value kernel's ln fc (lnlike.cu ln_fc_sfu) and of the roofline's
+// chain (roofline.cu chain), one definition so that the yardstick runs the
+// value kernel's mix. The divide that follows stays in each, since the
+// divisors differ (1 - exp(-R t2) in ln_fc_sfu, 1 - 0.999 exp(-(1.7 y +
+// 0.05)) in chain): both take __fdividef.
+__device__ __forceinline__ float ln_fleming_sfu(float x) {
+    return __logf(fmaxf(0.5f + 0.5f * x * rsqrtf(1.0f + x * x), 1e-30f));
 }
 
 // Sum each of v[0..K) over the block (float or double); the results are

@@ -92,14 +92,13 @@
 
 #define FREE_SLOTS 7     // ops/cuda_lnlike.py VG_FREE_SLOTS
 
-// ln_fc (common.cuh) with the SFU's log and divide: __logf is within
-// 2^-21.4 of ln fc for fc in [0.5, 1] and 3 ulp below, __fdividef 2 ulp
-// for a divisor 1 - exp(-R t2) in (0, 1].
+// ln_fc (common.cuh) with the SFU's log and divide: ln_fleming_sfu
+// (common.cuh: rsqrtf, __logf), then __fdividef, 2 ulp for a divisor
+// 1 - exp(-R t2) in (0, 1]. roofline.cu's chain makes the same calls; its
+// divisor, 1 - 0.999 exp(..), is its own, so the divide is not shared.
 __device__ __forceinline__ float ln_fc_sfu(float logf_, float r, float ac,
                                            float lf50, float t2, int fcmin) {
-    const float x = ac * (logf_ - lf50);
-    const float fc = fmaxf(0.5f + 0.5f * x * rsqrtf(1.0f + x * x), 1e-30f);
-    const float lf = __logf(fc);
+    const float lf = ln_fleming_sfu(ac * (logf_ - lf50));
     if (!fcmin) return lf;
     return __fdividef(lf, 1.0f - expf(-(r * t2)));
 }

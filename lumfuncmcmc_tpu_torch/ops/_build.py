@@ -50,6 +50,7 @@ ENTRY_POINTS = {"free_lnlike_launch": _FREE_VG_ARGS,
                 "free_stream_lnlike_vg_launch": _STREAM_ARGS,
                 "free_stream_blocks_per_sm": [_i, _i, _p],
                 "roofline_chain_launch": [_p, _p, _i, _i, _p],
+                "roofline_chain_layout": [_i, _p],
                 "empty_launch": [_i, _p]}
 
 _lock = threading.Lock()

@@ -3,13 +3,18 @@
 
 The likelihood kernels have no matrix structure: their ceiling is the
 card's sustained rate on the transcendental mix they execute, not its
-published float32 peak, which counts an ``expf`` or ``logf`` as one
-operation where the plain (not fast-math) versions are multi-instruction
-sequences. :func:`roofline_chain` (the ``roofline_chain`` kernel of
+published float32 peak, which counts an ``expf`` or a log as one
+operation where each is a sequence around a special-function unit (SFU)
+instruction. :func:`roofline_chain` (the ``roofline_chain`` kernel of
 ``csrc/roofline.cu``, replacing ``_roofline_kernel``,
-``pallas_roofline.py:59``) iterates the likelihood's own per-element op
-chain in registers, and :func:`transcendental_peak` turns two such runs
-into that rate.
+``pallas_roofline.py:59``) iterates the value kernel's own per-element
+op chain in registers, and :func:`transcendental_peak` turns two such
+runs into that rate. On the card the chain makes the calls of
+``free_lnlike``'s ln fc (``csrc/lnlike.cu ln_fc_sfu``: ``rsqrtf``, the
+SFU's ``__logf`` and ``__fdividef``, ``expf`` for the decay) plus the
+integrand's ``expf``, several independent elements a thread
+(:func:`kernel_layout`); the plain version computes the same function
+with PyTorch's log and divide.
 
 Counting convention (the JAX package's): a transcendental is one
 exp/log/rsqrt on a useful element; the chain executes
@@ -67,6 +72,21 @@ def _launch(x, iters):
     if rc != 0:
         raise RuntimeError(f"roofline_chain launch failed: CUDA error {rc}")
     return out
+
+
+def kernel_layout(n: int) -> dict:
+    """The kernel's launch for ``n`` elements on the current CUDA device:
+    ``chains_per_thread`` (E), ``blocks``, ``threads`` a block,
+    ``registers`` a thread, ``blocks_per_sm`` resident, ``sms`` and
+    ``local_bytes`` (spills) a thread."""
+    from lumfuncmcmc_tpu_torch.ops._build import load_library
+    buf = (ctypes.c_int * 7)()
+    rc = load_library().roofline_chain_layout(int(n), buf)
+    if rc != 0:
+        raise RuntimeError(f"roofline_chain layout query failed: CUDA "
+                           f"error {rc}")
+    return dict(zip(("chains_per_thread", "blocks", "threads", "registers",
+                     "blocks_per_sm", "sms", "local_bytes"), buf))
 
 
 def roofline_chain(x, iters: int):

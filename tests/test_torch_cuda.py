@@ -710,16 +710,22 @@ def test_stream_step_loop_never_synchronises_and_is_deterministic(
 
 def test_roofline_kernel_matches_plain_version(device):
     """roofline_chain equals its plain version on the card after 8
-    iterations (rtol 1e-5: the chain contracts, and nvcc may fuse a
-    multiply-add that PyTorch rounds twice), and the peak is positive."""
+    iterations (rtol 1e-5: the chain contracts, nvcc may fuse a
+    multiply-add that PyTorch rounds twice, and the kernel's log and
+    divide are the SFU's), also at a size that is not a whole number of
+    blocks of 256 x E elements, and the peak is positive."""
     from lumfuncmcmc_tpu_torch.ops import roofline as rl
-    x = 0.05 + 0.9 * torch.rand((64, 1024), device=device)
-    n0 = rl.roofline_chain.launches
-    got = rl.roofline_chain(x, 8)
-    assert rl.roofline_chain.launches == n0 + 1
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               rl.roofline_chain_reference(x, 8).cpu().numpy(),
-                               rtol=1e-5)
+    for shape in ((64, 1024), (3, 1000), (1,)):
+        x = 0.05 + 0.9 * torch.rand(shape, device=device)
+        n0 = rl.roofline_chain.launches
+        got = rl.roofline_chain(x, 8)
+        assert rl.roofline_chain.launches == n0 + 1
+        np.testing.assert_allclose(
+            got.cpu().numpy(),
+            rl.roofline_chain_reference(x, 8).cpu().numpy(), rtol=1e-5)
+    lay = rl.kernel_layout(3000)
+    assert lay["chains_per_thread"] > 1 and lay["local_bytes"] == 0
+    assert lay["blocks"] * lay["threads"] * lay["chains_per_thread"] >= 3000
     r = rl.transcendental_peak(device, rows=64, cols=1024, iters_lo=16,
                                iters_hi=144, reps=3)
     assert r["transcendentals_per_sec"] > 0
