@@ -49,6 +49,7 @@ from lumfuncmcmc_tpu_torch.samplers.affine import (
 from lumfuncmcmc_tpu_torch.samplers.diagnostics import (
     burnin_steps, effective_sample_size, gelman_rubin,
     gelman_rubin_ensembles, rank_normalized_rhat_ensembles)
+from lumfuncmcmc_tpu_torch.utils.tracing import span
 
 # the port's checkpoint protocol ("lfpt"), the first field of every
 # fingerprint: no JAX-written npz carries it
@@ -303,28 +304,30 @@ class _EnsembleDriverMixin:
                 "checkpoint", FIT_TAG, fields=self._grid_fields(lnprob))
         else:
             _, chain, lnps, acc = runner(pos0, generator, nsteps_exec, None)
-            chain, lnps, acc = _host(chain), _host(lnps), _host(acc)
-        _sync(self.device)
-        elapsed = time.perf_counter() - start
-        self.log.info("Total time taken: %0.4f s" % elapsed)
-        self.log.info("Time taken per step per walker: %0.4f ms" %
-                      (elapsed / nsteps_exec * 1000.0 / cfg.nwalkers))
-        self.log.info("lnprob evaluations/s: %0.1f"
-                      % (cfg.nwalkers * nsteps_exec / elapsed))
+        with span("post"):
+            if not blocked:
+                chain, lnps, acc = _host(chain), _host(lnps), _host(acc)
+            _sync(self.device)
+            elapsed = time.perf_counter() - start
+            self.log.info("Total time taken: %0.4f s" % elapsed)
+            self.log.info("Time taken per step per walker: %0.4f ms" %
+                          (elapsed / nsteps_exec * 1000.0 / cfg.nwalkers))
+            self.log.info("lnprob evaluations/s: %0.1f"
+                          % (cfg.nwalkers * nsteps_exec / elapsed))
 
-        # with thinning, tau is measured in recorded-step units
-        burn, tau = burnin_steps(chain, chain.shape[0])
-        self.acceptance_fraction = float(np.mean(acc) / nsteps_exec)
-        self.log.info("Mean acceptance fraction: %0.4f" %
-                      self.acceptance_fraction)
-        self.log.info("AutoCorrelation Steps: %i, Number of Burn-in "
-                      "Steps: %i" % (round(tau), burn))
-        ess = effective_sample_size(chain[burn:])
-        rhat = gelman_rubin(chain[burn:])
-        self._log_convergence(chain[burn:])
-        self.log.info("min ESS: %.0f; max R-hat: %.4f; ESS/sec: %.0f"
-                      % (ess.min(), rhat.max(), ess.min() / elapsed))
-        return self._set_samples(chain, lnps, burn, ndim)
+            # with thinning, tau is measured in recorded-step units
+            burn, tau = burnin_steps(chain, chain.shape[0])
+            self.acceptance_fraction = float(np.mean(acc) / nsteps_exec)
+            self.log.info("Mean acceptance fraction: %0.4f" %
+                          self.acceptance_fraction)
+            self.log.info("AutoCorrelation Steps: %i, Number of Burn-in "
+                          "Steps: %i" % (round(tau), burn))
+            ess = effective_sample_size(chain[burn:])
+            rhat = gelman_rubin(chain[burn:])
+            self._log_convergence(chain[burn:])
+            self.log.info("min ESS: %.0f; max R-hat: %.4f; ESS/sec: %.0f"
+                          % (ess.min(), rhat.max(), ess.min() / elapsed))
+            return self._set_samples(chain, lnps, burn, ndim)
 
     def _set_samples(self, chain, lnps, burn, ndim):
         """(nsteps, W, D) chain -> flat post-burn samples with LnProb as

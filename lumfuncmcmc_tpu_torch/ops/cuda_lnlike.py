@@ -152,6 +152,7 @@ from lumfuncmcmc_tpu_torch.models.likelihood_z import (
 from lumfuncmcmc_tpu_torch.ops.completeness import (
     _log10_inverse_fleming_ratio)
 from lumfuncmcmc_tpu_torch.ops.schechter import LN10
+from lumfuncmcmc_tpu_torch.utils.tracing import span
 
 _LOG_LN10 = math.log(LN10)
 _LOGF_REF = -16.0       # reference log10-flux for the R factorization
@@ -1540,6 +1541,24 @@ def _tagged(fn, ctx: LFContext, data):
     return fn
 
 
+def _likelihood(features, kernel, collapsed, data, layout, kdtype):
+    """The float64 likelihood of (W, D) thetas before the prior, which
+    every lnprob and ``lnlike_fn`` computes: the rounded float64 features
+    (span ``features``), ``kernel(feats)`` (span ``kernel``: the value
+    kernel's launch, or :class:`_LnlikeOfFeats`) and, where the family
+    has them, the collapsed ln-terms from the same features."""
+    def lnlike(thetas):
+        with span("features"):
+            feats = features(thetas, data, layout, kdtype)
+        with span("kernel"):
+            part = kernel(feats)
+        if collapsed is not None:
+            part = part + collapsed(feats, thetas)
+        return part
+
+    return lnlike
+
+
 def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
     """The common body of the ``make_*`` lnprob functions (dtypes and
     library loading: :func:`_engine`). Free completeness from
@@ -1551,16 +1570,16 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
     outside the prior."""
     kdtype, lo, hi, data, (features, collapsed, inside, value, vg) = \
         _engine(ctx, layout, model)
+    lnlike = _likelihood(
+        features, (lambda f: _LnlikeOfFeats.apply(f, data, vg)) if grad
+        else (lambda f: value(f.to(kdtype), data)), collapsed, data, layout,
+        kdtype)
 
     def batched(thetas):
-        feats = features(thetas, data, layout, kdtype)
-        part = (_LnlikeOfFeats.apply(feats, data, vg) if grad
-                else value(feats.to(kdtype), data))
-        if collapsed is not None:
-            part = part + collapsed(feats, thetas)
-        lnl = part.to(thetas.dtype)
-        return torch.where(inside(thetas, lo, hi), lnl,
-                           torch.full_like(lnl, -math.inf))
+        with span("lnprob"):
+            lnl = lnlike(thetas).to(thetas.dtype)
+            return torch.where(inside(thetas, lo, hi), lnl,
+                               torch.full_like(lnl, -math.inf))
 
     return _tagged(batched, ctx, data)
 
@@ -1614,12 +1633,12 @@ def make_cuda_prior_like(ctx: LFContext, layout, model: str = "single"):
         def collapsed(f, th):
             return _hier_lnpart_f(f, data).sum(dim=1)
 
+    lnlike = _likelihood(features, lambda f: value(f.to(kdtype), data),
+                         collapsed, data, layout, kdtype)
+
     def lnlike_fn(thetas):
-        feats = features(thetas, data, layout, kdtype)
-        part = value(feats.to(kdtype), data)
-        if collapsed is not None:
-            part = part + collapsed(feats, thetas)
-        return part.to(thetas.dtype)
+        with span("lnprob"):
+            return lnlike(thetas).to(thetas.dtype)
 
     def lnprior_fn(thetas):
         ok = inside(thetas, lo, hi)

@@ -26,6 +26,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from lumfuncmcmc_tpu_torch.utils.tracing import span
+
 
 class EnsembleState(NamedTuple):
     pos: torch.Tensor      # (nwalkers, ndim)
@@ -182,16 +184,17 @@ def run_with_rands(lnprob_batch: Callable, pos0, rands, nsteps: int,
     if move == "mix":
         sel, sr, dr = rands
     for t in range(nsteps):
-        if move == "stretch" or (move == "mix" and not sel[t]):
-            r = tuple(x[t] for x in (rands if move == "stretch" else sr))
-            state, accepted = _step_pre(r, state, lnprob_batch, a)
-        else:
-            r = tuple(x[t] for x in (rands if move == "de" else dr))
-            state, accepted = _step_de_pre(r, state, lnprob_batch)
-        acc += accepted
-        if (t + 1) % thin == 0:
-            chain[t // thin] = state.pos
-            lnps[t // thin] = state.lnp
+        with span("step"):
+            if move == "stretch" or (move == "mix" and not sel[t]):
+                r = tuple(x[t] for x in (rands if move == "stretch" else sr))
+                state, accepted = _step_pre(r, state, lnprob_batch, a)
+            else:
+                r = tuple(x[t] for x in (rands if move == "de" else dr))
+                state, accepted = _step_de_pre(r, state, lnprob_batch)
+            acc += accepted
+            if (t + 1) % thin == 0:
+                chain[t // thin] = state.pos
+                lnps[t // thin] = state.lnp
     return state, chain, lnps, acc
 
 

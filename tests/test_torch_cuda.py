@@ -104,6 +104,39 @@ def test_step_loop_never_synchronises_with_the_host(device):
     assert 0 < float(acc.sum()) < 25 * 32
 
 
+def test_traced_step_loop_spans_are_host_events_only(device):
+    """Under a profiler of host and device, the stretch run's ``lf.*``
+    spans are host events alone (a device-side copy would read as device
+    work on the trace's timeline), nested as on the CPU, and the traced
+    run still makes no host sync."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=21)
+    layout = ThetaLayout.from_config(cfg)
+    lnprob = cl.make_cuda_lnprob(_context(cfg, device), layout)
+    gen = torch.Generator(device=device).manual_seed(0)
+    pos0 = sample_init(gen, layout, 32, dtype=torch.float32, device=device)
+    lnprob(pos0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_stretch(lnprob, pos0, gen, 5)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    host, dev = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("lf."):
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                dev.append(e.name())
+            else:
+                host[e.name()] = host.get(e.name(), 0) + 1
+    assert dev == []
+    assert host == {"lf.step": 5, "lf.lnprob": 11, "lf.features": 11,
+                    "lf.kernel": 11}
+
+
 def _grad_close(gp, gref, rtol=2e-3):
     """The JAX package's gradient gate: relative per component, floored
     at 1e-3 of the row's largest component."""
