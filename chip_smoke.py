@@ -26,6 +26,12 @@ nonzero exit:
    plain times; every value kernel is one launch a call (``ONE_LAUNCH``),
    also held to two launches on one input bit for bit, to its tickets back
    at 0, and at W = 50 to one kernel node a call (``torch.profiler``);
+   and the feature kernel of the free value path, ``free_feats``, against
+   the PyTorch map it replaces at fcmin 0.1 and 0, float32 and float64
+   thetas, W = 50 and 1600, rows out of the box (:func:`_check_feats`:
+   1 float32 ulp, the flags equal), timed beside the map and the whole
+   lnprob call; on every run below its launches are one a ``free_lnlike``
+   launch (:func:`_with_feats`);
 4. each value+gradient kernel (``free_lnlike_vg``, ``fixed_lnlike_vg``,
    ``z_lnlike_vg``, ``hier_lnlike_vg``) the same way at W = 1, 8 and 256
    (values rtol 1e-4, gradients by the JAX package's ``_grad_close`` rule
@@ -200,6 +206,7 @@ device line last.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -258,7 +265,7 @@ TPU_FILE = "lumfuncmcmc_tpu/ops/pallas_lnlike.py"
 KERNELS = ("free_lnlike", "fixed_lnlike", "free_lnlike_vg",
            "fixed_lnlike_vg", "z_lnlike", "z_lnlike_vg", "hier_lnlike",
            "hier_lnlike_vg", "free_stream_lnlike", "free_stream_lnlike_vg",
-           "roofline_chain")
+           "roofline_chain", "free_feats")
 PATH_SECONDS = 900      # what the fit paths' processes may take together
 DEVICE_LINE = "Device: cuda:0"      # what a run on the card logs first
 # the mega catalog: the JAX benchmark's stream tier (make_catalog with
@@ -269,7 +276,7 @@ DLNP_TOL = 0.05         # lnp difference of close thetas vs float64
 EVIDENCE_RUNGS = 16     # --evidence's rungs on the fit paths
 LADDER_STEPS = 400      # phase 14's ladder steps (the CLI's: the fit's -ns)
 SOURCES = {"z": "lnlike_z.cu", "hier": "lnlike_h.cu",
-           "fixed": "lnlike_h.cu",
+           "fixed": "lnlike_h.cu", "free_feats": "free_feats.cu",
            "free_stream": "lnlike_stream.cu", "roofline": "roofline.cu"}
 # The card's peaks for the bound (H100 SXM at 700 W): float32 outside the
 # tensor cores, and HBM.
@@ -627,6 +634,8 @@ def phase_kernels(dev):
     for case in _cases(dev, ""):
         kname, grid, layout, data = (case.kname, case.grid, case.layout,
                                      case.data)
+        if (kname, grid) == ("free_lnlike", "trapz-101"):
+            summary["free_feats"] = _check_feats(case, dev, empty_ms)
         one = kname in ONE_LAUNCH
         lo, hi = layout.bounds_arrays(torch.float64, dev)
         kernel = getattr(cl, kname)
@@ -730,6 +739,111 @@ def phase_kernels(dev):
                                         "kernels_us": kus,
                                         "empty_kernel_us": empty_ms * 1e3}
     return summary
+
+
+def _ulps(a, b):
+    """float32 ``a`` against ``b``: units in the last place apart (0 where
+    they are the same number or both NaN), and which entries are."""
+    same = (a == b) | (a.isnan() & b.isnan())
+    ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    return ulps.masked_fill(same, 0), same
+
+
+def _check_feats(case, dev, empty_ms):
+    """The feature kernel ``free_feats`` against the PyTorch map it
+    replaces on the value path (``free_feats_reference``: ``_features``
+    rounded to float32, and ``in_box``), both on the card, on the fits'
+    catalog at the flagship layout (``case``: ``free_lnlike`` trapz-101):
+    fcmin 0.1 and 0, float32 and float64 thetas, W = 50 (the stretch
+    fits' half-step) and 1600 (the ladder's 16 rungs x 100 walkers), with
+    rows out of the box (Flim < 0 and 0, NaN, beyond ``hi``): every
+    feature within 1 float32 ulp and >= 99.9% of them the same number,
+    NaN where the map's is, the flags equal, one launch a call; at W = 50
+    its device time, one kernel node a call whose name is not the value
+    kernel's (``portbench/kernel_names/free_lnlike.json``), and the whole
+    lnprob call. Returns its summary row."""
+    layout = case.layout
+    lo, hi = layout.bounds_arrays(torch.float32, dev)
+    k = 2 if layout.fix_sch_al else 3
+    rec = {"max_abs_err": 0.0, "max_rel_err": 0.0, "max_ulps": 0}
+    for fcmin in (case.data.fcmin, 0.0):
+        spec = cl.free_feats_spec(
+            dataclasses.replace(case.data, fcmin=fcmin), layout, lo, hi)
+        for dtype in (torch.float32, torch.float64):
+            for w in (50, 16 * NWALKERS):
+                gen = torch.Generator(device=dev).manual_seed(2000 + w)
+                th = _spoil(case, sample_init(gen, layout, w,
+                                              dtype=torch.float64,
+                                              device=dev))
+                th[-3, 0], th[-4, k] = math.nan, 0.0
+                th = th.to(dtype)
+                tag = (f"free_feats fcmin {fcmin:g} "
+                       f"{str(dtype).split('.')[-1]} W={w}")
+                n0 = cl.free_feats.launches
+                feats, ok = cl.free_feats(th, spec)
+                if cl.free_feats.launches != n0 + 1:
+                    fail(f"{tag}: {cl.free_feats.launches - n0} launches")
+                want, want_ok = cl.free_feats_reference(th, spec)
+                torch.cuda.synchronize()
+                if feats.shape != want.shape or feats.dtype != want.dtype:
+                    fail(f"{tag}: {tuple(feats.shape)} {feats.dtype} rows, "
+                         f"the map's {tuple(want.shape)} {want.dtype}")
+                if not torch.equal(feats.isnan(), want.isnan()):
+                    fail(f"{tag}: NaN where the map has none, or none "
+                         "where it has")
+                ulps, same = _ulps(feats, want)
+                share = float(same.float().mean())
+                fin = torch.isfinite(want) & (want != 0)
+                diff = (feats - want)[fin].abs()
+                err_a = float(diff.max())
+                err_r = float((diff / want[fin].abs()).max())
+                print(f"{tag}: vs the PyTorch map max {int(ulps.max())} "
+                      f"float32 ulp, {share:.6f} of the features the same "
+                      f"number (max abs {err_a:.3e}, max rel {err_r:.3e}); "
+                      f"{int((~ok).sum())} rows outside the prior, flags "
+                      f"{'equal' if torch.equal(ok, want_ok) else 'DIFFER'}")
+                if int(ulps.max()) > 1 or share < 0.999:
+                    fail(f"{tag}: {int(ulps.max())} ulp apart at most, "
+                         f"{share:.6f} the same (limits 1, 0.999)")
+                if not torch.equal(ok, want_ok) or int((~ok).sum()) != 4:
+                    fail(f"{tag}: flags {int((~ok).sum())} out of the box, "
+                         f"the map's {int((~want_ok).sum())} (planted 4)")
+                rec["max_ulps"] = max(rec["max_ulps"], int(ulps.max()))
+                rec["max_abs_err"] = max(rec["max_abs_err"], err_a)
+                rec["max_rel_err"] = max(rec["max_rel_err"], err_r)
+                if (fcmin, dtype, w) != (case.data.fcmin, torch.float32, 50):
+                    continue
+                ms = _device_ms(lambda: cl.free_feats(th, spec))
+                pms = _device_ms(lambda: cl.free_feats_reference(th, spec))
+                cms = _call_ms(lambda: cl.free_feats(th, spec))
+                lms = _call_ms(lambda: case.lnprob32(th))
+                kus = _one_node("free_feats", "trapz-101", w,
+                                lambda: cl.free_feats(th, spec), empty_ms)
+                with open("portbench/kernel_names/free_lnlike.json") as fh:
+                    pats = json.load(fh)["device_kernels"]
+                hit = [n for n in kus for p in pats if re.match(p, n + "(")]
+                if hit:
+                    fail(f"free_feats: the value kernel's name pattern "
+                         f"matches its device kernel {hit}")
+                # a lower bound from bytes alone: the thetas read, the
+                # rows and flags written, the box read; the float64
+                # log10 / pow / sqrt of a row are not counted
+                nbytes = (th.numel() * th.element_size() + 4 * feats.numel()
+                          + w + 8 * 2 * layout.ndim)
+                bms = nbytes / PEAK_BYTES * 1e3
+                print(f"{tag} device time: kernel {ms * 1e3:.2f} us, the "
+                      f"PyTorch map {pms * 1e3:.2f} us; eager wrapper call "
+                      f"{cms * 1e3:.2f} us; the whole lnprob call "
+                      f"{lms * 1e3:.2f} us; bound {bms * 1e3:.4f} us "
+                      f"(bytes: {nbytes})")
+                rec.update(ms=ms, plain_ms=pms, call_ms=cms,
+                           lnprob_call_ms=lms, bound_ms=bms,
+                           bound_by="bytes", trans=None,
+                           shape=f"W=50, flagship layout (D = "
+                                 f"{layout.ndim}), float32 thetas",
+                           split={"call_us": ms * 1e3, "kernels_us": kus,
+                                  "empty_kernel_us": empty_ms * 1e3})
+    return rec
 
 
 def _eager_value_and_grad(case, th):
@@ -1370,10 +1484,7 @@ def phase_fit(label, workdir, has_mpl):
         fail(f"{label}: acceptance fraction {acc} outside (0.1, 0.9)")
     stem, nsrc = _route(path, rec, label)
     used = f"{stem}_lnlike"
-    want = {k: 0 for k in KERNELS}
-    want[used] = 1 + 2 * path.nsteps
-    if counts != want:
-        fail(f"{label}: launch counts {counts}, expected {want}")
+    _expect(label, counts, {used: 1 + 2 * path.nsteps})
     col = np.asarray(post[path.col])
     extra = ""
     if path.x64:
@@ -1493,13 +1604,11 @@ def phase_nuts(stretch_label, workdir, has_mpl, stretch_col):
              f"{np.median(stretch_col):.4f} (limit 3)")
     fam, _ = _route(path, rec, label)
     rows = nsteps * NUTS_CHAINS
-    want = {k: 0 for k in KERNELS}
-    want[f"{fam}_lnlike_vg"] = int(ntrans + nlf)
     # the forward kernel: the start guard (one call) and the theta-space
     # Ln Prob recompute (one call per MAX_ROWS rows)
-    want[f"{fam}_lnlike"] = 1 + math.ceil(rows / cl.MAX_ROWS)
-    if counts != want:
-        fail(f"{label}: launch counts {counts}, expected {want}")
+    _expect(label, counts, {f"{fam}_lnlike_vg": int(ntrans + nlf),
+                            f"{fam}_lnlike": 1 + math.ceil(
+                                rows / cl.MAX_ROWS)})
     print(f"{label}: artifacts ok ({len(col)} posterior rows); median "
           f"{path.col} {np.median(col):.4f} vs stretch "
           f"{np.median(stretch_col):.4f} ({gap:.2f} sd); "
@@ -1656,8 +1765,7 @@ def phase_compare(label, workdir, has_mpl):
                      f"in {secs:.2f} s, {want[f'{stem}_lnlike']} "
                      f"{stem}_lnlike launches"
                      + (f" (tuning legs of {tune} steps)" if tune else ""))
-    if counts != want:
-        fail(f"{name}: launch counts {counts}, expected {want}")
+    _expect(name, counts, want)
     print(f"{name} (resumed): artifacts ok ({len(files)} files); "
           + "; ".join(notes) + f"; CLI wall {wall:.1f} s, device memory "
           f"peak {peak / 2**20:.1f} MiB")
@@ -1713,8 +1821,7 @@ def phase_also(label, workdir, has_mpl, stretch_col):
                      "uniform fallback (mode on a box edge)")
                   + f", acceptance {acc:.4f}, sampling loop "
                   f"{rec.value('Total time taken:'):.3f} s")
-    if counts != want:
-        fail(f"{name}: launch counts {counts}, expected {want}")
+    _expect(name, counts, want)
     print(f"{name}: ok; {detail}; CLI wall {wall:.1f} s")
     return counts
 
@@ -1776,7 +1883,7 @@ def phase_ladder(dev):
         pos0 = torch.stack([sample_init(gen, layout, NWALKERS,
                                         dtype=torch.float32, device=dev)
                             for _ in range(EVIDENCE_RUNGS)])
-        n0 = kernel.launches
+        n0, f0 = kernel.launches, cl.free_feats.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         chains, lnls, _ = run_tempered(prior, like, pos0, betas, gen,
@@ -1789,6 +1896,12 @@ def phase_ladder(dev):
         if kernel.launches - n0 != want:
             fail(f"{fam} ladder: {kernel.launches - n0} {fam}_lnlike "
                  f"launches, expected {want}")
+        # lnlike_fn of the resident free route: free_feats, then the value
+        # kernel, a call
+        nfeat = want if fam == "free" else 0
+        if cl.free_feats.launches - f0 != nfeat:
+            fail(f"{fam} ladder: {cl.free_feats.launches - f0} free_feats "
+                 f"launches, expected {nfeat}")
         burn = LADDER_STEPS // 2
         post = chains[:, burn:].double()
         with torch.no_grad():
@@ -2103,10 +2216,7 @@ def _long_run(name, argv, workdir, has_mpl, out, base, want, run_dir=None):
     if rc != 0:
         fail(f"{name} returned {rc}")
     post = _artifacts(name, os.path.join(run_dir, out), base, has_mpl)
-    expect = {k: 0 for k in KERNELS}
-    expect.update(want(rec) if callable(want) else want)
-    if counts != expect:
-        fail(f"{name}: launch counts {counts}, expected {expect}")
+    _expect(name, counts, want(rec) if callable(want) else want)
     used = {k: v for k, v in counts.items() if v}
     print(f"{name}: CLI wall {wall:.1f} s, launches {used or 'none'}, "
           f"device memory peak {peak / 2**20:.1f} MiB")
@@ -2159,8 +2269,8 @@ def run_long(workdir, has_mpl):
     total = {k: 0 for k in KERNELS}
     blk = 1 + 2 * LONG_BLOCK
 
-    def add(rec_counts):
-        for k, v in rec_counts.items():
+    def add(want):      # each run's expected counts, which it was held to
+        for k, v in _with_feats(want).items():
             total[k] += v
 
     # a checkpointed fit, then the same command on its npz cut at 2 of 4
@@ -2405,10 +2515,22 @@ def _grid_mega_model(dev, **over):
 
 
 def _expect(label, counts, want):
+    """Fail unless ``counts`` are ``want``'s (kernel -> launches; a kernel
+    it leaves out: 0) and :func:`_with_feats`'s ``free_feats``."""
     full = {k: 0 for k in KERNELS}
-    full.update(want)
+    full.update(_with_feats(want))
     if counts != full:
         fail(f"{label}: launch counts {counts}, expected {full}")
+
+
+def _with_feats(want):
+    """``want`` with the feature kernel's launches: one for each
+    ``free_lnlike`` launch. Every lnprob and ``lnlike_fn`` of the resident
+    free route on the card launches ``free_feats`` before the value kernel
+    (``ops/cuda_lnlike.py`` ``_likelihood``): the stretch fits, the
+    tempered ladders, NUTS's start guard and Ln Prob recompute; NUTS's
+    value+gradient kernel and the streaming route launch none."""
+    return {**want, "free_feats": want.get("free_lnlike", 0)}
 
 
 def _rows_of(name):
@@ -2974,7 +3096,8 @@ EXAMPLE_LAUNCHES = {
     "quickstart": {"fixed_lnlike": None, "fixed_lnlike_vg": None},
     "model_comparison": {"fixed_lnlike": None, "z_lnlike": None},
     "sbc_check": {"fixed_lnlike": 2 * (2 * 600 + 1)},
-    "coverage_check": {"free_lnlike": 2 * (2 * 1500 + 1)},
+    "coverage_check": {"free_lnlike": 2 * (2 * 1500 + 1),
+                       "free_feats": 2 * (2 * 1500 + 1)},
     "coverage_check_z": {"z_lnlike": 2 * (2 * 1500 + 1)},
 }
 EXAMPLE_SECONDS = 600       # what the five examples' processes may take
@@ -3058,11 +3181,11 @@ def _calib_replicate(label, fn, kname, steps, k, rng, rec, **kw):
     wall = time.perf_counter() - t0
     counts = {name: _kernel(name).launches for name in KERNELS}
     want = {name: 0 for name in KERNELS}
-    want[kname] = 2 * steps + 1
+    want.update(_with_feats({kname: 2 * steps + 1}))
     if counts != want:
         fail(f"{label} {k}: launches "
              f"{ {n: v for n, v in counts.items() if v} }, want "
-             f"{kname} {want[kname]} and nothing else")
+             f"{ {n: v for n, v in want.items() if v} } and nothing else")
     if len(chains) != 1 or not np.isfinite(chains[0]).all():
         fail(f"{label} {k}: no run, or a non-finite chain")
     split = [ln for ln in rec.lines if ln.startswith("calibration ")
@@ -3358,6 +3481,8 @@ REPLACES = {
     "free_stream_lnlike": (f"{TPU_FILE}:941", f"{TPU_FILE}:404"),
     "free_stream_lnlike_vg": (f"{TPU_FILE}:1009", f"{TPU_FILE}:1711"),
     "roofline_chain": ("lumfuncmcmc_tpu/ops/pallas_roofline.py:59",),
+    # no Pallas kernel: XLA fused this feature map around the Pallas call
+    "free_feats": (f"{TPU_FILE}:1288",),
 }
 
 
@@ -3413,7 +3538,8 @@ def main():
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
-            "same_mix_ms": s["trans"] / peak * 1e3,
+            "same_mix_ms": (None if s["trans"] is None
+                            else s["trans"] / peak * 1e3),
             "max_rel_err": s["max_rel_err"], "call_ms": s["call_ms"],
             "shape": s["shape"]}
         if len(REPLACES[name]) > 1:
@@ -3422,7 +3548,7 @@ def main():
                   "bound_ms_w256", "ms_w1", "split", "split_w1",
                   "split_w256", "resident_ms", "resident_ms_w256",
                   "dlnp_err", "resident_dlnp_err", "ladder_dlnz",
-                  "lnprob_call_ms",
+                  "lnprob_call_ms", "max_ulps",
                   "elements_per_sec",
                   "transcendentals_per_sec"):
             if k in s:

@@ -33,11 +33,19 @@ def _log10_inverse_fleming_ratio(alpha, fcmin):
     crossing sits on the faint side of F50 for fcmin < 0.5 and the
     bright side for fcmin > 0.5. ``alpha`` is a tensor or a float,
     ``fcmin`` a float in (0, 1)."""
+    sign, a = _fleming_ratio_constants(fcmin)
+    sqrt = torch.sqrt if isinstance(alpha, torch.Tensor) else math.sqrt
+    return sign * sqrt(a / alpha**2)
+
+
+def _fleming_ratio_constants(fcmin):
+    """``(sign, A)`` of :func:`_log10_inverse_fleming_ratio`, which is
+    ``sign * sqrt(A / alpha**2)``: the sign of ``2 fcmin - 1`` and
+    ``|a / (1 - a)|``, ``a = (2 fcmin - 1)^2`` (``csrc/free_feats.cu``
+    takes them from here)."""
     s = 2.0 * fcmin - 1.0
     a = s * s
-    sign = float((s > 0) - (s < 0))
-    sqrt = torch.sqrt if isinstance(alpha, torch.Tensor) else math.sqrt
-    return sign * sqrt(abs(a / (1.0 - a)) / alpha**2)
+    return float((s > 0) - (s < 0)), abs(a / (1.0 - a))
 
 
 def inverse_fleming(f50, alpha, fcmin=0.1):

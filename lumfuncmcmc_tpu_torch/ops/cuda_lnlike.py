@@ -107,6 +107,14 @@ float64, the theta-affine source terms are collapsed in float64 from
 per-shard catalog sums (:func:`_stream_collapsed`, added on the host),
 and ``logf``/``lF50`` enter relative to ``_LOGF_REF``.
 
+One kernel of ``csrc/free_feats.cu`` replaces no TPU kernel (XLA fused
+the feature map there): :data:`free_feats` takes (W, D) thetas to the
+free-completeness feature rows in float32 and the prior-box flags in one
+launch, for the value path of the resident free route on the card
+(:func:`_likelihood`: ``fit``'s stretch runs and tempering), where
+the PyTorch map costs ~30 small float64 launches a call. The
+value+gradient path keeps the PyTorch map, whose Jacobian autograd takes.
+
 The value+gradient kernels feed :func:`make_cuda_lnprob_and_grad`, the
 NUTS gradient path: a ``torch.autograd.Function`` hands the feature
 gradient to autograd of the cheap feature map, the counterpart of the
@@ -150,7 +158,7 @@ from lumfuncmcmc_tpu_torch.models.likelihood import (
 from lumfuncmcmc_tpu_torch.models.likelihood_z import (
     ThetaLayoutZ, in_box_z)
 from lumfuncmcmc_tpu_torch.ops.completeness import (
-    _log10_inverse_fleming_ratio)
+    _fleming_ratio_constants, _log10_inverse_fleming_ratio)
 from lumfuncmcmc_tpu_torch.ops.schechter import LN10
 from lumfuncmcmc_tpu_torch.utils.tracing import span
 
@@ -1256,18 +1264,24 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _check_rows(x, what, ncols):
+    """A kernel's (W, ``ncols``) input rows: the shape, 1..MAX_ROWS rows,
+    contiguous."""
+    if x.dim() != 2 or x.shape[1] != ncols:
+        raise ValueError(f"{what} must be (W, {ncols}), got "
+                         f"{tuple(x.shape)}")
+    if not 0 < x.shape[0] <= MAX_ROWS:
+        raise ValueError(f"walker batch of {x.shape[0]} is outside "
+                         f"the kernel's 1..{MAX_ROWS} launch range")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
 def _check_cuda_inputs(feats, nfeat, tables, arrays):
     if feats.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32 features, got "
                         f"{feats.dtype}")
-    if feats.dim() != 2 or feats.shape[1] != nfeat:
-        raise ValueError(f"features must be (W, {nfeat}), got "
-                         f"{tuple(feats.shape)}")
-    if not 0 < feats.shape[0] <= MAX_ROWS:
-        raise ValueError(f"walker batch of {feats.shape[0]} is outside "
-                         f"the kernel's 1..{MAX_ROWS} launch range")
-    if not feats.is_contiguous():
-        raise ValueError("features must be contiguous")
+    _check_rows(feats, "features", nfeat)
     for a in arrays + tables:
         if a.device != feats.device:
             raise ValueError(f"grid data on {a.device}, features on "
@@ -1459,6 +1473,94 @@ free_stream_lnlike_vg = _wrapper(
     "gradient, (W, 6+2F) features -> (W, 7+2F) float64 rows.")
 
 
+# ---------------------------------------------------------------------------
+# the feature kernel of the free-completeness value path
+# ---------------------------------------------------------------------------
+
+class _FreeFeatsParams(ctypes.Structure):
+    """``FreeFeatsParams`` of ``csrc/free_feats.cu``, field for field."""
+    _fields_ = [("box", ctypes.c_void_p), ("sch_al0", ctypes.c_double),
+                ("lref", ctypes.c_double), ("ratio_a", ctypes.c_double),
+                ("ratio_sign", ctypes.c_double), ("ndim", ctypes.c_int),
+                ("nfields", ctypes.c_int), ("fix_sch_al", ctypes.c_int),
+                ("fcmin", ctypes.c_int)]
+
+
+@dataclass(frozen=True, eq=False)
+class FreeFeatsSpec:
+    """What :func:`free_feats` needs of a route, made once with its
+    lnprob (:func:`free_feats_spec`): the data (``lref``, ``fcmin``), the
+    layout, the prior box as the route holds it, and on the card the box
+    as one (2, D) float64 tensor, the kernel's parameters and the
+    library's entry point."""
+
+    data: CudaGridData
+    layout: ThetaLayout
+    lo: torch.Tensor
+    hi: torch.Tensor
+    box: Optional[torch.Tensor] = None
+    params: Optional[_FreeFeatsParams] = None
+    entry: object = None
+
+
+def free_feats_spec(data: CudaGridData, layout: ThetaLayout, lo, hi):
+    """The :class:`FreeFeatsSpec` of a free-completeness route; for a
+    route on the card the library is loaded and the kernel's parameters
+    set here, once, not per call."""
+    if lo.device.type != "cuda":
+        return FreeFeatsSpec(data, layout, lo, hi)
+    from lumfuncmcmc_tpu_torch.ops._build import load_library
+    box = torch.stack([lo, hi]).double().contiguous()
+    sign, a = _fleming_ratio_constants(data.fcmin) if data.fcmin else (0, 0)
+    params = _FreeFeatsParams(
+        box.data_ptr(), layout.sch_al0, data.lref, a, sign, layout.ndim,
+        layout.nfields, int(layout.fix_sch_al), int(bool(data.fcmin)))
+    return FreeFeatsSpec(data, layout, lo, hi, box, params,
+                         load_library().free_feats_launch)
+
+
+def _check_thetas(thetas, spec: FreeFeatsSpec):
+    if thetas.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"free_feats takes float32 or float64 thetas, got "
+                        f"{thetas.dtype}")
+    _check_rows(thetas, "thetas", spec.layout.ndim)
+    if thetas.device != spec.lo.device:
+        raise ValueError(f"thetas on {thetas.device}, the route on "
+                         f"{spec.lo.device}")
+
+
+def free_feats_reference(thetas, spec: FreeFeatsSpec):
+    """The PyTorch map that ``free_feats`` computes: :func:`_features`'
+    rows as float32, and :func:`in_box` of the route's box."""
+    _check_thetas(thetas, spec)
+    return (_features(thetas, spec.data, spec.layout, torch.float32).float(),
+            in_box(thetas, spec.lo, spec.hi))
+
+
+def _launch_feats(name, thetas, spec: FreeFeatsSpec):
+    """Check the thetas and launch ``free_feats`` on the current stream of
+    their device: the float32 (W, 6+2F) features and the (W,) bool flags.
+    Everything but the thetas was checked and looked up with ``spec``."""
+    _check_thetas(thetas, spec)
+    w = thetas.shape[0]
+    feats = torch.empty((w, 6 + 2 * spec.layout.nfields),
+                        dtype=torch.float32, device=thetas.device)
+    inside = torch.empty((w,), dtype=torch.bool, device=thetas.device)
+    rc = spec.entry(thetas.data_ptr(), w, thetas.dtype == torch.float64,
+                    ctypes.addressof(spec.params), feats.data_ptr(),
+                    inside.data_ptr(),
+                    torch._C._cuda_getCurrentRawStream(thetas.device.index))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return feats, inside
+
+
+free_feats = _wrapper(
+    "free_feats", free_feats_reference, _launch_feats,
+    "Free-completeness feature rows and prior flags, (W, D) float32 or "
+    "float64 thetas -> ((W, 6+2F) float32, (W,) bool).")
+
+
 class _LnlikeOfFeats(torch.autograd.Function):
     """lnlike of (W, nfeat) features through one value+gradient call;
     the backward is one elementwise multiply by the saved gradient
@@ -1541,12 +1643,35 @@ def _tagged(fn, ctx: LFContext, data):
     return fn
 
 
-def _likelihood(features, kernel, collapsed, data, layout, kdtype):
+def _likelihood(ctx: LFContext, layout, engine, grad: bool, flags: bool):
     """The float64 likelihood of (W, D) thetas before the prior, which
-    every lnprob and ``lnlike_fn`` computes: the rounded float64 features
-    (span ``features``), ``kernel(feats)`` (span ``kernel``: the value
-    kernel's launch, or :class:`_LnlikeOfFeats`) and, where the family
-    has them, the collapsed ln-terms from the same features."""
+    every lnprob and ``lnlike_fn`` computes, and the rows' in-box flags
+    (None where ``flags`` is not set, but on the :data:`free_feats` route,
+    whose launch makes them anyway): ``engine`` is :func:`_engine`'s
+    ``(kdtype, lo, hi, data, functions)``.
+
+    The value path of the resident free-completeness route on the card
+    (its value kernel :data:`free_lnlike`) takes :data:`free_feats`, the
+    float32 feature rows and the flags in one launch (span ``features``),
+    then the value kernel (span ``kernel``). Every other route computes
+    the rounded float64 features (span ``features``), ``kernel(feats)``
+    (span ``kernel``: the value kernel's launch, or
+    :class:`_LnlikeOfFeats`), where the family has them the collapsed
+    ln-terms from the same features, and the flags by its prior test."""
+    kdtype, lo, hi, data, (features, collapsed, inside, value, vg) = engine
+    if not grad and value is free_lnlike and ctx.lum.device.type == "cuda":
+        spec = free_feats_spec(data, layout, lo, hi)
+
+        def fused(thetas):
+            with span("features"):
+                feats, ok = free_feats(thetas, spec)
+            with span("kernel"):
+                return value(feats, data), ok
+
+        return fused
+    kernel = ((lambda f: _LnlikeOfFeats.apply(f, data, vg)) if grad
+              else (lambda f: value(f.to(kdtype), data)))
+
     def lnlike(thetas):
         with span("features"):
             feats = features(thetas, data, layout, kdtype)
@@ -1554,7 +1679,7 @@ def _likelihood(features, kernel, collapsed, data, layout, kdtype):
             part = kernel(feats)
         if collapsed is not None:
             part = part + collapsed(feats, thetas)
-        return part
+        return part, (inside(thetas, lo, hi) if flags else None)
 
     return lnlike
 
@@ -1564,22 +1689,22 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
     library loading: :func:`_engine`). Free completeness from
     ``STREAM_MIN_SOURCES`` sources on takes the streaming kernels.
 
-    The kernel's float64 value plus, where the family has them, the
-    collapsed ln-terms, both from the same rounded float64 features, are
-    summed in float64; then the thetas' dtype and the prior mask: -inf
-    outside the prior."""
-    kdtype, lo, hi, data, (features, collapsed, inside, value, vg) = \
-        _engine(ctx, layout, model)
-    lnlike = _likelihood(
-        features, (lambda f: _LnlikeOfFeats.apply(f, data, vg)) if grad
-        else (lambda f: value(f.to(kdtype), data)), collapsed, data, layout,
-        kdtype)
+    :func:`_likelihood`'s float64 value (the kernel's, plus where the
+    family has them the collapsed ln-terms, both from the same rounded
+    features), then the thetas' dtype and the prior mask: -inf outside
+    the prior."""
+    engine = _engine(ctx, layout, model)
+    lo, data = engine[1], engine[3]
+    lnlike = _likelihood(ctx, layout, engine, grad, flags=True)
+    # -inf as a device scalar of each dtype: a Python -inf would cost
+    # torch.where a fill launch a call
+    ninf = {dt: torch.full((), -math.inf, dtype=dt, device=lo.device)
+            for dt in (torch.float32, torch.float64)}
 
     def batched(thetas):
         with span("lnprob"):
-            lnl = lnlike(thetas).to(thetas.dtype)
-            return torch.where(inside(thetas, lo, hi), lnl,
-                               torch.full_like(lnl, -math.inf))
+            lnl, ok = lnlike(thetas)
+            return torch.where(ok, lnl.to(thetas.dtype), ninf[thetas.dtype])
 
     return _tagged(batched, ctx, data)
 
@@ -1625,20 +1750,24 @@ def make_cuda_prior_like(ctx: LFContext, layout, model: str = "single"):
 
     The features clamp into the box as :func:`_make_lnprob`'s do, so an
     out-of-box row gets a finite ``lnlike_fn`` and ``lnprior_fn`` masks
-    it. One ``lnlike_fn`` call is one kernel launch on the card;
-    ``lnlike_fn`` carries ``.data``/``.engine`` as the lnprob does."""
-    kdtype, lo, hi, data, (features, collapsed, inside, value, _) = \
-        _engine(ctx, layout, model)
+    it. One ``lnlike_fn`` call is one launch of the value kernel on the
+    card (and one of :data:`free_feats` on the resident free route,
+    :func:`_likelihood`); ``lnlike_fn`` carries ``.data``/``.engine`` as
+    the lnprob does."""
+    engine = _engine(ctx, layout, model)
+    kdtype, lo, hi, data, fns = engine
+    inside = fns[2]
     if model == "hier":
-        def collapsed(f, th):
+        def lnpart(f, th):
             return _hier_lnpart_f(f, data).sum(dim=1)
 
-    lnlike = _likelihood(features, lambda f: value(f.to(kdtype), data),
-                         collapsed, data, layout, kdtype)
+        engine = (kdtype, lo, hi, data, (fns[0], lnpart) + fns[2:])
+    # the prior is lnprior_fn's
+    lnlike = _likelihood(ctx, layout, engine, grad=False, flags=False)
 
     def lnlike_fn(thetas):
         with span("lnprob"):
-            return lnlike(thetas).to(thetas.dtype)
+            return lnlike(thetas)[0].to(thetas.dtype)
 
     def lnprior_fn(thetas):
         ok = inside(thetas, lo, hi)

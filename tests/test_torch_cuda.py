@@ -12,7 +12,8 @@ import torch
 from lumfuncmcmc_tpu_torch import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
 from lumfuncmcmc_tpu_torch.models.hierarchical import ThetaLayoutH
-from lumfuncmcmc_tpu_torch.models.likelihood import ThetaLayout, sample_init
+from lumfuncmcmc_tpu_torch.models.likelihood import (
+    ThetaLayout, in_box, sample_init)
 from lumfuncmcmc_tpu_torch.models.likelihood_z import ThetaLayoutZ
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
 from lumfuncmcmc_tpu_torch.samplers import nuts
@@ -91,7 +92,7 @@ def test_step_loop_never_synchronises_with_the_host(device):
     pos0 = sample_init(gen, layout, 32, dtype=torch.float32, device=device)
     lnprob(pos0)                    # builds and loads the kernels
     torch.cuda.synchronize()
-    n0 = cl.free_lnlike.launches
+    n0, f0 = cl.free_lnlike.launches, cl.free_feats.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         state, chain, lnps, acc = run_stretch(lnprob, pos0, gen, 25,
@@ -99,9 +100,111 @@ def test_step_loop_never_synchronises_with_the_host(device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert cl.free_lnlike.launches - n0 == 1 + 2 * 25
+    assert cl.free_feats.launches - f0 == 1 + 2 * 25
     assert chain.shape == (25, 32, layout.ndim)
     assert torch.isfinite(lnps[-1]).all()
     assert 0 < float(acc.sum()) < 25 * 32
+
+
+def _ulps(a, b):
+    """float32 ``a`` against ``b``: units in the last place apart (0 where
+    both are NaN), and whether each entry is the same number."""
+    both_nan = a.isnan() & b.isnan()
+    ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    return ulps.masked_fill(both_nan, 0), (a == b) | both_nan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fix_sch_al", [False, True])
+@pytest.mark.parametrize("fcmin", [0.1, 0.0])
+def test_free_feats_kernel_matches_the_pytorch_map(device, fcmin, fix_sch_al,
+                                                   dtype):
+    """``free_feats`` on the card against the PyTorch map it replaces, run
+    on the card (``_features`` rounded to float32, ``in_box``), at W = 1,
+    50 and 257 with rows out of the box (Flim <= 0, NaN, beyond ``hi``):
+    every feature within 1 float32 ulp, >= 99.9% of them the same number,
+    NaN where the map gives NaN, the flags equal; one launch a call."""
+    from test_torch_free_feats import edge_thetas
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=11, fcmin=fcmin,
+                   fix_sch_al=fix_sch_al)
+    layout = ThetaLayout.from_config(cfg)
+    data = cl.prepare_cuda_data(_context(cfg, device), False, cfg.fcmin)
+    lo, hi = layout.bounds_arrays(torch.float32, device)
+    spec = cl.free_feats_spec(data, layout, lo, hi)
+    for w in (1, 50, 257):
+        th = edge_thetas(layout, w, dtype, device, seed=w)
+        n0 = cl.free_feats.launches
+        feats, ok = cl.free_feats(th, spec)
+        assert cl.free_feats.launches == n0 + 1
+        want = cl._features(th, data, layout, torch.float32).float()
+        assert feats.shape == want.shape and feats.dtype == torch.float32
+        assert torch.equal(feats.isnan(), want.isnan())
+        ulps, same = _ulps(feats, want)
+        assert int(ulps.max()) <= 1
+        assert float(same.float().mean()) >= 0.999
+        assert torch.equal(ok, in_box(th, lo, hi))
+        assert int((~ok).sum()) == min(w, 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_value_path_at_the_flagship_config_is_the_pytorch_maps(device,
+                                                               dtype):
+    """The flagship's configuration (the default fields, free completeness,
+    trapz-101): ``make_cuda_lnprob`` through ``free_feats`` gives the
+    values of the PyTorch map's route (``_features``, ``free_lnlike``) to
+    the kernels' rtol 1e-4 inside the box and -inf outside it;
+    tempering's ``lnlike_fn`` gives the unmasked values; a call makes at
+    most 4 device launches (feature kernel, value kernel, cast, mask)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from test_torch_free_feats import edge_thetas
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=101)
+    layout = ThetaLayout.from_config(cfg)
+    ctx = _context(cfg, device)
+    lnprob = cl.make_cuda_lnprob(ctx, layout)
+    _, like = cl.make_cuda_prior_like(ctx, layout)
+    lo, hi = layout.bounds_arrays(torch.float32, device)
+    for w in (50, 257):
+        th = edge_thetas(layout, w, dtype, device, seed=w)
+        lnl = cl.free_lnlike(cl._features(th, lnprob.data, layout,
+                                          torch.float32).float(),
+                             lnprob.data).to(dtype)
+        ok = in_box(th, lo, hi)
+        n0 = cl.free_feats.launches
+        got, unmasked = lnprob(th), like(th)
+        assert cl.free_feats.launches == n0 + 2
+        assert got.dtype == dtype and unmasked.dtype == dtype
+        assert torch.isneginf(got[~ok]).all()
+        np.testing.assert_allclose(got[ok].cpu().numpy(),
+                                   lnl[ok].cpu().numpy(), rtol=1e-4)
+        np.testing.assert_allclose(unmasked[ok].cpu().numpy(),
+                                   lnl[ok].cpu().numpy(), rtol=1e-4)
+    th = edge_thetas(layout, 50, torch.float32, device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            lnprob(th)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(dev) <= 4 * 10
+
+
+def test_value_and_grad_path_keeps_the_pytorch_map(device):
+    """NUTS's value+gradient lnprob never launches ``free_feats``: its
+    features come from the PyTorch map, whose Jacobian autograd takes."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=21)
+    layout = ThetaLayout.from_config(cfg)
+    lnpg = cl.make_cuda_lnprob_and_grad(_context(cfg, device), layout)
+    lo, hi = layout.bounds_arrays(torch.float32, device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    th = (0.7 * (lo + hi) / 2 + 0.3 * sample_init(
+        gen, layout, 8, dtype=torch.float32, device=device)).requires_grad_()
+    f0, v0 = cl.free_feats.launches, cl.free_lnlike_vg.launches
+    lnpg(th).sum().backward()
+    assert cl.free_feats.launches == f0
+    assert cl.free_lnlike_vg.launches == v0 + 1
+    assert torch.isfinite(th.grad).all()
 
 
 def test_traced_step_loop_spans_are_host_events_only(device):
