@@ -1657,7 +1657,8 @@ def _likelihood(ctx: LFContext, layout, engine, grad: bool, flags: bool):
     the rounded float64 features (span ``features``), ``kernel(feats)``
     (span ``kernel``: the value kernel's launch, or
     :class:`_LnlikeOfFeats`), where the family has them the collapsed
-    ln-terms from the same features, and the flags by its prior test."""
+    ln-terms from the same features (span ``collapse``), and the flags by
+    its prior test."""
     kdtype, lo, hi, data, (features, collapsed, inside, value, vg) = engine
     if not grad and value is free_lnlike and ctx.lum.device.type == "cuda":
         spec = free_feats_spec(data, layout, lo, hi)
@@ -1678,7 +1679,8 @@ def _likelihood(ctx: LFContext, layout, engine, grad: bool, flags: bool):
         with span("kernel"):
             part = kernel(feats)
         if collapsed is not None:
-            part = part + collapsed(feats, thetas)
+            with span("collapse"):
+                part = part + collapsed(feats, thetas)
         return part, (inside(thetas, lo, hi) if flags else None)
 
     return lnlike
