@@ -82,7 +82,15 @@ nonzero exit:
    through each kernel's value (<= 0.05 absolute), two launches on one
    input bit for bit, and the sum of 2 shards against one (1e-6); the
    resident kernels' times at the same shape beside theirs (their tickets
-   held back at 0 after every call);
+   held back at 0 after every call); and the streaming value path's
+   feature kernel, ``stream_feats``, against the PyTorch map it replaces
+   (``_features_stream``, ``in_box``, ``_stream_collapsed``) at W = 50 and
+   51, float64 and float32 thetas, rows out of the box
+   (:func:`_check_stream_feats`: 1 float32 ulp, the flags equal, the
+   collapsed column that of its own rows bit for bit), timed beside the map
+   and the whole lnprob call; on every run below its launches are one a
+   ``free_stream_lnlike`` launch off a source-split grid
+   (:func:`_with_feats`);
 12. ``fit mega``: ``fit`` and ``fit --sampler nuts`` on that catalog with
    ``use_x64`` (float64 lnprob, float32 kernels): the artifacts, the log's
    1,019,385 sources and streaming engine, exact launch counts (stretch
@@ -265,7 +273,7 @@ TPU_FILE = "lumfuncmcmc_tpu/ops/pallas_lnlike.py"
 KERNELS = ("free_lnlike", "fixed_lnlike", "free_lnlike_vg",
            "fixed_lnlike_vg", "z_lnlike", "z_lnlike_vg", "hier_lnlike",
            "hier_lnlike_vg", "free_stream_lnlike", "free_stream_lnlike_vg",
-           "roofline_chain", "free_feats")
+           "roofline_chain", "free_feats", "stream_feats")
 PATH_SECONDS = 900      # what the fit paths' processes may take together
 DEVICE_LINE = "Device: cuda:0"      # what a run on the card logs first
 # the mega catalog: the JAX benchmark's stream tier (make_catalog with
@@ -277,6 +285,7 @@ EVIDENCE_RUNGS = 16     # --evidence's rungs on the fit paths
 LADDER_STEPS = 400      # phase 14's ladder steps (the CLI's: the fit's -ns)
 SOURCES = {"z": "lnlike_z.cu", "hier": "lnlike_h.cu",
            "fixed": "lnlike_h.cu", "free_feats": "free_feats.cu",
+           "stream_feats": "free_feats.cu",
            "free_stream": "lnlike_stream.cu", "roofline": "roofline.cu"}
 # The card's peaks for the bound (H100 SXM at 700 W): float32 outside the
 # tensor cores, and HBM.
@@ -846,6 +855,108 @@ def _check_feats(case, dev, empty_ms):
     return rec
 
 
+def _check_stream_feats(m, dev, lnprob):
+    """The streaming value path's feature kernel ``stream_feats`` against
+    the PyTorch map it replaces (``stream_feats_reference``:
+    ``_features_stream`` rounded to float32, ``in_box`` and
+    ``_stream_collapsed``), both on the card, on the mega catalog ``m``:
+    float64 thetas (a float64 run's) and float32, W = 50 (the stretch
+    fits' half-step) and an odd 51, with rows out of the box (Flim < 0
+    and 0, NaN, beyond ``hi``): every feature within 1 float32 ulp and >=
+    99.9% of them the same number, NaN where the map's is, the flags equal,
+    the collapsed column ``_stream_collapsed`` of the kernel's own rows bit
+    for bit (its distance from the map's printed), one launch a call; at
+    W = 50 its device time, one kernel node a call whose name the value
+    kernel's patterns (``portbench/kernel_names/free_stream_lnlike.json``)
+    do not match, and the whole lnprob call (``lnprob``, through it).
+    Returns its summary row."""
+    layout, data = m.layout, m.data
+    lo, hi = layout.bounds_arrays(torch.float64, dev)
+    spec = cl.stream_feats_spec(data, layout, lo, hi)
+    k = 2 if layout.fix_sch_al else 3
+    empty_ms = _empty_ms()
+    rec = {"max_abs_err": 0.0, "max_rel_err": 0.0, "max_ulps": 0}
+    gen = torch.Generator(device=dev).manual_seed(2023)
+    for dtype in (torch.float64, torch.float32):
+        for w in (50, 51):
+            th = _near(m, w, gen, 0.002)
+            th[0, k], th[1, 0], th[2, -1] = -0.5, math.nan, 3 * hi[-1]
+            th[3, k + 1] = 0.0
+            th = th.to(dtype)
+            tag = f"stream_feats mega {str(dtype).split('.')[-1]} W={w}"
+            n0 = cl.stream_feats.launches
+            feats, ok, coll = cl.stream_feats(th, spec)
+            if cl.stream_feats.launches != n0 + 1:
+                fail(f"{tag}: {cl.stream_feats.launches - n0} launches")
+            want, want_ok, want_coll = cl.stream_feats_reference(th, spec)
+            own = cl._stream_collapsed(feats.double(), data)
+            torch.cuda.synchronize()
+            if feats.shape != want.shape or feats.dtype != want.dtype:
+                fail(f"{tag}: {tuple(feats.shape)} {feats.dtype} rows, "
+                     f"the map's {tuple(want.shape)} {want.dtype}")
+            if not torch.equal(feats.isnan(), want.isnan()):
+                fail(f"{tag}: NaN where the map has none, or none where "
+                     "it has")
+            ulps, same = _ulps(feats, want)
+            share = float(same.float().mean())
+            fin = torch.isfinite(want) & (want != 0)
+            diff = (feats - want)[fin].abs()
+            err_a = float(diff.max())
+            err_r = float((diff / want[fin].abs()).max())
+            bits = bool(((coll == own) | (coll.isnan() & own.isnan())).all())
+            err_c = _rel(coll[ok], want_coll[ok])
+            print(f"{tag}: vs the PyTorch map max {int(ulps.max())} float32 "
+                  f"ulp, {share:.6f} of the features the same number (max "
+                  f"abs {err_a:.3e}, max rel {err_r:.3e}); "
+                  f"{int((~ok).sum())} rows outside the prior, flags "
+                  f"{'equal' if torch.equal(ok, want_ok) else 'DIFFER'}; "
+                  f"collapsed terms {'bit for bit' if bits else 'NOT'} "
+                  f"those of its own rows, max rel {err_c:.3e} vs the map's "
+                  f"(|terms| <= {float(want_coll[ok].abs().max()):.4e})")
+            if int(ulps.max()) > 1 or share < 0.999:
+                fail(f"{tag}: {int(ulps.max())} ulp apart at most, "
+                     f"{share:.6f} the same (limits 1, 0.999)")
+            if not torch.equal(ok, want_ok) or int((~ok).sum()) != 4:
+                fail(f"{tag}: flags {int((~ok).sum())} out of the box, the "
+                     f"map's {int((~want_ok).sum())} (planted 4)")
+            if not bits:
+                fail(f"{tag}: collapsed terms not those of its own rows")
+            rec["max_ulps"] = max(rec["max_ulps"], int(ulps.max()))
+            rec["max_abs_err"] = max(rec["max_abs_err"], err_a)
+            rec["max_rel_err"] = max(rec["max_rel_err"], err_r)
+            if (dtype, w) != (torch.float64, 50):
+                continue
+            ms = _device_ms(lambda: cl.stream_feats(th, spec))
+            pms = _device_ms(lambda: cl.stream_feats_reference(th, spec))
+            cms = _call_ms(lambda: cl.stream_feats(th, spec))
+            lms = _call_ms(lambda: lnprob(th), inner=20, reps=5)
+            kus = _one_node("stream_feats", "mega", w,
+                            lambda: cl.stream_feats(th, spec), empty_ms)
+            with open("portbench/kernel_names/free_stream_lnlike.json") as fh:
+                pats = json.load(fh)["device_kernels"]
+            hit = [n for n in kus for p in pats if re.match(p, n + "(")]
+            if hit:
+                fail(f"stream_feats: the value kernel's name patterns match "
+                     f"its device kernel {hit}")
+            # a lower bound from bytes alone: the thetas read, the rows,
+            # flags and collapsed terms written, the box and sums read
+            nbytes = (th.numel() * th.element_size() + 4 * feats.numel()
+                      + w + 8 * w + 8 * 2 * layout.ndim + 8 * 4)
+            bms = nbytes / PEAK_BYTES * 1e3
+            print(f"{tag} device time: kernel {ms * 1e3:.2f} us, the PyTorch "
+                  f"map {pms * 1e3:.2f} us; eager wrapper call "
+                  f"{cms * 1e3:.2f} us; the whole lnprob call "
+                  f"{lms * 1e3:.2f} us; bound {bms * 1e3:.4f} us (bytes: "
+                  f"{nbytes})")
+            rec.update(ms=ms, plain_ms=pms, call_ms=cms, lnprob_call_ms=lms,
+                       bound_ms=bms, bound_by="bytes", trans=None,
+                       shape=f"W=50, gauss-32 mega (D = {layout.ndim}), "
+                             "float64 thetas",
+                       split={"call_us": ms * 1e3, "kernels_us": kus,
+                              "empty_kernel_us": empty_ms * 1e3})
+    return rec
+
+
 def _eager_value_and_grad(case, th):
     """Float64 eager autograd over ``th``, 64 rows at a time."""
     vals, grads = [], []
@@ -1253,6 +1364,7 @@ def phase_stream(dev, m):
     rec.update(ms=ms, plain_ms=pms, call_ms=cms, lnprob_call_ms=lms,
                bound_ms=bms, bound_by=by, trans=ntr, resident_ms=rms,
                shape=f"W=50, gauss-32 mega, {MEGA_SOURCES} sources")
+    summary["stream_feats"] = _check_stream_feats(m, dev, lnprob)
 
     rec = summary["free_stream_lnlike_vg"]
     rec["max_grad_err"] = 0.0
@@ -2516,7 +2628,7 @@ def _grid_mega_model(dev, **over):
 
 def _expect(label, counts, want):
     """Fail unless ``counts`` are ``want``'s (kernel -> launches; a kernel
-    it leaves out: 0) and :func:`_with_feats`'s ``free_feats``."""
+    it leaves out: 0) and :func:`_with_feats`'s feature kernels."""
     full = {k: 0 for k in KERNELS}
     full.update(_with_feats(want))
     if counts != full:
@@ -2524,13 +2636,18 @@ def _expect(label, counts, want):
 
 
 def _with_feats(want):
-    """``want`` with the feature kernel's launches: one for each
-    ``free_lnlike`` launch. Every lnprob and ``lnlike_fn`` of the resident
-    free route on the card launches ``free_feats`` before the value kernel
-    (``ops/cuda_lnlike.py`` ``_likelihood``): the stretch fits, the
-    tempered ladders, NUTS's start guard and Ln Prob recompute; NUTS's
-    value+gradient kernel and the streaming route launch none."""
-    return {**want, "free_feats": want.get("free_lnlike", 0)}
+    """``want`` with the feature kernels' launches: one ``free_feats`` for
+    each ``free_lnlike`` launch and, unless ``want`` says otherwise, one
+    ``stream_feats`` for each ``free_stream_lnlike`` launch. Every lnprob
+    and ``lnlike_fn`` of the resident free route on the card launches
+    ``free_feats`` before the value kernel, and of the streaming route
+    ``stream_feats`` (``ops/cuda_lnlike.py`` ``_likelihood``): the stretch
+    fits, the tempered ladders, NUTS's start guard and Ln Prob recompute;
+    NUTS's value+gradient kernels launch neither, nor does a source-split
+    grid's streaming route (``parallel/sharding.py``), whose runs say
+    ``stream_feats`` 0."""
+    return {"stream_feats": want.get("free_stream_lnlike", 0), **want,
+            "free_feats": want.get("free_lnlike", 0)}
 
 
 def _rows_of(name):
@@ -2566,7 +2683,10 @@ def _grid_nuts(label, model, fam, kw, ref_median, say=print, guard=True):
         counts = {name: _kernel(name).launches for name in KERNELS}
     finally:
         log.removeHandler(rec)
-    _expect(label, counts, _nuts_launches(rec, label, guard, fam))
+    want = _nuts_launches(rec, label, guard, fam)
+    if model.grid is not None and model.grid.n_sources > 1:
+        want["stream_feats"] = 0        # the source-split streaming route
+    _expect(label, counts, want)
     accept, div_pct, rhat = _nuts_gates(rec, label)
     (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s;", label)
     step = re.search(r"step size ([^;]+);", next(
@@ -2932,7 +3052,8 @@ def grid_rank(rank, port, workdir, has_mpl):
         log.removeHandler(rec)
     peak = torch.cuda.max_memory_allocated()
     _expect(f"grid rank {rank} mega (1,2)", counts,
-            {"free_stream_lnlike": 2 * GRID_MEGA_STEPS + 1})
+            {"free_stream_lnlike": 2 * GRID_MEGA_STEPS + 1,
+             "stream_feats": 0})
     route = "cuda-stream" if dev.type == "cuda" else "plain-stream"
     if fn.engine != route or not any(
             "sources round-robin sharded over 2 ranks" in ln
@@ -3483,6 +3604,8 @@ REPLACES = {
     "roofline_chain": ("lumfuncmcmc_tpu/ops/pallas_roofline.py:59",),
     # no Pallas kernel: XLA fused this feature map around the Pallas call
     "free_feats": (f"{TPU_FILE}:1288",),
+    # nor this one: the streaming lnlike's feature map and collapse
+    "stream_feats": (f"{TPU_FILE}:1383",),
 }
 
 

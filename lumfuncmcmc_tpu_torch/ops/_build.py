@@ -51,6 +51,8 @@ ENTRY_POINTS = {"free_lnlike_launch": _FREE_VG_ARGS,
                 "free_stream_blocks_per_sm": [_i, _i, _p],
                 # thetas, W, float64 flag, parameters, feats, flags, stream
                 "free_feats_launch": [_p, _i, _i, _p, _p, _p, _p],
+                # ... feats, flags, collapsed source terms, stream
+                "stream_feats_launch": [_p, _i, _i, _p, _p, _p, _p, _p],
                 "roofline_chain_launch": [_p, _p, _i, _i, _p],
                 "roofline_chain_layout": [_i, _p],
                 "empty_launch": [_i, _p]}

@@ -107,13 +107,16 @@ float64, the theta-affine source terms are collapsed in float64 from
 per-shard catalog sums (:func:`_stream_collapsed`, added on the host),
 and ``logf``/``lF50`` enter relative to ``_LOGF_REF``.
 
-One kernel of ``csrc/free_feats.cu`` replaces no TPU kernel (XLA fused
-the feature map there): :data:`free_feats` takes (W, D) thetas to the
-free-completeness feature rows in float32 and the prior-box flags in one
-launch, for the value path of the resident free route on the card
+The two kernels of ``csrc/free_feats.cu`` replace no TPU kernel (XLA
+fused the feature map there): :data:`free_feats` takes (W, D) thetas to
+the free-completeness feature rows in float32 and the prior-box flags in
+one launch, for the value path of the resident free route on the card
 (:func:`_likelihood`: ``fit``'s stretch runs and tempering), where
-the PyTorch map costs ~30 small float64 launches a call. The
-value+gradient path keeps the PyTorch map, whose Jacobian autograd takes.
+the PyTorch map costs ~30 small float64 launches a call;
+:data:`stream_feats` does the same for the streaming route's rows and
+adds their float64 collapsed source terms, ~45 launches of the map and
+:func:`_stream_collapsed`. The value+gradient path keeps the PyTorch map,
+whose Jacobian autograd takes.
 
 The value+gradient kernels feed :func:`make_cuda_lnprob_and_grad`, the
 NUTS gradient path: a ``torch.autograd.Function`` hands the feature
@@ -1474,7 +1477,7 @@ free_stream_lnlike_vg = _wrapper(
 
 
 # ---------------------------------------------------------------------------
-# the feature kernel of the free-completeness value path
+# the feature kernels of the free-completeness value paths
 # ---------------------------------------------------------------------------
 
 class _FreeFeatsParams(ctypes.Structure):
@@ -1486,42 +1489,67 @@ class _FreeFeatsParams(ctypes.Structure):
                 ("fcmin", ctypes.c_int)]
 
 
+class _StreamFeatsParams(ctypes.Structure):
+    """``StreamFeatsParams`` of ``csrc/free_feats.cu``, field for field:
+    :class:`_FreeFeatsParams`' and the shard's catalog sums."""
+    _fields_ = [("box", ctypes.c_void_p), ("sums", ctypes.c_void_p),
+                *_FreeFeatsParams._fields_[1:]]
+
+
 @dataclass(frozen=True, eq=False)
 class FreeFeatsSpec:
-    """What :func:`free_feats` needs of a route, made once with its
-    lnprob (:func:`free_feats_spec`): the data (``lref``, ``fcmin``), the
-    layout, the prior box as the route holds it, and on the card the box
-    as one (2, D) float64 tensor, the kernel's parameters and the
-    library's entry point."""
+    """What :func:`free_feats` or :func:`stream_feats` needs of a route,
+    made once with its lnprob (:func:`free_feats_spec`,
+    :func:`stream_feats_spec`): the data (``lref``, ``fcmin``; the
+    streaming route's ``sums``), the layout, the prior box as the route
+    holds it, and on the card the box as one (2, D) float64 tensor, the
+    kernel's parameters and the library's entry point."""
 
-    data: CudaGridData
+    data: object            # CudaGridData, or CudaStreamData
     layout: ThetaLayout
     lo: torch.Tensor
     hi: torch.Tensor
     box: Optional[torch.Tensor] = None
-    params: Optional[_FreeFeatsParams] = None
+    params: Optional[ctypes.Structure] = None
     entry: object = None
 
 
-def free_feats_spec(data: CudaGridData, layout: ThetaLayout, lo, hi):
-    """The :class:`FreeFeatsSpec` of a free-completeness route; for a
-    route on the card the library is loaded and the kernel's parameters
-    set here, once, not per call."""
+def _feats_spec(data, layout: ThetaLayout, lo, hi, params_type, entry,
+                **more):
+    """A :class:`FreeFeatsSpec`; for a route on the card the library is
+    loaded and the kernel's parameters (``params_type``, the fields of
+    :class:`_FreeFeatsParams` and ``more``) set here, once, not per
+    call."""
     if lo.device.type != "cuda":
         return FreeFeatsSpec(data, layout, lo, hi)
     from lumfuncmcmc_tpu_torch.ops._build import load_library
     box = torch.stack([lo, hi]).double().contiguous()
     sign, a = _fleming_ratio_constants(data.fcmin) if data.fcmin else (0, 0)
-    params = _FreeFeatsParams(
-        box.data_ptr(), layout.sch_al0, data.lref, a, sign, layout.ndim,
-        layout.nfields, int(layout.fix_sch_al), int(bool(data.fcmin)))
+    params = params_type(
+        box=box.data_ptr(), sch_al0=layout.sch_al0, lref=data.lref,
+        ratio_a=a, ratio_sign=sign, ndim=layout.ndim,
+        nfields=layout.nfields, fix_sch_al=int(layout.fix_sch_al),
+        fcmin=int(bool(data.fcmin)), **more)
     return FreeFeatsSpec(data, layout, lo, hi, box, params,
-                         load_library().free_feats_launch)
+                         getattr(load_library(), entry))
 
 
-def _check_thetas(thetas, spec: FreeFeatsSpec):
+def free_feats_spec(data: CudaGridData, layout: ThetaLayout, lo, hi):
+    """The :class:`FreeFeatsSpec` of a resident free-completeness route."""
+    return _feats_spec(data, layout, lo, hi, _FreeFeatsParams,
+                       "free_feats_launch")
+
+
+def stream_feats_spec(data: CudaStreamData, layout: ThetaLayout, lo, hi):
+    """The :class:`FreeFeatsSpec` of a streaming route: shard 0's sums
+    (``data.sums``, which the spec's ``data`` keeps) go to the kernel."""
+    return _feats_spec(data, layout, lo, hi, _StreamFeatsParams,
+                       "stream_feats_launch", sums=data.sums[0].data_ptr())
+
+
+def _check_thetas(thetas, spec: FreeFeatsSpec, name):
     if thetas.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"free_feats takes float32 or float64 thetas, got "
+        raise TypeError(f"{name} takes float32 or float64 thetas, got "
                         f"{thetas.dtype}")
     _check_rows(thetas, "thetas", spec.layout.ndim)
     if thetas.device != spec.lo.device:
@@ -1532,33 +1560,52 @@ def _check_thetas(thetas, spec: FreeFeatsSpec):
 def free_feats_reference(thetas, spec: FreeFeatsSpec):
     """The PyTorch map that ``free_feats`` computes: :func:`_features`'
     rows as float32, and :func:`in_box` of the route's box."""
-    _check_thetas(thetas, spec)
+    _check_thetas(thetas, spec, "free_feats")
     return (_features(thetas, spec.data, spec.layout, torch.float32).float(),
             in_box(thetas, spec.lo, spec.hi))
 
 
+def stream_feats_reference(thetas, spec: FreeFeatsSpec):
+    """What ``stream_feats`` computes: :func:`_features_stream`'s rows as
+    float32, :func:`in_box` of the route's box, and
+    :func:`_stream_collapsed` of the rows (shard 0)."""
+    _check_thetas(thetas, spec, "stream_feats")
+    f = _features_stream(thetas, spec.data, spec.layout, torch.float32)
+    return (f.float(), in_box(thetas, spec.lo, spec.hi),
+            _stream_collapsed(f, spec.data))
+
+
 def _launch_feats(name, thetas, spec: FreeFeatsSpec):
-    """Check the thetas and launch ``free_feats`` on the current stream of
-    their device: the float32 (W, 6+2F) features and the (W,) bool flags.
-    Everything but the thetas was checked and looked up with ``spec``."""
-    _check_thetas(thetas, spec)
-    w = thetas.shape[0]
-    feats = torch.empty((w, 6 + 2 * spec.layout.nfields),
-                        dtype=torch.float32, device=thetas.device)
-    inside = torch.empty((w,), dtype=torch.bool, device=thetas.device)
+    """Check the thetas and launch feature kernel ``name`` on the current
+    stream of their device: the float32 (W, 6+2F) features, the (W,) bool
+    flags and, for ``stream_feats``, the (W,) float64 collapsed source
+    terms. Everything but the thetas was checked and looked up with
+    ``spec``."""
+    _check_thetas(thetas, spec, name)
+    w, dev = thetas.shape[0], thetas.device
+    out = [torch.empty((w, 6 + 2 * spec.layout.nfields),
+                       dtype=torch.float32, device=dev),
+           torch.empty((w,), dtype=torch.bool, device=dev)]
+    if name == "stream_feats":
+        out.append(torch.empty((w,), dtype=torch.float64, device=dev))
     rc = spec.entry(thetas.data_ptr(), w, thetas.dtype == torch.float64,
-                    ctypes.addressof(spec.params), feats.data_ptr(),
-                    inside.data_ptr(),
-                    torch._C._cuda_getCurrentRawStream(thetas.device.index))
+                    ctypes.addressof(spec.params),
+                    *(t.data_ptr() for t in out),
+                    torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    return feats, inside
+    return tuple(out)
 
 
 free_feats = _wrapper(
     "free_feats", free_feats_reference, _launch_feats,
     "Free-completeness feature rows and prior flags, (W, D) float32 or "
     "float64 thetas -> ((W, 6+2F) float32, (W,) bool).")
+stream_feats = _wrapper(
+    "stream_feats", stream_feats_reference, _launch_feats,
+    "Streaming feature rows, prior flags and shard 0's collapsed source "
+    "terms, (W, D) float32 or float64 thetas -> ((W, 6+2F) float32, (W,) "
+    "bool, (W,) float64).")
 
 
 class _LnlikeOfFeats(torch.autograd.Function):
@@ -1646,21 +1693,25 @@ def _tagged(fn, ctx: LFContext, data):
 def _likelihood(ctx: LFContext, layout, engine, grad: bool, flags: bool):
     """The float64 likelihood of (W, D) thetas before the prior, which
     every lnprob and ``lnlike_fn`` computes, and the rows' in-box flags
-    (None where ``flags`` is not set, but on the :data:`free_feats` route,
-    whose launch makes them anyway): ``engine`` is :func:`_engine`'s
-    ``(kdtype, lo, hi, data, functions)``.
+    (None where ``flags`` is not set, but on the routes of the feature
+    kernels, whose launch makes them anyway): ``engine`` is
+    :func:`_engine`'s ``(kdtype, lo, hi, data, functions)``.
 
     The value path of the resident free-completeness route on the card
     (its value kernel :data:`free_lnlike`) takes :data:`free_feats`, the
     float32 feature rows and the flags in one launch (span ``features``),
-    then the value kernel (span ``kernel``). Every other route computes
-    the rounded float64 features (span ``features``), ``kernel(feats)``
-    (span ``kernel``: the value kernel's launch, or
+    then the value kernel (span ``kernel``); that of the streaming route
+    (:data:`free_stream_lnlike`) takes :data:`stream_feats`, which also
+    gives the collapsed source terms (span ``features``), the value kernel
+    (span ``kernel``), then adds the two (span ``collapse``). Every other
+    route computes the rounded float64 features (span ``features``),
+    ``kernel(feats)`` (span ``kernel``: the value kernel's launch, or
     :class:`_LnlikeOfFeats`), where the family has them the collapsed
     ln-terms from the same features (span ``collapse``), and the flags by
     its prior test."""
     kdtype, lo, hi, data, (features, collapsed, inside, value, vg) = engine
-    if not grad and value is free_lnlike and ctx.lum.device.type == "cuda":
+    card_value = not grad and ctx.lum.device.type == "cuda"
+    if card_value and value is free_lnlike:
         spec = free_feats_spec(data, layout, lo, hi)
 
         def fused(thetas):
@@ -1670,6 +1721,18 @@ def _likelihood(ctx: LFContext, layout, engine, grad: bool, flags: bool):
                 return value(feats, data), ok
 
         return fused
+    if card_value and value is free_stream_lnlike:
+        spec = stream_feats_spec(data, layout, lo, hi)
+
+        def fused_stream(thetas):
+            with span("features"):
+                feats, ok, coll = stream_feats(thetas, spec)
+            with span("kernel"):
+                part = value(feats, data)
+            with span("collapse"):
+                return part + coll, ok
+
+        return fused_stream
     kernel = ((lambda f: _LnlikeOfFeats.apply(f, data, vg)) if grad
               else (lambda f: value(f.to(kdtype), data)))
 
@@ -1753,9 +1816,9 @@ def make_cuda_prior_like(ctx: LFContext, layout, model: str = "single"):
     The features clamp into the box as :func:`_make_lnprob`'s do, so an
     out-of-box row gets a finite ``lnlike_fn`` and ``lnprior_fn`` masks
     it. One ``lnlike_fn`` call is one launch of the value kernel on the
-    card (and one of :data:`free_feats` on the resident free route,
-    :func:`_likelihood`); ``lnlike_fn`` carries ``.data``/``.engine`` as
-    the lnprob does."""
+    card (and one of :data:`free_feats` on the resident free route, of
+    :data:`stream_feats` on the streaming one: :func:`_likelihood`);
+    ``lnlike_fn`` carries ``.data``/``.engine`` as the lnprob does."""
     engine = _engine(ctx, layout, model)
     kdtype, lo, hi, data, fns = engine
     inside = fns[2]

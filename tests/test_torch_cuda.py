@@ -714,6 +714,92 @@ def _stream_case(device, w, nshards=1, seed=0):
     return cfg, layout, ctx, data, th, feats.float().contiguous()
 
 
+def _stream_feats_case(device, fcmin):
+    """The 400-source catalog of :func:`_stream_case` in the streaming
+    layout at ``fcmin``, its layout, data and ``stream_feats`` spec (the
+    box in float64, as a float64 run holds it)."""
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=41, fcmin=fcmin)
+    layout = ThetaLayout.from_config(cfg)
+    ctx = _context(cfg, device, dtype=torch.float64)
+    data = cl.prepare_cuda_stream_data(ctx, cfg.fcmin, dtype=torch.float32)
+    lo, hi = layout.bounds_arrays(torch.float64, device)
+    return cfg, layout, ctx, data, cl.stream_feats_spec(data, layout, lo, hi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fcmin", [0.1, 0.0])
+def test_stream_feats_kernel_matches_the_pytorch_map(device, fcmin, dtype):
+    """``stream_feats`` on the card against the PyTorch map it replaces,
+    run on the card (``_features_stream`` rounded to float32, ``in_box``,
+    ``_stream_collapsed``), at W = 1, 50 and 257 with rows out of the box
+    (Flim <= 0, NaN, beyond ``hi``): every feature within 1 float32 ulp,
+    >= 99.9% of them the same number, NaN where the map gives NaN, the
+    flags equal, the collapsed column ``_stream_collapsed`` of the kernel's
+    own rows bit for bit; one launch a call."""
+    from test_torch_free_feats import edge_thetas
+    _, layout, _, data, spec = _stream_feats_case(device, fcmin)
+    for w in (1, 50, 257):
+        th = edge_thetas(layout, w, dtype, device, seed=w)
+        n0 = cl.stream_feats.launches
+        feats, ok, coll = cl.stream_feats(th, spec)
+        assert cl.stream_feats.launches == n0 + 1
+        want = cl._features_stream(th, data, layout, torch.float32).float()
+        assert feats.shape == want.shape and feats.dtype == torch.float32
+        assert torch.equal(feats.isnan(), want.isnan())
+        ulps, same = _ulps(feats, want)
+        assert int(ulps.max()) <= 1
+        assert float(same.float().mean()) >= 0.999
+        assert torch.equal(ok, in_box(th, spec.lo, spec.hi))
+        assert int((~ok).sum()) == min(w, 7)
+        assert coll.dtype == torch.float64 and coll.shape == (w,)
+        torch.testing.assert_close(
+            coll, cl._stream_collapsed(feats.double(), data), rtol=0,
+            atol=0, equal_nan=True)
+        assert torch.isfinite(coll[ok]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stream_value_path_is_the_pytorch_maps(device, monkeypatch, dtype):
+    """``make_cuda_lnprob`` on the streaming route (gate lowered) through
+    ``stream_feats`` against the PyTorch map's route (``_features_stream``,
+    ``free_stream_lnlike``, ``_stream_collapsed``) on the card: equal
+    where the kernel's rows are the map's, 1e-9 relative elsewhere, -inf
+    outside the box; one ``stream_feats`` and one value kernel launch a
+    call, and a call makes at most 5 device launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from test_torch_free_feats import edge_thetas
+    monkeypatch.setattr(cl, "STREAM_MIN_SOURCES", 0)
+    _, layout, ctx, data, spec = _stream_feats_case(device, 0.1)
+    lnprob = cl.make_cuda_lnprob(ctx, layout)
+    assert lnprob.engine == "cuda-stream"
+    for w in (1, 50, 257):
+        th = edge_thetas(layout, w, dtype, device, seed=w + 1)
+        rows = cl._features_stream(th, data, layout, torch.float32)
+        lnl = (cl.free_stream_lnlike(rows.float(), lnprob.data)
+               + cl._stream_collapsed(rows, lnprob.data)).to(dtype)
+        ok = in_box(th, spec.lo, spec.hi)
+        kept = (cl.stream_feats(th, spec)[0] == rows.float()).all(dim=1)
+        n0, v0 = cl.stream_feats.launches, cl.free_stream_lnlike.launches
+        got = lnprob(th)
+        assert cl.stream_feats.launches == n0 + 1
+        assert cl.free_stream_lnlike.launches == v0 + 1
+        assert got.dtype == dtype
+        assert torch.isneginf(got[~ok]).all() and torch.isfinite(got[ok]).all()
+        assert torch.equal(got[ok & kept], lnl[ok & kept])
+        np.testing.assert_allclose(got[ok].cpu().numpy(),
+                                   lnl[ok].cpu().numpy(), rtol=1e-9)
+    th = edge_thetas(layout, 50, torch.float64, device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            lnprob(th)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(dev) <= 5 * 10
+
+
 @pytest.mark.parametrize("w", [1, 13, 64])
 def test_stream_kernel_matches_plain_version(device, w):
     """free_stream_lnlike equals its plain version on the card (rtol 1e-5:
