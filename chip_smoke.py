@@ -598,19 +598,18 @@ def _cases(dev, suffix):
             fam, ThetaLayout).from_config(cfg)
         eager = {"z": make_lnprob_z, "hier": make_lnprob_h}.get(
             fam, make_lnprob)
-        data, (features, collapsed, inside, _, _) = cl._family(
-            ctx32, layout, model, torch.float32)
+        # the PyTorch map's route: its rounded float64 features, and the
+        # float64 terms the host adds to the kernel's value (fixed: the
+        # collapsed ln-term; hier: lnrest)
+        route = cl._route(ctx32, layout, model, grad=False,
+                          feature_kernels=False)
         case = SimpleNamespace(
-            data=data, inside=inside, eager64=eager(ctx64, layout),
-            lnprob32=cl._make_lnprob(ctx32, layout, model, grad=False),
+            data=route.data, inside=route.inside,
+            eager64=eager(ctx64, layout),
+            lnprob32=cl._lnprob(cl._route(ctx32, layout, model, grad=False)),
             steps=NUTS_STEPS[fam])
-        # the rounded float64 features, and the float64 terms the host
-        # adds to the kernel's value (fixed: the collapsed ln-term; hier:
-        # lnrest)
-        case.features = (lambda th, features=features, data=data,
-                         layout=layout: features(th, data, layout,
-                                                 torch.float32))
-        case.collapsed = collapsed or (lambda f, th: 0.0)
+        case.features = lambda th, route=route: route.features(th)[0]
+        case.collapsed = route.collapse or (lambda f, th: 0.0)
         case.post32 = cl.make_cuda_lnprob_and_grad(ctx32, layout,
                                                    model=model)
         case.kname, case.fam, case.grid = f"{fam}_lnlike{suffix}", fam, grid
@@ -1220,7 +1219,7 @@ def phase_precision(dev, m):
         lo, hi = layout.bounds_arrays(torch.float64, dev)
         th = _close_pairs(center, hi - lo, gen)
         want = _in_rows(eager(ctx, layout), th, 16)
-        lnprob = cl._make_lnprob(ctx, layout, model, grad=False)
+        lnprob = cl._lnprob(cl._route(ctx, layout, model, grad=False))
         post = cl.make_cuda_lnprob_and_grad(ctx, layout, model=model)
         if not (lnprob.engine == post.engine == "cuda"):
             fail(f"{fam} at the mega catalog takes {lnprob.engine} / "

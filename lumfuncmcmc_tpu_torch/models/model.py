@@ -310,18 +310,18 @@ class _BaseModel(_EnsembleDriverMixin, _NutsDriverMixin):
 
     def _grid_batch(self):
         """The grid's lnprob: the streaming kernels on source shards for
-        free completeness on a source-split grid at the streaming route's
-        catalog size (``STREAM_MIN_SOURCES``), else the family's value
-        kernels walker-split over every rank, or the eager engine split
-        on both axes under ``--exact-bounds`` or ``--no-pallas``."""
-        from lumfuncmcmc_tpu_torch.ops.cuda_lnlike import STREAM_MIN_SOURCES
+        a catalog that takes them (``cuda_lnlike.takes_stream``) on a
+        source-split grid, else the family's value kernels walker-split
+        over every rank, or the eager engine split on both axes under
+        ``--exact-bounds`` or ``--no-pallas``."""
+        from lumfuncmcmc_tpu_torch.ops.cuda_lnlike import takes_stream
         from lumfuncmcmc_tpu_torch.parallel import sharding as sh
         self._require_active()
         g = self.grid
         if self._resolve_use_pallas():
-            if (self.model_kind == "single" and not self.cfg.fix_comp
-                    and g.n_sources > 1
-                    and self.ctx.lum.shape[0] >= STREAM_MIN_SOURCES):
+            if g.n_sources > 1 and takes_stream(
+                    self.model_kind, self.cfg.fix_comp,
+                    int(self.ctx.lum.shape[0])):
                 fn = sh.make_cuda_lnprob_stream_sharded(self.ctx, self.layout,
                                                         g)
                 self.log.info(

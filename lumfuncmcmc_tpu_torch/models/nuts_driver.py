@@ -67,10 +67,10 @@ def nuts_route(cfg, model_kind, grid, nchains, ncells, nsources,
     which ranks hold which chains and whether they adapt together.
 
     - "meshless": no grid;
-    - "stream": a source axis past one rank, the free single-epoch model
-      from ``STREAM_MIN_SOURCES`` sources on (JAX: past its resident-VMEM
-      gate), the kernels on, no exact bounds: chains over the walker ranks,
-      the catalog over the source ranks;
+    - "stream": a source axis past one rank, a catalog that takes the
+      streaming kernels (``cuda_lnlike.takes_stream``; JAX: past its
+      resident-VMEM gate), the kernels on, no exact bounds: chains over
+      the walker ranks, the catalog over the source ranks;
     - "replicas": the free single-epoch model on its value+gradient kernel
       (``use_pallas`` resolved on): chains over every rank, each adapting
       alone unless pooled (``--nuts-pooled``);
@@ -87,7 +87,8 @@ def nuts_route(cfg, model_kind, grid, nchains, ncells, nsources,
             and not cfg.exact_bounds)
     if not (free and use_pallas):
         return "pooled"
-    if grid.n_sources > 1 and nsources >= cl.STREAM_MIN_SOURCES:
+    if grid.n_sources > 1 and cl.takes_stream(model_kind, cfg.fix_comp,
+                                              nsources):
         return "stream"
     if (cfg.use_pallas is None and max(1, nchains // grid.size) >= 96
             and ncells <= 16384):

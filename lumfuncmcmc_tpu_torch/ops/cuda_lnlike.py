@@ -84,8 +84,7 @@ float64 from per-field catalog sums taken relative to ``lref``
 (:func:`_hier_collapsed`).
 
 Two kernels of ``csrc/lnlike_stream.cu`` for free completeness on mega
-catalogs (at least ``STREAM_MIN_SOURCES`` sources, where
-:func:`_make_lnprob` takes them):
+catalogs (at least ``STREAM_MIN_SOURCES`` sources: :func:`takes_stream`):
 
 - :func:`free_stream_lnlike` replaces ``_kernel_free_stream``
   (``:941``, and ``make_stream_shard_batched``, ``:404``): a block
@@ -110,17 +109,18 @@ and ``logf``/``lF50`` enter relative to ``_LOGF_REF``.
 The two kernels of ``csrc/free_feats.cu`` replace no TPU kernel (XLA
 fused the feature map there): :data:`free_feats` takes (W, D) thetas to
 the free-completeness feature rows in float32 and the prior-box flags in
-one launch, for the value path of the resident free route on the card
-(:func:`_likelihood`: ``fit``'s stretch runs and tempering), where
-the PyTorch map costs ~30 small float64 launches a call;
-:data:`stream_feats` does the same for the streaming route's rows and
-adds their float64 collapsed source terms, ~45 launches of the map and
-:func:`_stream_collapsed`. The value+gradient path keeps the PyTorch map,
-whose Jacobian autograd takes.
+one launch, where the PyTorch map costs ~30 small float64 launches a
+call; :data:`stream_feats` does the same for the streaming rows and adds
+their float64 collapsed source terms, ~45 launches of the map and
+:func:`_stream_collapsed`.
 
-The value+gradient kernels feed :func:`make_cuda_lnprob_and_grad`, the
-NUTS gradient path: a ``torch.autograd.Function`` hands the feature
-gradient to autograd of the cheap feature map, the counterpart of the
+Every lnprob, ``lnlike_fn`` and grid route is built from one
+:class:`Route`, which :func:`_route`'s family table chooses once: the
+kernel data, the feature stage (a feature kernel on the card's free
+value routes, else the PyTorch map), the kernel call and the collapse,
+which :func:`_likelihood` runs in order. The value+gradient routes (NUTS)
+keep the map: a ``torch.autograd.Function`` hands the kernel's feature
+gradient to autograd of the cheap map, the counterpart of the
 ``jax.custom_vjp`` of ``_vg_scalar_from_rows`` (``:1614``).
 
 The TPU's broadcast/slab split exists only because of VMEM and does not
@@ -147,7 +147,7 @@ import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -1629,141 +1629,163 @@ class _LnlikeOfFeats(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# the public make_* functions
+# routes: the feature stage, kernel and collapse an lnprob goes through
 # ---------------------------------------------------------------------------
 
-def _family(ctx: LFContext, layout, model: str, kdtype):
-    """The kernel data of ``model`` in ``kdtype``, and its ``(features,
-    collapsed, prior test, value kernel, value+gradient kernel)``:
-    ``features(thetas)`` gives the rounded float64 rows,
-    ``collapsed(feats, thetas)`` the float64 terms the host adds (None:
-    the kernel's value is the whole lnlike)."""
-    if model == "z":
-        data = prepare_cuda_z_data(ctx, layout, dtype=kdtype)
-        return data, (_features_z, None, in_box_z, z_lnlike, z_lnlike_vg)
-    if model == "hier":
-        data = prepare_cuda_h_data(ctx, layout, dtype=kdtype)
-        return data, (_features_hier,
-                      lambda f, th: _hier_collapsed(f, th, data, layout),
-                      in_box, hier_lnlike, hier_lnlike_vg)
-    if model != "single":
-        raise NotImplementedError(f"model {model!r} has no kernel yet")
-    if layout.fix_comp:
-        data = prepare_cuda_data(ctx, True, dtype=kdtype)
-        return data, (_features, lambda f, th: _fixed_collapsed(f, data),
-                      in_box, fixed_lnlike, fixed_lnlike_vg)
-    if ctx.lum.shape[0] >= STREAM_MIN_SOURCES:
-        data = prepare_cuda_stream_data(ctx, layout.fcmin, dtype=kdtype)
-        return data, (_features_stream,
-                      lambda f, th: _stream_collapsed(f, data),
-                      in_box, free_stream_lnlike, free_stream_lnlike_vg)
-    data = prepare_cuda_data(ctx, False, layout.fcmin, dtype=kdtype)
-    return data, (_features, None, in_box, free_lnlike, free_lnlike_vg)
+def takes_stream(model: str, fix_comp: bool, nsources: int) -> bool:
+    """The streaming rule, which every route asks: a free-completeness
+    single-epoch catalog takes the streaming kernels from
+    ``STREAM_MIN_SOURCES`` sources on (read at each call)."""
+    return (model == "single" and not fix_comp
+            and nsources >= STREAM_MIN_SOURCES)
 
 
-def _engine(ctx: LFContext, layout, model: str):
-    """What every ``make_*`` function starts from: the kernels' dtype
-    (float32 on a CUDA context whatever the context's dtype, as the TPU
-    kernels do; the context's on the CPU, where the plain versions run),
-    the prior box as tensors (made once: a host tensor per call would
-    sync the device) and :func:`_family`'s data and functions. On the card
-    the kernel library is built and loaded here, so the first call
-    (inside the sampler's timed window) does not pay for it."""
-    if ctx.lum.device.type == "cuda":
+@dataclass(frozen=True, eq=False)
+class Route:
+    """One lnprob's way through the kernels, chosen once by
+    :func:`_route` and run by :func:`_likelihood`: ``features(thetas) ->
+    (feats, ok, aux)``, the rows, the prior flags where the stage makes
+    them (else None) and what the collapse reads beside the rows;
+    ``kernel(feats)``, the kernel's (W,) float64 lnlike;
+    ``collapse(feats, aux)``, the float64 terms the host adds (None: the
+    kernel's value is the whole lnlike). ``data`` is the kernel data in
+    the kernels' dtype, ``inside(thetas, lo, hi)`` the prior test on the
+    box ``(lo, hi)``, made once (a host tensor per call would sync the
+    device), ``engine`` and ``stream`` the tags of :func:`_tagged`."""
+
+    data: object
+    lo: torch.Tensor
+    hi: torch.Tensor
+    inside: Callable
+    features: Callable
+    kernel: Callable
+    collapse: Optional[Callable]
+    engine: str
+    stream: Optional[tuple] = None
+
+
+def _route(ctx: LFContext, layout, model: str, grad: bool, nshards: int = 1,
+           shard: Optional[int] = None, data=None, kdtype=None,
+           feature_kernels: Optional[bool] = None) -> Route:
+    """The :class:`Route` of ``model``'s value lnprob on ``ctx``, or with
+    ``grad`` of its value+gradient one. ``kdtype``, the kernels' dtype, is
+    float32 on a CUDA context whatever the context's, as on the TPU, else
+    the context's; on the card the library loads here, not in the
+    sampler's timed window. ``data``: kernel data the caller holds.
+
+    The family table, a branch a family, gives the data, the feature map,
+    the collapse, the prior test and the kernels: the z model; the
+    hierarchical one (collapse ``lnrest``); fixed completeness (its
+    collapsed ln-term); the streaming kernels, by :func:`takes_stream` or
+    for shard ``shard`` of a grid's ``nshards`` (the theta-affine source
+    terms); else the resident free kernel. The card's value route
+    (``feature_kernels``, default: a CUDA context) takes
+    :data:`free_feats` on the resident free kernel and :data:`stream_feats`
+    on one streaming shard, whose collapsed column is then the collapse.
+    Every other route takes the PyTorch map's rounded float64 rows, and
+    the value kernel, or :class:`_LnlikeOfFeats` over the value+gradient
+    kernel, through which autograd takes the map's Jacobian."""
+    cuda = ctx.lum.device.type == "cuda"
+    if cuda:
         from lumfuncmcmc_tpu_torch.ops._build import load_library
         load_library()
-    kdtype = torch.float32 if ctx.lum.device.type == "cuda" else ctx.lum.dtype
+    kdtype = kdtype or (torch.float32 if cuda else ctx.lum.dtype)
     lo, hi = layout.bounds_arrays(ctx.lum.dtype, ctx.lum.device)
-    data, fns = _family(ctx, layout, model, kdtype)
-    return kdtype, lo, hi, data, fns
+    fused = not grad and (cuda if feature_kernels is None
+                          else feature_kernels)
+    nsrc, stream, stage = int(ctx.lum.shape[0]), None, None
+    if model == "z":
+        data = data or prepare_cuda_z_data(ctx, layout, dtype=kdtype)
+        fmap, collapse, inside, value, vg = (
+            _features_z, None, in_box_z, z_lnlike, z_lnlike_vg)
+    elif model == "hier":
+        data = data or prepare_cuda_h_data(ctx, layout, dtype=kdtype)
+        fmap, collapse, inside, value, vg = (
+            _features_hier,
+            lambda f, th: _hier_collapsed(f, th, data, layout), in_box,
+            hier_lnlike, hier_lnlike_vg)
+    elif model != "single":
+        raise NotImplementedError(f"model {model!r} has no kernel yet")
+    elif layout.fix_comp:
+        data = data or prepare_cuda_data(ctx, True, dtype=kdtype)
+        fmap, collapse, inside, value, vg = (
+            _features, lambda f, th: _fixed_collapsed(f, data), in_box,
+            fixed_lnlike, fixed_lnlike_vg)
+    elif shard is not None or takes_stream(model, False, nsrc):
+        data = data or prepare_cuda_stream_data(
+            ctx, layout.fcmin, nshards, dtype=kdtype, shard=shard)
+        fmap, collapse, inside, value, vg = (
+            _features_stream, lambda f, th: _stream_collapsed(f, data),
+            in_box, free_stream_lnlike, free_stream_lnlike_vg)
+        stream = (nsrc, data.src_off[-1] // CHUNK_CELLS)
+        if fused and nshards == 1:
+            spec = stream_feats_spec(data, layout, lo, hi)
+            launch = stream_feats
+            stage = (lambda th: launch(th, spec), lambda f, column: column)
+    else:
+        data = data or prepare_cuda_data(ctx, False, layout.fcmin,
+                                         dtype=kdtype)
+        fmap, collapse, inside, value, vg = (
+            _features, None, in_box, free_lnlike, free_lnlike_vg)
+        if fused:
+            spec, launch = free_feats_spec(data, layout, lo, hi), free_feats
+            stage = (lambda th: (*launch(th, spec), None), None)
+    # a feature kernel's stage, else the PyTorch map's
+    features, collapse = stage or (
+        lambda th: (fmap(th, data, layout, kdtype), None, th), collapse)
+    kernel = ((lambda f: _LnlikeOfFeats.apply(f, data, vg)) if grad
+              else (lambda f: value(f, data)) if stage
+              else (lambda f: value(f.to(kdtype), data)))
+    engine = ("cuda" if cuda else "plain") + ("-stream" if stream else "")
+    return Route(data, lo, hi, inside, features, kernel, collapse, engine,
+                 stream)
 
 
-def _tagged(fn, ctx: LFContext, data):
-    """``fn`` with its kernel data (``.data``) and route (``.engine``:
-    "cuda" or "plain", "-stream" for the streaming kernels, whose
-    ``.stream`` is then ``(sources, source tiles)``)."""
-    fn.data = data
-    fn.engine = "cuda" if ctx.lum.device.type == "cuda" else "plain"
-    if isinstance(data, CudaStreamData):
-        fn.engine += "-stream"
-        fn.stream = (int(ctx.lum.shape[0]), data.src_off[-1] // CHUNK_CELLS)
+def _tagged(fn, src):
+    """``fn`` with the kernel data (``.data``) and the route's tags
+    (``.engine``: "cuda" or "plain", "-stream" for the streaming kernels,
+    whose ``.stream`` is then ``(sources, source tiles)``) of ``src``: a
+    :class:`Route`, or a function tagged before."""
+    fn.data, fn.engine = src.data, src.engine
+    if getattr(src, "stream", None) is not None:
+        fn.stream = src.stream
     return fn
 
 
-def _likelihood(ctx: LFContext, layout, engine, grad: bool, flags: bool):
+def _likelihood(route: Route, flags: bool):
     """The float64 likelihood of (W, D) thetas before the prior, which
     every lnprob and ``lnlike_fn`` computes, and the rows' in-box flags
     (None where ``flags`` is not set, but on the routes of the feature
-    kernels, whose launch makes them anyway): ``engine`` is
-    :func:`_engine`'s ``(kdtype, lo, hi, data, functions)``.
-
-    The value path of the resident free-completeness route on the card
-    (its value kernel :data:`free_lnlike`) takes :data:`free_feats`, the
-    float32 feature rows and the flags in one launch (span ``features``),
-    then the value kernel (span ``kernel``); that of the streaming route
-    (:data:`free_stream_lnlike`) takes :data:`stream_feats`, which also
-    gives the collapsed source terms (span ``features``), the value kernel
-    (span ``kernel``), then adds the two (span ``collapse``). Every other
-    route computes the rounded float64 features (span ``features``),
-    ``kernel(feats)`` (span ``kernel``: the value kernel's launch, or
-    :class:`_LnlikeOfFeats`), where the family has them the collapsed
-    ln-terms from the same features (span ``collapse``), and the flags by
-    its prior test."""
-    kdtype, lo, hi, data, (features, collapsed, inside, value, vg) = engine
-    card_value = not grad and ctx.lum.device.type == "cuda"
-    if card_value and value is free_lnlike:
-        spec = free_feats_spec(data, layout, lo, hi)
-
-        def fused(thetas):
-            with span("features"):
-                feats, ok = free_feats(thetas, spec)
-            with span("kernel"):
-                return value(feats, data), ok
-
-        return fused
-    if card_value and value is free_stream_lnlike:
-        spec = stream_feats_spec(data, layout, lo, hi)
-
-        def fused_stream(thetas):
-            with span("features"):
-                feats, ok, coll = stream_feats(thetas, spec)
-            with span("kernel"):
-                part = value(feats, data)
-            with span("collapse"):
-                return part + coll, ok
-
-        return fused_stream
-    kernel = ((lambda f: _LnlikeOfFeats.apply(f, data, vg)) if grad
-              else (lambda f: value(f.to(kdtype), data)))
+    kernels, whose launch makes them anyway): the route's features (span
+    ``features``), its kernel (span ``kernel``), its collapse where it has
+    one (span ``collapse``), then the prior test where the features gave
+    no flags."""
+    features, kernel, collapse = route.features, route.kernel, route.collapse
+    inside, lo, hi = route.inside, route.lo, route.hi
 
     def lnlike(thetas):
         with span("features"):
-            feats = features(thetas, data, layout, kdtype)
+            feats, ok, aux = features(thetas)
         with span("kernel"):
             part = kernel(feats)
-        if collapsed is not None:
+        if collapse is not None:
             with span("collapse"):
-                part = part + collapsed(feats, thetas)
-        return part, (inside(thetas, lo, hi) if flags else None)
+                part = part + collapse(feats, aux)
+        if flags and ok is None:
+            ok = inside(thetas, lo, hi)
+        return part, ok
 
     return lnlike
 
 
-def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
-    """The common body of the ``make_*`` lnprob functions (dtypes and
-    library loading: :func:`_engine`). Free completeness from
-    ``STREAM_MIN_SOURCES`` sources on takes the streaming kernels.
-
-    :func:`_likelihood`'s float64 value (the kernel's, plus where the
-    family has them the collapsed ln-terms, both from the same rounded
-    features), then the thetas' dtype and the prior mask: -inf outside
-    the prior."""
-    engine = _engine(ctx, layout, model)
-    lo, data = engine[1], engine[3]
-    lnlike = _likelihood(ctx, layout, engine, grad, flags=True)
+def _lnprob(route: Route):
+    """The (W, D) -> (W,) lnprob of ``route``: :func:`_likelihood`'s
+    float64 value in the thetas' dtype, -inf outside the prior (span
+    ``lnprob``), tagged by :func:`_tagged`."""
+    lnlike = _likelihood(route, flags=True)
     # -inf as a device scalar of each dtype: a Python -inf would cost
     # torch.where a fill launch a call
-    ninf = {dt: torch.full((), -math.inf, dtype=dt, device=lo.device)
+    ninf = {dt: torch.full((), -math.inf, dtype=dt, device=route.lo.device)
             for dt in (torch.float32, torch.float64)}
 
     def batched(thetas):
@@ -1771,15 +1793,16 @@ def _make_lnprob(ctx: LFContext, layout, model: str, grad: bool):
             lnl, ok = lnlike(thetas)
             return torch.where(ok, lnl.to(thetas.dtype), ninf[thetas.dtype])
 
-    return _tagged(batched, ctx, data)
+    return _tagged(batched, route)
 
 
 def make_cuda_lnprob(ctx: LFContext, layout: ThetaLayout):
     """(W, D) -> (W,) single-epoch lnprob through the hand-written
     kernels, with the semantics of ``make_lnprob``: the box-prior mask is
-    applied outside the kernel, so an out-of-box theta gives -inf.
-    Dtypes and library loading: :func:`_make_lnprob`."""
-    return _make_lnprob(ctx, layout, "single", grad=False)
+    applied outside the kernel, so an out-of-box theta gives -inf. Free
+    completeness takes the streaming kernels by :func:`takes_stream`;
+    dtypes and library loading: :func:`_route`."""
+    return _lnprob(_route(ctx, layout, "single", grad=False))
 
 
 def make_cuda_lnprob_z(ctx: LFContext, layout: ThetaLayoutZ):
@@ -1788,7 +1811,7 @@ def make_cuda_lnprob_z(ctx: LFContext, layout: ThetaLayoutZ):
     the kernel (counterpart of ``make_pallas_lnprob_z``,
     ``pallas_lnlike.py:1518``, without its VMEM gate: one kernel serves
     every catalog size)."""
-    return _make_lnprob(ctx, layout, "z", grad=False)
+    return _lnprob(_route(ctx, layout, "z", grad=False))
 
 
 def make_cuda_lnprob_h(ctx: LFContext, layout: ThetaLayoutH):
@@ -1799,36 +1822,30 @@ def make_cuda_lnprob_h(ctx: LFContext, layout: ThetaLayoutH):
     float64, and the box prior masks outside the kernel (counterpart of
     ``make_pallas_lnprob_h``, ``pallas_lnlike.py:1574``, without its
     VMEM gate and its fallback)."""
-    return _make_lnprob(ctx, layout, "hier", grad=False)
+    return _lnprob(_route(ctx, layout, "hier", grad=False))
 
 
 def make_cuda_prior_like(ctx: LFContext, layout, model: str = "single"):
     """``(lnprior_fn, lnlike_fn)``, each (W, D) -> (W,), the split a
     tempered run needs (counterpart of the models' ``_prior_like_fns``,
     ``lumfuncmcmc_tpu/models/model.py:346``): ``lnlike_fn`` is the
-    untempered data term through the family's value kernel (the free
-    one, or the streaming one from ``STREAM_MIN_SOURCES`` sources on;
-    fixed completeness with its collapsed ln-term; the z model; the
-    hierarchical per-field terms without the hyperprior), ``lnprior_fn``
-    the box prior (0 or -inf) and, for the hierarchical model, the
-    population hyperprior, which belongs to the prior measure.
+    untempered data term on the family's value route (:func:`_route`),
+    ``lnprior_fn`` the box prior (0 or -inf) and, for the hierarchical
+    model, the population hyperprior, which belongs to the prior measure:
+    its route's collapse keeps only the per-field data terms.
 
-    The features clamp into the box as :func:`_make_lnprob`'s do, so an
-    out-of-box row gets a finite ``lnlike_fn`` and ``lnprior_fn`` masks
-    it. One ``lnlike_fn`` call is one launch of the value kernel on the
-    card (and one of :data:`free_feats` on the resident free route, of
-    :data:`stream_feats` on the streaming one: :func:`_likelihood`);
-    ``lnlike_fn`` carries ``.data``/``.engine`` as the lnprob does."""
-    engine = _engine(ctx, layout, model)
-    kdtype, lo, hi, data, fns = engine
-    inside = fns[2]
+    The features clamp into the box as the lnprob's do, so an out-of-box
+    row gets a finite ``lnlike_fn`` and ``lnprior_fn`` masks it. One
+    ``lnlike_fn`` call takes the route's launches, as one lnprob call
+    does; ``lnlike_fn`` carries ``.data``/``.engine`` as the lnprob
+    does."""
+    route = _route(ctx, layout, model, grad=False)
+    data, inside, lo, hi = route.data, route.inside, route.lo, route.hi
     if model == "hier":
-        def lnpart(f, th):
-            return _hier_lnpart_f(f, data).sum(dim=1)
-
-        engine = (kdtype, lo, hi, data, (fns[0], lnpart) + fns[2:])
+        route = dataclasses.replace(
+            route, collapse=lambda f, th: _hier_lnpart_f(f, data).sum(dim=1))
     # the prior is lnprior_fn's
-    lnlike = _likelihood(ctx, layout, engine, grad=False, flags=False)
+    lnlike = _likelihood(route, flags=False)
 
     def lnlike_fn(thetas):
         with span("lnprob"):
@@ -1842,7 +1859,7 @@ def make_cuda_prior_like(ctx: LFContext, layout, model: str = "single"):
                 thetas.dtype)
         return torch.where(ok, lp, torch.full_like(lp, -math.inf))
 
-    return lnprior_fn, _tagged(lnlike_fn, ctx, data)
+    return lnprior_fn, _tagged(lnlike_fn, route)
 
 
 def make_cuda_lnprob_and_grad(ctx: LFContext, layout, model: str = "single"):
@@ -1858,4 +1875,4 @@ def make_cuda_lnprob_and_grad(ctx: LFContext, layout, model: str = "single"):
     exactly 0 (the feature maps' clamps keep its features and their
     gradient finite, so the mask's zero cotangent stays 0).
     """
-    return _make_lnprob(ctx, layout, model, grad=True)
+    return _lnprob(_route(ctx, layout, model, grad=True))

@@ -215,50 +215,37 @@ def make_cuda_lnprob_sharded(ctx: LFContext, layout, grid, model="single"):
             "hier": cl.make_cuda_lnprob_h}[model]
     inner = make(ctx, layout)
     batch = _walker_sharded(inner, grid.size, grid.rank, grid.group)
-    for k in ("engine", "data", "stream"):
-        if hasattr(inner, k):
-            setattr(batch, k, getattr(inner, k))
     batch.source_shards = 1
-    return batch
+    return cl._tagged(batch, inner)
 
 
 def make_cuda_lnprob_stream_sharded(ctx: LFContext, layout, grid):
     """Free completeness on a mega catalog over the grid: walkers split
     over the walker ranks and sources dealt round-robin over the source
     ranks, each rank's card holding only its shard of the streaming
-    kernels' source slabs (``prepare_cuda_stream_data(..., shard=k)``,
-    the grid weights over ``n_sources``), and running
-    ``free_stream_lnlike`` on it plus the shard's collapsed source terms;
-    one ``all_reduce`` over the source group rebuilds ``lnpart -
+    kernels' source slabs. The rank's streaming route
+    (``cuda_lnlike._route`` of its shard: the grid weights over
+    ``n_sources``) gives the shard's part, kernel and collapsed source
+    terms; one ``all_reduce`` over the source group rebuilds ``lnpart -
     fullint`` (counterpart of ``make_pallas_lnprob_stream_sharded``,
-    ``sharding.py:618``). Flim is clamped in the features and the prior
-    box masks the rows. Returns None under fixed completeness, as the JAX
-    function does."""
-    from lumfuncmcmc_tpu_torch.models.likelihood import in_box
+    ``sharding.py:618``), and the route's prior flags mask it. Returns
+    None under fixed completeness, as the JAX function does."""
     from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
     if layout.fix_comp:
         return None
-    cuda = ctx.lum.device.type == "cuda"
-    if cuda:
-        from lumfuncmcmc_tpu_torch.ops._build import load_library
-        load_library()
-    kdtype = torch.float32 if cuda else ctx.lum.dtype
-    lo, hi = layout.bounds_arrays(ctx.lum.dtype, ctx.lum.device)
-    data = cl.prepare_cuda_stream_data(ctx, layout.fcmin, grid.n_sources,
-                                       dtype=kdtype, shard=grid.source_index)
+    route = cl._route(ctx, layout, "single", grad=False,
+                      nshards=grid.n_sources, shard=grid.source_index)
+    lnlike = cl._likelihood(route, flags=True)
 
     def local(thetas):
-        feats = cl._features_stream(thetas, data, layout, kdtype)
-        part = (cl.free_stream_lnlike(feats.to(kdtype), data, 0)
-                + cl._stream_collapsed(feats, data, 0))
+        part, ok = lnlike(thetas)
         lnl = all_reduce_sum(part, grid.source_group).to(thetas.dtype)
-        return torch.where(in_box(thetas, lo, hi), lnl,
-                           torch.full_like(lnl, -math.inf))
+        return torch.where(ok, lnl, torch.full_like(lnl, -math.inf))
 
     batch = _walker_sharded(local, grid.n_walkers, grid.walker_index,
                             grid.walker_group)
     batch.source_shards = grid.n_sources
-    return cl._tagged(batch, ctx, data)
+    return cl._tagged(batch, route)
 
 
 def _rows(rands, lo, hi, axis):
@@ -466,68 +453,41 @@ def run_parallel_tempering_sharded(lnprior_fn, lnlike_fn, pos0, betas,
 # NUTS on the grid
 # ---------------------------------------------------------------------------
 
-class _SourceSum(torch.autograd.Function):
-    """The streaming lnlike of this rank's source shard summed over the
-    source group, its value AND feature gradient in one ``all_reduce`` of
-    the kernel's (W, 1+nfeat) rows; the backward multiplies by the summed
-    gradient columns. (``torch.distributed.nn``'s ``all_reduce`` would
-    reduce the cotangent again in its backward and count the gradient once
-    a rank.)"""
-
-    @staticmethod
-    def forward(ctx, feats, data, group, kdtype):
-        from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
-        rows = all_reduce_sum(cl.free_stream_lnlike_vg(feats.to(kdtype),
-                                                       data, 0), group)
-        ctx.save_for_backward(rows[:, 1:])
-        return rows[:, 0]
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        (gfeats,) = ctx.saved_tensors
-        return gfeats * grad_out[:, None], None, None, None
-
-
 def make_cuda_lnprob_and_grad_stream_sharded(ctx: LFContext, layout, grid,
                                              data=None):
     """(C, D) -> (C,) lnprob of this rank's own rows that autograd
     differentiates, with the catalog split over the source ranks: the
-    rank's shard through ``free_stream_lnlike_vg`` (one launch a call),
-    the value and feature gradient summed over the source group
-    (:class:`_SourceSum`, a COLLECTIVE of the source group), the
-    theta-affine source terms from the whole catalog's sums, then the
-    host's pullback to theta and the prior mask (JAX's
-    ``_stream_vg_local_parts``, ``sharding.py:346``). ``data``: this
-    rank's shard (``prepare_cuda_stream_data(..., shard=k)``), e.g. the
-    value route's, else packed here. None under fixed completeness."""
-    from lumfuncmcmc_tpu_torch.models.likelihood import in_box
+    value+gradient route of the rank's shard (``cuda_lnlike._route``),
+    whose kernel call sums the shard's ``free_stream_lnlike_vg`` rows
+    (one launch a call), value AND feature gradient, over the source
+    group in one ``all_reduce`` (a COLLECTIVE of the source group) and
+    whose collapse takes the whole catalog's sums, then the host's
+    pullback to theta and the prior mask (JAX's
+    ``_stream_vg_local_parts``, ``sharding.py:346``). The backward
+    multiplies by the summed gradient columns and reduces nothing
+    (``torch.distributed.nn``'s ``all_reduce`` would reduce the cotangent
+    again and count the gradient once a rank). ``data``: this rank's shard
+    (``prepare_cuda_stream_data(..., shard=k)``), e.g. the value route's,
+    else packed here. None under fixed completeness."""
     from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
     if layout.fix_comp:
         return None
-    cuda = ctx.lum.device.type == "cuda"
-    if cuda:
-        from lumfuncmcmc_tpu_torch.ops._build import load_library
-        load_library()
-    kdtype = torch.float32 if cuda else ctx.lum.dtype
-    lo, hi = layout.bounds_arrays(ctx.lum.dtype, ctx.lum.device)
-    if data is None:
-        data = cl.prepare_cuda_stream_data(ctx, layout.fcmin, grid.n_sources,
-                                           dtype=kdtype,
-                                           shard=grid.source_index)
-    group = grid.source_group
-    sums = all_reduce_sum(data.sums[0], group)
+    shard = dict(nshards=grid.n_sources, shard=grid.source_index)
+    route = cl._route(ctx, layout, "single", True, data=data, **shard)
+    data, group = route.data, grid.source_group
 
-    def local(thetas):
-        feats = cl._features_stream(thetas, data, layout, kdtype)
-        part = (_SourceSum.apply(feats, data, group, kdtype)
-                + cl._collapsed(*sums, feats[:, 0], feats[:, 2],
-                                feats[:, 3], feats[:, 4]))
-        lnl = part.to(thetas.dtype)
-        return torch.where(in_box(thetas, lo, hi), lnl,
-                           torch.full_like(lnl, -math.inf))
+    def summed_vg(feats, data):
+        return all_reduce_sum(cl.free_stream_lnlike_vg(feats, data), group)
 
+    # the whole catalog's theta-affine source terms: the route's collapse
+    # over this shard with the source group's summed sums
+    whole = dataclasses.replace(data, sums=all_reduce_sum(data.sums, group))
+    local = cl._lnprob(dataclasses.replace(
+        route, kernel=lambda f: cl._LnlikeOfFeats.apply(f, data, summed_vg),
+        collapse=cl._route(ctx, layout, "single", True, data=whole,
+                           **shard).collapse))
     local.source_shards = grid.n_sources
-    return cl._tagged(local, ctx, data)
+    return local
 
 
 def make_cuda_vg_stream_sharded(ctx: LFContext, layout, grid, data=None):
@@ -538,6 +498,7 @@ def make_cuda_vg_stream_sharded(ctx: LFContext, layout, grid, data=None):
     gradient surface of a mega catalog on the grid (counterpart of
     ``make_pallas_vg_stream_sharded``, ``sharding.py:381``). A COLLECTIVE
     of the grid. None under fixed completeness."""
+    from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
     from lumfuncmcmc_tpu_torch.samplers.nuts import value_and_grad
     post = make_cuda_lnprob_and_grad_stream_sharded(ctx, layout, grid, data)
     if post is None:
@@ -552,9 +513,8 @@ def make_cuda_vg_stream_sharded(ctx: LFContext, layout, grid, data=None):
         return (all_gather_rows(v, group)[:w],
                 all_gather_rows(g, group)[:w])
 
-    for k in ("engine", "data", "stream", "source_shards"):
-        setattr(batch, k, getattr(post, k))
-    return batch
+    batch.source_shards = post.source_shards
+    return cl._tagged(batch, post)
 
 
 class ShardedNutsRun(NamedTuple):

@@ -16,7 +16,6 @@ plain versions of the streaming kernels in float64.
   field's count the intensity integral over its area above its root.
 """
 
-import copy
 import functools
 import json
 import os
@@ -156,11 +155,10 @@ def test_resident_route_opens_no_collapse_span(model, monkeypatch):
 
 def test_free_feats_path_opens_no_collapse_span(model, monkeypatch):
     """On the card the resident value path is ``free_feats`` then the
-    value kernel: both replaced by their plain versions here, the route
-    itself ``_likelihood``'s, with the context taken for a card's."""
+    value kernel: the card's route (``feature_kernels``) on their plain
+    versions here, ``free_feats`` patched before the route binds it."""
     monkeypatch.setattr(cl, "STREAM_MIN_SOURCES",
                         int(model.ctx.lum.shape[0]) + 1)
-    engine = cl._engine(model.ctx, model.layout, "single")
     seen = []
 
     def feats(thetas, spec):
@@ -168,16 +166,9 @@ def test_free_feats_path_opens_no_collapse_span(model, monkeypatch):
         return cl.free_feats_reference(thetas, spec)
 
     monkeypatch.setattr(cl, "free_feats", feats)
-    ctx = copy.copy(model.ctx)
-
-    class _Lum:
-        """The catalog's luminosities, on a device that reads "cuda"."""
-        shape = model.ctx.lum.shape
-        device = torch.device("cuda")
-
-    object.__setattr__(ctx, "lum", _Lum())
-    lnlike = cl._likelihood(ctx, model.layout, engine, grad=False,
-                            flags=True)
+    route = cl._route(model.ctx, model.layout, "single", grad=False,
+                      feature_kernels=True)
+    lnlike = cl._likelihood(route, flags=True)
     th = torch.as_tensor(_thetas(_config(), n=6))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         lnlike(th)

@@ -114,14 +114,14 @@ def test_float32_kernels_resolve_lnp_differences_past_the_crossing(family):
     assert ctx.lum.shape[0] == 170_455
     th = _close_pairs(layout, cat["theta_true"], seed=7)
     want = np.asarray(jax.vmap(jmake(jctx, jl))(jnp.asarray(th)))
-    data, (features, collapsed, _, value, vg) = cl._family(
-        ctx, layout, model, torch.float32)
-    t = torch.tensor(th)
-    feats = features(t, data, layout, torch.float32)
-    extra = 0.0 if collapsed is None else collapsed(feats, t)
-    f32 = feats.float()
+    route = cl._route(ctx, layout, model, grad=False, kdtype=torch.float32)
+    data = route.data
+    vg = cl._route(ctx, layout, model, grad=True, data=data,
+                   kdtype=torch.float32)
+    feats, _, aux = route.features(torch.tensor(th))
+    extra = 0.0 if route.collapse is None else route.collapse(feats, aux)
     assert data.g_a.dtype == torch.float32
-    for part in (value(f32, data), vg(f32, data)[:, 0]):
+    for part in (route.kernel(feats), vg.kernel(feats)):
         assert part.dtype == torch.float64
         err = _dlnp_err((part + extra).numpy(), want)
         assert err <= DLNP_TOL, (family, err)

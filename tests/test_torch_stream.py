@@ -86,7 +86,7 @@ def _grad_close(gp, gref, rtol=2e-3):
 def _stream(monkeypatch, ctx, layout, grad=False):
     """The port's lnprob through the streaming path (gate lowered)."""
     monkeypatch.setattr(cl, "STREAM_MIN_SOURCES", 0)
-    fn = cl._make_lnprob(ctx, layout, "single", grad)
+    fn = cl._lnprob(cl._route(ctx, layout, "single", grad))
     assert fn.engine == "plain-stream"
     return fn
 
@@ -305,6 +305,47 @@ def test_make_lnprob_routes_by_stream_min_sources(monkeypatch):
     assert cl.make_cuda_lnprob(c, fixed).engine == "plain"
 
 
+@pytest.mark.parametrize("streams", [True, False])
+def test_streaming_rule_is_one_rule(monkeypatch, streams):
+    """``takes_stream`` is the one streaming rule: with the gate at a small
+    catalog's size or one source past it, the meshless lnprob, the NUTS
+    route on a grid of two source ranks and the grid's value route
+    (``_grid_batch``) all take the streaming kernels, or none does."""
+    from types import SimpleNamespace
+
+    from lumfuncmcmc_tpu_torch.models import nuts_driver as nd
+    from lumfuncmcmc_tpu_torch.parallel import sharding as sh
+    cfg = TLFConfig(min_comp_frac=0.5, size_ln=9, use_pallas=True)
+    cat = tsynth.apply_completeness_cut(
+        tsynth.make_catalog(cfg, n_target=300, seed=cfg.seed), cfg)
+    model = LumFuncModel(cfg, z=cat["z"], flux=cat["flux"],
+                         flux_e=cat["flux_e"], field_id=cat["field_id"],
+                         device="cpu", dtype=torch.float64)
+    n = int(model.ctx.lum.shape[0])
+    monkeypatch.setattr(cl, "STREAM_MIN_SOURCES", n if streams else n + 1)
+    chosen = []
+
+    def maker(name):
+        def make(ctx, layout, grid, **kw):
+            chosen.append(name)
+            return cl.make_cuda_lnprob(ctx, layout)
+        return make
+
+    monkeypatch.setattr(sh, "make_cuda_lnprob_stream_sharded",
+                        maker("stream"))
+    monkeypatch.setattr(sh, "make_cuda_lnprob_sharded", maker("walkers"))
+    grid = SimpleNamespace(n_walkers=1, n_sources=2, size=2, idle=False)
+    model.grid = grid
+    model._grid_batch()
+    ncells = int(np.prod(model.ctx.logL_grid.shape))
+    took = {"meshless": cl.make_cuda_lnprob(model.ctx, model.layout).engine
+            == "plain-stream",
+            "nuts": nd.nuts_route(cfg, "single", grid, 8, ncells, n, True)
+            == "stream",
+            "grid": chosen == ["stream"]}
+    assert took == dict.fromkeys(took, streams)
+
+
 def _emulation(n_target=200_000):
     """Thetas near the truth of a ~170,000-source catalog in 4 close
     pairs, and the float64 eager lnprob there."""
@@ -343,7 +384,7 @@ def test_float32_stream_resolves_lnp_differences_that_resident_loses(
     res = cl.free_lnlike(cl._features(th.float(), data32, layout,
                                       torch.float32).float(), data32)
     monkeypatch.setattr(cl, "STREAM_MIN_SOURCES", 0)
-    stream = cl._make_lnprob(c64, layout, "single", False)
+    stream = cl._lnprob(cl._route(c64, layout, "single", False))
     sdata = cl.prepare_cuda_stream_data(c64, cfg.fcmin,
                                         dtype=torch.float32)
     f = cl._features_stream(th, sdata, layout, torch.float32)

@@ -2,11 +2,11 @@
 ``csrc/free_feats.cu``) on the CPU: CPU tensors take its plain version
 (``_features_stream``, ``in_box``, ``_stream_collapsed``), its parameters
 are the kernel's struct field for field, it refuses what the kernel cannot
-take, and on a context that reads "cuda" the streaming value route takes it
-once a call, while the value+gradient route and the resident route never
-do. The kernel against the map: ``tests/test_torch_cuda.py``."""
+take, and on the card's routes (``_route``'s ``feature_kernels``) the
+streaming value route takes it once a call, while every other route never
+does and takes its own feature stage. The kernel against the map:
+``tests/test_torch_cuda.py``."""
 
-import copy
 import ctypes
 import functools
 import math
@@ -19,7 +19,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from lumfuncmcmc_tpu_torch import LFConfig
 from lumfuncmcmc_tpu_torch.models.context import build_context
+from lumfuncmcmc_tpu_torch.models.hierarchical import ThetaLayoutH
 from lumfuncmcmc_tpu_torch.models.likelihood import ThetaLayout, in_box
+from lumfuncmcmc_tpu_torch.models.likelihood_z import ThetaLayoutZ
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
 from lumfuncmcmc_tpu_torch.utils import tracing
 from lumfuncmcmc_tpu_torch.utils.synth import (
@@ -115,28 +117,38 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
     assert cl.stream_feats.launches == 0
 
 
-def _on_card(ctx):
-    """``ctx`` with luminosities on a device that reads "cuda"."""
-    ctx = copy.copy(ctx)
-
-    class _Lum:
-        shape = ctx.lum.shape
-        device = torch.device("cuda")
-
-    object.__setattr__(ctx, "lum", _Lum())
-    return ctx
+@functools.lru_cache(maxsize=None)
+def _family_case(family):
+    """(model, layout, context) of a small catalog of ``family``: "free"
+    (:func:`_case`), or "fixed", "z" or "hier" under fixed
+    completeness."""
+    if family == "free":
+        return ("single",) + _case()
+    cfg = LFConfig(min_comp_frac=0.5, size_ln=11, fix_comp=True)
+    cat = apply_completeness_cut(make_catalog(cfg, n_target=200, seed=5),
+                                 cfg)
+    _, ctx = build_context(cfg, z=cat["z"], flux=cat["flux"],
+                           field_id=cat["field_id"], dtype=torch.float64)
+    cls = {"fixed": ThetaLayout, "z": ThetaLayoutZ, "hier": ThetaLayoutH}
+    return ({"fixed": "single"}.get(family, family),
+            cls[family].from_config(cfg), ctx)
 
 
 def _spans(fn, th):
+    """``fn(th)`` and the ``lf.*`` spans it opened, in the order they
+    opened."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = fn(th)
-    return out, [e.name() for e in prof.profiler.kineto_results.events()
-                 if e.name().startswith(tracing.PREFIX)]
+    events = sorted((e.start_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name().startswith(tracing.PREFIX))
+    return out, [name for _, name in events]
 
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Every ``stream_feats`` call, recorded (it still runs)."""
+    """Every ``stream_feats`` call, recorded (it still runs); patched
+    before a route binds it."""
     seen, real = [], cl.stream_feats
 
     def counted(thetas, spec):
@@ -149,53 +161,86 @@ def calls(monkeypatch):
 
 def test_streaming_value_route_takes_the_kernel_once_a_call(monkeypatch,
                                                             calls):
-    """On the card the streaming value path is ``stream_feats``, the value
-    kernel, then their sum: here the plain versions run, the route itself
-    ``_likelihood``'s with the context taken for a card's. One call a
-    lnprob call; ``lf.features``, ``lf.kernel`` and ``lf.collapse`` once
-    each; the values the PyTorch map's pieces give, -inf outside the box
-    through the caller's mask."""
+    """On the card the streaming value route is ``stream_feats``, the
+    value kernel, then their sum: here the card's route
+    (``feature_kernels``) on the plain versions. One call a lnprob call;
+    ``lf.lnprob``, ``lf.features``, ``lf.kernel`` and ``lf.collapse`` once
+    each, in that order (``mega.stretch``'s route); the values the
+    PyTorch map's pieces give, -inf outside the box through the mask."""
     layout, ctx = _case()
     monkeypatch.setattr(cl, "STREAM_MIN_SOURCES", 0)
-    engine = cl._engine(ctx, layout, "single")
-    data = engine[3]
+    route = cl._route(ctx, layout, "single", grad=False,
+                      feature_kernels=True)
+    data = route.data
     assert isinstance(data, cl.CudaStreamData)
-    lnlike = cl._likelihood(_on_card(ctx), layout, engine, grad=False,
-                            flags=True)
+    assert route.engine == "plain-stream"
+    lnlike = cl._likelihood(route, flags=True)
     th = edge_thetas(layout, 12, torch.float64, seed=8)
     for n in (1, 2):
         (lnl, ok), names = _spans(lnlike, th)
         assert calls == [12] * n
-        assert names.count("lf.features") == names.count("lf.kernel") \
-            == names.count("lf.collapse") == 1
+        assert names == ["lf.features", "lf.kernel", "lf.collapse"]
     rows = cl._features_stream(th, data, layout, torch.float32)
     want = (cl.free_stream_lnlike(rows.float(), data)
             + cl._stream_collapsed(rows, data))
     assert torch.equal(ok, in_box(th, *layout.bounds_arrays(torch.float64,
                                                             "cpu")))
     torch.testing.assert_close(lnl[ok], want[ok], rtol=0, atol=0)
-    masked = torch.where(ok, lnl, -math.inf)
-    assert torch.isneginf(masked[~ok]).all() and int((~ok).sum()) == 7
+    got, names = _spans(cl._lnprob(route), th)
+    assert names == ["lf.lnprob", "lf.features", "lf.kernel", "lf.collapse"]
+    assert torch.isneginf(got[~ok]).all() and int((~ok).sum()) == 7
+    torch.testing.assert_close(got[ok], want[ok], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("route", ["value_and_grad", "resident"])
+# route: family, streaming gate, value+gradient, source shards, the feature
+# stage the route takes, whether it collapses
+OTHER_ROUTES = {
+    "value_and_grad": ("free", 0, True, 1, "_features_stream", True),
+    "resident": ("free", 10 ** 9, False, 1, "free_feats", False),
+    "resident_vg": ("free", 10 ** 9, True, 1, "_features", False),
+    "stream_grid": ("free", 0, False, 2, "_features_stream", True),
+    "fixed": ("fixed", 0, False, 1, "_features", True),
+    "fixed_vg": ("fixed", 0, True, 1, "_features", True),
+    "z": ("z", 0, False, 1, "_features_z", False),
+    "z_vg": ("z", 0, True, 1, "_features_z", False),
+    "hier": ("hier", 0, False, 1, "_features_hier", True),
+    "hier_vg": ("hier", 0, True, 1, "_features_hier", True),
+}
+
+
+@pytest.mark.parametrize("route", list(OTHER_ROUTES))
 def test_other_routes_never_take_the_kernel(monkeypatch, calls, route):
-    """The streaming value+gradient route (NUTS: autograd through the
-    PyTorch map) and the resident route (``free_feats``) on a context that
-    reads "cuda" never call ``stream_feats``."""
-    layout, ctx = _case()
-    monkeypatch.setattr(cl, "STREAM_MIN_SOURCES",
-                        0 if route == "value_and_grad" else 10 ** 9)
-    engine = cl._engine(ctx, layout, "single")
-    lnlike = cl._likelihood(_on_card(ctx), layout, engine,
-                            grad=route == "value_and_grad", flags=True)
-    th = edge_thetas(layout, 12, torch.float64, seed=9)
-    if route == "value_and_grad":
-        th.requires_grad_(True)
-    (lnl, _), names = _spans(lnlike, th)
-    if route == "value_and_grad":
-        lnl.sum().backward()
-        assert names.count("lf.collapse") == 1
-    else:
-        assert "lf.collapse" not in names
+    """Every route of the card but the streaming value route of one shard
+    (the value+gradient routes, a source-split grid's, the resident free
+    route, fixed completeness, the z and hierarchical models) never calls
+    ``stream_feats``: each takes its own feature stage (``free_feats`` on
+    the resident free value route, ``flagship.stretch``'s, else the
+    PyTorch map of its family) and opens ``lf.lnprob``, ``lf.features``,
+    ``lf.kernel``, then ``lf.collapse`` only where the family collapses."""
+    family, gate, grad, nshards, stage, collapses = OTHER_ROUTES[route]
+    model, layout, ctx = _family_case(family)
+    monkeypatch.setattr(cl, "STREAM_MIN_SOURCES", gate)
+    seen = []
+    for name in ("free_feats", "_features", "_features_stream",
+                 "_features_z", "_features_hier"):
+        def entered(*a, _name=name, _real=getattr(cl, name)):
+            seen.append(_name)
+            return _real(*a)
+
+        monkeypatch.setattr(cl, name, entered)
+    r = cl._route(ctx, layout, model, grad=grad, nshards=nshards,
+                  shard=0 if nshards > 1 else None, feature_kernels=True)
+    assert (r.collapse is not None) == collapses
+    lo, hi = layout.bounds_arrays(torch.float64, "cpu")
+    gen = torch.Generator().manual_seed(9)
+    th = lo + (hi - lo) * torch.rand((12, layout.ndim), generator=gen,
+                                     dtype=torch.float64)
+    th.requires_grad_(grad)
+    lnp, names = _spans(cl._lnprob(r), th)
+    if grad:
+        lnp.sum().backward()
+        assert torch.isfinite(th.grad).all()
+    assert seen[0] == stage
+    assert names == ["lf.lnprob", "lf.features", "lf.kernel"] + (
+        ["lf.collapse"] if collapses else [])
     assert calls == []

@@ -193,13 +193,16 @@ def emulate(sizes):
             keep = cl.STREAM_MIN_SOURCES
             cl.STREAM_MIN_SOURCES = 10**12      # the resident kernels
             try:
-                data, (features, collapsed, _, value, vg) = cl._family(
-                    ctx64, layout, model, torch.float32)
-                f = features(th, data, layout, torch.float32)
-                extra = 0.0 if collapsed is None else collapsed(f, th)
-                f64_run = value(f.float(), data) + extra
-                f64_vg = vg(f.float(), data)[:, 0] + extra
-                f32_run = cl._make_lnprob(ctx32, layout, model, False)(
+                route = cl._route(ctx64, layout, model, False,
+                                  kdtype=torch.float32)
+                vg = cl._route(ctx64, layout, model, True, data=route.data,
+                               kdtype=torch.float32)
+                f, _, aux = route.features(th)
+                extra = (0.0 if route.collapse is None
+                         else route.collapse(f, aux))
+                f64_run = route.kernel(f) + extra
+                f64_vg = vg.kernel(f) + extra
+                f32_run = cl._lnprob(cl._route(ctx32, layout, model, False))(
                     th.float()).double()
             finally:
                 cl.STREAM_MIN_SOURCES = keep
