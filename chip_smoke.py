@@ -4,8 +4,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases (run as 1, 2, 10, 3, 4, 11, 13, 14, 19, then the fit paths, 16,
-17 and 18 side by side, 15 and 9); any failure ends the run with a
+Phases (run as 1, 2, 10, 3, 4, 20, 11, 13, 14, 19, then the fit paths,
+16, 17 and 18 side by side, 15 and 9); any failure ends the run with a
 nonzero exit:
 
 1. require CUDA; print the torch/CUDA versions, the card, and
@@ -130,7 +130,8 @@ nonzero exit:
    200`` and its resume from 1 block (bit for bit), ``--min-ess T2 -ns
    100`` (>= 2 blocks), with phase 6's NUTS gates and ``fixed_lnlike_vg``
    launches = transitions + leapfrogs; ``fit --exact-bounds`` (the eager
-   engine, no launch, logL* within 3 sd of the frozen-bounds fit's);
+   engine, no likelihood kernel launch, logL* within 3 sd of the
+   frozen-bounds fit's);
    ``fit -ns 50 --profile DIR`` (a trace naming ``free_vg``);
 17. the device grid (the ``grid`` path, :func:`run_grid`) on the fits'
    catalog at ``GRID_STEPS`` steps: a world of 1 under NCCL (``fit
@@ -187,9 +188,17 @@ nonzero exit:
    ``build_cosmo_table(device="cuda")`` field for field
    ``build_cosmo_arrays``; then the flagship ``fit`` model through
    ``samplers.step``, 3 steps from a seeded generator with exactly 6
-   ``free_lnlike`` launches and no other, bit for bit ``run_stretch``'s
-   loop over the same draws (and one step ``run_stretch(nsteps=1)``), and
-   ``VeffLF()`` the table of ``veff_lf()``; its wall printed.
+   ``free_lnlike`` launches, 6 of each stretch kernel and no other, bit
+   for bit ``run_stretch``'s loop over the same draws (and one step
+   ``run_stretch(nsteps=1)``), and ``VeffLF()`` the table of
+   ``veff_lf()``; its wall printed;
+20. the stretch half-step's kernels (``stretch_propose``,
+   ``stretch_accept``; :func:`phase_stretch`) at W = 100, float32 D = 9
+   and float64 D = 6, one ensemble and E = 3, against the eager ops on
+   the same randoms with -inf and NaN lnp among the proposals: bit for
+   bit, one launch of each a call; their device times beside the eager
+   ops'. On every run of the fit paths below they launch once each a
+   stretch half-step (:func:`_with_feats`), and never on a DE step.
 
 Phases 5-8, 12, 16, 17 and 18 run side by side, each path in a process of
 its own (``--path``): its stretch fit, its NUTS fit, then the model comparison
@@ -249,6 +258,7 @@ from lumfuncmcmc_tpu_torch.samplers.tempering import (
 from lumfuncmcmc_tpu_torch.ops import _build
 from lumfuncmcmc_tpu_torch.ops import cuda_lnlike as cl
 from lumfuncmcmc_tpu_torch.ops import roofline as rl
+from lumfuncmcmc_tpu_torch.ops import stretch as st
 from lumfuncmcmc_tpu_torch.utils.io import read_fixed_width_two_line
 from lumfuncmcmc_tpu_torch.utils.synth import (
     apply_completeness_cut, make_catalog)
@@ -273,7 +283,8 @@ TPU_FILE = "lumfuncmcmc_tpu/ops/pallas_lnlike.py"
 KERNELS = ("free_lnlike", "fixed_lnlike", "free_lnlike_vg",
            "fixed_lnlike_vg", "z_lnlike", "z_lnlike_vg", "hier_lnlike",
            "hier_lnlike_vg", "free_stream_lnlike", "free_stream_lnlike_vg",
-           "roofline_chain", "free_feats", "stream_feats")
+           "roofline_chain", "free_feats", "stream_feats", "stretch_propose",
+           "stretch_accept")
 PATH_SECONDS = 900      # what the fit paths' processes may take together
 DEVICE_LINE = "Device: cuda:0"      # what a run on the card logs first
 # the mega catalog: the JAX benchmark's stream tier (make_catalog with
@@ -286,7 +297,8 @@ LADDER_STEPS = 400      # phase 14's ladder steps (the CLI's: the fit's -ns)
 SOURCES = {"z": "lnlike_z.cu", "hier": "lnlike_h.cu",
            "fixed": "lnlike_h.cu", "free_feats": "free_feats.cu",
            "stream_feats": "free_feats.cu",
-           "free_stream": "lnlike_stream.cu", "roofline": "roofline.cu"}
+           "free_stream": "lnlike_stream.cu", "roofline": "roofline.cu",
+           "stretch": "stretch.cu"}
 # The card's peaks for the bound (H100 SXM at 700 W): float32 outside the
 # tensor cores, and HBM.
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -448,8 +460,9 @@ def _grad_rel(gp, gref):
 
 def _kernel(name):
     """The wrapper of kernel ``name`` (its ``.launches`` counter)."""
-    return rl.roofline_chain if name == "roofline_chain" else getattr(
-        cl, name)
+    if name == "roofline_chain":
+        return rl.roofline_chain
+    return getattr(st if name.startswith("stretch") else cl, name)
 
 
 def _source(name):
@@ -1079,6 +1092,104 @@ def phase_vg_kernels(dev):
     return summary
 
 
+def _bits(t):
+    """``t`` as integers of its width: equal bits, NaN included."""
+    return t.view({1: torch.int8, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+def phase_stretch(dev):
+    """Phase 20, the stretch half-step's kernels (``ops/stretch.py``:
+    ``stretch_propose``, ``stretch_accept``) at the cells' shape, W = 100
+    (50 walkers a half-step): float32 D = 9 (the flagship layout) and
+    float64 D = 6 (the mega layout), one ensemble and a batch of E = 3,
+    the halves of an (E, 100, D) state, the proposals' lnp from a table
+    holding -inf and NaN beside values around the walkers' (every branch
+    of the accept test taken). Against the eager ops on the same randoms
+    (``stretch_propose_reference``, ``stretch_accept_reference``: the
+    body ``_half_step`` had before the kernels): the proposals, new
+    positions, new lnp and acceptances bit for bit, one launch of each
+    kernel a call. At E = 1: each kernel's device time (graph replays)
+    beside the eager ops it replaces, its bytes bound, and its eager call
+    on the stream. Returns the kernels' summary rows (float32 D = 9)."""
+    from lumfuncmcmc_tpu_torch.samplers.affine import _stretch_rands
+    rows, nh = {}, NWALKERS // 2
+    for dt, d in ((torch.float32, 9), (torch.float64, 6)):
+        for e in (None, 3):
+            batch = () if e is None else (e,)
+            gen = torch.Generator(device=dev).manual_seed(20 + d)
+            x = torch.randn(batch + (NWALKERS, d), generator=gen,
+                            device=dev, dtype=dt)
+            lnp = torch.randn(batch + (NWALKERS,), generator=gen,
+                              device=dev, dtype=dt)
+            u, j, lu = (t[0][0] for t in _stretch_rands(gen, 1, nh, dt, dev,
+                                                        batch))
+            table = lnp[..., nh:] + torch.randn(batch + (nh,), generator=gen,
+                                                device=dev, dtype=dt)
+            table[..., :5] = -math.inf
+            table[..., 5:8] = math.nan
+            mp, ml, op = x[..., nh:, :], lnp[..., nh:], x[..., :nh, :]
+            tag = (f"stretch {str(dt).split('.')[-1]} D={d} "
+                   + (f"E={e} " if e else "") + f"W={NWALKERS}")
+            n0 = st.stretch_propose.launches, st.stretch_accept.launches
+            prop = st.stretch_propose(mp, op, u, j, 2.0)
+            got = st.stretch_accept(prop, table, mp, ml, u, lu, 2.0, d)
+            if (st.stretch_propose.launches - n0[0],
+                    st.stretch_accept.launches - n0[1]) != (1, 1):
+                fail(f"{tag}: not one launch of each kernel")
+            want_p = st.stretch_propose_reference(mp, op, u, j, 2.0)
+            want = st.stretch_accept_reference(want_p, table, mp, ml, u, lu,
+                                               2.0, d)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("proposals", "positions", "lnp",
+                                   "acceptances"), (prop, *got),
+                                  (want_p, *want)):
+                if a.dtype != b.dtype or a.shape != b.shape or not (
+                        torch.equal(_bits(a), _bits(b))):
+                    fail(f"{tag}: the kernels' {what} are not the eager "
+                         "ops' bits")
+            taken = int(got[2].sum())
+            if not 0 < taken < got[2].numel():
+                fail(f"{tag}: {taken} of {got[2].numel()} taken")
+            print(f"{tag}: proposals, positions, lnp and acceptances the "
+                  f"eager ops' bits ({taken} of {got[2].numel()} taken, "
+                  "-inf and NaN lnp among the proposals)")
+            if e is not None:
+                continue
+            es = x.element_size()
+            # each input read once, each output written once: propose
+            # reads u, j, x and the partner rows and writes the proposals;
+            # accept reads u, ln_u, both lnp and one row a walker and writes
+            # the row, its lnp and its flag
+            nbytes = {"stretch_propose": nh * (es + 8 + 3 * d * es),
+                      "stretch_accept": nh * (5 * es + 2 * d * es + 1)}
+            calls = {
+                "stretch_propose": (
+                    lambda: st.stretch_propose(mp, op, u, j, 2.0),
+                    lambda: st.stretch_propose_reference(mp, op, u, j, 2.0)),
+                "stretch_accept": (
+                    lambda: st.stretch_accept(prop, table, mp, ml, u, lu,
+                                              2.0, d),
+                    lambda: st.stretch_accept_reference(prop, table, mp, ml,
+                                                        u, lu, 2.0, d))}
+            for name, (kern, plain) in calls.items():
+                ms, pms = _device_ms(kern), _device_ms(plain)
+                cms = _call_ms(kern)
+                bms = nbytes[name] / PEAK_BYTES * 1e3
+                print(f"{tag} {name}: kernel {ms * 1e3:.2f} us device, the "
+                      f"eager ops {pms * 1e3:.2f} us; eager wrapper call "
+                      f"{cms * 1e3:.2f} us; bound {bms * 1e3:.4f} us (bytes: "
+                      f"{nbytes[name]})")
+                if dt is torch.float32:
+                    rows[name] = {
+                        "max_abs_err": 0.0, "max_rel_err": 0.0, "ms": ms,
+                        "plain_ms": pms, "call_ms": cms, "bound_ms": bms,
+                        "bound_by": "bytes", "trans": None,
+                        "shape": f"W={NWALKERS} ({nh} a half-step), D = {d}, "
+                                 "float32"}
+    return rows
+
+
 def phase_roofline(dev):
     """``roofline_chain`` against its plain version at (256, 1024) and
     at (3, 1000), its layout printed, then its main path,
@@ -1595,7 +1706,8 @@ def phase_fit(label, workdir, has_mpl):
         fail(f"{label}: acceptance fraction {acc} outside (0.1, 0.9)")
     stem, nsrc = _route(path, rec, label)
     used = f"{stem}_lnlike"
-    _expect(label, counts, {used: 1 + 2 * path.nsteps})
+    _expect(label, counts, {used: 1 + 2 * path.nsteps,
+                            "stretch_propose": 2 * path.nsteps})
     col = np.asarray(post[path.col])
     extra = ""
     if path.x64:
@@ -1745,7 +1857,9 @@ def phase_nuts(stretch_label, workdir, has_mpl, stretch_col):
 def _ladder_launches(rec, label):
     """The value-kernel launches the log's evidence ladder makes: each
     leg one for the start and one a half-step over all rungs, then the
-    lnlike recompute of the main leg's chain in ``MAX_ROWS`` chunks."""
+    lnlike recompute of the main leg's chain in ``MAX_ROWS`` chunks; the
+    legs' tuning steps; and their half-steps, each one ``stretch_propose``
+    over all rungs."""
     nr, nw, nsteps = _logged(
         rec, r"Evidence ladder: (\d+) rungs x (\d+) walkers x (\d+) steps",
         label)
@@ -1756,8 +1870,9 @@ def _ladder_launches(rec, label):
         nsteps -= nsteps % int(m.group(1))
     tune = [int(re.search(r"\((\d+) steps\)", ln).group(1))
             for ln in rec.lines if ln.startswith("Ladder tuning leg")]
-    return (sum(1 + 2 * n for n in tune) + 1 + 2 * int(nsteps)
-            + math.ceil(nr * nsteps * nw / cl.MAX_ROWS)), tune
+    half = sum(2 * n for n in tune) + 2 * int(nsteps)
+    return (half + len(tune) + 1
+            + math.ceil(nr * nsteps * nw / cl.MAX_ROWS)), tune, half
 
 
 def _ppc_selected(path, out, base):
@@ -1866,7 +1981,8 @@ def phase_compare(label, workdir, has_mpl):
                      f"{float(np.min(ppc['PValue'])):.3f}")
     if "--evidence" in path.compare:
         stem, _ = _route(path, rec, name)
-        want[f"{stem}_lnlike"], tune = _ladder_launches(rec, label)
+        want[f"{stem}_lnlike"], tune, want["stretch_propose"] = (
+            _ladder_launches(rec, label))
         lnz, lnz_err, ti, secs = _logged(
             rec, r"ln Z = ([\d.e+-]+) \+- ([\d.e+-]+) \(stepping-stone; TI "
             r"([\d.e+-]+) .* in ([\d.]+) s", name)
@@ -1927,6 +2043,7 @@ def phase_also(label, workdir, has_mpl, stretch_col):
             fail(f"{name}: the log names neither the Laplace starts nor "
                  "their fallback")
         want[f"{path.fam}_lnlike"] = 1 + 2 * path.nsteps
+        want["stretch_propose"] = 2 * path.nsteps
         detail = (f"MAP lnpost {lnpost:.4f} in {secs:.2f} s, "
                   + ("Laplace starts" if laplace else
                      "uniform fallback (mode on a box edge)")
@@ -2174,7 +2291,8 @@ def phase_api(dev):
         accepted += int(acc.sum())
     torch.cuda.synchronize()
     counts = {name: _kernel(name).launches for name in KERNELS}
-    _expect("api steps", counts, {"free_lnlike": 2 * API_STEPS})
+    _expect("api steps", counts, {"free_lnlike": 2 * API_STEPS,
+                                  "stretch_propose": 2 * API_STEPS})
     if not (0 < accepted and torch.isfinite(state.lnp).all()):
         fail(f"api: {accepted} moves accepted, lnp finite: "
              f"{bool(torch.isfinite(state.lnp).all())}")
@@ -2374,11 +2492,13 @@ def run_long(workdir, has_mpl):
     npz cut at 2 blocks (bit for bit), ``--min-ess`` blocks, four
     ensembles in one launch a half-step, ``fith --ensembles 2``, NUTS
     checkpointed and resumed (bit for bit) and in min-ess blocks,
-    ``--exact-bounds`` on the eager engine (no launch) and ``--profile``.
+    ``--exact-bounds`` on the eager engine (no likelihood kernel launch)
+    and ``--profile``.
     Returns the launch counts summed over the runs."""
     cat = ["--synthetic", str(NSYNTH), "-mcf", "0.5", "-nw", str(NWALKERS)]
     total = {k: 0 for k in KERNELS}
     blk = 1 + 2 * LONG_BLOCK
+    half = 2 * LONG_BLOCK       # a block's stretch half-steps
 
     def add(want):      # each run's expected counts, which it was held to
         for k, v in _with_feats(want).items():
@@ -2391,16 +2511,19 @@ def run_long(workdir, has_mpl):
     npz = os.path.join("LFMCMCOut", f"checkpoint_{base}.npz")
     rec, post, ck_dir = _long_run("long fit --checkpoint-every", ck_argv,
                                   workdir, has_mpl, "LFMCMCOut", base,
-                                  {"free_lnlike": 4 * blk})
-    add({"free_lnlike": 4 * blk})
+                                  {"free_lnlike": 4 * blk,
+                                   "stretch_propose": 4 * half})
+    add({"free_lnlike": 4 * blk, "stretch_propose": 4 * half})
     ref_col = np.asarray(post[r"$\log L_*$"])
     (ess_2000,) = _logged(rec, r"min ESS: ([\d.]+);", "long fit")
     res_dir = _run_dir(workdir, "long fit resumed")
     _cut_npz(os.path.join(ck_dir, npz), os.path.join(res_dir, npz), 2)
     rec, _, _ = _long_run("long fit --checkpoint-every (resumed at 2 of 4 "
                           "blocks)", ck_argv, workdir, has_mpl, "LFMCMCOut",
-                          base, {"free_lnlike": 2 * blk}, run_dir=res_dir)
-    add({"free_lnlike": 2 * blk})
+                          base, {"free_lnlike": 2 * blk,
+                                 "stretch_propose": 2 * half},
+                          run_dir=res_dir)
+    add({"free_lnlike": 2 * blk, "stretch_propose": 2 * half})
     with np.load(os.path.join(ck_dir, npz)) as a, \
             np.load(os.path.join(res_dir, npz)) as b:
         if not (np.array_equal(a["chain"], b["chain"])
@@ -2422,8 +2545,9 @@ def run_long(workdir, has_mpl):
     name = f"long fit --min-ess {target:.0f}"
 
     def ess_launches(rec):
-        return {"free_lnlike": blk * len(
-            [ln for ln in rec.lines if ln.startswith("Block ")])}
+        nblocks = len([ln for ln in rec.lines if ln.startswith("Block ")])
+        return {"free_lnlike": blk * nblocks,
+                "stretch_propose": half * nblocks}
     rec, _, ess_dir = _long_run(
         name, ["fit"] + cat + ["-ns", str(LONG_BLOCK), "--min-ess",
                                str(target), "--checkpoint-every",
@@ -2447,11 +2571,12 @@ def run_long(workdir, has_mpl):
 
     # four ensembles, one launch a half-step for all of them
     name = "long fit --ensembles 4"
+    ens = {"free_lnlike": 1 + 2 * NSTEPS, "stretch_propose": 2 * NSTEPS}
     rec, post, _ = _long_run(name, ["fit"] + cat + ["-ns", str(NSTEPS),
                                                     "--ensembles", "4"],
                              workdir, has_mpl, "LFMCMCOut",
-                             _long_base(NSTEPS), {"free_lnlike": 1 + 2 * NSTEPS})
-    add({"free_lnlike": 1 + 2 * NSTEPS})
+                             _long_base(NSTEPS), ens)
+    add(ens)
     _, rhat_ens, _ = _logged(rec, r"min ESS: ([\d.]+); max cross-ensemble "
                              r"R-hat: ([\d.]+) \((\d+) ensembles\)", name)
     rows = select_samples(np.column_stack([post[k] for k in post]))
@@ -2473,8 +2598,9 @@ def run_long(workdir, has_mpl):
     rec, _, _ = _long_run(name, ["fith"] + cat + ["-ns", str(nh),
                                                   "--ensembles", "2"],
                           workdir, has_mpl, "LFMCMCHOut", _long_base(nh),
-                          {"hier_lnlike": 1 + 2 * nh})
-    add({"hier_lnlike": 1 + 2 * nh})
+                          {"hier_lnlike": 1 + 2 * nh,
+                           "stretch_propose": 2 * nh})
+    add({"hier_lnlike": 1 + 2 * nh, "stretch_propose": 2 * nh})
     (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s$", name)
     print(f"{name}: sampling {secs:.3f} s")
 
@@ -2535,12 +2661,15 @@ def run_long(workdir, has_mpl):
           f"{accept:.2f}, divergent {div_pct:.2f}%, max R-hat {rhat:.4f}, "
           f"sampling {secs:.2f} s")
 
-    # exact bounds: the eager engine on the card, no kernel launch
+    # exact bounds: the eager engine on the card, no likelihood kernel
+    # launch (the sampler's stretch kernels run as in every fit on the card)
     name = "long fit --exact-bounds"
     rec, post, _ = _long_run(name, ["fit"] + cat + ["-ns", str(NSTEPS),
                                                     "--exact-bounds"],
                              workdir, has_mpl, "LFMCMCOut",
-                             _long_base(NSTEPS), {})
+                             _long_base(NSTEPS),
+                             {"stretch_propose": 2 * NSTEPS})
+    add({"stretch_propose": 2 * NSTEPS})
     if not any("(engine: eager, device: cuda" in ln for ln in rec.lines):
         fail(f"{name}: the log does not name the eager engine")
     rows = select_samples(np.column_stack([post[k] for k in post]))
@@ -2550,7 +2679,7 @@ def run_long(workdir, has_mpl):
         fail(f"{name}: logL* median {np.median(col):.4f} is {gap:.2f} sd "
              f"from the frozen-bounds fit's {np.median(ref_col):.4f}")
     (secs,) = _logged(rec, r"Total time taken: ([\d.]+) s$", name)
-    print(f"{name}: eager engine, no launch, logL* median "
+    print(f"{name}: eager engine, no likelihood kernel launch, logL* median "
           f"{np.median(col):.4f} ({gap:.2f} sd from the frozen-bounds "
           f"fit's), sampling {secs:.3f} s")
 
@@ -2559,8 +2688,8 @@ def run_long(workdir, has_mpl):
     prof = os.path.join(workdir, "long_profile")
     _long_run(name, ["fit"] + cat + ["-ns", str(nprof), "--profile", prof],
               workdir, has_mpl, "LFMCMCOut", _long_base(nprof),
-              {"free_lnlike": 1 + 2 * nprof})
-    add({"free_lnlike": 1 + 2 * nprof})
+              {"free_lnlike": 1 + 2 * nprof, "stretch_propose": 2 * nprof})
+    add({"free_lnlike": 1 + 2 * nprof, "stretch_propose": 2 * nprof})
     traces = [os.path.join(prof, f) for f in os.listdir(prof)]
     if not any("free_vg" in open(f).read() for f in traces):
         fail(f"{name}: no trace under {prof} names free_vg ({traces})")
@@ -2637,8 +2766,12 @@ def _expect(label, counts, want):
 def _with_feats(want):
     """``want`` with the feature kernels' launches: one ``free_feats`` for
     each ``free_lnlike`` launch and, unless ``want`` says otherwise, one
-    ``stream_feats`` for each ``free_stream_lnlike`` launch. Every lnprob
-    and ``lnlike_fn`` of the resident free route on the card launches
+    ``stream_feats`` for each ``free_stream_lnlike`` launch; and one
+    ``stretch_accept`` for each ``stretch_propose`` (the stretch
+    half-steps on the card, ``ops/stretch.py``: a run's ``want`` gives
+    ``stretch_propose`` as 2 x its stretch steps, or leaves it out where
+    no stretch move runs). Every lnprob and ``lnlike_fn`` of the resident
+    free route on the card launches
     ``free_feats`` before the value kernel, and of the streaming route
     ``stream_feats`` (``ops/cuda_lnlike.py`` ``_likelihood``): the stretch
     fits, the tempered ladders, NUTS's start guard and Ln Prob recompute;
@@ -2646,7 +2779,8 @@ def _with_feats(want):
     grid's streaming route (``parallel/sharding.py``), whose runs say
     ``stream_feats`` 0."""
     return {"stream_feats": want.get("free_stream_lnlike", 0), **want,
-            "free_feats": want.get("free_lnlike", 0)}
+            "free_feats": want.get("free_lnlike", 0),
+            "stretch_accept": want.get("stretch_propose", 0)}
 
 
 def _rows_of(name):
@@ -2725,7 +2859,8 @@ def run_grid(workdir, has_mpl):
     backend = "nccl" if dev.type == "cuda" else "gloo"
     t0 = time.perf_counter()
     argv = _grid_argv(workdir, has_mpl)
-    want = {"free_lnlike": 2 * GRID_STEPS + 1}
+    want = {"free_lnlike": 2 * GRID_STEPS + 1,
+            "stretch_propose": 2 * GRID_STEPS}
     runs = []
     post = []
     for name, extra in (("plain", []), ("world 1", [
@@ -2775,7 +2910,8 @@ def run_grid(workdir, has_mpl):
     model.fit_model()
     counts = {name: _kernel(name).launches for name in KERNELS}
     _expect("grid plain fit -fc", counts,
-            {"fixed_lnlike": 2 * GRID_STEPS + 1})
+            {"fixed_lnlike": 2 * GRID_STEPS + 1,
+             "stretch_propose": 2 * GRID_STEPS})
     runs.append(counts)
     ref["med_fixed"] = float(np.median(model.samples[:, 0]))
     del model
@@ -2949,7 +3085,8 @@ def grid_rank(rank, port, workdir, has_mpl):
     if rc != 0:
         fail(f"grid rank {rank} fit returned {rc}")
     _expect(f"grid rank {rank} fit (2,1)", counts,
-            {"free_lnlike": 2 * GRID_STEPS + 1})
+            {"free_lnlike": 2 * GRID_STEPS + 1,
+             "stretch_propose": 2 * GRID_STEPS})
     if rows != [NWALKERS // 2] + [NWALKERS // 4] * (2 * GRID_STEPS):
         fail(f"grid rank {rank} fit: launch rows {sorted(set(rows))}, "
              f"expected {NWALKERS // 2} then {NWALKERS // 4}")
@@ -3000,7 +3137,8 @@ def grid_rank(rank, port, workdir, has_mpl):
     per = EVIDENCE_RUNGS // 2
     _expect(f"grid rank {rank} ladder", counts, {
         "free_lnlike": 1 + 2 * LADDER_STEPS
-        + -(-per * LADDER_STEPS * NWALKERS // cl.MAX_ROWS)})
+        + -(-per * LADDER_STEPS * NWALKERS // cl.MAX_ROWS),
+        "stretch_propose": 2 * LADDER_STEPS})
     runs.append(counts)
     d = abs(ev["lnz_ss"] - ref["lnz"])
     if not d <= DLNP_TOL:
@@ -3022,7 +3160,8 @@ def grid_rank(rank, port, workdir, has_mpl):
     if rc != 0:
         fail(f"grid rank {rank} fith --ensembles 2 returned {rc}")
     _expect(f"grid rank {rank} fith --ensembles 2", counts,
-            {"hier_lnlike": 2 * GRID_STEPS + 1})
+            {"hier_lnlike": 2 * GRID_STEPS + 1,
+             "stretch_propose": 2 * GRID_STEPS})
     if not any("sharded over 2 ranks" in ln for ln in rec.lines):
         fail(f"grid rank {rank} fith: the ensembles were not sharded")
     runs.append(counts)
@@ -3052,7 +3191,7 @@ def grid_rank(rank, port, workdir, has_mpl):
     peak = torch.cuda.max_memory_allocated()
     _expect(f"grid rank {rank} mega (1,2)", counts,
             {"free_stream_lnlike": 2 * GRID_MEGA_STEPS + 1,
-             "stream_feats": 0})
+             "stream_feats": 0, "stretch_propose": 2 * GRID_MEGA_STEPS})
     route = "cuda-stream" if dev.type == "cuda" else "plain-stream"
     if fn.engine != route or not any(
             "sources round-robin sharded over 2 ranks" in ln
@@ -3278,16 +3417,22 @@ def _calib_widths(dev):
 def _calib_replicate(label, fn, kname, steps, k, rng, rec, **kw):
     """One replicate ``fn(k, rng, device=cuda, **kw)`` with every launch
     counter set to 0 just before and read just after: exactly 2 x
-    ``steps`` + 1 launches of ``kname`` and none of another kernel, a
-    finite chain. Prints its wall and its setup/sampling split (the
-    replicate's log line). Returns (result, counts, chain)."""
+    ``steps`` + 1 launches of ``kname``, one ``stretch_propose`` and one
+    ``stretch_accept`` a stretch half-step (DE steps of a ``move="mix"``
+    run take neither) and none of another kernel, a finite chain. Prints
+    its wall and its setup/sampling split (the replicate's log line).
+    Returns (result, counts, chain)."""
     from lumfuncmcmc_tpu_torch.utils import calibration as cal
-    chains, real = [], cal._run
+    from lumfuncmcmc_tpu_torch.samplers.affine import de_schedule
+    chains, half, real = [], [], cal._run
 
     def run(lnprob, pos0, generator, n, move="stretch"):
         if lnprob.engine != "cuda":
             fail(f"{label} {k}: engine {lnprob.engine}, not the CUDA kernel")
         chains.append(real(lnprob, pos0, generator, n, move))
+        # run_stretch's default DE share, which the replicates keep
+        nde = int(de_schedule(n, 0.5).sum()) if move == "mix" else 0
+        half.append(0 if move == "de" else 2 * (n - nde))
         return chains[-1]
 
     for name in KERNELS:
@@ -3301,7 +3446,8 @@ def _calib_replicate(label, fn, kname, steps, k, rng, rec, **kw):
     wall = time.perf_counter() - t0
     counts = {name: _kernel(name).launches for name in KERNELS}
     want = {name: 0 for name in KERNELS}
-    want.update(_with_feats({kname: 2 * steps + 1}))
+    want.update(_with_feats({kname: 2 * steps + 1,
+                             "stretch_propose": sum(half)}))
     if counts != want:
         fail(f"{label} {k}: launches "
              f"{ {n: v for n, v in counts.items() if v} }, want "
@@ -3605,6 +3751,9 @@ REPLACES = {
     "free_feats": (f"{TPU_FILE}:1288",),
     # nor this one: the streaming lnlike's feature map and collapse
     "stream_feats": (f"{TPU_FILE}:1383",),
+    # nor these: XLA fused the stretch move into the program's step loop
+    "stretch_propose": ("lumfuncmcmc_tpu/samplers/affine.py:37",),
+    "stretch_accept": ("lumfuncmcmc_tpu/samplers/affine.py:37",),
 }
 
 
@@ -3624,6 +3773,7 @@ def main():
     summary = {"roofline_chain": roof}
     summary.update(phase_kernels(dev))
     summary.update(phase_vg_kernels(dev))
+    summary.update(phase_stretch(dev))
     mega = _mega_case(dev)
     summary.update(phase_stream(dev, mega))
     for name, err in phase_precision(dev, mega).items():

@@ -26,7 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "--threads", "0")     # the .cu sources compile side by side
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-# entry point -> argtypes; each returns the cudaError_t of its launches
+_ll, _d = ctypes.c_longlong, ctypes.c_double
+# entry point -> argtypes (a pointer, an int, a long long or a double,
+# as the source declares it); each returns the cudaError_t of its launches
 # (or, for the occupancy query, of the query)
 # the one-launch kernels (each value kernel takes its value+gradient twin's
 # arguments): piece and segment tables, walker tile (then fcmin, or the z
@@ -53,6 +55,12 @@ ENTRY_POINTS = {"free_lnlike_launch": _FREE_VG_ARGS,
                 "free_feats_launch": [_p, _i, _i, _p, _p, _p, _p],
                 # ... feats, flags, collapsed source terms, stream
                 "stream_feats_launch": [_p, _i, _i, _p, _p, _p, _p, _p],
+                # the stretch half-step (csrc/stretch.cu): operands, (K, n,
+                # m,) D, batch strides, z's constants, float64 flag, stream
+                "stretch_propose_launch": ([_p] * 5 + [_i] * 4 + [_ll] * 4
+                                           + [_d, _d, _i, _p]),
+                "stretch_accept_launch": ([_p] * 9 + [_i] * 3 + [_ll] * 5
+                                          + [_d, _d, _d, _i, _p]),
                 "roofline_chain_launch": [_p, _p, _i, _i, _p],
                 "roofline_chain_layout": [_i, _p],
                 "empty_launch": [_i, _p]}

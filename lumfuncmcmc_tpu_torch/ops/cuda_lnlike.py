@@ -162,6 +162,7 @@ from lumfuncmcmc_tpu_torch.models.likelihood_z import (
     ThetaLayoutZ, in_box_z)
 from lumfuncmcmc_tpu_torch.ops.completeness import (
     _fleming_ratio_constants, _log10_inverse_fleming_ratio)
+from lumfuncmcmc_tpu_torch.ops._wrapper import wrapper as _wrapper
 from lumfuncmcmc_tpu_torch.ops.schechter import LN10
 from lumfuncmcmc_tpu_torch.utils.tracing import span
 
@@ -1407,27 +1408,6 @@ def _one_launch(slots, out_cols=None):
         return _launch_vg(name, feats, data, slots,
                           out_cols and out_cols(data))
     return launch
-
-
-def _wrapper(name, plain, launch, doc):
-    """The public wrapper of kernel ``name``: the plain version for a CPU
-    tensor; for any other tensor ``launch`` (counted in ``.launches``
-    where it launches, and nowhere else) or an error. Arguments after
-    ``(feats, data)`` go to both."""
-
-    def kernel(feats, data, *args):
-        if feats.device.type == "cpu":
-            return plain(feats, data, *args)
-        out = launch(name, feats, data, *args)
-        kernel.launches += 1
-        return out
-
-    kernel.launches = 0
-    kernel.__name__ = kernel.__qualname__ = name
-    kernel.__doc__ = (f"{doc} CPU tensors take :func:`{plain.__name__}`; "
-                      f"CUDA tensors launch the ``{name}`` kernel of "
-                      "``csrc/`` or raise.")
-    return kernel
 
 
 free_lnlike = _wrapper(

@@ -10,7 +10,10 @@ Every random draw of a run is generated in bulk before the loop, from
 one ``torch.Generator`` on the run's device, with the JAX package's
 shapes. The step loop is a Python loop that never synchronises with the
 device: the chain goes into a preallocated device tensor and
-acceptances are counted on the device.
+acceptances are counted on the device. On the card a stretch half-step
+is two hand-written kernels around its one lnprob call
+(``ops/stretch.py``: the proposal, then the accept step), with the eager
+ops' bits.
 
 Independent replicated ensembles (:func:`run_stretch_ensembles`) are a
 leading batch axis of the walkers, as the tempered ladder's rungs are:
@@ -26,6 +29,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from lumfuncmcmc_tpu_torch.ops.stretch import stretch_accept, stretch_propose
 from lumfuncmcmc_tpu_torch.utils.tracing import span
 
 
@@ -45,17 +49,13 @@ def _half_step(rand, move_pos, move_lnp, other_pos, lnprob_batch, a, ndim):
     """Stretch-move one half-ensemble against the fixed other half.
     ``rand = (u_z, j, ln_u)``: per-walker stretch draw, partner index and
     log acceptance uniform. Leading batch dimensions (the tempered
-    ladder's rungs) pass through to ``lnprob_batch``."""
+    ladder's rungs) pass through to ``lnprob_batch``. The proposal and the
+    accept step are ``ops/stretch.py``'s: on the card a kernel each around
+    the one ``lnprob_batch`` call, on the CPU the eager ops."""
     u_z, j, ln_u = rand
-    z = ((a - 1.0) * u_z + 1.0) ** 2 / a
-    partner = _pick(other_pos, j)                # (..., nmove, ndim)
-    prop = partner + z[..., None] * (move_pos - partner)
-    lnp_prop = lnprob_batch(prop)
-    ln_ratio = (ndim - 1.0) * torch.log(z) + lnp_prop - move_lnp
-    accept = ln_u < ln_ratio
-    new_pos = torch.where(accept[..., None], prop, move_pos)
-    new_lnp = torch.where(accept, lnp_prop, move_lnp)
-    return new_pos, new_lnp, accept
+    prop = stretch_propose(move_pos, other_pos, u_z, j, a)
+    return stretch_accept(prop, lnprob_batch(prop), move_pos, move_lnp, u_z,
+                          ln_u, a, ndim)
 
 
 def _de_half_step(rand, move_pos, move_lnp, other_pos, lnprob_batch):

@@ -1,8 +1,9 @@
 """The ctypes argument types of every C entry point of the kernel library
 (``ops/_build.py ENTRY_POINTS``) against its definition in
 ``lumfuncmcmc_tpu_torch/csrc/``: as many arguments, each a pointer where
-the source's is one and an ``int`` where the source's is. A mismatch
-builds and loads; it shows only on the card, as wrong memory."""
+the source's is one, and an ``int``, a ``long long`` or a ``double`` where
+the source's is. A mismatch builds and loads; it shows only on the card,
+as wrong memory."""
 
 import ctypes
 import pathlib
@@ -25,9 +26,18 @@ def _signature(name):
     raise AssertionError(f"{name} is defined in no csrc/*.cu")
 
 
+SCALARS = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+           "double": ctypes.c_double}
+
+
+def _kind(arg):
+    if "*" in arg:
+        return ctypes.c_void_p
+    m = re.match(r"(int|long long|double)\s+\w+$", arg)
+    assert m, arg
+    return SCALARS[m.group(1)]
+
+
 @pytest.mark.parametrize("name", sorted(_build.ENTRY_POINTS))
 def test_entry_point_argtypes_are_the_sources(name):
-    args = _signature(name)
-    kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int for a in args]
-    assert all("*" in a or re.match(r"int\s+\w+$", a) for a in args), args
-    assert kinds == _build.ENTRY_POINTS[name]
+    assert [_kind(a) for a in _signature(name)] == _build.ENTRY_POINTS[name]
